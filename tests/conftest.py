@@ -60,6 +60,10 @@ def pytest_configure(config):
         "(obs/, DESIGN.md §14; the forced-blocked CI job runs this "
         "marker, and the nightly job validates the replay-emitted "
         "trace + metrics artifacts with scripts/obs_dump.py)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the PyTorch port's CUDA "
+        "kernels); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
