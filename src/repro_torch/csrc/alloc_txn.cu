@@ -21,10 +21,11 @@
 // ranks by block scan into a rank->lane table in shared memory, free's
 // bit clears (atomics commute, so the result equals the reference's
 // scatter-add), the ascending revived-chunk list (a shared bitset
-// compacted by scan), the re-enqueue value writes, and the telemetry
-// counts.  The ctl block is staged in shared memory and written back
-// once.  Heap, bitmap and queue words stay in global memory; thread 0
-// drives the serial chain in exactly the reference's order.  The
+// compacted by scan), and the telemetry counts.  The ctl block is
+// staged in shared memory and written back once.  Heap, bitmap and
+// queue words stay in global memory; thread 0 drives the serial chain,
+// free's re-enqueue value writes included, in exactly the reference's
+// order.  The
 // layout comes in as a small struct of ints built once from the
 // ArenaLayout, so a transaction makes no host reads.
 //
@@ -328,7 +329,7 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
                                 const uint8_t* mask, int n) {
   __shared__ int s_ctl[MAX_CTL], s_old[MAX_CTL];
   __shared__ int s_count[MAX_CLASSES], s_warp[32], s_freed[MAX_CLASSES];
-  __shared__ int s_nnew[MAX_CLASSES], s_rev, s_serial;
+  __shared__ int s_nnew[MAX_CLASSES], s_rev;
   // dynamic: bitset (ceil(nc/32)) | rev ids (n) | rev class (n) |
   //          rev rank (n) | new segment chunks (C * m)
   extern __shared__ int dyn[];
@@ -350,7 +351,6 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   for (int i = tid; i < C; i += nt) s_freed[i] = 0;
   for (int i = tid; i < nwords; i += nt) bitset[i] = 0u;
   for (int i = tid; i < C * m; i += nt) newc[i] = -1;
-  if (tid == 0) s_serial = 0;
   __syncthreads();
 
   // phase A: which touched chunks were full (free counts before any
@@ -418,12 +418,7 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
       }
       if (tid == 0) s_count[c] = total;
     }
-    // an uncounted lane can share its rank, hence its slot, with a
-    // counted one: see the value writes below
-    for (int j = lo; j < hi; ++j)
-      if (rev_cls[j] < 0 || rev_cls[j] >= C) s_serial = 1;
   }
-  for (int i = tid; i < nwords; i += nt) bitset[i] = 0u;  // reused below
   __syncthreads();
 
   // grow: pop new segments class-major, terminate them, link them
@@ -435,21 +430,6 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
       s_nnew[c] = fdiv(b + s_count[c], spc) - fdiv(b, spc);
       for (int j = 0; j < s_nnew[c]; ++j) newc[c * m + j] = ch.pool_pop();
     }
-    // The values land in the tail and new segments.  In a sound arena
-    // those are distinct chunks and the value writes run in parallel.
-    // Pops from an exhausted pool can repeat a chunk (or alias one
-    // through a negative id); then two values may share a word, which
-    // the reference's scatter resolves by lane order (the last lane
-    // wins), so one thread writes them in that order.
-    for (int c = 0; c < C; ++c)
-      for (int j = -1; j < s_nnew[c]; ++j) {
-        int id = j < 0 ? ch.tail(c) : newc[c * m + j];
-        if (id < 0) id += nc;
-        if (id < 0 || id >= nc) continue;  // every write drops
-        const unsigned bit = 1u << (id & 31);
-        if (bitset[id >> 5] & bit) s_serial = 1;
-        bitset[id >> 5] |= bit;
-      }
     for (int c = 0; c < C; ++c)
       for (int j = 0; j < s_nnew[c]; ++j)
         heap_set(mem, (long long)newc[c * m + j] * wpc, W, -1);
@@ -459,33 +439,26 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
           const int prev = j == 0 ? ch.tail(c) : newc[c * m + j - 1];
           heap_set(mem, (long long)prev * wpc, W, newc[c * m + j]);
         }
-  }
-  __syncthreads();
-
-  // values: lane j of the revived list goes to slot back + rank
-  auto write_value = [&](int j) {
-    const int cm = fmodi(rev_cls[j], C);
-    const int b = s_old[C + cm], tl = s_old[3 * C + cm];
-    const int v = b + rev_rank[j];
-    const int seg_rel = fdiv(v, spc) - fdiv(b, spc);
-    int seg_chunk;
-    if (seg_rel == 0) {
-      seg_chunk = tl;
-    } else {
-      long long col = wrapi(seg_rel - 1, m);
-      seg_chunk = (col >= 0 && col < m) ? newc[cm * m + col] : 0;
+    // values: lane j of the revived list goes to slot back + rank.  Two
+    // lanes may share a word (pops from an exhausted pool repeat a
+    // chunk; a class outside [0, C) shares a rank), which the
+    // reference's scatter resolves by lane order, so they are written
+    // in that order.
+    for (int j = 0; j < R; ++j) {
+      const int cm = fmodi(rev_cls[j], C);
+      const int b = s_old[C + cm], tl = s_old[3 * C + cm];
+      const int v = b + rev_rank[j];
+      const int seg_rel = fdiv(v, spc) - fdiv(b, spc);
+      int seg_chunk;
+      if (seg_rel == 0) {
+        seg_chunk = tl;
+      } else {
+        long long col = wrapi(seg_rel - 1, m);
+        seg_chunk = (col >= 0 && col < m) ? newc[cm * m + col] : 0;
+      }
+      heap_set(mem, (long long)seg_chunk * wpc + 1 + fmodi(v, spc), W,
+               rev_id[j]);
     }
-    heap_set(mem, (long long)seg_chunk * wpc + 1 + fmodi(v, spc),
-             d.total_words, rev_id[j]);
-  };
-  if (!s_serial) {
-    for (int j = tid; j < R; j += nt) write_value(j);
-  } else if (tid == 0) {
-    for (int j = 0; j < R; ++j) write_value(j);
-  }
-  __syncthreads();
-
-  if (tid == 0) {
     for (int c = 0; c < C; ++c) {
       if (s_nnew[c] > 0) s_ctl[3 * C + c] = newc[c * m + s_nnew[c] - 1];
       s_ctl[C + c] += s_count[c];

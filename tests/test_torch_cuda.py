@@ -76,7 +76,7 @@ def test_alloc_kernels_match_plain_math_word_for_word(cuda, cfgkw, menu, n,
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2e-2)])
+                                        (torch.bfloat16, 1e-5)])
 @pytest.mark.parametrize("wpp", (None, 64))
 def test_paged_attention_kernel_matches_plain(cuda, dtype, atol, wpp):
     from repro_torch.kernels import paged_attention as pa
