@@ -13,7 +13,13 @@ Phases, each reporting on its own lines:
    copies of the same words: seeded alloc/free traces over mixed size
    classes on the serving engine's arena geometry sized for 65536 pages,
    lane widths 16 and 4096; ``mem``, ``ctl`` and offsets identical after
-   every transaction;
+   every transaction.  Then ``defrag_txn`` against ``migrate_math``: the
+   reference defrag test's churn (allocate until the heap is full, free
+   all but every fifth page) strands pages on the engine's arena (256
+   pages) and on the 65536-page arena, two waves each; per wave the plan
+   on the card equals the plan on the CPU, the kernel's words equal the
+   plain version's, and the wave leaves fewer bound chunks and a larger
+   largest free extent;
 4. ``paged_attention`` against its plain version at qwen2-0.5b decode
    shapes (B 8, Hq 14, Hkv 2, D 64, page 16, P 32), ragged lengths and
    holes, page-id and word-offset tables, float32 and bf16 (both sides
@@ -22,11 +28,22 @@ Phases, each reporting on its own lines:
    16 requests, prompts 16-448 tokens, 32 new tokens each, max_batch 8,
    max_seq 512.  The launch counters are zeroed just before and read just
    after; every transaction's lanes are recorded and replayed through the
-   plain math on the CPU, which must end on the engine's arena words.  A
-   small float32 model is then served on the card and on the CPU and must
-   give the same tokens;
-6. one JSON line of per-kernel numbers, then the card line, then the
-   result line ``{"ok": true, "device": {...}}`` last.
+   plain math on the CPU, which must end on the engine's arena words.
+   Then the allocation-failure path: the same requests on an engine whose
+   heap is too small for them (96 pages; a co-tenant binds chunks to the
+   2048-B class and frees them; ``defrag_threshold`` 0.5).  Allocation
+   failures, defrag waves (on failure and past the threshold), migrated
+   pages and evictions must all occur, ``defrag_txn`` launches must equal
+   the engine's waves, every uid's tokens must equal the unpressured
+   run's, and the recorded alloc/free/defrag log replayed through the
+   plain math on the CPU must end on the engine's words.  A small float32
+   model is served on the card and on the CPU, unpressured and under the
+   same pressure, and must give the same tokens (and stats and words);
+6. kernel times from ``torch.profiler`` (allocator and defrag kernels
+   replayed at the engine's recorded inputs; defrag also at the
+   65536-page arena with M = 128), then one JSON line of per-kernel
+   numbers, then the card line, then the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when no CUDA device is present or when the
@@ -83,6 +100,7 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 KERNEL_SYMBOLS = {"alloc_txn": "alloc_txn_kernel",
                   "free_txn": "free_txn_kernel",
+                  "defrag_txn": "defrag_txn_kernel",
                   "paged_attention": "paged_attention_kernel"}
 
 
@@ -228,6 +246,120 @@ def phase_alloc(device, n_pages=65536, traces=((16, 36), (4096, 9)),
     return logs, errs
 
 
+def churn(ouro, st, rng, lanes, page, until_full, rounds=14, keep_every=5):
+    """The reference defrag test's churn (``tests/test_defrag.py``):
+    allocate ``lanes`` pages a transaction (until two transactions in a
+    row grant nothing, or for ``rounds``), then free all but every
+    ``keep_every``-th grant in shuffled batches.  Returns the arena."""
+    import numpy as np
+    import torch
+    dev = st.mem.device
+    sizes = torch.full((lanes,), page, dtype=torch.int32, device=dev)
+    live, fails = [], 0
+    for step in range(1000):
+        if (fails >= 2) if until_full else (step >= rounds):
+            break
+        mask = torch.from_numpy(rng.random(lanes) < 0.95).to(dev)
+        st, offs = ouro.alloc(st, sizes, mask)
+        got = [o for o in offs.tolist() if o >= 0]
+        fails = fails + 1 if not got else 0
+        live += got
+    drop = [o for i, o in enumerate(live) if i % keep_every]
+    rng.shuffle(drop)
+    for i in range(0, len(drop), lanes):
+        fo = np.full(lanes, -1, np.int32)
+        fo[:len(drop[i:i + lanes])] = drop[i:i + lanes]
+        fo_t = torch.from_numpy(fo).to(dev)
+        st = ouro.free(st, fo_t, sizes, fo_t >= 0)
+    return st
+
+
+def bound_chunks(lay, mem) -> int:
+    r = lay.region("chunk_class")
+    return int((mem[r.offset:r.end] >= 0).sum())
+
+
+def defrag_bound_ms(lay, before_mem, after_mem, src, sizes) -> float:
+    """Least time of one wave (bytes) at the device memory rate.  Reads:
+    the lanes, the ctl block, every chunk's free count and binding (the
+    rebuild depends on all of them), each moved extent's source words and
+    the bitmap words whose bits it flips.  Writes: every arena word the
+    wave changed, once, and the core ctl words."""
+    changed = after_mem != before_mem
+    moved = int((sizes[src >= 0] // 4).sum())
+    bm = lay.region("bitmap")
+    flipped = int(changed[bm.offset:bm.end].sum())
+    reads = (3 * src.shape[0] + lay.ctl_words + 2 * lay.cfg.num_chunks
+             + moved + flipped)
+    writes = int(changed.sum()) + lay.core_ctl_words
+    return 4 * (reads + writes) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_defrag(device, seed=0):
+    """``defrag_txn`` against ``migrate_math`` on churned arenas.  Returns
+    (the pre-wave states on the card with their plans and bounds, per
+    arena; the measured word errors)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import arena, defrag
+    from repro_torch.kernels import defrag_txn
+    from repro_torch.paged.kv_cache import make_kv_allocator
+
+    err = {"words": 0, "max_abs": 0}
+    waves = {}
+    for n_pages, lanes in ((256, 16), (65536, 4096)):
+        ouro, _, _ = make_kv_allocator(n_pages, device=device)
+        cfg, lay = ouro.cfg, ouro.layout
+        rng = np.random.default_rng(seed + n_pages)
+        st = ouro.init()
+        waves[n_pages] = []
+        for wave in range(2):
+            st = churn(ouro, st, rng, lanes, 256, until_full=(wave == 0))
+            mem_c, ctl_c = st.mem.cpu(), st.ctl.cpu()
+            before = arena.Arena(mem_c.clone(), ctl_c.clone())
+            pre = (st.mem.clone(), st.ctl.clone())
+            M = ouro._moves(None)
+            plan_d = defrag.plan_math(cfg, "chunk", "vl", st.mem, st.ctl,
+                                      max_moves=M)
+            plan_c = defrag.plan_math(cfg, "chunk", "vl", mem_c, ctl_c,
+                                      max_moves=M)
+            for a, b in zip(plan_d, plan_c):
+                n_bad, _ = word_err(a, b)
+                if n_bad:
+                    raise AssertionError(f"defrag plan on the card differs "
+                                         f"from the CPU's ({n_pages} pages, "
+                                         f"wave {wave})")
+            defrag_txn.arena_defrag_txn(cfg, "chunk", "vl", st.mem, st.ctl,
+                                        *plan_d)
+            defrag.migrate_math(cfg, "chunk", "vl", mem_c, ctl_c, *plan_c)
+            torch.cuda.synchronize()
+            dm, _ = e_mem = word_err(st.mem, mem_c)
+            dc, _ = e_ctl = word_err(st.ctl, ctl_c)
+            merge_err(err, e_mem, e_ctl)
+            if dm or dc:
+                raise AssertionError(f"defrag_txn ({n_pages} pages, wave "
+                                     f"{wave}): {dm} mem / {dc} ctl words "
+                                     f"differ from migrate_math")
+            fs0 = ouro.frag_stats(before)
+            fs1 = ouro.frag_stats(arena.Arena(mem_c, ctl_c))
+            b0, b1 = bound_chunks(lay, before.mem), bound_chunks(lay, mem_c)
+            moves = int((plan_c[0] >= 0).sum())
+            log(f"phase 3: defrag_txn, {n_pages} pages ({cfg.num_chunks} "
+                f"chunks), wave {wave}: {moves} moves of M {M}, 0 differing "
+                f"words, plan identical; bound chunks {b0} -> {b1}, largest "
+                f"free extent {fs0['largest_free_extent']} -> "
+                f"{fs1['largest_free_extent']} words, frag ratio "
+                f"{fs0['frag_ratio']:.3f} -> {fs1['frag_ratio']:.3f}")
+            if not (b1 < b0 and fs1["largest_free_extent"]
+                    > fs0["largest_free_extent"]):
+                raise AssertionError("the wave reclaimed nothing")
+            waves[n_pages].append(dict(
+                pre=pre, plan=plan_d,
+                bound=defrag_bound_ms(lay, before.mem, mem_c, plan_c[0],
+                                      plan_c[2])))
+    return waves, err
+
+
 # ---------------------------------------------------------------------------
 # phase 4: paged attention, kernel vs plain version
 # ---------------------------------------------------------------------------
@@ -328,6 +460,12 @@ class RecordingOuroboros:
         self.log.append(("free", offs.cpu(), sizes.cpu(), mask.cpu()))
         return self._ouro.free(state, offs, sizes, mask)
 
+    def defrag(self, state, max_moves=None):
+        state, fwd = self._ouro.defrag(state, max_moves)
+        self.log.append(("defrag", fwd.src.cpu(), fwd.dst.cpu(),
+                         fwd.sizes.cpu()))
+        return state, fwd
+
 
 class CountingModel:
     """Delegates to the model and counts decode ticks."""
@@ -352,18 +490,30 @@ def make_requests(cfg, seed, n, lo, hi):
 
 
 def replay_plain(ouro, log_):
-    """Replay recorded transactions through the plain math of a CPU
-    allocator; returns (arena, (differing offsets, their max absolute
-    difference)) against the offsets the engine's kernel granted."""
+    """Replay recorded transactions and defrag waves through the plain
+    math of a CPU allocator; returns (arena, (differing offsets and plan
+    words, their max absolute difference), per-wave byte bounds) against
+    what the engine's kernels granted and planned."""
+    from repro_torch.core import defrag
+    from repro_torch.core import transactions as T
     st = ouro.init()
     bad = {"words": 0, "max_abs": 0}
+    bounds = []
     for rec in log_:
         if rec[0] == "alloc":
             st, offs = ouro.alloc(st, rec[1], rec[2])
             merge_err(bad, word_err(rec[3], offs))
-        else:
+        elif rec[0] == "free":
             st = ouro.free(st, rec[1], rec[2], rec[3])
-    return st, (bad["words"], bad["max_abs"])
+        else:
+            plan = defrag.plan_math(ouro.cfg, ouro.kind, ouro.family, st.mem,
+                                    st.ctl, max_moves=rec[1].shape[0])
+            merge_err(bad, *(word_err(a, b) for a, b in zip(rec[1:], plan)))
+            before = st.mem.clone()
+            st = T.migrate(ouro.cfg, ouro.kind, ouro.family, st, *rec[1:])
+            bounds.append(defrag_bound_ms(ouro.layout, before, st.mem,
+                                          rec[1], rec[3]))
+    return st, (bad["words"], bad["max_abs"]), bounds
 
 
 def replay_kernels(ouro, log_):
@@ -371,6 +521,7 @@ def replay_kernels(ouro, log_):
     staged first.  Returns {kind: (mean device ms per launch as
     ``torch.profiler`` reports it, launches it reported, launches
     made)}; the profiler can drop a launch's record, never add one."""
+    from repro_torch.core import transactions as T
     st = ouro.init()
     dev = st.mem.device
     staged = [(rec[0], [x.to(dev) for x in rec[1:4]]) for rec in log_]
@@ -378,12 +529,16 @@ def replay_kernels(ouro, log_):
         for kind, args in staged:
             if kind == "alloc":
                 ouro.alloc(st, args[0], args[1])
-            else:
+            elif kind == "free":
                 ouro.free(st, *args)
+            else:
+                T.migrate(ouro.cfg, ouro.kind, ouro.family, st, *args)
     out = {}
-    for kind in ("alloc", "free"):
-        ms, n = prof.kernel(KERNEL_SYMBOLS[f"{kind}_txn"])
+    for kind in ("alloc", "free", "defrag"):
         want = sum(k == kind for k, _ in staged)
+        if want == 0:
+            continue
+        ms, n = prof.kernel(KERNEL_SYMBOLS[f"{kind}_txn"])
         if not 0 < n <= want:
             raise AssertionError(f"profiler saw {n} {kind}_txn launches with "
                                  f"device time, {want} were made")
@@ -394,11 +549,12 @@ def replay_kernels(ouro, log_):
 def time_plain_txns(ouro, log_):
     """The plain math on the card's tensors, each recorded transaction
     timed with CUDA events (it reads scalars back, so it syncs).
-    Returns {kind: [ms, ...]}."""
+    Returns {kind: [ms, ...]} (defrag waves under "defrag")."""
     import torch
     from repro_torch.core import transactions as T
+    from repro_torch.core import defrag
     st = ouro.init()
-    out = {"alloc": [], "free": []}
+    out = {"alloc": [], "free": [], "defrag": []}
     dev = st.mem.device
     for rec in log_:
         args = [x.to(dev) for x in rec[1:4]]
@@ -407,9 +563,12 @@ def time_plain_txns(ouro, log_):
         if rec[0] == "alloc":
             T.alloc_math(ouro.cfg, ouro.kind, ouro.family, st.mem, st.ctl,
                          args[0], args[1])
-        else:
+        elif rec[0] == "free":
             T.free_math(ouro.cfg, ouro.kind, ouro.family, st.mem, st.ctl,
                         *args)
+        else:
+            defrag.migrate_math(ouro.cfg, ouro.kind, ouro.family, st.mem,
+                                st.ctl, *args)
         b.record()
         torch.cuda.synchronize()
         out[rec[0]].append(a.elapsed_time(b))
@@ -500,14 +659,15 @@ def phase_serve(device, seed):
         raise AssertionError(f"paged_attention launches "
                              f"{launches['paged_attention']} != "
                              f"{want_pa}")
-    if min(launches.values()) == 0:
+    path = ("alloc_txn", "free_txn", "paged_attention")
+    if min(launches[k] for k in path) == 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
 
     # the recorded lanes, replayed through the plain math on the CPU
     from repro_torch.paged.kv_cache import make_kv_allocator
     cpu_ouro, _, _ = make_kv_allocator(eng.num_pages, device="cpu")
-    st_cpu, e_off = replay_plain(cpu_ouro, rec.log)
+    st_cpu, e_off, _ = replay_plain(cpu_ouro, rec.log)
     bad = e_off[0]
     dm, _ = e_mem = word_err(eng.alloc_state.mem, st_cpu.mem)
     dc, _ = e_ctl = word_err(eng.alloc_state.ctl, st_cpu.ctl)
@@ -521,15 +681,154 @@ def phase_serve(device, seed):
     return dict(engine=eng, log=rec.log, prompts=prompts,
                 launches=launches, tok_s=toks / wall, wall=wall,
                 steps=st["steps"], decode_ticks=ticks,
+                tokens={r.uid: r.out_tokens for r in done},
                 replay_err=(e_off, e_mem, e_ctl))
 
 
-def phase_timing(device, serve, alloc_logs):
+PRESSURE = dict(num_pages=96, defrag_threshold=0.5)
+COTENANT_LANES, COTENANT_BYTES = 16, 2048
+
+
+def cotenant(eng):
+    """A co-tenant of the engine's arena binds chunks to the 2048-B class
+    and frees them: the chunks stay bound to that class, stranded for the
+    engine's 256-B pages until a defrag wave unbinds them."""
+    import torch
+    dev = eng.device
+    sizes = torch.full((COTENANT_LANES,), COTENANT_BYTES, dtype=torch.int32,
+                       device=dev)
+    eng.alloc_state, offs = eng.ouro.alloc(
+        eng.alloc_state, sizes,
+        torch.ones(COTENANT_LANES, dtype=torch.bool, device=dev))
+    eng.alloc_state = eng.ouro.free(eng.alloc_state, offs, sizes, offs >= 0)
+    return int((offs >= 0).sum())
+
+
+FAILURE_STATS = ("alloc_failures", "defrag_waves", "auto_defrag_waves",
+                 "pages_migrated", "evictions")
+
+
+def phase_pressure(device, serve):
+    """Phase 5's requests on an engine whose heap is too small for them:
+    the allocation-failure path (defrag on failure and past the
+    threshold, eviction) must fire, launch one ``defrag_txn`` per wave,
+    and change no token."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    from repro_torch.serve.engine import ServingEngine
+
+    base = serve["engine"]
+    eng = ServingEngine(base.model._model, base.params, max_batch=8,
+                        max_seq=512, kv_dtype=torch.bfloat16,
+                        compute_dtype=torch.bfloat16, device=device,
+                        **PRESSURE)
+    rec = RecordingOuroboros(eng.ouro)
+    eng.ouro = rec
+    counting = CountingModel(eng.model)
+    eng.model = counting
+    bound = cotenant(eng)
+    for p in serve["prompts"]:
+        eng.submit(p, max_new_tokens=32)
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = dict(eng.stats)
+    toks = sum(len(r.out_tokens) for r in done)
+    log(f"phase 5: under pressure ({PRESSURE}, co-tenant {bound} x "
+        f"{COTENANT_BYTES} B): served {len(done)} requests, {toks} tokens, "
+        f"{st['steps']} steps in {wall:.2f} s: {toks / wall:.1f} tok/s")
+    log(f"phase 5: under pressure: stats {json.dumps(st)}")
+    log(f"phase 5: under pressure: launches {json.dumps(launches)}")
+    got = {r.uid: r.out_tokens for r in done}
+    want = serve["tokens"]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"served uids {sorted(got)} != {sorted(want)}")
+    for uid in sorted(want):
+        a, b = got[uid], want[uid]
+        if a != b:
+            pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       min(len(a), len(b)))
+            raise AssertionError(f"uid {uid}: tokens differ from the "
+                                 f"unpressured run first at position {pos}")
+    zero = [k for k in FAILURE_STATS if not st[k] > 0]
+    if zero:
+        raise AssertionError(f"the failure path did not fire: {zero} == 0")
+    if st["allocs"] != st["frees"]:
+        raise AssertionError(f"allocs {st['allocs']} != frees {st['frees']}")
+    if not bool((eng.caches.kv.page_table == -1).all()):
+        raise AssertionError("page table not all holes after draining")
+    want_l = {"alloc_txn": st["alloc_txns"], "free_txn": st["free_txns"],
+              "defrag_txn": st["defrag_waves"],
+              "paged_attention": eng.cfg.num_layers * counting.decode_calls}
+    if launches != want_l:
+        raise AssertionError(f"launches {launches} != the engine's counts "
+                             f"{want_l}")
+
+    cpu_ouro, _, _ = make_kv_allocator(eng.num_pages, device="cpu")
+    st_cpu, e_off, bounds = replay_plain(cpu_ouro, rec.log)
+    dm, _ = e_mem = word_err(eng.alloc_state.mem, st_cpu.mem)
+    dc, _ = e_ctl = word_err(eng.alloc_state.ctl, st_cpu.ctl)
+    if e_off[0] or dm or dc:
+        raise AssertionError(f"plain replay of {len(rec.log)} records: "
+                             f"{e_off[0]} offset or plan mismatches, {dm} "
+                             f"mem / {dc} ctl words differ")
+    n_waves = sum(r[0] == "defrag" for r in rec.log)
+    log(f"phase 5: under pressure: plain replay of {len(rec.log)} records "
+        f"({n_waves} defrag waves) on the CPU: offsets, plans and final "
+        f"arena words identical; every uid's tokens equal the unpressured "
+        f"run's")
+    return dict(log=rec.log, launches=launches, stats=st, wall=wall,
+                bounds=bounds, replay_err=(e_off, e_mem, e_ctl),
+                ouro=rec._ouro)
+
+
+def time_defrag_waves(ouro, waves, reps=5):
+    """``defrag_txn`` on recorded pre-wave arenas: (mean device ms per
+    launch from ``torch.profiler``, launches it reported, launches made,
+    mean ms of ``migrate_math`` on the card's tensors by CUDA events).
+    Each launch starts from a copy of the pre-wave words."""
+    import torch
+    from repro_torch.core import defrag
+    from repro_torch.kernels import defrag_txn
+    cfg = ouro.cfg
+    mem, ctl = (torch.empty_like(t) for t in waves[0]["pre"])
+    with DeviceProfile() as prof:
+        for w in waves:
+            for _ in range(reps):
+                mem.copy_(w["pre"][0])
+                ctl.copy_(w["pre"][1])
+                defrag_txn.arena_defrag_txn(cfg, "chunk", "vl", mem, ctl,
+                                            *w["plan"])
+    ms, n = prof.kernel(KERNEL_SYMBOLS["defrag_txn"])
+    made = reps * len(waves)
+    if not 0 < n <= made:
+        raise AssertionError(f"profiler saw {n} defrag_txn launches with "
+                             f"device time, {made} were made")
+    plain = []
+    for w in waves:
+        mem.copy_(w["pre"][0])
+        ctl.copy_(w["pre"][1])
+        a, b = _events()
+        a.record()
+        defrag.migrate_math(cfg, "chunk", "vl", mem, ctl, *w["plan"])
+        b.record()
+        torch.cuda.synchronize()
+        plain.append(a.elapsed_time(b))
+    return ms, n, made, sum(plain) / len(plain)
+
+
+def phase_timing(device, serve, alloc_logs, pressure, waves):
     """Kernel times on the device from ``torch.profiler``, taken after
-    the serving run so that the profiler's hooks cannot slow it: the
-    allocator kernels on the engine's recorded transactions and on the
-    phase-3 traces, the plain math at the engine's inputs, and where the
-    serving run's device time went."""
+    the serving runs so that the profiler's hooks cannot slow them: the
+    allocator and defrag kernels on the engines' recorded transactions
+    and waves and on the phase-3 traces and arenas, the plain math at the
+    engines' inputs, and where the serving run's device time went."""
     from repro_torch.paged.kv_cache import make_kv_allocator
     eng = serve["engine"]
     dev_ouro = eng.ouro._ouro
@@ -552,6 +851,29 @@ def phase_timing(device, serve, alloc_logs):
             f"{t[kind][2]} launches recorded)" for kind in ("alloc", "free"))
             + " per transaction, profiler device time")
 
+    # defrag_txn at the pressure engine's waves (replayed with its
+    # transactions, so each wave sees the words it saw) and on the
+    # phase-3 arenas
+    d_ouro = pressure["ouro"]
+    t = replay_kernels(d_ouro, pressure["log"])
+    dp = time_plain_txns(d_ouro, pressure["log"])["defrag"]
+    dk = dict(ms=t["defrag"][0], plain=sum(dp) / len(dp),
+              bound=sum(pressure["bounds"]) / len(pressure["bounds"]))
+    log(f"phase 6: defrag_txn at the engine's waves: kernel "
+        f"{1e3 * dk['ms']:.2f} us (profiler device time, {t['defrag'][1]} of "
+        f"{t['defrag'][2]} launches recorded), plain migrate_math on the card "
+        f"{1e3 * dk['plain']:.1f} us, bound {1e6 * dk['bound']:.3f} ns")
+    for n_pages, ws in sorted(waves.items()):
+        ouro, _, _ = make_kv_allocator(n_pages, device=device)
+        ms, n, made, plain = time_defrag_waves(ouro, ws)
+        bound = sum(w["bound"] for w in ws) / len(ws)
+        log(f"phase 6: defrag_txn, phase-3 arena of {n_pages} pages "
+            f"({ouro.cfg.num_chunks} chunks, M {ws[0]['plan'][0].shape[0]}): "
+            f"kernel {1e3 * ms:.1f} us per wave ({n} of {made} launches "
+            f"recorded), plain migrate_math on the card {1e3 * plain:.1f} "
+            f"us, bound {1e6 * bound:.2f} ns")
+        dk[n_pages] = dict(ms=ms, plain=plain, bound=bound)
+
     # where the serving run's device time went: the same traffic again
     # under the profiler (its wall is the profiler's, not the server's)
     eng.ouro = dev_ouro
@@ -566,12 +888,13 @@ def phase_timing(device, serve, alloc_logs):
         f"run's {wall:.0f} ms wall: device idle {100 * (1 - busy / wall):.1f}%")
     for key, us, n in prof.rows[:8]:
         log(f"phase 6:   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
-    return dict(k_times=k_times, p_times=p_times, bounds=bounds)
+    return dict(k_times=k_times, p_times=p_times, bounds=bounds, defrag=dk)
 
 
 def phase_small_model(device, seed):
     """A float32 smoke-size model served on the card and on the CPU from
-    the same weights: identical tokens and final arena words."""
+    the same weights, first unpressured, then under phase 5's memory
+    pressure: identical tokens, stats and final arena words."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model import build_model
@@ -580,31 +903,43 @@ def phase_small_model(device, seed):
     cfg = get_arch("qwen2-0.5b").smoke()
     model = build_model(cfg)
     params = model.init(seed, device="cpu")
-    prompts = make_requests(cfg, seed + 1, 5, 4, 40)
-    outs = []
-    for dev in (device, "cpu"):
-        p_dev = {"embed": params["embed"].to(dev),
-                 "final_norm": {k: v.to(dev) for k, v in
-                                params["final_norm"].items()},
-                 "blocks": [{g: {n: w.to(dev) for n, w in leaves.items()}
-                             for g, leaves in b.items()}
-                            for b in params["blocks"]]}
-        eng = ServingEngine(model, p_dev, max_batch=2, max_seq=96,
-                            kv_dtype=torch.float32,
-                            compute_dtype=torch.float32, device=dev)
-        for p in prompts:
-            eng.submit(p, max_new_tokens=6)
-        toks = {r.uid: r.out_tokens for r in eng.run_until_done()}
-        outs.append((toks, eng.alloc_state.mem.cpu(),
-                     eng.alloc_state.ctl.cpu()))
-    (tg, mg, cg), (tc, mc, cc) = outs
-    if tg != tc:
-        raise AssertionError(f"float32 smoke model: card tokens {tg} != "
-                             f"CPU tokens {tc}")
-    if not (torch.equal(mg, mc) and torch.equal(cg, cc)):
-        raise AssertionError("float32 smoke model: arena words differ")
-    log(f"phase 5: float32 smoke model on the card and the CPU: "
-        f"{len(tg)} requests, identical tokens and arena words")
+    runs = (("unpressured", dict(max_batch=2, max_seq=96),
+             make_requests(cfg, seed + 1, 5, 4, 40), 6),
+            ("under pressure", dict(max_batch=8, max_seq=512, **PRESSURE),
+             make_requests(cfg, seed, 16, 16, 448), 32))
+    for name, kw, prompts, max_new in runs:
+        outs = []
+        for dev in (device, "cpu"):
+            p_dev = {"embed": params["embed"].to(dev),
+                     "final_norm": {k: v.to(dev) for k, v in
+                                    params["final_norm"].items()},
+                     "blocks": [{g: {n: w.to(dev) for n, w in leaves.items()}
+                                 for g, leaves in b.items()}
+                                for b in params["blocks"]]}
+            eng = ServingEngine(model, p_dev, kv_dtype=torch.float32,
+                                compute_dtype=torch.float32, device=dev, **kw)
+            if "defrag_threshold" in kw:
+                cotenant(eng)
+            for p in prompts:
+                eng.submit(p, max_new_tokens=max_new)
+            toks = {r.uid: r.out_tokens for r in eng.run_until_done()}
+            outs.append((toks, eng.alloc_state.mem.cpu(),
+                         eng.alloc_state.ctl.cpu(), dict(eng.stats)))
+        (tg, mg, cg, sg), (tc, mc, cc, sc) = outs
+        if tg != tc:
+            bad = [u for u in tg if tg[u] != tc.get(u)]
+            raise AssertionError(f"float32 smoke model {name}: card tokens "
+                                 f"differ from the CPU's for uids {bad}")
+        if not (torch.equal(mg, mc) and torch.equal(cg, cc)):
+            raise AssertionError(f"float32 smoke model {name}: arena words "
+                                 f"differ")
+        if sg != sc:
+            raise AssertionError(f"float32 smoke model {name}: stats {sg} != "
+                                 f"{sc}")
+        fired = {k: sg[k] for k in FAILURE_STATS if k in sg}
+        log(f"phase 5: float32 smoke model {name} on the card and the CPU: "
+            f"{len(tg)} requests, identical tokens, stats and arena words"
+            + (f"; {fired}" if "defrag_threshold" in kw else ""))
 
 
 def main(argv=None) -> int:
@@ -645,6 +980,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     alloc_logs, alloc_errs = phase_alloc(device, seed=args.seed)
+    waves, defrag_err = phase_defrag(device, seed=args.seed)
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -653,11 +989,12 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     serve = phase_serve(device, args.seed)
+    pressure = phase_pressure(device, serve)
     phase_small_model(device, args.seed)
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    timing = phase_timing(device, serve, alloc_logs)
+    timing = phase_timing(device, serve, alloc_logs, pressure, waves)
     del serve["engine"]
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
@@ -667,9 +1004,9 @@ def main(argv=None) -> int:
     main_attn = attn[(torch.bfloat16, None)]
     kernels = []
     for name, kind in (("alloc_txn", "alloc"), ("free_txn", "free")):
-        # phase 3 per transaction, and the serving run's final words
+        # phase 3 per transaction, and both serving runs' final words
         err = dict(alloc_errs[kind])
-        merge_err(err, *serve["replay_err"])
+        merge_err(err, *serve["replay_err"], *pressure["replay_err"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/alloc_txn.cu",
@@ -682,6 +1019,22 @@ def main(argv=None) -> int:
             "plain_ms": mean(timing["p_times"][kind]),
             "bound_ms": mean(timing["bounds"][kind]), "bound_by": "bytes",
             "library_ms": None})
+    # phase 3 per wave, and the pressure run's plans and final words
+    err = dict(defrag_err)
+    merge_err(err, *pressure["replay_err"])
+    dk = timing["defrag"]
+    kernels.append({
+        "name": "defrag_txn", "route": "cuda",
+        "source": "src/repro_torch/csrc/defrag_txn.cu",
+        "replaces": "src/repro/kernels/defrag_txn.py:71",
+        "launches": pressure["launches"]["defrag_txn"],
+        "max_abs_err": err["max_abs"], "max_err": err["max_abs"],
+        "differing_words": err["words"],
+        "ms": dk["ms"], "plain_ms": dk["plain"], "bound_ms": dk["bound"],
+        "bound_by": "bytes", "library_ms": None,
+        "ms_65536_pages": dk[65536]["ms"],
+        "plain_ms_65536_pages": dk[65536]["plain"],
+        "bound_ms_65536_pages": dk[65536]["bound"]})
     kernels.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -692,8 +1045,10 @@ def main(argv=None) -> int:
         "ms": main_attn["ms"], "plain_ms": main_attn["plain"],
         "bound_ms": main_attn["bound"], "bound_by": main_attn["by"],
         "library_ms": None})
+    p_toks = sum(len(t) for t in serve["tokens"].values())
     log(f"phase 6: total {time.perf_counter() - t_start:.1f} s; serving "
-        f"{serve['tok_s']:.1f} tok/s")
+        f"{serve['tok_s']:.1f} tok/s; under pressure "
+        f"{p_toks / pressure['wall']:.1f} tok/s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

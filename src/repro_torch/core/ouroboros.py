@@ -4,12 +4,14 @@
     state = ouro.init()                                   # core.arena.Arena
     state, offs = ouro.alloc(state, sizes_bytes, mask)    # offs in words
     state = ouro.free(state, offs, sizes_bytes, mask)
+    state, fwd = ouro.defrag(state)                       # one wave
 
 Unlike the reference there is no ``backend``/``lowering`` knob: an
 arena on the card runs every transaction as one CUDA kernel launch
-(``csrc/alloc_txn.cu``), an arena on the CPU runs the plain PyTorch
-math.  Both give the same words.  Transactions update the arena in
-place and return it.  Sharding (``num_shards``) is ROADMAP item A11.
+(``csrc/alloc_txn.cu``, ``csrc/defrag_txn.cu``), an arena on the CPU
+runs the plain PyTorch math.  Both give the same words.  Transactions
+and waves update the arena in place and return it.  Sharding
+(``num_shards``) is ROADMAP item A11.
 """
 from __future__ import annotations
 
@@ -81,3 +83,31 @@ class Ouroboros:
         return {"free_words": int(free),
                 "largest_free_extent": int(largest),
                 "frag_ratio": _defrag.frag_ratio(free, largest)}
+
+    # -- defragmentation (core/defrag.py) ------------------------------------
+
+    def _moves(self, max_moves) -> int:
+        if max_moves is None:
+            max_moves = min(_defrag.DEFAULT_MAX_MOVES,
+                            self.cfg.num_chunks
+                            * self.cfg.max_pages_per_chunk)
+        if not isinstance(max_moves, int) or max_moves < 1:
+            raise ValueError(
+                f"max_moves must be a positive int, got {max_moves!r}")
+        return max_moves
+
+    def defrag(self, state, max_moves=None):
+        """One defragmentation wave: the plan on the arena's device, then
+        the migration as ONE execute step (one ``defrag_txn`` launch on
+        the card), in place.  Returns ``(state, forwarding)``: the
+        old→new :class:`~repro_torch.core.defrag.Forwarding` table that
+        callers remap held offsets through (``defrag.forward_offsets``,
+        ``kv_cache.apply_forwarding``).  Page kinds bind no chunks: their
+        plan is empty and the wave leaves the arena as it is."""
+        M = self._moves(max_moves)
+        src, dst, sizes = _defrag.plan_math(
+            self.cfg, self.kind, self.family, state.mem, state.ctl,
+            max_moves=M)
+        state = transactions.migrate(self.cfg, self.kind, self.family,
+                                     state, src, dst, sizes)
+        return state, _defrag.Forwarding(src=src, dst=dst, sizes=sizes)

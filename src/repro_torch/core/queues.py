@@ -7,7 +7,9 @@ reads the counters it needs before writing any of them, which keeps the
 reference's functional semantics.
 
 Ported so far: the free-chunk pool ring (``pool_*``, ``ring_bulk_*``
-as the pool uses them), ``virt_init``, and the virtualized **list**
+as the pool uses them, ``ring_reset``), ``virt_init``/``virt_reset``
+(the defragmentation wave's rebuild starts from them), and the
+virtualized **list**
 family (``vl_bulk_enqueue``/``vl_bulk_dequeue``), whose segments are
 heap chunks chained through a next pointer in word 0.  The ``va``
 family and the plain class rings are ROADMAP items A3/A16.
@@ -89,6 +91,15 @@ def ring_bulk_enqueue(cfg: HeapConfig, q: RingState, ctx, cls, rank, vals,
 # chunk pool (single-class ring of free chunk ids)
 # --------------------------------------------------------------------------
 
+def ring_reset(q: RingState) -> RingState:
+    """Empty ring (the reference's ``ring_init``), in place: NULL store,
+    zero front and back."""
+    q.store.fill_(NULL)
+    q.front.zero_()
+    q.back.zero_()
+    return q
+
+
 def pool_init(cfg: HeapConfig, pool: RingState) -> RingState:
     """All heap chunks start free, queued FIFO in the pool (in place)."""
     pool.store[0] = torch.arange(cfg.num_chunks, dtype=torch.int32,
@@ -156,6 +167,17 @@ def virt_init(cfg: HeapConfig, q: VirtState, ctx: AllocCtx, family: str):
     q.front.zero_()
     q.back.zero_()
     return q, ctx
+
+
+def virt_reset(q: VirtState) -> VirtState:
+    """Fresh virtualized queues with no segment yet, in place: NULL
+    directory, head and tail; zero front and back."""
+    q.directory.fill_(NULL)
+    q.head.fill_(NULL)
+    q.tail.fill_(NULL)
+    q.front.zero_()
+    q.back.zero_()
+    return q
 
 
 def virt_count(q: VirtState):

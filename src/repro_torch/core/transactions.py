@@ -12,6 +12,12 @@ against one :class:`arena.Arena`.  Two paths share one contract:
     one on the CPU.  There is no backend or lowering knob: the arena's
     device decides.
 
+``migrate``  the execute step of one defragmentation wave (whose plan
+    ``defrag.plan_math`` computes in plain tensor ops on the arena's
+    device), dispatched like a transaction: the CUDA kernel
+    ``csrc/defrag_txn.cu`` on the card, ``defrag.migrate_math`` on the
+    CPU.
+
 Both update ``mem``/``ctl`` in place (the arena is the largest state
 the allocator owns, so a transaction never copies it) and return the
 same arena.  Only ``(chunk, vl)`` is ported; the other five variants
@@ -96,4 +102,17 @@ def free(cfg: HeapConfig, kind: str, family: str, state: arena.Arena,
     from repro_torch.kernels import ops
     ops.arena_free_txn(cfg, kind, family, state.mem, state.ctl,
                        offsets_words, sizes_bytes, mask)
+    return state
+
+
+def migrate(cfg: HeapConfig, kind: str, family: str, state: arena.Arena,
+            src, dst, sizes) -> arena.Arena:
+    """Execute one migration wave (copy extents, flip bitmap bits,
+    retire emptied chunks, rebuild queues) in place; a no-op for page
+    kinds."""
+    from repro_torch.kernels import ops
+    if kind != "chunk":
+        return state
+    ops.arena_defrag_txn(cfg, kind, family, state.mem, state.ctl, src, dst,
+                         sizes)
     return state

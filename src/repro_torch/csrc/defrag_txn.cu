@@ -1,0 +1,239 @@
+// One defragmentation migration wave on the device-resident arena, for
+// the (kind=chunk, family=vl) variant: one kernel launch per wave, in
+// place on mem/ctl, with no host reads (a later tick can capture it in
+// a CUDA graph).
+//
+// Replaces: src/repro/kernels/defrag_txn.py::arena_defrag_txn (and its
+// region-blocked twin arena_defrag_txn_blocked), whose body is
+// core/defrag.py::migrate_math.  The plain version is
+// src/repro_torch/core/defrag.py::migrate_math; the two must leave
+// every mem/ctl word identical.  The plan (src, dst, sizes) is computed
+// before the launch by defrag.plan_math, which guarantees that source
+// extents and destination slots are disjoint: a direct copy then equals
+// the reference's extract-into-a-carry-buffer-then-insert.
+//
+// What bounds it on the H100: latency, not bandwidth.  A wave moves at
+// most M extents of a few hundred bytes, but the queue rebuild is a
+// chain of dependent pool pops and segment links whose order fixes
+// every later word, and thread 0 writes one queue value per live chunk.
+//
+// Design: one thread block of 1024 threads.  Block-wide, in the
+// reference's order and with barriers between the stages: (1) copy the
+// extents' words and clear the source bits / return their pages
+// (atomics commute, as in free_txn); (2) claim destination chunks that
+// are still unbound (a bitset in shared memory; the per-lane bindings
+// on thread 0 in lane order, so a repeated chunk's last lane wins as in
+// the reference's scatter); (3) set the destination bits; (4) unbind
+// fully-free chunks, parallel over chunks; (5) rebuild the whole pool
+// ring (unbound ids at ranks from a block scan, NULL elsewhere), NULL
+// the vl directory, and compact each class's live chunks into an
+// ascending list by block scans.  Then (6) thread 0 rebuilds the class
+// queues class-major, exactly as the reference: one pool pop for a
+// fresh segment, its word 0 set NULL, head = tail = it, then one bulk
+// vl enqueue of the class's live chunks (grow pops, NULL words, links,
+// then values).  The ctl block is staged in shared memory; only its
+// core words are written back, so the telemetry words pass through.
+
+#include "arena_dev.cuh"
+
+// Lane i moves iff src >= 0, dst >= 0 and its size has a class.
+__device__ __forceinline__ bool move_lane(const ArenaDesc& d, const int* src,
+                                          const int* dst, const int* sizes,
+                                          int i, int* cls) {
+  if (src[i] < 0 || dst[i] < 0) return false;
+  *cls = size_class(d, sizes[i]);
+  return *cls < d.num_classes;
+}
+
+__global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                                  const int* src, const int* dst,
+                                  const int* sizes, int M) {
+  __shared__ int s_ctl[MAX_CTL], s_warp[32];
+  __shared__ int s_base[MAX_CLASSES], s_cnt[MAX_CLASSES];
+  // dynamic: chunk state (nc) | claimed bitset (ceil(nc/32)) |
+  //          live lists, class-major (nc) | new segment chunks (nc/spc+2)
+  extern __shared__ int dyn[];
+  const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
+  const int nc = d.num_chunks, wpc = d.wpc, bw = d.bw, spc = d.spc;
+  const int W = d.total_words, nwords = (nc + 31) / 32;
+  int* s_state = dyn;
+  unsigned* claimed = reinterpret_cast<unsigned*>(dyn + nc);
+  int* live = dyn + nc + nwords;
+  int* newc = live + nc;
+
+  unsigned* bitmap = reinterpret_cast<unsigned*>(mem + d.bitmap_off);
+  int* free_count = mem + d.free_off;
+  int* chunk_class = mem + d.class_off;
+
+  for (int i = tid; i < d.ctl_words; i += nt) s_ctl[i] = ctl[i];
+  for (int i = tid; i < nwords; i += nt) claimed[i] = 0u;
+
+  // 1. extract + insert: copy each extent's words, clear its source bits
+  // and return its page to the source chunk's free count
+  const long long n_copy = (long long)M * wpc;
+  for (long long k = tid; k < n_copy; k += nt) {
+    const int i = (int)(k / wpc), j = (int)(k % wpc);
+    int c;
+    if (!move_lane(d, src, dst, sizes, i, &c) || j >= (d.min_page_words << c))
+      continue;
+    heap_set(mem, (long long)dst[i] + j, W,
+             heap_get(mem, (long long)src[i] + j, W, 0));
+  }
+  for (int i = tid; i < M; i += nt) {
+    int c;
+    if (!move_lane(d, src, dst, sizes, i, &c)) continue;
+    const int pw = d.min_page_words << c;
+    const int chunk = fdiv(src[i], wpc), page = fdiv(fmodi(src[i], wpc), pw);
+    if (chunk >= nc) continue;
+    atomicAdd(&free_count[chunk], 1);
+    if (page / 32 < bw)
+      atomicAdd(&bitmap[chunk * bw + page / 32], 0u - (1u << (page & 31)));
+  }
+  __syncthreads();
+
+  // 2. claim destination chunks that are still unbound: bitmap reset,
+  // full free count, bound to the move's class
+  for (int i = tid; i < M; i += nt) {
+    int c;
+    if (!move_lane(d, src, dst, sizes, i, &c)) continue;
+    const int chunk = fdiv(dst[i], wpc);
+    if (chunk < nc && chunk_class[chunk] < 0)
+      atomicOr(&claimed[chunk >> 5], 1u << (chunk & 31));
+  }
+  __syncthreads();
+  for (int ch = tid; ch < nc; ch += nt)
+    if (claimed[ch >> 5] >> (ch & 31) & 1u)
+      for (int w = 0; w < bw; ++w) bitmap[ch * bw + w] = 0u;
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < M; ++i) {
+      int c;
+      if (!move_lane(d, src, dst, sizes, i, &c)) continue;
+      const int chunk = fdiv(dst[i], wpc);
+      if (chunk < nc && (claimed[chunk >> 5] >> (chunk & 31) & 1u)) {
+        free_count[chunk] = d.max_ppc >> c;
+        chunk_class[chunk] = c;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. set the destination bits and take the pages from the free counts
+  for (int i = tid; i < M; i += nt) {
+    int c;
+    if (!move_lane(d, src, dst, sizes, i, &c)) continue;
+    const int pw = d.min_page_words << c;
+    const int chunk = fdiv(dst[i], wpc), page = fdiv(fmodi(dst[i], wpc), pw);
+    if (chunk >= nc) continue;
+    atomicAdd(&free_count[chunk], -1);
+    if (page / 32 < bw)
+      atomicAdd(&bitmap[chunk * bw + page / 32], 1u << (page & 31));
+  }
+  __syncthreads();
+
+  // 4. unbind fully-free chunks; state: -1 unbound, class if it has free
+  // pages (it goes back into its class queue), -2 bound and full
+  for (int ch = tid; ch < nc; ch += nt) {
+    int cc = chunk_class[ch];
+    const int f = free_count[ch];
+    const int full = d.max_ppc >> (cc < 0 ? 0 : (cc >= C ? C - 1 : cc));
+    if (cc >= 0 && f == full) {
+      cc = -1;
+      chunk_class[ch] = -1;
+    }
+    s_state[ch] = cc < 0 ? -1 : (f > 0 ? cc : -2);
+  }
+  __syncthreads();
+
+  // 5. a fresh pool ring: every unbound id in ascending order, NULL
+  // after them; a NULL vl directory; the live lists per class
+  {
+    const int per = (nc + nt - 1) / nt;
+    const int lo = min(nc, tid * per), hi = min(nc, lo + per);
+    int local = 0;
+    for (int ch = lo; ch < hi; ++ch) local += s_state[ch] == -1;
+    int total;
+    int pos = block_excl_scan(local, &total, s_warp);
+    for (int ch = lo; ch < hi; ++ch)
+      if (s_state[ch] == -1) mem[d.pool_off + pos++] = ch;
+    for (int k = total + tid; k < nc; k += nt) mem[d.pool_off + k] = -1;
+    if (tid == 0) {
+      s_ctl[4 * C] = 0;          // pool front
+      s_ctl[4 * C + 1] = total;  // pool back
+    }
+    for (int k = d.pool_off + nc + tid; k < d.bitmap_off; k += nt)
+      mem[k] = -1;
+    int start = 0;
+    for (int c = 0; c < C; ++c) {
+      int n = 0;
+      for (int ch = lo; ch < hi; ++ch) n += s_state[ch] == c;
+      int cnt;
+      int r = start + block_excl_scan(n, &cnt, s_warp);
+      for (int ch = lo; ch < hi; ++ch)
+        if (s_state[ch] == c) live[r++] = ch;
+      if (tid == 0) {
+        s_base[c] = start;
+        s_cnt[c] = cnt;
+      }
+      start += cnt;
+    }
+  }
+  __syncthreads();
+
+  // 6. class-major queue rebuild, in the reference's order
+  if (tid == 0) {
+    Chain q{d, mem, s_ctl};
+    for (int c = 0; c < C; ++c) {
+      q.front(c) = q.back(c) = 0;
+      q.head(c) = q.tail(c) = -1;
+    }
+    for (int c = 0; c < C; ++c) {
+      const int seg0 = q.pool_pop();
+      const long long w0 = (long long)seg0 * wpc;
+      if (w0 >= 0 && w0 < W) mem[w0] = -1;
+      q.head(c) = q.tail(c) = seg0;
+      // one bulk vl enqueue of the class's live chunks (back = 0)
+      const int L = s_cnt[c];
+      const int* ids = live + s_base[c];
+      const int n_new = fdiv(L, spc);
+      for (int j = 0; j < n_new; ++j) newc[j] = q.pool_pop();
+      for (int j = 0; j < n_new; ++j)
+        heap_set(mem, (long long)newc[j] * wpc, W, -1);
+      for (int j = 0; j < n_new; ++j)
+        heap_set(mem, (long long)(j == 0 ? seg0 : newc[j - 1]) * wpc, W,
+                 newc[j]);
+      for (int r = 0; r < L; ++r) {
+        const int s = r / spc;
+        const int seg = s == 0 ? seg0 : newc[s - 1];
+        heap_set(mem, (long long)seg * wpc + 1 + r % spc, W, ids[r]);
+      }
+      if (n_new > 0) q.tail(c) = newc[n_new - 1];
+      q.back(c) = L;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < d.core_ctl_words; i += nt) ctl[i] = s_ctl[i];
+}
+
+// ---- host launchers (plain C interface, loaded with ctypes) -------------
+
+extern "C" size_t defrag_txn_smem_bytes(ArenaDesc d) {
+  const size_t nwords = (d.num_chunks + 31) / 32;
+  return (2 * (size_t)d.num_chunks + nwords + d.num_chunks / d.spc + 2)
+         * sizeof(int);
+}
+
+extern "C" int defrag_txn_launch(ArenaDesc d, int* mem, int* ctl,
+                                 const int* src, const int* dst,
+                                 const int* sizes, int M, void* stream) {
+  const size_t smem = defrag_txn_smem_bytes(d);
+  if (smem > 48 * 1024) {
+    int err = (int)cudaFuncSetAttribute(
+        (const void*)defrag_txn_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  defrag_txn_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(
+      d, mem, ctl, src, dst, sizes, M);
+  return (int)cudaGetLastError();
+}

@@ -2,8 +2,10 @@
 
 Each source in ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded
-with ``ctypes``.  Builds go to ``build/repro_torch/`` at the root of the
-checkout, named by a hash of the source and flags, so an unchanged source is never rebuilt.
+with ``ctypes``; the allocator kernels share ``csrc/arena_dev.cuh``.
+Builds go to ``build/repro_torch/`` at the root of the checkout, named
+by a hash of the source, the shared headers and the flags, so an
+unchanged source is never rebuilt.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: this module imports on machines
@@ -21,6 +23,7 @@ import time
 from typing import Dict, Iterable, Optional
 
 SOURCES = {"alloc_txn": "alloc_txn.cu",
+           "defrag_txn": "defrag_txn.cu",
            "paged_attention": "paged_attention.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -52,6 +55,8 @@ def nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (csrc_dir() / SOURCES[name]).read_bytes()
+    for header in sorted(csrc_dir().glob("*.cuh")):
+        src += header.read_bytes()
     tag = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 

@@ -2,9 +2,10 @@
 
 Each public function here routes by the device of its tensors: CUDA
 tensors launch the hand-written kernel (``kernels/alloc_txn.py``,
-``kernels/paged_attention.py``, which raise on anything the kernel does
-not take), CPU tensors run the kernel's plain PyTorch version.  There is
-no fallback from the card to the plain version.
+``kernels/defrag_txn.py``, ``kernels/paged_attention.py``, which raise
+on anything the kernel does not take), CPU tensors run the kernel's
+plain PyTorch version.  There is no fallback from the card to the plain
+version.
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
@@ -13,7 +14,8 @@ counts before such a run).
 """
 from __future__ import annotations
 
-LAUNCHES = {"alloc_txn": 0, "free_txn": 0, "paged_attention": 0}
+LAUNCHES = {"alloc_txn": 0, "free_txn": 0, "defrag_txn": 0,
+            "paged_attention": 0}
 
 
 def reset_launches() -> None:
@@ -50,6 +52,17 @@ def arena_free_txn(cfg, kind, family, mem, ctl, offsets_words, sizes_bytes,
         return
     from repro_torch.core.transactions import free_math
     free_math(cfg, kind, family, mem, ctl, offsets_words, sizes_bytes, mask)
+
+
+def arena_defrag_txn(cfg, kind, family, mem, ctl, src, dst, sizes):
+    """One whole migration wave, in place on ``mem``/``ctl``."""
+    if _on_cuda(mem):
+        from repro_torch.kernels import defrag_txn
+        defrag_txn.arena_defrag_txn(cfg, kind, family, mem, ctl, src, dst,
+                                    sizes)
+        return
+    from repro_torch.core.defrag import migrate_math
+    migrate_math(cfg, kind, family, mem, ctl, src, dst, sizes)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):

@@ -25,6 +25,11 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--defrag-threshold", type=float, default=None,
+                    metavar="RATIO",
+                    help="fire a proactive defrag wave when frag_ratio "
+                         "exceeds RATIO (0-1; default: only the "
+                         "allocation-failure retry defrags)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
@@ -43,7 +48,9 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
     eng = ServingEngine(model, params, max_batch=args.max_batch,
-                        max_seq=args.max_seq, device=device)
+                        max_seq=args.max_seq,
+                        defrag_threshold=args.defrag_threshold,
+                        device=device)
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         plen = int(rng.integers(4, args.max_seq // 4))

@@ -12,12 +12,15 @@ as in the reference; admission relies on that.  ``paged_attend1`` runs
 the paged attention kernel on the card and its plain version on the
 CPU (``kernels/ops.paged_attention``).
 
+``forwarding_page_map``/``apply_forwarding`` carry a defragmentation
+wave's forwarding table over to the KV heaps and the page table.
+
 Ported so far: bf16/float32 caches.  int8 pages with per-(slot, head)
 scales, ``window`` and ``ring`` tables are ROADMAP item A6.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -117,6 +120,49 @@ def prefill_write1(layer: KVLayer, page_table, k, v, pos0: int = 0
     pos = (pos0 + torch.arange(S, device=k.device))[None, :].expand(B, S)
     ids = _table_ids(page_table, pos // page)
     return _store(layer, ids, pos % page, k, v)
+
+
+def forwarding_page_map(fwd, wpp: int, max_span: int):
+    """Expand a defrag :class:`~repro_torch.core.defrag.Forwarding`
+    table to page granularity: ``(src_pids, dst_pids)`` int32 (−1
+    padded), one entry per migrated page.  ``max_span`` bounds pages
+    per extent (the allocator's ``words_per_chunk // wpp``)."""
+    k = fwd.sizes // (wpp * 4)
+    j = torch.arange(max_span, dtype=torch.int32,
+                     device=fwd.src.device)[None, :]
+    ok = (fwd.src >= 0)[:, None] & (j < k[:, None])
+    neg = torch.full_like(j, -1)
+    sp = torch.where(ok, fwd.src[:, None] // wpp + j, neg)
+    dp = torch.where(ok, fwd.dst[:, None] // wpp + j, neg)
+    return sp.reshape(-1).to(torch.int32), dp.reshape(-1).to(torch.int32)
+
+
+def apply_forwarding(kv: PagedKV, fwd, wpp: int,
+                     max_span: Optional[int] = None) -> PagedKV:
+    """Apply a defrag forwarding table to the paged cache, in place:
+    move the migrated pages' K/V rows of every layer to their new page
+    ids and rewrite every matching page-table entry, after which reads
+    through the table are identical to those before the wave.  Sources
+    and destinations are disjoint (the planner's guarantee).  Returns
+    ``kv`` (the same tensors).  ``max_span`` defaults to the table's
+    widest extent."""
+    if max_span is None:
+        max_span = max(1, int((fwd.sizes // (wpp * 4)).max()))
+    sp, dp = forwarding_page_map(fwd, wpp, max_span)
+    moved = sp >= 0
+    np_ = kv.layers.k.shape[1]
+    rows = moved & (dp < np_)          # as the reference: writes past drop
+    s = torch.clamp(sp[rows].long(), max=np_ - 1)
+    d = dp[rows].long()
+    for heap in kv.layers:
+        heap[:, d] = heap[:, s]
+    key = torch.where(moved, sp, torch.full_like(sp, -2))
+    hit = kv.page_table[:, :, None] == key[None, None, :]
+    new = torch.where(hit, dp[None, None, :],
+                      torch.zeros_like(dp)[None, None, :]).sum(-1)
+    kv.page_table.copy_(torch.where(hit.any(-1), new.to(torch.int32),
+                                    kv.page_table))
+    return kv
 
 
 def paged_attend1(layer: KVLayer, page_table, kv_len, q, wpp=None):

@@ -9,10 +9,19 @@ free; on the card each transaction is one CUDA kernel launch
 (``csrc/alloc_txn.cu``) and each layer's decode attention one launch of
 ``csrc/paged_attention.cu``.
 
-Host loop only: the fused decode mega-step (ROADMAP A9), defragmentation
-and eviction (A10), shards (A11), snapshot/restore (A13), tracer and
-metrics (A14) are still to port.  An allocation failure raises where
-the reference would run a defragmentation wave.
+When a grant fails the engine degrades instead of dying, as the
+reference does: it returns the transaction's partial grants, runs ONE
+defragmentation wave (``Ouroboros.defrag``: the plan on the card, then
+one launch of ``csrc/defrag_txn.cu``), remaps every page reference
+through the wave's forwarding table and retries once.  If that grant
+fails too, decode growth evicts the youngest slot (its pages freed, its
+request requeued at the front) and retries, and admission requeues the
+request.  ``defrag_threshold`` adds a proactive wave whenever the
+arena's ``frag_ratio`` exceeds it; ``cancel`` drops a request in any
+state.
+
+Host loop only: the fused decode mega-step (ROADMAP A9), shards (A11),
+snapshot/restore (A13), tracer and metrics (A14) are still to port.
 """
 from __future__ import annotations
 
@@ -43,10 +52,15 @@ class ServingEngine:
     def __init__(self, model: Model, params, *, max_batch: int = 8,
                  max_seq: int = 512, num_pages: Optional[int] = None,
                  kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
-                 device="cuda"):
+                 defrag_threshold: Optional[float] = None, device="cuda"):
         for name, v in (("max_batch", max_batch), ("max_seq", max_seq)):
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
+        if defrag_threshold is not None and not (
+                0.0 < float(defrag_threshold) < 1.0):
+            raise ValueError(
+                f"defrag_threshold must be None or a frag_ratio in "
+                f"(0, 1), got {defrag_threshold!r}")
         if kv_dtype not in (torch.bfloat16, torch.float32):
             raise NotImplementedError(
                 f"kv_dtype {kv_dtype} is not ported yet (ROADMAP A6)")
@@ -60,6 +74,8 @@ class ServingEngine:
         self.pps = -(-max_seq // self.page)
         self.num_pages = num_pages or max_batch * self.pps
         self.compute_dtype = compute_dtype
+        self.defrag_threshold = (None if defrag_threshold is None
+                                 else float(defrag_threshold))
         self.page_bytes = 256  # logical bytes per page in the heap
 
         # the paper's allocator manages the page-id space; its arena
@@ -77,12 +93,22 @@ class ServingEngine:
         self.slot_len = np.zeros(max_batch, np.int64)  # host truth
         self.waiting: List[Request] = []
         self._uid = 0
+        # admission ordinals: the youngest active slot is the eviction
+        # victim (it loses the least generated work)
+        self._admit_ord = np.zeros(max_batch, np.int64)
+        self._admit_counter = 0
         self.stats = {"allocs": 0, "frees": 0, "steps": 0,
                       "alloc_failures": 0,
                       "arena_mem_words": int(self.alloc_state.mem.numel()),
                       "arena_ctl_words": int(self.alloc_state.ctl.numel()),
                       # transactions issued: one kernel launch each
-                      "alloc_txns": 0, "free_txns": 0}
+                      "alloc_txns": 0, "free_txns": 0,
+                      # the allocation-failure path: waves run (one
+                      # defrag_txn launch each), of them fired past
+                      # defrag_threshold, pages they moved, slots
+                      # evicted and requeued, requests cancelled
+                      "defrag_waves": 0, "auto_defrag_waves": 0,
+                      "pages_migrated": 0, "evictions": 0, "cancels": 0}
         self.refresh_frag_stats()
 
     # ---- request lifecycle -------------------------------------------------
@@ -109,17 +135,16 @@ class ServingEngine:
         return [int(o) // self.wpp if o >= 0 else -1 for o in offs]
 
     def _alloc_pages(self, n_pages: int) -> List[int]:
-        """Bulk page grant.  On a failed lane the partial grants go
-        back, then this raises where the reference would run a
-        defragmentation wave and retry."""
+        """Bulk page grant with defragmentation recovery: if any lane
+        fails, return this transaction's partial grants, run ONE defrag
+        wave and retry once.  The retry's result is returned as it is
+        (−1 for a page still not granted)."""
         got = self._bulk_alloc(n_pages)
         if all(g >= 0 for g in got):
             return got
         self._bulk_free([g for g in got if g >= 0])
-        raise RuntimeError(
-            f"KV page heap exhausted ({sum(g < 0 for g in got)} of "
-            f"{n_pages} pages not granted); defragmentation and eviction "
-            f"are not ported yet (ROADMAP A10)")
+        self.defrag()
+        return self._bulk_alloc(n_pages)
 
     def _bulk_free(self, pages: List[int]):
         if not pages:
@@ -135,13 +160,21 @@ class ServingEngine:
         self.stats["frees"] += len(pages)
         self.stats["free_txns"] += 1
 
-    def _map_pages(self, slot: int, upto_tokens: int):
+    def _map_pages(self, slot: int, upto_tokens: int) -> bool:
         """Grow a slot's page table to cover ``upto_tokens`` positions
-        (admission path; decode growth coalesces in ``_grow_active``)."""
+        (admission path; decode growth coalesces in ``_grow_active``).
+        False, with the partial grants returned, when the heap cannot
+        hold them even after a defrag wave."""
         need = -(-upto_tokens // self.page)
         missing = need - len(self.slot_pages[slot])
-        if missing > 0:
-            self._map_granted([slot] * missing, self._alloc_pages(missing))
+        if missing <= 0:
+            return True
+        got = self._alloc_pages(missing)
+        if any(g < 0 for g in got):
+            self._bulk_free([g for g in got if g >= 0])
+            return False
+        self._map_granted([slot] * missing, got)
+        return True
 
     def _map_granted(self, slots: List[int], pages: List[int]):
         """Extend the slots' page tables with granted page ids (one
@@ -166,13 +199,58 @@ class ServingEngine:
         self.stats.update(fs)
         return fs
 
+    # ---- defragmentation (core/defrag.py) -----------------------------------
+
+    def defrag(self) -> int:
+        """Run one defragmentation wave on the KV allocator and remap
+        every page reference the engine holds through its forwarding
+        table (KV heaps, page table, slot page lists).  Returns the
+        pages migrated.  Runs on allocation failure and past
+        ``defrag_threshold``; operators may call it between steps."""
+        self.alloc_state, fwd = self.ouro.defrag(self.alloc_state)
+        moved = self._apply_forwarding(fwd)
+        self.stats["defrag_waves"] += 1
+        self.stats["pages_migrated"] += moved
+        self.refresh_frag_stats()
+        return moved
+
+    def _maybe_auto_defrag(self):
+        """One wave when ``frag_ratio`` exceeds ``defrag_threshold``
+        (checked after every step), counted also in
+        ``auto_defrag_waves``."""
+        if self.defrag_threshold is None:
+            return
+        if self.refresh_frag_stats()["frag_ratio"] > self.defrag_threshold:
+            self.defrag()
+            self.stats["auto_defrag_waves"] += 1
+
+    def _apply_forwarding(self, fwd) -> int:
+        """Remap the engine's page references through a forwarding
+        table: KV rows move old→new in place, page-table entries and
+        ``slot_pages`` are rewritten.  Returns the pages migrated."""
+        src = fwd.src.cpu()
+        if not bool((src >= 0).any()):
+            return 0
+        max_span = self.ouro.cfg.words_per_chunk // self.wpp
+        KV.apply_forwarding(self.caches.kv, fwd, self.wpp,
+                            max_span=max_span)
+        sp, dp = (x.cpu().tolist() for x in
+                  KV.forwarding_page_map(fwd, self.wpp, max_span))
+        mapping = {s: d for s, d in zip(sp, dp) if s >= 0}
+        for pages in self.slot_pages:
+            for i, p in enumerate(pages):
+                pages[i] = mapping.get(p, p)
+        return len(mapping)
+
     def _admit(self):
         for slot in range(self.max_batch):
             if self.slot_req[slot] is not None or not self.waiting:
                 continue
             req = self.waiting.pop(0)
             lp = len(req.prompt)
-            self._map_pages(slot, lp + 1)
+            if not self._map_pages(slot, lp + 1):
+                self.waiting.insert(0, req)  # heap full; retry later
+                break
             # prefill the admitted row alone: its own table row, the
             # shared heaps, seq_len 0 — the reference's padded batch with
             # the other rows' tables hidden writes exactly these pages
@@ -190,26 +268,87 @@ class ServingEngine:
             req.out_tokens.append(int(torch.argmax(logits[0])))
             self.slot_req[slot] = req
             self.slot_len[slot] = lp + 1
+            self._admit_counter += 1
+            self._admit_ord[slot] = self._admit_counter
+
+    # ---- graceful degradation: evict + requeue, cancel ----------------------
+
+    def _youngest_active(self) -> Optional[int]:
+        """The eviction victim: the most recently admitted active slot
+        (greedy decode replays its stream identically after
+        re-admission)."""
+        slots = [s for s in range(self.max_batch)
+                 if self.slot_req[s] is not None]
+        if not slots:
+            return None
+        return max(slots, key=lambda s: int(self._admit_ord[s]))
+
+    def _evict_slot(self, slot: int):
+        """Evict an active slot: free its pages, zero its state and push
+        its request to the FRONT of the waiting queue with its generated
+        tokens discarded (re-admission replays the identical stream).
+        Counted in ``stats["evictions"]``."""
+        req = self.slot_req[slot]
+        self._release(slot)
+        req.out_tokens = []
+        req.done = False
+        self.waiting.insert(0, req)
+        self.stats["evictions"] += 1
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a request between any two steps: one still waiting is
+        removed; an active one frees every page its slot holds; a
+        retired (or unknown) uid is a no-op returning False.  Returns
+        True iff a request was cancelled (``stats["cancels"]``)."""
+        for i, r in enumerate(self.waiting):
+            if r.uid == uid:
+                self.waiting.pop(i)
+                self.stats["cancels"] += 1
+                return True
+        for slot in range(self.max_batch):
+            r = self.slot_req[slot]
+            if r is not None and r.uid == uid:
+                self._release(slot)
+                self.stats["cancels"] += 1
+                return True
+        return False
 
     # ---- main loop -----------------------------------------------------------
-    def _grow_active(self, active: List[int]):
+    def _grow_active(self, active: List[int]) -> List[int]:
         """Decode-step page growth for ALL active slots as ONE bulk
-        alloc transaction."""
-        slots = []
-        for s in active:
-            need = -(-(int(self.slot_len[s]) + 1) // self.page)
-            slots.extend([s] * (need - len(self.slot_pages[s])))
-        if slots:
-            self._map_granted(slots, self._alloc_pages(len(slots)))
+        alloc transaction.  When the grant fails even after a defrag
+        wave, evicts the youngest slot and retries; never raises.
+        Returns the slots still active."""
+        active = list(active)
+        while True:
+            slots = []
+            for s in active:
+                need = -(-(int(self.slot_len[s]) + 1) // self.page)
+                slots.extend([s] * (need - len(self.slot_pages[s])))
+            if not slots:
+                return active
+            got = self._alloc_pages(len(slots))
+            if all(g >= 0 for g in got):
+                self._map_granted(slots, got)
+                return active
+            self._bulk_free([g for g in got if g >= 0])
+            victim = self._youngest_active()
+            if victim is None:
+                return active
+            self._evict_slot(victim)
+            if victim in active:
+                active.remove(victim)
 
     def _step_host(self) -> List[Request]:
-        """Grow pages, decode one token for every active slot (token ids,
-        not logits, come back to the host), retire finished requests."""
+        """Grow pages (evicting under exhaustion), decode one token for
+        every surviving slot (token ids, not logits, come back to the
+        host), retire finished requests."""
         active = [s for s in range(self.max_batch)
                   if self.slot_req[s] is not None]
         finished = []
         if active:
-            self._grow_active(active)
+            active = self._grow_active(active)
+        if active:
             toks = np.zeros((self.max_batch, 1), np.int64)
             for s in active:
                 toks[s, 0] = self.slot_req[s].out_tokens[-1]
@@ -235,6 +374,7 @@ class ServingEngine:
         self._admit()
         finished = self._step_host()
         self.stats["steps"] += 1
+        self._maybe_auto_defrag()
         return finished
 
     def _release(self, slot: int):
@@ -245,6 +385,7 @@ class ServingEngine:
         kv.seq_lens[slot] = 0
         self.slot_req[slot] = None
         self.slot_len[slot] = 0
+        self._admit_ord[slot] = 0
 
     def run_until_done(self, max_steps: int = 10000) -> List[Request]:
         out = []

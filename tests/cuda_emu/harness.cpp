@@ -1,10 +1,13 @@
 // Plain C entry points around the emulated kernels (loaded with ctypes
-// by tests/test_torch_cuda_emulated.py).  alloc_emu.inc and
-// attention_emu.inc are the kernel sources with their host launchers
-// cut off, written by the test before it compiles this file; the block
-// sizes and shared-memory sizes here repeat the launchers'.
+// by tests/test_torch_cuda_emulated.py).  alloc_emu.inc,
+// defrag_emu.inc and attention_emu.inc are the kernel sources with their
+// host launchers cut off, written by the test before it compiles this
+// file; the block sizes and shared-memory sizes here repeat the
+// launchers'.  The kernels' shared header (arena_dev.cuh) comes from the
+// source directory.
 #include "shim.h"
 #include "alloc_emu.inc"
+#include "defrag_emu.inc"
 #include "attention_emu.inc"
 
 static int block_threads(int n) {
@@ -29,6 +32,17 @@ extern "C" void emu_free_txn(ArenaDesc d, int* mem, int* ctl,
       sizeof(int);
   emu_launch(1, block_threads(n), smem, [&] {
     free_txn_kernel(d, mem, ctl, offs, sizes, mask, n);
+  });
+}
+
+extern "C" void emu_defrag_txn(ArenaDesc d, int* mem, int* ctl,
+                               const int* src, const int* dst,
+                               const int* sizes, int M, int threads) {
+  const int nc = d.num_chunks, nwords = (nc + 31) / 32;
+  const size_t smem =
+      (2 * (size_t)nc + nwords + nc / d.spc + 2) * sizeof(int);
+  emu_launch(1, threads, smem, [&] {
+    defrag_txn_kernel(d, mem, ctl, src, dst, sizes, M);
   });
 }
 

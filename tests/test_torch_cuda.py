@@ -101,3 +101,65 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, atol, wpp):
     with pytest.raises(TypeError):
         pa.paged_attention(args[0].float() if dtype != torch.float32
                            else args[0].bfloat16(), *args[1:], wpp=wpp)
+
+
+def _strand(o, k, page, per, n=16):
+    """Fill the heap with ``page``-byte pages, then free ``per`` pages in
+    each of the first ``k`` chunks (partially full chunks, none free)."""
+    dev = o.device
+    st, live = o.init(), []
+    sizes = torch.full((n,), page, dtype=torch.int32, device=dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    while True:
+        st, offs = o.alloc(st, sizes, ones)
+        got = [x for x in offs.tolist() if x >= 0]
+        if not got:
+            break
+        live += got
+    by_chunk = {}
+    for x in live:
+        by_chunk.setdefault(x // o.cfg.words_per_chunk, []).append(x)
+    drop = [x for c in sorted(by_chunk)[:k] for x in by_chunk[c][:per]]
+    for i in range(0, len(drop), n):
+        fo = torch.full((n,), -1, dtype=torch.int32)
+        fo[:len(drop[i:i + n])] = torch.tensor(drop[i:i + n],
+                                               dtype=torch.int32)
+        fo = fo.to(dev)
+        st = o.free(st, fo, sizes, fo >= 0)
+    return st
+
+
+@pytest.mark.parametrize("cfgkw,page,k,per,max_moves", [
+    (dict(total_bytes=1 << 15, chunk_bytes=1 << 11, min_page_bytes=64),
+     64, 12, 20, 128),
+    (dict(total_bytes=96 * 4096, chunk_bytes=4096, min_page_bytes=256),
+     256, 60, 1, 128),
+    # 64-B chunks: segment growth in the rebuild out of a dry pool
+    (dict(total_bytes=1 << 12, chunk_bytes=64, min_page_bytes=16),
+     16, 40, 1, 1),
+], ids=("test-defrag-cfg", "kv-geometry", "dry-pool-grow"))
+def test_defrag_kernel_matches_plain_math_word_for_word(cuda, cfgkw, page, k,
+                                                        per, max_moves):
+    """The same stranded arena on the card and on the CPU: plans equal,
+    then one ``defrag_txn`` launch leaves every word equal to
+    ``migrate_math``'s; a second wave over the result as well."""
+    o_gpu = Ouroboros(HeapConfig(**cfgkw), "vl_chunk", device=cuda)
+    o_cpu = Ouroboros(HeapConfig(**cfgkw), "vl_chunk", device="cpu")
+    sg, sc = _strand(o_gpu, k, page, per), _strand(o_cpu, k, page, per)
+    assert torch.equal(sg.mem.cpu(), sc.mem)
+    ops.reset_launches()
+    for wave in range(2):
+        sg, fg = o_gpu.defrag(sg, max_moves=max_moves)
+        sc, fc = o_cpu.defrag(sc, max_moves=max_moves)
+        for a, b in zip(fg, fc):
+            assert torch.equal(a.cpu(), b), wave
+        torch.cuda.synchronize()
+        assert torch.equal(sg.mem.cpu(), sc.mem), wave
+        assert torch.equal(sg.ctl.cpu(), sc.ctl), wave
+        if wave == 0:
+            assert int((fc.src >= 0).sum()) > 0
+    assert ops.LAUNCHES["defrag_txn"] == 2
+    with pytest.raises(ValueError):
+        from repro_torch.kernels import defrag_txn
+        defrag_txn.arena_defrag_txn(o_gpu.cfg, "chunk", "vl", sg.mem,
+                                    sg.ctl, fg.src[:-1], fg.dst, fg.sizes)

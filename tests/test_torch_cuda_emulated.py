@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import HeapConfig, Ouroboros
+from repro_torch.core import HeapConfig, Ouroboros, arena, defrag
 from repro_torch.kernels import ref
 from repro_torch.kernels.alloc_txn import ArenaDesc, descriptor
 
@@ -47,11 +47,14 @@ def emu(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_emu")
     (out / "alloc_emu.inc").write_text(
         _device_part((CSRC / "alloc_txn.cu").read_text()))
+    (out / "defrag_emu.inc").write_text(
+        _device_part((CSRC / "defrag_txn.cu").read_text()))
     (out / "attention_emu.inc").write_text(
         _device_part((CSRC / "paged_attention.cu").read_text()))
     lib = out / "libemu.so"
     cmd = [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-           f"-I{EMU / 'include'}", f"-I{EMU}", f"-I{out}", "-o", str(lib),
+           f"-I{EMU / 'include'}", f"-I{EMU}", f"-I{out}", f"-I{CSRC}",
+           "-o", str(lib),
            str(EMU / "harness.cpp")]
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if r.returncode != 0 and "c++20" in r.stderr.lower():
@@ -61,9 +64,11 @@ def emu(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     so.emu_alloc_txn.argtypes = [ArenaDesc, P, P, P, P, I, P]
     so.emu_free_txn.argtypes = [ArenaDesc, P, P, P, P, P, I]
+    so.emu_defrag_txn.argtypes = [ArenaDesc, P, P, P, P, P, I, I]
     so.emu_paged_attention.argtypes = [I, P, P, P, P, P, P] + [I] * 8 + [
         ctypes.c_float]
-    for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_paged_attention):
+    for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_defrag_txn,
+              so.emu_paged_attention):
         f.restype = None
     return so
 
@@ -119,6 +124,131 @@ def test_alloc_kernels_match_plain_math(emu, cfgkw, menu, n, ops_, bias):
                              _p(fm), n)
         assert torch.equal(mem, st.mem), f"mem differs after op {step}"
         assert torch.equal(ctl, st.ctl), f"ctl differs after op {step}"
+
+
+def _churn(o, st, rng, n, page, until_full, keep_every=5, rounds=14):
+    """The reference defrag test's churn: allocate (until the heap is
+    exhausted, or for ``rounds`` transactions), then free all but every
+    ``keep_every``-th grant in shuffled batches."""
+    sizes = torch.full((n,), page, dtype=torch.int32)
+    live, fails = [], 0
+    for step in range(200):
+        if (fails >= 2) if until_full else (step >= rounds):
+            break
+        st, offs = o.alloc(st, sizes, torch.from_numpy(rng.random(n) < 0.95))
+        got = [int(x) for x in offs.tolist() if x >= 0]
+        fails = fails + 1 if not got else 0
+        live += got
+    drop = [x for i, x in enumerate(live) if i % keep_every]
+    rng.shuffle(drop)
+    for i in range(0, len(drop), n):
+        fo = torch.full((n,), -1, dtype=torch.int32)
+        fo[:len(drop[i:i + n])] = torch.tensor(drop[i:i + n],
+                                               dtype=torch.int32)
+        st = o.free(st, fo, sizes, fo >= 0)
+    return st, live[::keep_every]
+
+
+def _emu_wave(emu, o, st, src, dst, sizes, threads):
+    """The emulated kernel on copies of the arena against
+    ``migrate_math`` on the arena itself."""
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    emu.emu_defrag_txn(descriptor(o.layout), _p(mem), _p(ctl), _p(src),
+                       _p(dst), _p(sizes), src.shape[0], threads)
+    defrag.migrate_math(o.cfg, o.kind, o.family, st.mem, st.ctl, src, dst,
+                        sizes)
+    assert torch.equal(mem, st.mem), \
+        f"mem differs at {torch.nonzero(mem != st.mem)[:8, 0].tolist()}"
+    assert torch.equal(ctl, st.ctl), \
+        f"ctl differs at {torch.nonzero(ctl != st.ctl)[:8, 0].tolist()}"
+
+
+@pytest.mark.parametrize("cfgkw,page,n,threads", [
+    (dict(total_bytes=1 << 15, chunk_bytes=1 << 11, min_page_bytes=64),
+     64, 16, 1024),
+    (dict(total_bytes=1 << 15, chunk_bytes=1 << 11, min_page_bytes=64),
+     128, 16, 64),
+    (dict(total_bytes=30 * 4096, chunk_bytes=4096, min_page_bytes=256),
+     256, 16, 256),
+    (dict(total_bytes=1 << 12, chunk_bytes=64, min_page_bytes=16),
+     16, 64, 128),
+], ids=("test-defrag-cfg", "class-1", "kv-geometry", "tiny-chunks"))
+def test_defrag_kernel_matches_plain_math(emu, cfgkw, page, n, threads):
+    """Churn until full, wave, churn again, wave: the kernel's words
+    equal ``migrate_math``'s after every wave."""
+    o = Ouroboros(HeapConfig(**cfgkw), "vl_chunk", device="cpu")
+    st = o.init()
+    rng = np.random.default_rng(11)
+    moved = 0
+    for wave in range(2):
+        st, _ = _churn(o, st, rng, n, page, until_full=(wave == 0))
+        src, dst, sizes = defrag.plan_math(o.cfg, o.kind, o.family, st.mem,
+                                           st.ctl)
+        moved += int((src >= 0).sum())
+        _emu_wave(emu, o, st, src, dst, sizes, threads)
+    assert moved > 0
+
+
+def _strand(o, k, n=16):
+    """Fill the heap with 16-B pages, then free one page in each of the
+    first ``k`` chunks: many partially full chunks, no free one."""
+    st, live = o.init(), []
+    sizes = torch.full((n,), 16, dtype=torch.int32)
+    while True:
+        st, offs = o.alloc(st, sizes, torch.ones(n, dtype=torch.bool))
+        got = [x for x in offs.tolist() if x >= 0]
+        if not got:
+            break
+        live += got
+    first = {}
+    for x in live:
+        first.setdefault(x // o.cfg.words_per_chunk, x)
+    drop = list(first.values())[:k]
+    for i in range(0, len(drop), n):
+        fo = torch.full((n,), -1, dtype=torch.int32)
+        fo[:len(drop[i:i + n])] = torch.tensor(drop[i:i + n],
+                                               dtype=torch.int32)
+        st = o.free(st, fo, sizes, fo >= 0)
+    return st
+
+
+@pytest.mark.parametrize("total_bytes,k,max_moves", [
+    (1 << 12, 40, 1), (1 << 12, 20, 2), (1 << 13, 40, 4)])
+def test_defrag_kernel_grows_segments_from_a_dry_pool(emu, total_bytes, k,
+                                                      max_moves):
+    """64-B chunks hold 15 queue ids per segment: a truncated wave over
+    dozens of partially full chunks grows class queues by whole
+    segments, and the rebuilt pool (only the old segment chunks) runs
+    dry, so pops past its inventory hand out NULL segments whose writes
+    wrap into the last chunk — all as the reference does."""
+    o = Ouroboros(HeapConfig(total_bytes=total_bytes, chunk_bytes=64,
+                             min_page_bytes=16), "vl_chunk", device="cpu")
+    st = _strand(o, k)
+    src, dst, sizes = defrag.plan_math(o.cfg, o.kind, o.family, st.mem,
+                                       st.ctl, max_moves=max_moves)
+    _emu_wave(emu, o, st, src, dst, sizes, 128)
+    q, ctx, _ = arena.unpack(o.layout, st)
+    assert int(ctx.pool.front[0]) > int(ctx.pool.back[0])     # ran dry
+    assert int(q.back[0]) > o.cfg.slots_per_segment("vl")     # grew
+
+
+def test_defrag_kernel_claims_unbound_destination_chunks(emu):
+    """A hand-built plan whose destinations lie in pool chunks (the
+    claim path), with a lane repeated chunk and an over-large lane."""
+    cfg = HeapConfig(total_bytes=1 << 15, chunk_bytes=1 << 11,
+                     min_page_bytes=64)
+    o = Ouroboros(cfg, "vl_chunk", device="cpu")
+    st, kept = _churn(o, o.init(), np.random.default_rng(9), 16, 64, False)
+    _, ctx, meta = arena.unpack(o.layout, st)
+    pool = defrag._pool_members(cfg, ctx.pool) & (meta.chunk_class < 0)
+    a, b = torch.nonzero(pool)[-2:, 0].tolist()
+    wpc = cfg.words_per_chunk
+    src = torch.tensor(kept[:4] + [-1, kept[4]], dtype=torch.int32)
+    dst = torch.tensor([a * wpc, a * wpc + 32, b * wpc + 64, a * wpc + 16,
+                        b * wpc, b * wpc + 128], dtype=torch.int32)
+    sizes = torch.tensor([64, 64, 64, 64, 64, 1 << 13], dtype=torch.int32)
+    _emu_wave(emu, o, st, src, dst, sizes, 64)
+    assert int(meta.chunk_class[a]) == 0 and int(meta.chunk_class[b]) == 0
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
