@@ -19,7 +19,14 @@ Phases, each reporting on its own lines:
    pages) and on the 65536-page arena, two waves each; per wave the plan
    on the card equals the plan on the CPU, the kernel's words equal the
    plain version's, and the wave leaves fewer bound chunks and a larger
-   largest free extent;
+   largest free extent.  Then the sharded kernels: ``sharded_alloc_txn``/
+   ``sharded_free_txn`` against the plain serial replay run on a second
+   arena on the card, on the engine's 4-shard arena for 256 pages (hashed
+   homes, per-lane hint arrays, every lane homed on shard 0 until lanes
+   are served at walk attempts 1-3), then ``sharded_defrag_txn``
+   compaction and cross-shard rebalance waves (plans identical); and a
+   4096-lane trace and both waves on the 4-shard arena for 65536 pages
+   against CPU copies;
 4. ``paged_attention`` against its plain version at qwen2-0.5b decode
    shapes (B 8, Hq 14, Hkv 2, D 64, page 16, P 32), ragged lengths and
    holes, page-id and word-offset tables, float32 and bf16 (both sides
@@ -38,10 +45,22 @@ Phases, each reporting on its own lines:
    run's, and the recorded alloc/free/defrag log replayed through the
    plain math on the CPU must end on the engine's words.  A small float32
    model is served on the card and on the CPU, unpressured and under the
-   same pressure, and must give the same tokens (and stats and words);
+   same pressure, and must give the same tokens (and stats and words).
+   Then the same requests through ``ServingEngine(num_shards=4)``: with
+   the reference sizing and ``rebalance_threshold`` 8 (rebalance waves
+   must fire), and under pressure (16 pages, the co-tenant, a second
+   co-tenant holding 128 pages, ``defrag_threshold`` 0.5: overflows to
+   neighbour shards, lanes served at walk attempts > 0, failed grants,
+   sharded defrag waves and evictions must all occur).  Each run's
+   tokens must equal the unpressured run's, its launches the engine's
+   counts (no single-arena allocator kernel launches), its shards must
+   drain, and its log replayed through the plain math on the CPU must
+   end on the engine's words;
 6. kernel times from ``torch.profiler`` (allocator and defrag kernels
    replayed at the engine's recorded inputs; defrag also at the
-   65536-page arena with M = 128), then one JSON line of per-kernel
+   65536-page arena with M = 128; the sharded kernels at the sharded
+   pressure run's inputs and on the 4-shard 65536-page arena), then one
+   JSON line of per-kernel
    numbers, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -54,6 +73,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +121,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 KERNEL_SYMBOLS = {"alloc_txn": "alloc_txn_kernel",
                   "free_txn": "free_txn_kernel",
                   "defrag_txn": "defrag_txn_kernel",
+                  "sharded_alloc_txn": "sharded_alloc_txn_kernel",
+                  "sharded_free_txn": "sharded_free_txn_kernel",
+                  "sharded_defrag_txn": "sharded_defrag_txn_kernel",
                   "paged_attention": "paged_attention_kernel"}
 
 
@@ -130,9 +153,13 @@ class DeviceProfile:
         return False
 
     def kernel(self, name: str):
-        """(mean ms per launch, launches) of the named kernel."""
-        us = sum(r[1] for r in self.rows if name in r[0])
-        n = sum(r[2] for r in self.rows if name in r[0])
+        """(mean ms per launch, launches) of the named kernel (the whole
+        symbol name: ``alloc_txn_kernel`` does not match
+        ``sharded_alloc_txn_kernel``)."""
+        pat = re.compile(r"(?:^|[^\w])" + re.escape(name) + r"\s*[(<]")
+        rows = [r for r in self.rows if r[0] == name or pat.search(r[0])]
+        us = sum(r[1] for r in rows)
+        n = sum(r[2] for r in rows)
         return (us / n / 1e3 if n else None), n
 
     def busy_ms(self) -> float:
@@ -284,14 +311,17 @@ def defrag_bound_ms(lay, before_mem, after_mem, src, sizes) -> float:
     the lanes, the ctl block, every chunk's free count and binding (the
     rebuild depends on all of them), each moved extent's source words and
     the bitmap words whose bits it flips.  Writes: every arena word the
-    wave changed, once, and the core ctl words."""
-    changed = after_mem != before_mem
+    wave changed, once, and the core ctl words.  ``lay`` is one arena's
+    layout; the words may be a sharded arena's (S, mem_words), whose S
+    arenas are each rebuilt."""
+    changed = (after_mem != before_mem).reshape(-1, lay.mem_words)
+    S = changed.shape[0]
     moved = int((sizes[src >= 0] // 4).sum())
     bm = lay.region("bitmap")
-    flipped = int(changed[bm.offset:bm.end].sum())
-    reads = (3 * src.shape[0] + lay.ctl_words + 2 * lay.cfg.num_chunks
-             + moved + flipped)
-    writes = int(changed.sum()) + lay.core_ctl_words
+    flipped = int(changed[:, bm.offset:bm.end].sum())
+    reads = (3 * src.shape[0] + S * lay.ctl_words
+             + 2 * S * lay.cfg.num_chunks + moved + flipped)
+    writes = int(changed.sum()) + S * lay.core_ctl_words
     return 4 * (reads + writes) / HBM_BYTES_PER_S * 1e3
 
 
@@ -442,7 +472,8 @@ def phase_attention(device):
 
 class RecordingOuroboros:
     """Delegates to the engine's allocator and keeps a CPU copy of every
-    transaction's lanes (and the offsets it granted)."""
+    transaction's lanes (and the offsets it granted, and the home-shard
+    hint of a sharded alloc) and of every wave's plan."""
 
     def __init__(self, ouro):
         self._ouro = ouro
@@ -451,9 +482,11 @@ class RecordingOuroboros:
     def __getattr__(self, name):
         return getattr(self._ouro, name)
 
-    def alloc(self, state, sizes, mask):
-        state, offs = self._ouro.alloc(state, sizes, mask)
-        self.log.append(("alloc", sizes.cpu(), mask.cpu(), offs.cpu()))
+    def alloc(self, state, sizes, mask, shard_hint=None):
+        kw = {} if shard_hint is None else {"shard_hint": shard_hint}
+        state, offs = self._ouro.alloc(state, sizes, mask, **kw)
+        hint = None if shard_hint is None else shard_hint.cpu()
+        self.log.append(("alloc", sizes.cpu(), mask.cpu(), offs.cpu(), hint))
         return state, offs
 
     def free(self, state, offs, sizes, mask):
@@ -465,6 +498,57 @@ class RecordingOuroboros:
         self.log.append(("defrag", fwd.src.cpu(), fwd.dst.cpu(),
                          fwd.sizes.cpu()))
         return state, fwd
+
+    def rebalance(self, state, max_moves=None):
+        state, fwd = self._ouro.rebalance(state, max_moves)
+        self.log.append(("rebalance", fwd.src.cpu(), fwd.dst.cpu(),
+                         fwd.sizes.cpu()))
+        return state, fwd
+
+
+WAVES = ("defrag", "rebalance")
+
+
+def kernel_of(ouro, kind: str) -> str:
+    """The kernel a recorded transaction or wave launches on the card."""
+    base = "defrag" if kind in WAVES else kind
+    return ("sharded_" if ouro.num_shards > 1 else "") + f"{base}_txn"
+
+
+def hint_kw(rec, dev=None):
+    if rec[0] != "alloc" or len(rec) < 5 or rec[4] is None:
+        return {}
+    return {"shard_hint": rec[4] if dev is None else rec[4].to(dev)}
+
+
+def plan_of(ouro, st, kind, max_moves):
+    """The plan a wave of ``kind`` makes on arena ``st``."""
+    from repro_torch.core import defrag, shards
+    args = (ouro.cfg, ouro.kind, ouro.family, st.mem, st.ctl)
+    if ouro.num_shards == 1:
+        return defrag.plan_math(*args, max_moves=max_moves)
+    S = ouro.num_shards
+    if kind == "rebalance":
+        return shards.rebalance_plan_math(ouro.cfg, S, *args[1:],
+                                          max_moves=max_moves)
+    return defrag.sharded_plan_math(ouro.cfg, S, *args[1:],
+                                    max_moves=max_moves)
+
+
+def migrate(ouro, st, src, dst, sizes):
+    """One wave with a given plan (the kernel on the card, the plain math
+    on the CPU)."""
+    from repro_torch.core import transactions as T
+    if ouro.num_shards == 1:
+        return T.migrate(ouro.cfg, ouro.kind, ouro.family, st, src, dst,
+                         sizes)
+    return T.sharded_migrate(ouro.cfg, ouro.num_shards, ouro.kind,
+                             ouro.family, st, src, dst, sizes)
+
+
+def shard_lay(ouro):
+    """One arena's layout (a shard's when sharded)."""
+    return ouro.layout if ouro.num_shards == 1 else ouro.layout.shard
 
 
 class CountingModel:
@@ -490,107 +574,186 @@ def make_requests(cfg, seed, n, lo, hi):
 
 
 def replay_plain(ouro, log_):
-    """Replay recorded transactions and defrag waves through the plain
-    math of a CPU allocator; returns (arena, (differing offsets and plan
-    words, their max absolute difference), per-wave byte bounds) against
-    what the engine's kernels granted and planned."""
-    from repro_torch.core import defrag
-    from repro_torch.core import transactions as T
+    """Replay recorded transactions and waves through the plain math of a
+    CPU allocator; returns (arena, (differing offsets and plan words,
+    their max absolute difference), per-wave byte bounds) against what
+    the engine's kernels granted and planned."""
     st = ouro.init()
     bad = {"words": 0, "max_abs": 0}
     bounds = []
     for rec in log_:
         if rec[0] == "alloc":
-            st, offs = ouro.alloc(st, rec[1], rec[2])
+            st, offs = ouro.alloc(st, rec[1], rec[2], **hint_kw(rec))
             merge_err(bad, word_err(rec[3], offs))
         elif rec[0] == "free":
             st = ouro.free(st, rec[1], rec[2], rec[3])
         else:
-            plan = defrag.plan_math(ouro.cfg, ouro.kind, ouro.family, st.mem,
-                                    st.ctl, max_moves=rec[1].shape[0])
+            plan = plan_of(ouro, st, rec[0], rec[1].shape[0])
             merge_err(bad, *(word_err(a, b) for a, b in zip(rec[1:], plan)))
             before = st.mem.clone()
-            st = T.migrate(ouro.cfg, ouro.kind, ouro.family, st, *rec[1:])
-            bounds.append(defrag_bound_ms(ouro.layout, before, st.mem,
+            st = migrate(ouro, st, *rec[1:4])
+            bounds.append(defrag_bound_ms(shard_lay(ouro), before, st.mem,
                                           rec[1], rec[3]))
     return st, (bad["words"], bad["max_abs"]), bounds
 
 
-def replay_kernels(ouro, log_):
+def profiled(session, made, tries=3):
+    """Device time of the kernels in ``made`` ({kernel: launches made})
+    from ``session()``, which runs the work under a ``DeviceProfile``
+    and returns it: {kernel: (mean ms per launch, launches recorded)}.
+    The profiler can drop a launch's record (and has dropped a whole
+    session's), never add one: a session that records no launch of some
+    kernel is run again, up to ``tries`` sessions."""
+    for _ in range(tries):
+        prof = session()
+        got = {k: prof.kernel(KERNEL_SYMBOLS[k]) for k in made}
+        over = {k: n for k, (_, n) in got.items() if n > made[k]}
+        if over:
+            raise AssertionError(f"profiler saw more launches than were "
+                                 f"made: {over} of {made}")
+        if all(n for _, n in got.values()):
+            return got
+    raise AssertionError(f"profiler recorded no launch of "
+                         f"{[k for k, (_, n) in got.items() if not n]} in "
+                         f"{tries} sessions ({made} made in each)")
+
+
+def replay_kernels(ouro, log_, start=0):
     """Replay recorded transactions on a fresh arena on the card, inputs
-    staged first.  Returns {kind: (mean device ms per launch as
-    ``torch.profiler`` reports it, launches it reported, launches
-    made)}; the profiler can drop a launch's record, never add one."""
-    from repro_torch.core import transactions as T
-    st = ouro.init()
-    dev = st.mem.device
-    staged = [(rec[0], [x.to(dev) for x in rec[1:4]]) for rec in log_]
-    with DeviceProfile() as prof:
-        for kind, args in staged:
+    staged first, the records before ``start`` outside the profiler.
+    Returns {kind: (mean device ms per launch as ``torch.profiler``
+    reports it, launches it reported, launches made)} of the profiled
+    records, waves of both kinds under "defrag"."""
+    dev = ouro.device
+    staged = [(rec[0], [x.to(dev) for x in rec[1:4]], hint_kw(rec, dev))
+              for rec in log_]
+
+    def run(st, records):
+        for kind, args, kw in records:
             if kind == "alloc":
-                ouro.alloc(st, args[0], args[1])
+                ouro.alloc(st, args[0], args[1], **kw)
             elif kind == "free":
                 ouro.free(st, *args)
             else:
-                T.migrate(ouro.cfg, ouro.kind, ouro.family, st, *args)
-    out = {}
+                migrate(ouro, st, *args)
+
+    def session():
+        st = ouro.init()
+        run(st, staged[:start])
+        with DeviceProfile() as prof:
+            run(st, staged[start:])
+        return prof
+
+    made = {}
     for kind in ("alloc", "free", "defrag"):
-        want = sum(k == kind for k, _ in staged)
-        if want == 0:
-            continue
-        ms, n = prof.kernel(KERNEL_SYMBOLS[f"{kind}_txn"])
-        if not 0 < n <= want:
-            raise AssertionError(f"profiler saw {n} {kind}_txn launches with "
-                                 f"device time, {want} were made")
-        out[kind] = (ms, n, want)
-    return out
+        want = sum((k in WAVES if kind == "defrag" else k == kind)
+                   for k, _, _ in staged[start:])
+        if want:
+            made[kind] = (kernel_of(ouro, kind), want)
+    got = profiled(session, dict(made.values()))
+    return {kind: (*got[name], want) for kind, (name, want) in made.items()}
 
 
-def time_plain_txns(ouro, log_):
+def time_plain_txns(ouro, log_, start=0):
     """The plain math on the card's tensors, each recorded transaction
     timed with CUDA events (it reads scalars back, so it syncs).
-    Returns {kind: [ms, ...]} (defrag waves under "defrag")."""
+    Returns {kind: [ms, ...]} of the records from ``start`` on (waves of
+    both kinds under "defrag")."""
     import torch
+    from repro_torch.core import defrag, shards
     from repro_torch.core import transactions as T
-    from repro_torch.core import defrag
     st = ouro.init()
     out = {"alloc": [], "free": [], "defrag": []}
     dev = st.mem.device
-    for rec in log_:
+    S = ouro.num_shards
+    base = (ouro.kind, ouro.family, st.mem, st.ctl)
+    for i, rec in enumerate(log_):
         args = [x.to(dev) for x in rec[1:4]]
         a, b = _events()
         a.record()
-        if rec[0] == "alloc":
-            T.alloc_math(ouro.cfg, ouro.kind, ouro.family, st.mem, st.ctl,
-                         args[0], args[1])
+        if rec[0] == "alloc" and S == 1:
+            T.alloc_math(ouro.cfg, *base, args[0], args[1])
+        elif rec[0] == "alloc":
+            home = shards.home_shards(args[0].shape[0], S,
+                                      hint_kw(rec, dev).get("shard_hint"),
+                                      device=dev)
+            T.sharded_alloc_math(ouro.cfg, S, *base, args[0], args[1], home,
+                                 ouro.walk)
+        elif rec[0] == "free" and S == 1:
+            T.free_math(ouro.cfg, *base, *args)
         elif rec[0] == "free":
-            T.free_math(ouro.cfg, ouro.kind, ouro.family, st.mem, st.ctl,
-                        *args)
+            T.sharded_free_math(ouro.cfg, S, *base, *args)
+        elif S == 1:
+            defrag.migrate_math(ouro.cfg, *base, *args)
         else:
-            defrag.migrate_math(ouro.cfg, ouro.kind, ouro.family, st.mem,
-                                st.ctl, *args)
+            defrag.sharded_migrate_math(ouro.cfg, S, *base, *args)
         b.record()
         torch.cuda.synchronize()
-        out[rec[0]].append(a.elapsed_time(b))
+        if i >= start:
+            out["defrag" if rec[0] in WAVES else rec[0]].append(
+                a.elapsed_time(b))
     return out
 
 
-def txn_bound_ms(ouro_cpu, log_):
-    """Per-transaction least time (bytes): lane inputs and outputs, the
-    ctl block read and written, and every arena word the transaction
-    changed read and written once, at the device memory rate."""
+def reached_shards(ouro, rec, offs) -> int:
+    """Shards whose ctl block a transaction needs: for an alloc, the
+    shards that serve a selected lane of a valid size at some (attempt,
+    shard) step of the walk (a lane served at attempt a_i is selected at
+    attempts 0..a_i, an unserved one at every attempt); for a free, the
+    shards that own a freed offset.  One arena counts as one shard when
+    any such lane is selected."""
     import torch
+    from repro_torch.core import shards
+    from repro_torch.core.heap import size_to_class_device
+    S = ouro.num_shards
+    sizes, mask = rec[1:3] if rec[0] == "alloc" else rec[2:4]
+    valid = size_to_class_device(ouro.cfg, sizes) < shard_lay(ouro).num_classes
+    mask = mask & valid
+    if S == 1:
+        return int(bool(mask.any()))
+    Ws = ouro.shard_cfg.total_words
+    owner = torch.div(offs.long(), Ws, rounding_mode="floor")
+    if rec[0] == "free":
+        return int(torch.unique(owner[mask & (offs >= 0)]).numel())
+    home = shards.home_shards(mask.shape[0], S,
+                              hint_kw(rec).get("shard_hint"),
+                              device="cpu").long()
+    served_at = torch.where(offs >= 0, (owner - home) % S,
+                            torch.full_like(home, ouro.walk))
+    reached = set()
+    for a in range(ouro.walk + 1):
+        sel = mask & (served_at >= a)
+        reached.update(((home[sel] + a) % S).tolist())
+    return len(reached)
+
+
+def txn_bound_ms(ouro_cpu, log_, start=0):
+    """Per-transaction least time (bytes) of the records from ``start``
+    on: lane inputs and outputs, the ctl blocks of the shards the
+    transaction reaches read and written, and every arena word it
+    changed read and written once, at the device memory rate.  Waves in
+    the log, and the records before ``start``, are applied, not
+    bounded."""
     st = ouro_cpu.init()
-    lay = ouro_cpu.layout
+    S = ouro_cpu.num_shards
+    ctl_words = shard_lay(ouro_cpu).ctl_words
     out = {"alloc": [], "free": []}
-    for rec in log_:
+    for i, rec in enumerate(log_):
+        if rec[0] in WAVES:
+            st = migrate(ouro_cpu, st, *rec[1:4])
+            continue
         before = st.mem.clone()
-        if rec[0] == "alloc":  # sizes + mask in, offsets out
-            st, _ = ouro_cpu.alloc(st, rec[1], rec[2])
+        if rec[0] == "alloc":  # sizes + mask (+ homes) in, offsets out
+            st, offs = ouro_cpu.alloc(st, rec[1], rec[2], **hint_kw(rec))
+            lane = 9 if S == 1 else 13
         else:                  # offsets + sizes + mask in
             st = ouro_cpu.free(st, rec[1], rec[2], rec[3])
+            offs, lane = rec[1], 9
+        if i < start:
+            continue
         changed = int((st.mem != before).sum())
-        nbytes = 9 * rec[1].shape[0] + 8 * lay.ctl_words + 8 * changed
+        ctl = 8 * ctl_words * reached_shards(ouro_cpu, rec, offs)
+        nbytes = lane * rec[1].shape[0] + ctl + 8 * changed
         out[rec[0]].append(nbytes / HBM_BYTES_PER_S * 1e3)
     return out
 
@@ -654,6 +817,10 @@ def phase_serve(device, seed):
         raise AssertionError(f"allocator launches {launches} != "
                              f"transactions {st['alloc_txns']}/"
                              f"{st['free_txns']}")
+    if any(launches[k] for k in ("sharded_alloc_txn", "sharded_free_txn",
+                                 "sharded_defrag_txn")):
+        raise AssertionError(f"a single-arena engine launched a sharded "
+                             f"kernel: {launches}")
     want_pa = cfg.num_layers * counting.decode_calls
     if launches["paged_attention"] != want_pa:
         raise AssertionError(f"paged_attention launches "
@@ -764,7 +931,8 @@ def phase_pressure(device, serve):
     if not bool((eng.caches.kv.page_table == -1).all()):
         raise AssertionError("page table not all holes after draining")
     want_l = {"alloc_txn": st["alloc_txns"], "free_txn": st["free_txns"],
-              "defrag_txn": st["defrag_waves"],
+              "defrag_txn": st["defrag_waves"], "sharded_alloc_txn": 0,
+              "sharded_free_txn": 0, "sharded_defrag_txn": 0,
               "paged_attention": eng.cfg.num_layers * counting.decode_calls}
     if launches != want_l:
         raise AssertionError(f"launches {launches} != the engine's counts "
@@ -789,38 +957,383 @@ def phase_pressure(device, serve):
 
 
 def time_defrag_waves(ouro, waves, reps=5):
-    """``defrag_txn`` on recorded pre-wave arenas: (mean device ms per
+    """The wave kernel (``defrag_txn``, or ``sharded_defrag_txn`` for a
+    sharded arena) on recorded pre-wave arenas: (mean device ms per
     launch from ``torch.profiler``, launches it reported, launches made,
-    mean ms of ``migrate_math`` on the card's tensors by CUDA events).
+    mean ms of the plain math on the card's tensors by CUDA events).
     Each launch starts from a copy of the pre-wave words."""
     import torch
     from repro_torch.core import defrag
-    from repro_torch.kernels import defrag_txn
-    cfg = ouro.cfg
+    from repro_torch.core.shards import ShardedArena
+    from repro_torch.core.arena import Arena
+    cfg, S = ouro.cfg, ouro.num_shards
     mem, ctl = (torch.empty_like(t) for t in waves[0]["pre"])
-    with DeviceProfile() as prof:
-        for w in waves:
-            for _ in range(reps):
-                mem.copy_(w["pre"][0])
-                ctl.copy_(w["pre"][1])
-                defrag_txn.arena_defrag_txn(cfg, "chunk", "vl", mem, ctl,
-                                            *w["plan"])
-    ms, n = prof.kernel(KERNEL_SYMBOLS["defrag_txn"])
+    st = (Arena if S == 1 else ShardedArena)(mem, ctl)
+
+    def session():
+        with DeviceProfile() as prof:
+            for w in waves:
+                for _ in range(reps):
+                    mem.copy_(w["pre"][0])
+                    ctl.copy_(w["pre"][1])
+                    migrate(ouro, st, *w["plan"])
+        return prof
+
+    name = kernel_of(ouro, "defrag")
     made = reps * len(waves)
-    if not 0 < n <= made:
-        raise AssertionError(f"profiler saw {n} defrag_txn launches with "
-                             f"device time, {made} were made")
+    ms, n = profiled(session, {name: made})[name]
     plain = []
     for w in waves:
         mem.copy_(w["pre"][0])
         ctl.copy_(w["pre"][1])
         a, b = _events()
         a.record()
-        defrag.migrate_math(cfg, "chunk", "vl", mem, ctl, *w["plan"])
+        if S == 1:
+            defrag.migrate_math(cfg, "chunk", "vl", mem, ctl, *w["plan"])
+        else:
+            defrag.sharded_migrate_math(cfg, S, "chunk", "vl", mem, ctl,
+                                        *w["plan"])
         b.record()
         torch.cuda.synchronize()
         plain.append(a.elapsed_time(b))
     return ms, n, made, sum(plain) / len(plain)
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (sharded): the sharded kernels vs the plain replays
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+SHARD_MODES = (("hashed", 12), ("hinted", 12), ("exhausting", 28))
+
+
+def sharded_hint(rng, mode, lanes):
+    """A sharded alloc's ``shard_hint``: hashed homes, per-lane arrays
+    (negative and >= S values included), or every lane on shard 0."""
+    import numpy as np
+    if mode == "hashed":
+        return None
+    if mode == "hinted":
+        return rng.integers(-SHARDS, 2 * SHARDS, lanes).astype(np.int32)
+    return np.zeros(lanes, np.int32)
+
+
+def walk_bins(ouro, ctl):
+    """Served lanes per overflow-walk attempt, summed over shards."""
+    lay = shard_lay(ouro)
+    return ctl[:, lay.off_t_walk:lay.off_t_walk + SHARDS].sum(0).tolist()
+
+
+def phase_sharded(device, seed=0):
+    """``sharded_alloc_txn``/``sharded_free_txn``/``sharded_defrag_txn``
+    against their plain versions run on a second arena on the card:
+    seeded traces on the engine's 4-shard arena for 256 pages (hashed
+    homes, per-lane hints, every lane homed on shard 0 until lanes are
+    served at walk attempts 1-3), then sharded compaction and rebalance
+    waves; then a 4096-lane trace and waves on the 4-shard arena for
+    65536 pages against CPU copies.  Returns (per-transaction logs and
+    pre-wave states for phase 6, the measured word errors)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import defrag, shards
+    from repro_torch.core import transactions as T
+    from repro_torch.paged.kv_cache import make_kv_allocator
+
+    ouro, _, _ = make_kv_allocator(256, device=device, num_shards=SHARDS)
+    cfg, S = ouro.cfg, SHARDS
+    log(f"phase 3: sharded arena {S} x {ouro.layout.mem_words} mem words, "
+        f"{S} x {ouro.shard_cfg.num_chunks} chunks, walk {ouro.walk}")
+    errs = {k: {"words": 0, "max_abs": 0} for k in ("alloc", "free",
+                                                   "defrag")}
+    rng = np.random.default_rng(seed + 7)
+    lanes = 16
+    waves = []
+
+    def check(kind, what, sk, sp, offs=None):
+        torch.cuda.synchronize()
+        e = [word_err(sk.mem, sp.mem), word_err(sk.ctl, sp.ctl)]
+        if offs is not None:
+            e.append(word_err(*offs))
+        merge_err(errs[kind], *e)
+        if any(n for n, _ in e):
+            raise AssertionError(f"{what}: {e[0][0]} mem / {e[1][0]} ctl "
+                                 f"words / {e[2][0] if offs else 0} offsets "
+                                 f"differ from the plain version")
+
+    for mode, n_ops in SHARD_MODES:
+        sk, sp = ouro.init(), ouro.init()   # kernel / plain, both on card
+        live = []
+        for i in range(n_ops):
+            if live and i % 4 == 3:
+                k = min(len(live), int(rng.integers(1, lanes + 1)))
+                pick = set(rng.choice(len(live), k, replace=False).tolist())
+                drop = [x for j, x in enumerate(live) if j in pick]
+                live = [x for j, x in enumerate(live) if j not in pick]
+                fo = np.full(lanes, -1, np.int32)
+                fs = np.zeros(lanes, np.int32)
+                fo[:k] = [a for a, _ in drop]
+                fs[:k] = [b for _, b in drop]
+                perm = rng.permutation(lanes)
+                fo_t = torch.from_numpy(fo[perm]).to(device)
+                fs_t = torch.from_numpy(fs[perm]).to(device)
+                ouro.free(sk, fo_t, fs_t, fo_t >= 0)
+                T.sharded_free_math(cfg, S, "chunk", "vl", sp.mem, sp.ctl,
+                                    fo_t, fs_t, fo_t >= 0)
+                check("free", f"sharded free ({mode}, op {i})", sk, sp)
+                continue
+            sizes = torch.from_numpy(rng.choice(SIZE_MENU, lanes, p=SIZE_P)
+                                     .astype(np.int32)).to(device)
+            mask = torch.from_numpy(rng.random(lanes) < 0.9).to(device)
+            hint = sharded_hint(rng, mode, lanes)
+            hint_t = None if hint is None else torch.from_numpy(hint).to(
+                device)
+            _, offs_k = ouro.alloc(sk, sizes, mask, shard_hint=hint_t)
+            home = shards.home_shards(lanes, S, hint_t, device=device)
+            _, _, offs_p = T.sharded_alloc_math(cfg, S, "chunk", "vl",
+                                                sp.mem, sp.ctl, sizes, mask,
+                                                home, ouro.walk)
+            check("alloc", f"sharded alloc ({mode}, op {i})", sk, sp,
+                  (offs_k, offs_p))
+            live += [(o, b) for o, b in zip(offs_p.tolist(),
+                                            sizes.tolist()) if o >= 0]
+        bins = walk_bins(ouro, sk.ctl)
+        log(f"phase 3: sharded {mode}: {n_ops} transactions, 0 differing "
+            f"words and offsets; lanes served per walk attempt {bins}")
+        if mode == "exhausting" and not all(b > 0 for b in bins):
+            raise AssertionError(f"the walk did not reach attempt 3: {bins}")
+    # waves on the exhausted arena, compaction then rebalance; then two of
+    # three live grants freed and both waves again
+    for rnd in range(2):
+        if rnd:
+            drop = [x for j, x in enumerate(live) if j % 3]
+            live = [x for j, x in enumerate(live) if not j % 3]
+            for i in range(0, len(drop), lanes):
+                fo = np.full(lanes, -1, np.int32)
+                fs = np.zeros(lanes, np.int32)
+                part = drop[i:i + lanes]
+                fo[:len(part)] = [o for o, _ in part]
+                fs[:len(part)] = [b for _, b in part]
+                fo_t = torch.from_numpy(fo).to(device)
+                fs_t = torch.from_numpy(fs).to(device)
+                ouro.free(sk, fo_t, fs_t, fo_t >= 0)
+                T.sharded_free_math(cfg, S, "chunk", "vl", sp.mem, sp.ctl,
+                                    fo_t, fs_t, fo_t >= 0)
+                check("free", "sharded free before waves", sk, sp)
+        for kind in WAVES:
+            pre = (sk.mem.clone(), sk.ctl.clone())
+            plan_k = plan_of(ouro, sk, kind, ouro._moves(None))
+            plan_p = plan_of(ouro, sp, kind, ouro._moves(None))
+            for a, b in zip(plan_k, plan_p):
+                merge_err(errs["defrag"], word_err(a, b))
+            live_w = shards.shard_live_words(cfg, S, "chunk", "vl", sk.mem,
+                                             sk.ctl).tolist()
+            before = sp.mem.clone()
+            migrate(ouro, sk, *plan_k)
+            defrag.sharded_migrate_math(cfg, S, "chunk", "vl", sp.mem,
+                                        sp.ctl, *plan_p)
+            check("defrag", f"sharded {kind} wave {rnd}", sk, sp)
+            moves = int((plan_p[0] >= 0).sum())
+            live_after = shards.shard_live_words(cfg, S, "chunk", "vl",
+                                                 sp.mem, sp.ctl).tolist()
+            log(f"phase 3: sharded {kind} wave {rnd}: {moves} moves, plan "
+                f"identical, 0 differing words; live words per shard "
+                f"{live_w} -> {live_after}")
+            waves.append(dict(kind=kind, moves=moves, pre=pre, plan=plan_k,
+                              bound=defrag_bound_ms(
+                                  shard_lay(ouro), before.cpu(),
+                                  sp.mem.cpu(), plan_p[0].cpu(),
+                                  plan_p[2].cpu())))
+            held = defrag.forward_offsets(
+                defrag.Forwarding(*plan_p),
+                torch.tensor([o for o, _ in live], dtype=torch.int32,
+                             device=device))
+            live = [(o, b) for o, (_, b) in zip(held.tolist(), live)]
+    for kind in WAVES:
+        if not sum(w["moves"] for w in waves if w["kind"] == kind):
+            raise AssertionError(f"no sharded {kind} wave moved a page")
+
+    # the 4-shard arena for 65536 pages: a 4096-lane trace against CPU
+    # copies, then churn on the card and a compaction and a rebalance wave
+    big, _, _ = make_kv_allocator(65536, device=device, num_shards=S)
+    big_cpu, _, _ = make_kv_allocator(65536, device="cpu", num_shards=S)
+    sk, sc = big.init(), big_cpu.init()
+    big_log, live = [], []
+    for op in alloc_trace(rng, 6, 4096):
+        if op[0] == "alloc":
+            sizes, mask = torch.from_numpy(op[1]), torch.from_numpy(op[2])
+            sc, oc = big_cpu.alloc(sc, sizes, mask)
+            _, ok_ = big.alloc(sk, sizes.to(device), mask.to(device))
+            check("alloc", "sharded alloc, 65536 pages", sk, sc, (ok_, oc))
+            big_log.append(("alloc", sizes, mask, oc, None))
+            live += [(o, b) for o, b in zip(oc.tolist(), op[1].tolist())
+                     if o >= 0]
+        else:
+            k = min(op[1], len(live))
+            fo = np.full(4096, -1, np.int32)
+            fs = np.zeros(4096, np.int32)
+            fo[:k] = [o for o, _ in live[:k]]
+            fs[:k] = [b for _, b in live[:k]]
+            live = live[k:]
+            fo_t, fs_t = torch.from_numpy(fo), torch.from_numpy(fs)
+            sc = big_cpu.free(sc, fo_t, fs_t, fo_t >= 0)
+            big.free(sk, fo_t.to(device), fs_t.to(device),
+                     (fo_t >= 0).to(device))
+            check("free", "sharded free, 65536 pages", sk, sc)
+            big_log.append(("free", fo_t, fs_t, fo_t >= 0))
+    log(f"phase 3: sharded 65536 pages ({S} x {big.shard_cfg.num_chunks} "
+        f"chunks), 4096 lanes: {len(big_log)} transactions, 0 differing "
+        f"words and offsets")
+    big_waves = []
+    sk = churn(big, big.init(), rng, 4096, 256, until_full=True)
+    for kind in WAVES:
+        sc = type(sk)(sk.mem.cpu(), sk.ctl.cpu())
+        pre = (sk.mem.clone(), sk.ctl.clone())
+        plan_k = plan_of(big, sk, kind, big._moves(None))
+        plan_c = plan_of(big_cpu, sc, kind, big._moves(None))
+        for a, b in zip(plan_k, plan_c):
+            merge_err(errs["defrag"], word_err(a, b))
+        before = sc.mem.clone()
+        migrate(big, sk, *plan_k)
+        migrate(big_cpu, sc, *plan_c)
+        check("defrag", f"sharded {kind} wave, 65536 pages", sk, sc)
+        moves = int((plan_c[0] >= 0).sum())
+        log(f"phase 3: sharded {kind} wave, 65536 pages: {moves} moves, "
+            f"plan identical, 0 differing words")
+        if not moves:
+            raise AssertionError(f"the 65536-page {kind} wave moved nothing")
+        big_waves.append(dict(kind=kind, moves=moves, pre=pre, plan=plan_k,
+                              bound=defrag_bound_ms(shard_lay(big), before,
+                                                    sc.mem, plan_c[0],
+                                                    plan_c[2])))
+    for kind, e in errs.items():
+        log(f"phase 3: sharded {kind}: {e['words']} differing words in all")
+    return dict(waves=waves, big_log=big_log, big_waves=big_waves), errs
+
+
+# ---------------------------------------------------------------------------
+# phase 5 (sharded): serve the same requests through num_shards=4
+# ---------------------------------------------------------------------------
+
+HOLDER_PAGES = 128
+SHARDED_RUNS = (
+    # the reference sizing (4 shards x 12 chunks); a threshold that fires
+    ("rebalance", dict(num_pages=256, num_shards=SHARDS,
+                       rebalance_threshold=8), False, ("rebalance_waves",)),
+    # phase 5's pressure settings gave no failed grant at 4 shards (96
+    # pages: 4 x 10 chunks), nor did 16 or 64 pages with the co-tenant
+    # alone (no eviction); a second co-tenant holding 128 x 256-B pages
+    # live for the whole run makes every counter fire
+    ("pressure", dict(num_pages=16, num_shards=SHARDS, defrag_threshold=0.5),
+     True, ("alloc_failures", "alloc_overflows", "defrag_waves",
+            "evictions")),
+)
+
+
+def holder(eng, n=HOLDER_PAGES):
+    """A co-tenant that takes ``n`` 256-B pages (hashed homes) and holds
+    them for the whole run."""
+    import torch
+    dev = eng.device
+    sizes = torch.full((n,), 256, dtype=torch.int32, device=dev)
+    eng.alloc_state, offs = eng.ouro.alloc(
+        eng.alloc_state, sizes, torch.ones(n, dtype=torch.bool, device=dev))
+    return int((offs >= 0).sum())
+
+
+def phase_sharded_serve(device, serve):
+    """Phase 5's requests through ``ServingEngine(num_shards=4)``: with
+    rebalance waves, and under pressure (overflows, failed grants,
+    sharded defrag waves, evictions).  Every uid's tokens equal phase
+    5's; launches equal the engine's counts; the recorded log replayed
+    through the plain math on the CPU ends on the engine's words."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    from repro_torch.serve.engine import ServingEngine
+
+    base = serve["engine"]
+    out = {}
+    for name, kw, pressured, must in SHARDED_RUNS:
+        eng = ServingEngine(base.model._model, base.params, max_batch=8,
+                            max_seq=512, kv_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16, device=device,
+                            **kw)
+        rec = RecordingOuroboros(eng.ouro)
+        eng.ouro = rec
+        counting = CountingModel(eng.model)
+        eng.model = counting
+        held = (cotenant(eng), holder(eng)) if pressured else None
+        start = len(rec.log)  # the engine's own records begin here
+        for p in serve["prompts"]:
+            eng.submit(p, max_new_tokens=32)
+        bins0 = walk_bins(eng.ouro, eng.alloc_state.ctl)
+        torch.cuda.synchronize()
+
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        st = dict(eng.stats)
+        bins = [b - a for a, b in zip(bins0, walk_bins(eng.ouro,
+                                                       eng.alloc_state.ctl))]
+        toks = sum(len(r.out_tokens) for r in done)
+        log(f"phase 5: sharded {name} ({kw}"
+            + (f", co-tenants {held[0]} x {COTENANT_BYTES} B freed and "
+               f"{held[1]} x 256 B held" if held else "")
+            + f"): served {len(done)} requests, {toks} tokens, "
+            f"{st['steps']} steps in {wall:.2f} s: {toks / wall:.1f} tok/s")
+        log(f"phase 5: sharded {name}: stats {json.dumps(st)}")
+        log(f"phase 5: sharded {name}: launches {json.dumps(launches)}; "
+            f"lanes served per walk attempt in the run {bins}")
+        got = {r.uid: r.out_tokens for r in done}
+        want = serve["tokens"]
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"sharded {name}: served uids "
+                                 f"{sorted(got)} != {sorted(want)}")
+        for uid in sorted(want):
+            if got[uid] != want[uid]:
+                raise AssertionError(f"sharded {name}: uid {uid}'s tokens "
+                                     f"differ from phase 5's")
+        zero = [k for k in must if not st[k] > 0]
+        if pressured and not sum(bins[1:]) > 0:
+            zero.append("walk bins > 0")
+        if zero:
+            raise AssertionError(f"sharded {name}: counters at 0: {zero}")
+        if st["allocs"] != st["frees"] or any(st["shard_pages_live"]):
+            raise AssertionError(f"sharded {name}: allocs {st['allocs']}, "
+                                 f"frees {st['frees']}, live pages per "
+                                 f"shard {st['shard_pages_live']}")
+        if not bool((eng.caches.kv.page_table == -1).all()):
+            raise AssertionError("page table not all holes after draining")
+        want_l = {"alloc_txn": 0, "free_txn": 0, "defrag_txn": 0,
+                  "sharded_alloc_txn": st["alloc_txns"],
+                  "sharded_free_txn": st["free_txns"],
+                  "sharded_defrag_txn": st["defrag_waves"]
+                  + st["rebalance_waves"],
+                  "paged_attention": eng.cfg.num_layers
+                  * counting.decode_calls}
+        if launches != want_l:
+            raise AssertionError(f"sharded {name}: launches {launches} != "
+                                 f"the engine's counts {want_l}")
+        cpu_ouro, _, _ = make_kv_allocator(eng.num_pages, device="cpu",
+                                           num_shards=SHARDS)
+        st_cpu, e_off, bounds = replay_plain(cpu_ouro, rec.log)
+        dm, _ = e_mem = word_err(eng.alloc_state.mem, st_cpu.mem)
+        dc, _ = e_ctl = word_err(eng.alloc_state.ctl, st_cpu.ctl)
+        n_waves = sum(r[0] in WAVES for r in rec.log)
+        log(f"phase 5: sharded {name}: plain replay of {len(rec.log)} "
+            f"records ({n_waves} waves) on the CPU: {e_off[0]} differing "
+            f"offsets and plan words, {dm} mem / {dc} ctl words differ")
+        if e_off[0] or dm or dc:
+            raise AssertionError(f"sharded {name}: the plain replay differs")
+        out[name] = dict(log=rec.log, start=start, launches=launches,
+                         stats=st, wall=wall,
+                         bounds=bounds, replay_err=(e_off, e_mem, e_ctl),
+                         ouro=rec._ouro, tok_s=toks / wall,
+                         num_pages=eng.num_pages)
+    return out
 
 
 def phase_timing(device, serve, alloc_logs, pressure, waves):
@@ -889,6 +1402,67 @@ def phase_timing(device, serve, alloc_logs, pressure, waves):
     for key, us, n in prof.rows[:8]:
         log(f"phase 6:   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
     return dict(k_times=k_times, p_times=p_times, bounds=bounds, defrag=dk)
+
+
+def phase_sharded_timing(device, sh3, runs):
+    """The sharded kernels' device times from ``torch.profiler``: at the
+    pressure run's recorded transactions and waves (and the rebalance
+    run's waves), and at the 4-shard arena for 65536 pages; the plain
+    versions on the card's tensors and the byte bounds beside them."""
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    res = {}
+    pr = runs["pressure"]
+    cpu_ouro, _, _ = make_kv_allocator(pr["num_pages"], device="cpu",
+                                       num_shards=SHARDS)
+    k_times = replay_kernels(pr["ouro"], pr["log"], pr["start"])
+    p_times = time_plain_txns(pr["ouro"], pr["log"], pr["start"])
+    bounds = txn_bound_ms(cpu_ouro, pr["log"], pr["start"])
+    bounds["defrag"] = pr["bounds"]
+    for kind in ("alloc", "free", "defrag"):
+        ms, n, want = k_times[kind]
+        res[kind] = dict(ms=ms, plain=sum(p_times[kind]) / len(p_times[kind]),
+                         bound=sum(bounds[kind]) / len(bounds[kind]))
+        log(f"phase 6: {kernel_of(pr['ouro'], kind)} at the pressure "
+            f"engine's inputs: kernel {1e3 * ms:.2f} us (profiler device "
+            f"time, {n} of {want} launches recorded), plain math on the card "
+            f"{1e3 * res[kind]['plain']:.1f} us, bound "
+            f"{1e6 * res[kind]['bound']:.3f} ns")
+    rb = runs["rebalance"]
+    t = replay_kernels(rb["ouro"], rb["log"], rb["start"])
+    res["rebalance_waves"] = dict(ms=t["defrag"][0],
+                                  bound=sum(rb["bounds"]) / len(rb["bounds"]))
+    log(f"phase 6: sharded_defrag_txn at the rebalance engine's waves: "
+        f"kernel {1e3 * t['defrag'][0]:.2f} us ({t['defrag'][1]} of "
+        f"{t['defrag'][2]} launches recorded), bound "
+        f"{1e6 * res['rebalance_waves']['bound']:.3f} ns")
+    small, _, _ = make_kv_allocator(256, device=device, num_shards=SHARDS)
+    ms, n, made, plain = time_defrag_waves(small, sh3["waves"])
+    log(f"phase 6: sharded_defrag_txn, phase-3 waves on the 256-page "
+        f"4-shard arena: kernel {1e3 * ms:.1f} us per wave ({n} of {made} "
+        f"launches recorded), plain on the card {1e3 * plain:.1f} us")
+
+    big, _, _ = make_kv_allocator(65536, device=device, num_shards=SHARDS)
+    big_cpu, _, _ = make_kv_allocator(65536, device="cpu", num_shards=SHARDS)
+    t = replay_kernels(big, sh3["big_log"])
+    p = time_plain_txns(big, sh3["big_log"])
+    b = txn_bound_ms(big_cpu, sh3["big_log"])
+    for kind in ("alloc", "free"):
+        res[kind][65536] = dict(ms=t[kind][0],
+                                plain=sum(p[kind]) / len(p[kind]),
+                                bound=sum(b[kind]) / len(b[kind]))
+        log(f"phase 6: {kernel_of(big, kind)}, 65536 pages, 4096 lanes: "
+            f"kernel {1e3 * t[kind][0]:.1f} us ({t[kind][1]} of "
+            f"{t[kind][2]} launches recorded), plain on the card "
+            f"{1e3 * res[kind][65536]['plain']:.1f} us, bound "
+            f"{1e6 * res[kind][65536]['bound']:.2f} ns")
+    ms, n, made, plain = time_defrag_waves(big, sh3["big_waves"])
+    bound = sum(w["bound"] for w in sh3["big_waves"]) / len(sh3["big_waves"])
+    res["defrag"][65536] = dict(ms=ms, plain=plain, bound=bound)
+    log(f"phase 6: sharded_defrag_txn, 65536 pages ({SHARDS} x "
+        f"{big.shard_cfg.num_chunks} chunks, M {big._moves(None)}): kernel "
+        f"{1e3 * ms:.1f} us per wave ({n} of {made} launches recorded), "
+        f"plain on the card {1e3 * plain:.1f} us, bound {1e6 * bound:.2f} ns")
+    return res
 
 
 def phase_small_model(device, seed):
@@ -981,6 +1555,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     alloc_logs, alloc_errs = phase_alloc(device, seed=args.seed)
     waves, defrag_err = phase_defrag(device, seed=args.seed)
+    sh3, sharded_errs = phase_sharded(device, seed=args.seed)
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -990,11 +1565,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     serve = phase_serve(device, args.seed)
     pressure = phase_pressure(device, serve)
+    sharded_runs = phase_sharded_serve(device, serve)
     phase_small_model(device, args.seed)
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     timing = phase_timing(device, serve, alloc_logs, pressure, waves)
+    sh_timing = phase_sharded_timing(device, sh3, sharded_runs)
     del serve["engine"]
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
@@ -1035,6 +1612,33 @@ def main(argv=None) -> int:
         "ms_65536_pages": dk[65536]["ms"],
         "plain_ms_65536_pages": dk[65536]["plain"],
         "bound_ms_65536_pages": dk[65536]["bound"]})
+    # phase 3 per transaction and wave, and both sharded runs' replays
+    for name, kind, replaces in (
+            ("sharded_alloc_txn", "alloc",
+             "src/repro/kernels/alloc_txn.py:359"),
+            ("sharded_free_txn", "free", "src/repro/kernels/alloc_txn.py:421"),
+            ("sharded_defrag_txn", "defrag",
+             "src/repro/kernels/defrag_txn.py:99")):
+        err = dict(sharded_errs[kind])
+        for run in sharded_runs.values():
+            merge_err(err, *run["replay_err"])
+        t = sh_timing[kind]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": ("src/repro_torch/csrc/defrag_txn.cu" if kind ==
+                       "defrag" else "src/repro_torch/csrc/alloc_txn.cu"),
+            "replaces": replaces,
+            "launches": sum(run["launches"][name]
+                            for run in sharded_runs.values()),
+            "launches_by_run": {k: run["launches"][name]
+                                for k, run in sharded_runs.items()},
+            "max_abs_err": err["max_abs"], "max_err": err["max_abs"],
+            "differing_words": err["words"],
+            "ms": t["ms"], "plain_ms": t["plain"], "bound_ms": t["bound"],
+            "bound_by": "bytes", "library_ms": None,
+            "ms_65536_pages": t[65536]["ms"],
+            "plain_ms_65536_pages": t[65536]["plain"],
+            "bound_ms_65536_pages": t[65536]["bound"]})
     kernels.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -1048,7 +1652,9 @@ def main(argv=None) -> int:
     p_toks = sum(len(t) for t in serve["tokens"].values())
     log(f"phase 6: total {time.perf_counter() - t_start:.1f} s; serving "
         f"{serve['tok_s']:.1f} tok/s; under pressure "
-        f"{p_toks / pressure['wall']:.1f} tok/s")
+        f"{p_toks / pressure['wall']:.1f} tok/s; sharded "
+        + "; ".join(f"{k} {r['tok_s']:.1f} tok/s"
+                    for k, r in sharded_runs.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Live defragmentation: a plan/execute migration wave (port of the
-reference's ``core/defrag.py``, single arena).
+reference's ``core/defrag.py``).
 
 ``plan_math``  the **relocation plan** from arena state, in plain
     tensor ops on the arena's device: per size class, rank the bound
@@ -18,7 +18,14 @@ reference's ``core/defrag.py``, single arena).
     It is split into ``extract_math`` and ``insert_rebuild_math`` so
     that a sharded schedule can run them per shard.
 
-The planner guarantees that source extents and destination slots are
+``sharded_plan_math`` / ``sharded_migrate_math``  the same over a
+    sharded arena: per-shard plans concatenated into one table of
+    GLOBAL offsets, and a wave that extracts over every shard, then
+    inserts and rebuilds every shard (the plain version of
+    ``sharded_defrag_txn``).  Cross-shard moves come from
+    ``shards.rebalance_plan_math`` and ride the same wave.
+
+The planners guarantee that source extents and destination slots are
 disjoint, so extract-then-insert equals a simultaneous move.  Page
 kinds bind no chunks: their plans are empty and their waves no-ops.
 
@@ -159,6 +166,39 @@ def plan_math(cfg: HeapConfig, kind: str, family: str, mem, ctl, *,
     return src[:max_moves], dst[:max_moves], sz[:max_moves]
 
 
+def sharded_plan_math(cfg: HeapConfig, num_shards: int, kind: str,
+                      family: str, mem, ctl, *,
+                      max_moves: int = DEFAULT_MAX_MOVES):
+    """Per-shard plans (``plan_math`` on each shard) concatenated in
+    shard order into one GLOBAL-offset table, truncated at
+    ``max_moves``; reads the arena, writes nothing."""
+    from repro_torch.core import shards  # defrag <-> shards
+    dev = mem.device
+    if kind != "chunk":
+        f = empty_forwarding(max_moves, dev)
+        return f.src, f.dst, f.sizes
+    scfg = shards.shard_config(cfg, num_shards)
+    Ws = scfg.total_words
+
+    def table(fill):
+        return torch.full((max_moves + 1,), fill, dtype=torch.int32,
+                          device=dev)
+
+    src, dst, sz = table(-1), table(-1), table(0)
+    base = torch.zeros((), dtype=torch.int64, device=dev)
+    k = torch.arange(max_moves, dtype=torch.int64, device=dev)
+    for s in range(num_shards):
+        s_src, s_dst, s_sz = plan_math(scfg, kind, family, mem[s], ctl[s],
+                                       max_moves=max_moves)
+        cnt = torch.minimum((s_src >= 0).sum(), max_moves - base)
+        pos = torch.where(k < cnt, base + k, max_moves)
+        src.scatter_(0, pos, s_src + s * Ws)
+        dst.scatter_(0, pos, s_dst + s * Ws)
+        sz.scatter_(0, pos, s_sz)
+        base = base + cnt
+    return src[:max_moves], dst[:max_moves], sz[:max_moves]
+
+
 # --------------------------------------------------------------------------
 # execute: extract / insert+rebuild (the plain version of defrag_txn)
 # --------------------------------------------------------------------------
@@ -288,6 +328,39 @@ def migrate_math(cfg: HeapConfig, kind: str, family: str, mem, ctl, src,
     extract_math(cfg, kind, family, mem, ctl, src, sizes, valid, buf)
     return insert_rebuild_math(cfg, kind, family, mem, ctl, dst, sizes,
                                valid, buf)
+
+
+def sharded_migrate_math(cfg: HeapConfig, num_shards: int, kind: str,
+                         family: str, mem, ctl, src, dst, sizes):
+    """One sharded wave, in place on ``mem``/``ctl`` (S, ·): extract
+    over every shard, then insert and rebuild over every shard (a shard
+    with no moves is rebuilt too, so a donor retires its emptied chunks
+    in the same wave).  Cross-shard moves ride the carry buffer between
+    the phases.  The plain version of ``csrc/defrag_txn.cu``'s
+    ``sharded_defrag_txn``.  Returns ``(mem, ctl)``."""
+    from repro_torch.core import shards  # defrag <-> shards
+    if kind != "chunk":
+        return mem, ctl
+    scfg = shards.shard_config(cfg, num_shards)
+    Ws = scfg.total_words
+    buf = torch.zeros((src.shape[0], scfg.words_per_chunk),
+                      dtype=torch.int32, device=mem.device)
+    valid = (src >= 0) & (dst >= 0)
+    neg = torch.full_like(src, -1)
+    src_sh = torch.where(src >= 0, torch.div(src, Ws, rounding_mode="floor"),
+                         neg)
+    dst_sh = torch.where(dst >= 0, torch.div(dst, Ws, rounding_mode="floor"),
+                         neg)
+    for s in range(num_shards):
+        sel = valid & (src_sh == s)
+        extract_math(scfg, kind, family, mem[s], ctl[s],
+                     torch.where(sel, src - s * Ws, neg), sizes, sel, buf)
+    for s in range(num_shards):
+        sel = valid & (dst_sh == s)
+        insert_rebuild_math(scfg, kind, family, mem[s], ctl[s],
+                            torch.where(sel, dst - s * Ws, neg), sizes, sel,
+                            buf)
+    return mem, ctl
 
 
 # --------------------------------------------------------------------------

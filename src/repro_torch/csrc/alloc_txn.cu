@@ -1,13 +1,16 @@
 // Ouroboros bulk allocator transactions on the device-resident arena,
 // for the (kind=chunk, family=vl) variant: one kernel launch per
-// transaction.
+// transaction, on a single arena or on a sharded one.
 //
 // Replaces: src/repro/kernels/alloc_txn.py::arena_alloc_txn and
 // ::arena_free_txn (and their region-blocked twins in
 // alloc_txn_blocked.py), whose bodies are transactions.alloc_math /
-// free_math.  The plain PyTorch version is
-// src/repro_torch/core/transactions.py::alloc_math / free_math; the
-// two must leave identical mem/ctl words and offsets.
+// free_math; and ::sharded_arena_alloc_txn / ::sharded_arena_free_txn
+// (and alloc_txn_blocked.py's sharded_*_blocked), whose bodies are
+// transactions.sharded_alloc_math / sharded_free_math.  The plain
+// PyTorch versions are the functions of the same names in
+// src/repro_torch/core/transactions.py; each pair must leave identical
+// mem/ctl words and offsets.
 //
 // What bounds it on the H100: latency, not bandwidth or arithmetic.  A
 // transaction touches a few kilobytes, but it is a chain of dependent
@@ -29,6 +32,21 @@
 // layout comes in as a small struct of ints built once from the
 // ArenaLayout, so a transaction makes no host reads.
 //
+// Sharded arenas (mem (S, Mw), ctl (S, Cw); global offset = s * Ws +
+// local).  The alloc is a schedule, attempt-major then shard-minor: at
+// step (a, s) shard s serves the still-unserved lanes whose
+// (home + a) % S == s.  Within one attempt the shards' lane sets are
+// disjoint and their slabs independent, but attempt a + 1 on shard s
+// depends on attempt a on shard s - 1, so sharded_alloc_txn is one
+// block that runs the (a, s) steps in order, each through the same
+// transaction body as alloc_txn (alloc_body) on shard s's rows, its ctl
+// block restaged in shared memory, and the served lanes' telemetry in
+// walk bin min(a, d.walk_bins - 1).  A step that selects no lane
+// changes no word (its chain serves nothing and its telemetry deltas
+// are 0), so it is skipped.  A free lane belongs to the one shard that
+// owns its offset, so sharded_free_txn runs one block per shard, all
+// independent, each through free_txn's body (free_body) on its slab.
+//
 // Semantics kept from the reference, deliberately: pool pops do not
 // check the inventory; integer division and modulo floor; gathers out
 // of range read a fill value and scatters out of range are dropped,
@@ -41,7 +59,7 @@
 
 __device__ void tele_apply(const ArenaDesc& d, const int* s_old, int* s_ctl,
                            const int* d_alloc, const int* d_free,
-                           const int* d_fail, int d_walk0) {
+                           const int* d_fail, int d_walk, int walk_bin) {
   const int C = d.num_classes, capw = d.wrap_capacity, nc = d.num_chunks;
   const int t0 = d.core_ctl_words;
   unsigned* t = reinterpret_cast<unsigned*>(s_ctl);
@@ -61,22 +79,30 @@ __device__ void tele_apply(const ArenaDesc& d, const int* s_old, int* s_ctl,
   t[t0 + 4 * C + 1] += (unsigned)(pb1 - pb0);
   t[t0 + 4 * C + 2] += (unsigned)((fdiv(pf1, nc) - fdiv(pf0, nc))
                                   + (fdiv(pb1, nc) - fdiv(pb0, nc)));
-  t[t0 + 4 * C + 3] += (unsigned)d_walk0;
+  t[t0 + 4 * C + 3 + walk_bin] += (unsigned)d_walk;
 }
 
 // ---- alloc ---------------------------------------------------------------
 
-__global__ void alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
-                                 const int* sizes, const uint8_t* mask,
-                                 int n, int* out) {
-  __shared__ int s_ctl[MAX_CTL], s_old[MAX_CTL];
-  __shared__ int s_count[MAX_CLASSES], s_warp[32];
-  __shared__ int s_served[MAX_CLASSES], s_failed[MAX_CLASSES];
-  extern __shared__ int table[];  // n: rank -> lane, class-major
+struct AllocShared {
+  int ctl[MAX_CTL], old[MAX_CTL];
+  int count[MAX_CLASSES], warp[32];
+  int served[MAX_CLASSES], failed[MAX_CLASSES];
+};
 
+// One alloc transaction on one arena (mem, ctl) for the lanes with
+// sel[i] != 0, block-wide; out[i] receives the local word offset, -1 for
+// a failed or unselected lane.  table: n ints of shared memory (rank ->
+// lane, class-major).  Served lanes count in walk bin walk_bin.
+__device__ void alloc_body(const ArenaDesc& d, int* mem, int* ctl,
+                           const int* sizes, const uint8_t* sel, int n,
+                           int* out, int walk_bin, AllocShared& sh,
+                           int* table) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
-  for (int i = tid; i < d.ctl_words; i += nt) s_ctl[i] = s_old[i] = ctl[i];
-  for (int i = tid; i < C; i += nt) s_served[i] = s_failed[i] = 0;
+  __syncthreads();
+  for (int i = tid; i < d.ctl_words; i += nt)
+    sh.ctl[i] = sh.old[i] = ctl[i];
+  for (int i = tid; i < C; i += nt) sh.served[i] = sh.failed[i] = 0;
   for (int i = tid; i < n; i += nt) out[i] = -1;
 
   // per-class ranks, lanes in order, by block scan
@@ -86,26 +112,26 @@ __global__ void alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   for (int c = 0; c < C; ++c) {
     int local = 0;
     for (int i = lo; i < hi; ++i)
-      local += (mask[i] && size_class(d, sizes[i]) == c);
+      local += (sel[i] && size_class(d, sizes[i]) == c);
     int total;
-    int r = start + block_excl_scan(local, &total, s_warp);
+    int r = start + block_excl_scan(local, &total, sh.warp);
     for (int i = lo; i < hi; ++i)
-      if (mask[i] && size_class(d, sizes[i]) == c) table[r++] = i;
-    if (tid == 0) s_count[c] = total;
+      if (sel[i] && size_class(d, sizes[i]) == c) table[r++] = i;
+    if (tid == 0) sh.count[c] = total;
     start += total;
   }
   __syncthreads();
 
   // the serial chain, class-major, in the reference's order
   if (tid == 0) {
-    Chain ch{d, mem, s_ctl};
+    Chain ch{d, mem, sh.ctl};
     unsigned* bitmap = reinterpret_cast<unsigned*>(mem + d.bitmap_off);
     int* free_count = mem + d.free_off;
     int* chunk_class = mem + d.class_off;
     const int nc = d.num_chunks, bw = d.bw;
     int base = 0;
     for (int c = 0; c < C; ++c) {
-      const int cnt = s_count[c];
+      const int cnt = sh.count[c];
       const int ppc = d.max_ppc >> c, pw = d.min_page_words << c;
       int served = 0;
       while (served < cnt) {
@@ -154,38 +180,107 @@ __global__ void alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
 
   // telemetry: per-class served / failed lanes
   for (int i = tid; i < n; i += nt) {
-    if (!mask[i]) continue;
+    if (!sel[i]) continue;
     const int c = size_class(d, sizes[i]);
     if (c >= C) continue;
-    if (out[i] >= 0) atomicAdd(&s_served[c], 1);
-    else atomicAdd(&s_failed[c], 1);
+    if (out[i] >= 0) atomicAdd(&sh.served[c], 1);
+    else atomicAdd(&sh.failed[c], 1);
   }
   __syncthreads();
   if (tid == 0) {
-    int walk0 = 0;
-    for (int c = 0; c < C; ++c) walk0 += s_served[c];
+    int served = 0;
+    for (int c = 0; c < C; ++c) served += sh.served[c];
     int zero[MAX_CLASSES] = {0};
-    tele_apply(d, s_old, s_ctl, s_served, zero, s_failed, walk0);
+    tele_apply(d, sh.old, sh.ctl, sh.served, zero, sh.failed, served,
+               walk_bin);
   }
   __syncthreads();
-  for (int i = tid; i < d.ctl_words; i += nt) ctl[i] = s_ctl[i];
+  for (int i = tid; i < d.ctl_words; i += nt) ctl[i] = sh.ctl[i];
+}
+
+__global__ void alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                                 const int* sizes, const uint8_t* mask,
+                                 int n, int* out) {
+  __shared__ AllocShared sh;
+  extern __shared__ int table[];  // n: rank -> lane, class-major
+  alloc_body(d, mem, ctl, sizes, mask, n, out, 0, sh, table);
+}
+
+// The (walk + 1, S) overflow-walk schedule in one block.  mem/ctl are
+// (S, Mw) / (S, Cw) row-major; out receives GLOBAL offsets.
+__global__ void sharded_alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                                         int S, int Mw, int Cw,
+                                         const int* sizes,
+                                         const uint8_t* mask,
+                                         const int* home, int n, int walk,
+                                         int* out) {
+  __shared__ AllocShared sh;
+  __shared__ int s_nsel;
+  // dynamic: table (n ints) | local offsets (n ints) | selection (n bytes)
+  extern __shared__ int sdyn[];
+  int* table = sdyn;
+  int* local = sdyn + n;
+  uint8_t* sel = reinterpret_cast<uint8_t*>(sdyn + 2 * n);
+  const int tid = threadIdx.x, nt = blockDim.x, Ws = d.total_words;
+  for (int i = tid; i < n; i += nt) out[i] = -1;
+  for (int a = 0; a <= walk; ++a) {
+    for (int s = 0; s < S; ++s) {
+      __syncthreads();
+      if (tid == 0) s_nsel = 0;
+      __syncthreads();
+      int mine = 0;
+      for (int i = tid; i < n; i += nt) {
+        sel[i] = mask[i] && fmodi(home[i] + a, S) == s && out[i] < 0;
+        mine += sel[i];
+      }
+      if (mine) atomicAdd(&s_nsel, mine);
+      __syncthreads();
+      if (s_nsel == 0) continue;  // uniform: read after the barrier
+      alloc_body(d, mem + (long long)s * Mw, ctl + (long long)s * Cw, sizes,
+                 sel, n, local, min(a, d.walk_bins - 1), sh, table);
+      __syncthreads();
+      for (int i = tid; i < n; i += nt)
+        if (sel[i] && local[i] >= 0) out[i] = s * Ws + local[i];
+    }
+  }
 }
 
 // ---- free ----------------------------------------------------------------
 
-__global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
-                                const int* offs, const int* sizes,
-                                const uint8_t* mask, int n) {
-  __shared__ int s_ctl[MAX_CTL], s_old[MAX_CTL];
-  __shared__ int s_count[MAX_CLASSES], s_warp[32], s_freed[MAX_CLASSES];
-  __shared__ int s_nnew[MAX_CLASSES], s_rev;
-  // dynamic: bitset (ceil(nc/32)) | rev ids (n) | rev class (n) |
-  //          rev rank (n) | new segment chunks (C * m)
-  extern __shared__ int dyn[];
+// The lanes of one free transaction as one arena sees them: all of them
+// (a single arena), or those whose global offset shard s owns, at their
+// local offsets (a sharded arena).
+struct FreeLanes {
+  const int* offs;
+  const uint8_t* mask;
+  int s, Ws;
+  bool sharded;
+  __device__ bool sel(int i) const {
+    if (!mask[i]) return false;
+    return !sharded || (offs[i] >= 0 && fdiv(offs[i], Ws) == s);
+  }
+  __device__ int off(int i) const {
+    return sharded ? offs[i] - s * Ws : offs[i];
+  }
+};
+
+struct FreeShared {
+  int ctl[MAX_CTL], old[MAX_CTL];
+  int count[MAX_CLASSES], warp[32], freed[MAX_CLASSES];
+  int nnew[MAX_CLASSES], rev;
+};
+
+// One free transaction on one arena (mem, ctl), block-wide.  dyn: shared
+// memory of free_txn_smem_bytes.
+__device__ void free_body(const ArenaDesc& d, int* mem, int* ctl,
+                          FreeLanes L, const int* sizes, int n,
+                          FreeShared& sh, int* dyn) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
   const int nc = d.num_chunks, wpc = d.wpc, spc = d.spc;
   const int nwords = (nc + 31) / 32;
   const int m = n / spc + 1;
+  // dynamic: bitset (ceil(nc/32)) | rev ids (n) | rev class (n) |
+  //          rev rank (n) | new segment chunks (C * m)
   unsigned* bitset = reinterpret_cast<unsigned*>(dyn);
   int* rev_id = dyn + nwords;
   int* rev_cls = rev_id + n;
@@ -196,8 +291,9 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   int* free_count = mem + d.free_off;
   const int* chunk_class = mem + d.class_off;
 
-  for (int i = tid; i < d.ctl_words; i += nt) s_ctl[i] = s_old[i] = ctl[i];
-  for (int i = tid; i < C; i += nt) s_freed[i] = 0;
+  for (int i = tid; i < d.ctl_words; i += nt)
+    sh.ctl[i] = sh.old[i] = ctl[i];
+  for (int i = tid; i < C; i += nt) sh.freed[i] = 0;
   for (int i = tid; i < nwords; i += nt) bitset[i] = 0u;
   for (int i = tid; i < C * m; i += nt) newc[i] = -1;
   __syncthreads();
@@ -206,9 +302,11 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   // clear), and the freed-lane telemetry
   for (int i = tid; i < n; i += nt) {
     const int c = size_class(d, sizes[i]);
-    if (!mask[i] || c >= C || offs[i] < 0) continue;
-    atomicAdd(&s_freed[c], 1);
-    const int chunk = fdiv(offs[i], wpc);
+    if (!L.sel(i) || c >= C) continue;
+    const int off = L.off(i);
+    if (off < 0) continue;
+    atomicAdd(&sh.freed[c], 1);
+    const int chunk = fdiv(off, wpc);
     if (chunk < nc && free_count[chunk] == 0)
       atomicOr(&bitset[chunk >> 5], 1u << (chunk & 31));
   }
@@ -217,11 +315,13 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   // phase B: clear the bits (wrapping subtract) and return the pages
   for (int i = tid; i < n; i += nt) {
     const int c = size_class(d, sizes[i]);
-    if (!mask[i] || c >= C || offs[i] < 0) continue;
-    const int chunk = fdiv(offs[i], wpc);
+    if (!L.sel(i) || c >= C) continue;
+    const int off = L.off(i);
+    if (off < 0) continue;
+    const int chunk = fdiv(off, wpc);
     if (chunk >= nc) continue;
     const int pw = d.min_page_words << c;
-    const int page = fdiv(fmodi(offs[i], wpc), pw);
+    const int page = fdiv(fmodi(off, wpc), pw);
     atomicAdd(&free_count[chunk], 1);
     if (page / 32 < d.bw)
       atomicAdd(&bitmap[chunk * d.bw + page / 32], 0u - (1u << (page & 31)));
@@ -234,7 +334,7 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
     int local = 0;
     for (int w = lo; w < hi; ++w) local += __popc(bitset[w]);
     int total;
-    int pos = block_excl_scan(local, &total, s_warp);
+    int pos = block_excl_scan(local, &total, sh.warp);
     for (int w = lo; w < hi; ++w) {
       unsigned bits = bitset[w];
       while (bits) {
@@ -246,10 +346,10 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
         ++pos;
       }
     }
-    if (tid == 0) s_rev = total;
+    if (tid == 0) sh.rev = total;
   }
   __syncthreads();
-  const int R = s_rev;
+  const int R = sh.rev;
 
   // per-class ranks of the revived list (a class outside [0, C) ranks in
   // class cls mod C without being counted, as the reference's one-hot)
@@ -260,31 +360,31 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
       int local = 0;
       for (int j = lo; j < hi; ++j) local += (rev_cls[j] == c);
       int total;
-      int r = block_excl_scan(local, &total, s_warp);
+      int r = block_excl_scan(local, &total, sh.warp);
       for (int j = lo; j < hi; ++j) {
         if (fmodi(rev_cls[j], C) == c) rev_rank[j] = r;
         if (rev_cls[j] == c) ++r;
       }
-      if (tid == 0) s_count[c] = total;
+      if (tid == 0) sh.count[c] = total;
     }
   }
   __syncthreads();
 
   // grow: pop new segments class-major, terminate them, link them
   if (tid == 0) {
-    Chain ch{d, mem, s_ctl};
+    Chain ch{d, mem, sh.ctl};
     const int W = d.total_words;
     for (int c = 0; c < C; ++c) {
       const int b = ch.back(c);
-      s_nnew[c] = fdiv(b + s_count[c], spc) - fdiv(b, spc);
-      for (int j = 0; j < s_nnew[c]; ++j) newc[c * m + j] = ch.pool_pop();
+      sh.nnew[c] = fdiv(b + sh.count[c], spc) - fdiv(b, spc);
+      for (int j = 0; j < sh.nnew[c]; ++j) newc[c * m + j] = ch.pool_pop();
     }
     for (int c = 0; c < C; ++c)
-      for (int j = 0; j < s_nnew[c]; ++j)
+      for (int j = 0; j < sh.nnew[c]; ++j)
         heap_set(mem, (long long)newc[c * m + j] * wpc, W, -1);
     for (int j = 0; j < m; ++j)
       for (int c = 0; c < C; ++c)
-        if (j < s_nnew[c]) {
+        if (j < sh.nnew[c]) {
           const int prev = j == 0 ? ch.tail(c) : newc[c * m + j - 1];
           heap_set(mem, (long long)prev * wpc, W, newc[c * m + j]);
         }
@@ -295,7 +395,7 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
     // in that order.
     for (int j = 0; j < R; ++j) {
       const int cm = fmodi(rev_cls[j], C);
-      const int b = s_old[C + cm], tl = s_old[3 * C + cm];
+      const int b = sh.old[C + cm], tl = sh.old[3 * C + cm];
       const int v = b + rev_rank[j];
       const int seg_rel = fdiv(v, spc) - fdiv(b, spc);
       int seg_chunk;
@@ -309,27 +409,42 @@ __global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
                rev_id[j]);
     }
     for (int c = 0; c < C; ++c) {
-      if (s_nnew[c] > 0) s_ctl[3 * C + c] = newc[c * m + s_nnew[c] - 1];
-      s_ctl[C + c] += s_count[c];
+      if (sh.nnew[c] > 0) sh.ctl[3 * C + c] = newc[c * m + sh.nnew[c] - 1];
+      sh.ctl[C + c] += sh.count[c];
     }
     int zero[MAX_CLASSES] = {0};
-    tele_apply(d, s_old, s_ctl, zero, s_freed, zero, 0);
+    tele_apply(d, sh.old, sh.ctl, zero, sh.freed, zero, 0, 0);
   }
   __syncthreads();
-  for (int i = tid; i < d.ctl_words; i += nt) ctl[i] = s_ctl[i];
+  for (int i = tid; i < d.ctl_words; i += nt) ctl[i] = sh.ctl[i];
 }
 
-// ---- host launchers (plain C interface, loaded with ctypes) -------------
+__global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                                const int* offs, const int* sizes,
+                                const uint8_t* mask, int n) {
+  __shared__ FreeShared sh;
+  extern __shared__ int dyn[];
+  free_body(d, mem, ctl, FreeLanes{offs, mask, 0, 0, false}, sizes, n, sh,
+            dyn);
+}
+
+// One block per shard: block s frees the lanes whose offsets it owns.
+__global__ void sharded_free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                                        int Mw, int Cw, const int* offs,
+                                        const int* sizes,
+                                        const uint8_t* mask, int n) {
+  __shared__ FreeShared sh;
+  extern __shared__ int dyn[];
+  const int s = blockIdx.x;
+  free_body(d, mem + (long long)s * Mw, ctl + (long long)s * Cw,
+            FreeLanes{offs, mask, s, d.total_words, true}, sizes, n, sh, dyn);
+}
+
+// ---- launch geometry (also used by the emulation harness) -------------
 
 static int block_threads(int n) {
   int t = ((n + 31) / 32) * 32;
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
-}
-
-static int launch_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 extern "C" size_t alloc_txn_smem_bytes(ArenaDesc d, int n) {
@@ -342,6 +457,19 @@ extern "C" size_t free_txn_smem_bytes(ArenaDesc d, int n) {
   const int m = n / d.spc + 1;
   return ((size_t)nwords + 3 * (size_t)n + (size_t)d.num_classes * m)
          * sizeof(int);
+}
+
+extern "C" size_t sharded_alloc_txn_smem_bytes(ArenaDesc d, int n) {
+  (void)d;
+  return 2 * (size_t)n * sizeof(int) + (size_t)n;
+}
+
+// ---- host launchers (plain C interface, loaded with ctypes) -------------
+
+static int launch_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 extern "C" int alloc_txn_launch(ArenaDesc d, int* mem, int* ctl,
@@ -363,5 +491,34 @@ extern "C" int free_txn_launch(ArenaDesc d, int* mem, int* ctl,
   if (err) return err;
   free_txn_kernel<<<1, block_threads(n), smem, (cudaStream_t)stream>>>(
       d, mem, ctl, offs, sizes, mask, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sharded_alloc_txn_launch(ArenaDesc d, int* mem, int* ctl,
+                                        int S, int Mw, int Cw,
+                                        const int* sizes,
+                                        const uint8_t* mask,
+                                        const int* home, int n, int walk,
+                                        int* out, void* stream) {
+  const size_t smem = sharded_alloc_txn_smem_bytes(d, n);
+  int err = launch_smem((const void*)sharded_alloc_txn_kernel, smem);
+  if (err) return err;
+  sharded_alloc_txn_kernel<<<1, block_threads(n), smem,
+                             (cudaStream_t)stream>>>(
+      d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, walk, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sharded_free_txn_launch(ArenaDesc d, int* mem, int* ctl,
+                                       int S, int Mw, int Cw,
+                                       const int* offs, const int* sizes,
+                                       const uint8_t* mask, int n,
+                                       void* stream) {
+  const size_t smem = free_txn_smem_bytes(d, n);
+  int err = launch_smem((const void*)sharded_free_txn_kernel, smem);
+  if (err) return err;
+  sharded_free_txn_kernel<<<S, block_threads(n), smem,
+                            (cudaStream_t)stream>>>(
+      d, mem, ctl, Mw, Cw, offs, sizes, mask, n);
   return (int)cudaGetLastError();
 }

@@ -28,6 +28,7 @@ struct ArenaDesc {
   int ctl_words;
   int core_ctl_words;
   int wrap_capacity;
+  int walk_bins;       // overflow-walk depth bins of the telemetry
 };
 
 #define MAX_CTL 256

@@ -1,16 +1,21 @@
 // One defragmentation migration wave on the device-resident arena, for
 // the (kind=chunk, family=vl) variant: one kernel launch per wave, in
 // place on mem/ctl, with no host reads (a later tick can capture it in
-// a CUDA graph).
+// a CUDA graph) — on a single arena (defrag_txn) or on a sharded one
+// (sharded_defrag_txn).
 //
 // Replaces: src/repro/kernels/defrag_txn.py::arena_defrag_txn (and its
 // region-blocked twin arena_defrag_txn_blocked), whose body is
-// core/defrag.py::migrate_math.  The plain version is
-// src/repro_torch/core/defrag.py::migrate_math; the two must leave
-// every mem/ctl word identical.  The plan (src, dst, sizes) is computed
-// before the launch by defrag.plan_math, which guarantees that source
-// extents and destination slots are disjoint: a direct copy then equals
-// the reference's extract-into-a-carry-buffer-then-insert.
+// core/defrag.py::migrate_math; and ::sharded_arena_defrag_txn (and
+// sharded_arena_defrag_txn_blocked), whose body is
+// core/defrag.py::sharded_migrate_math.  The plain versions are the
+// functions of the same names in src/repro_torch/core/defrag.py; each
+// pair must leave every mem/ctl word identical.  The plan (src, dst,
+// sizes) is computed before the launch (defrag.plan_math,
+// sharded_plan_math or shards.rebalance_plan_math), which guarantees
+// that source extents and destination slots are disjoint: a direct
+// copy then equals the reference's extract-into-a-carry-buffer-then-
+// insert.
 //
 // What bounds it on the H100: latency, not bandwidth.  A wave moves at
 // most M extents of a few hundred bytes, but the queue rebuild is a
@@ -20,19 +25,31 @@
 // Design: one thread block of 1024 threads.  Block-wide, in the
 // reference's order and with barriers between the stages: (1) copy the
 // extents' words and clear the source bits / return their pages
-// (atomics commute, as in free_txn); (2) claim destination chunks that
-// are still unbound (a bitset in shared memory; the per-lane bindings
-// on thread 0 in lane order, so a repeated chunk's last lane wins as in
-// the reference's scatter); (3) set the destination bits; (4) unbind
-// fully-free chunks, parallel over chunks; (5) rebuild the whole pool
-// ring (unbound ids at ranks from a block scan, NULL elsewhere), NULL
-// the vl directory, and compact each class's live chunks into an
-// ascending list by block scans.  Then (6) thread 0 rebuilds the class
-// queues class-major, exactly as the reference: one pool pop for a
-// fresh segment, its word 0 set NULL, head = tail = it, then one bulk
-// vl enqueue of the class's live chunks (grow pops, NULL words, links,
-// then values).  The ctl block is staged in shared memory; only its
-// core words are written back, so the telemetry words pass through.
+// (atomics commute, as in free_txn); then, on the arena: (2) claim
+// destination chunks that are still unbound (a bitset in shared memory;
+// the per-lane bindings on thread 0 in lane order, so a repeated
+// chunk's last lane wins as in the reference's scatter); (3) set the
+// destination bits; (4) unbind fully-free chunks, parallel over chunks;
+// (5) rebuild the whole pool ring (unbound ids at ranks from a block
+// scan, NULL elsewhere), NULL the vl directory, and compact each
+// class's live chunks into an ascending list by block scans.  Then (6)
+// thread 0 rebuilds the class queues class-major, exactly as the
+// reference: one pool pop for a fresh segment, its word 0 set NULL,
+// head = tail = it, then one bulk vl enqueue of the class's live chunks
+// (grow pops, NULL words, links, then values).  The ctl block is staged
+// in shared memory; only its core words are written back, so the
+// telemetry words pass through.
+//
+// Sharded arenas (mem (S, Mw), ctl (S, Cw); global offset = s * Ws +
+// local): a rebuild pops fresh segments from the rebuilt pool and
+// writes segment words into the heap, possibly into a chunk that this
+// wave's extraction just emptied on a donor shard whose pages a
+// rebalance moves elsewhere.  So stage (1) runs first for every lane of
+// every shard (each source read, and each destination written, before
+// any shard's rebuild writes), and then stages (2)-(6) run for each
+// shard in shard order, with the lanes whose destination it owns.
+// Every shard is rebuilt, with or without moves, as the reference's
+// insert_rebuild_math is.  A single arena is the case S = 1.
 
 #include "arena_dev.cuh"
 
@@ -45,17 +62,63 @@ __device__ __forceinline__ bool move_lane(const ArenaDesc& d, const int* src,
   return *cls < d.num_classes;
 }
 
-__global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
-                                  const int* src, const int* dst,
-                                  const int* sizes, int M) {
-  __shared__ int s_ctl[MAX_CTL], s_warp[32];
-  __shared__ int s_base[MAX_CLASSES], s_cnt[MAX_CLASSES];
-  // dynamic: chunk state (nc) | claimed bitset (ceil(nc/32)) |
-  //          live lists, class-major (nc) | new segment chunks (nc/spc+2)
-  extern __shared__ int dyn[];
+struct WaveShared {
+  int ctl[MAX_CTL], warp[32];
+  int base[MAX_CLASSES], cnt[MAX_CLASSES];
+};
+
+// 1. extract + insert over every shard: copy each extent's words from
+// its source shard to its destination shard, clear its source bits and
+// return its page to the source chunk's free count.  An offset's shard
+// is offset / Ws; a source outside [0, S) shards reads zeros, a
+// destination outside them is dropped, as the reference's gather fill
+// and scatter drop.
+__device__ void wave_extract(const ArenaDesc& d, int* mem, int S,
+                             long long Mw, const int* src, const int* dst,
+                             const int* sizes, int M) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int wpc = d.wpc, Ws = d.total_words, bw = d.bw;
+  const long long n_copy = (long long)M * wpc;
+  for (long long k = tid; k < n_copy; k += nt) {
+    const int i = (int)(k / wpc), j = (int)(k % wpc);
+    int c;
+    if (!move_lane(d, src, dst, sizes, i, &c) || j >= (d.min_page_words << c))
+      continue;
+    const int ss = fdiv(src[i], Ws), ds = fdiv(dst[i], Ws);
+    if (ds >= S) continue;
+    const int v = ss < S ? heap_get(mem + ss * Mw,
+                                    (long long)(src[i] - ss * Ws) + j, Ws, 0)
+                         : 0;
+    heap_set(mem + ds * Mw, (long long)(dst[i] - ds * Ws) + j, Ws, v);
+  }
+  for (int i = tid; i < M; i += nt) {
+    int c;
+    if (!move_lane(d, src, dst, sizes, i, &c)) continue;
+    const int ss = fdiv(src[i], Ws);
+    if (ss >= S) continue;
+    int* m = mem + ss * Mw;
+    const int local = src[i] - ss * Ws;
+    const int pw = d.min_page_words << c;
+    const int chunk = fdiv(local, wpc), page = fdiv(fmodi(local, wpc), pw);
+    atomicAdd(&m[d.free_off + chunk], 1);
+    if (page / 32 < bw)
+      atomicAdd(reinterpret_cast<unsigned*>(m + d.bitmap_off) + chunk * bw
+                    + page / 32,
+                0u - (1u << (page & 31)));
+  }
+}
+
+// 2.-6. on one arena (mem, ctl: shard s's rows), for the lanes whose
+// destination shard is s.  dyn: shared memory of defrag_txn_smem_bytes.
+__device__ void wave_insert_rebuild(const ArenaDesc& d, int* mem, int* ctl,
+                                    int s, const int* src, const int* dst,
+                                    const int* sizes, int M, WaveShared& sh,
+                                    int* dyn) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
   const int nc = d.num_chunks, wpc = d.wpc, bw = d.bw, spc = d.spc;
   const int W = d.total_words, nwords = (nc + 31) / 32;
+  // dynamic: chunk state (nc) | claimed bitset (ceil(nc/32)) |
+  //          live lists, class-major (nc) | new segment chunks (nc/spc+2)
   int* s_state = dyn;
   unsigned* claimed = reinterpret_cast<unsigned*>(dyn + nc);
   int* live = dyn + nc + nwords;
@@ -65,39 +128,26 @@ __global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   int* free_count = mem + d.free_off;
   int* chunk_class = mem + d.class_off;
 
-  for (int i = tid; i < d.ctl_words; i += nt) s_ctl[i] = ctl[i];
-  for (int i = tid; i < nwords; i += nt) claimed[i] = 0u;
+  // lane i's local destination on this shard, or -1
+  auto dst_here = [&](int i, int* c) -> int {
+    if (!move_lane(d, src, dst, sizes, i, c) || fdiv(dst[i], W) != s)
+      return -1;
+    return dst[i] - s * W;
+  };
 
-  // 1. extract + insert: copy each extent's words, clear its source bits
-  // and return its page to the source chunk's free count
-  const long long n_copy = (long long)M * wpc;
-  for (long long k = tid; k < n_copy; k += nt) {
-    const int i = (int)(k / wpc), j = (int)(k % wpc);
-    int c;
-    if (!move_lane(d, src, dst, sizes, i, &c) || j >= (d.min_page_words << c))
-      continue;
-    heap_set(mem, (long long)dst[i] + j, W,
-             heap_get(mem, (long long)src[i] + j, W, 0));
-  }
-  for (int i = tid; i < M; i += nt) {
-    int c;
-    if (!move_lane(d, src, dst, sizes, i, &c)) continue;
-    const int pw = d.min_page_words << c;
-    const int chunk = fdiv(src[i], wpc), page = fdiv(fmodi(src[i], wpc), pw);
-    if (chunk >= nc) continue;
-    atomicAdd(&free_count[chunk], 1);
-    if (page / 32 < bw)
-      atomicAdd(&bitmap[chunk * bw + page / 32], 0u - (1u << (page & 31)));
-  }
+  __syncthreads();
+  for (int i = tid; i < d.ctl_words; i += nt) sh.ctl[i] = ctl[i];
+  for (int i = tid; i < nwords; i += nt) claimed[i] = 0u;
   __syncthreads();
 
   // 2. claim destination chunks that are still unbound: bitmap reset,
   // full free count, bound to the move's class
   for (int i = tid; i < M; i += nt) {
     int c;
-    if (!move_lane(d, src, dst, sizes, i, &c)) continue;
-    const int chunk = fdiv(dst[i], wpc);
-    if (chunk < nc && chunk_class[chunk] < 0)
+    const int off = dst_here(i, &c);
+    if (off < 0) continue;
+    const int chunk = fdiv(off, wpc);
+    if (chunk_class[chunk] < 0)
       atomicOr(&claimed[chunk >> 5], 1u << (chunk & 31));
   }
   __syncthreads();
@@ -108,9 +158,10 @@ __global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   if (tid == 0) {
     for (int i = 0; i < M; ++i) {
       int c;
-      if (!move_lane(d, src, dst, sizes, i, &c)) continue;
-      const int chunk = fdiv(dst[i], wpc);
-      if (chunk < nc && (claimed[chunk >> 5] >> (chunk & 31) & 1u)) {
+      const int off = dst_here(i, &c);
+      if (off < 0) continue;
+      const int chunk = fdiv(off, wpc);
+      if (claimed[chunk >> 5] >> (chunk & 31) & 1u) {
         free_count[chunk] = d.max_ppc >> c;
         chunk_class[chunk] = c;
       }
@@ -121,10 +172,10 @@ __global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   // 3. set the destination bits and take the pages from the free counts
   for (int i = tid; i < M; i += nt) {
     int c;
-    if (!move_lane(d, src, dst, sizes, i, &c)) continue;
+    const int off = dst_here(i, &c);
+    if (off < 0) continue;
     const int pw = d.min_page_words << c;
-    const int chunk = fdiv(dst[i], wpc), page = fdiv(fmodi(dst[i], wpc), pw);
-    if (chunk >= nc) continue;
+    const int chunk = fdiv(off, wpc), page = fdiv(fmodi(off, wpc), pw);
     atomicAdd(&free_count[chunk], -1);
     if (page / 32 < bw)
       atomicAdd(&bitmap[chunk * bw + page / 32], 1u << (page & 31));
@@ -153,13 +204,13 @@ __global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
     int local = 0;
     for (int ch = lo; ch < hi; ++ch) local += s_state[ch] == -1;
     int total;
-    int pos = block_excl_scan(local, &total, s_warp);
+    int pos = block_excl_scan(local, &total, sh.warp);
     for (int ch = lo; ch < hi; ++ch)
       if (s_state[ch] == -1) mem[d.pool_off + pos++] = ch;
     for (int k = total + tid; k < nc; k += nt) mem[d.pool_off + k] = -1;
     if (tid == 0) {
-      s_ctl[4 * C] = 0;          // pool front
-      s_ctl[4 * C + 1] = total;  // pool back
+      sh.ctl[4 * C] = 0;          // pool front
+      sh.ctl[4 * C + 1] = total;  // pool back
     }
     for (int k = d.pool_off + nc + tid; k < d.bitmap_off; k += nt)
       mem[k] = -1;
@@ -168,12 +219,12 @@ __global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
       int n = 0;
       for (int ch = lo; ch < hi; ++ch) n += s_state[ch] == c;
       int cnt;
-      int r = start + block_excl_scan(n, &cnt, s_warp);
+      int r = start + block_excl_scan(n, &cnt, sh.warp);
       for (int ch = lo; ch < hi; ++ch)
         if (s_state[ch] == c) live[r++] = ch;
       if (tid == 0) {
-        s_base[c] = start;
-        s_cnt[c] = cnt;
+        sh.base[c] = start;
+        sh.cnt[c] = cnt;
       }
       start += cnt;
     }
@@ -182,7 +233,7 @@ __global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
 
   // 6. class-major queue rebuild, in the reference's order
   if (tid == 0) {
-    Chain q{d, mem, s_ctl};
+    Chain q{d, mem, sh.ctl};
     for (int c = 0; c < C; ++c) {
       q.front(c) = q.back(c) = 0;
       q.head(c) = q.tail(c) = -1;
@@ -193,8 +244,8 @@ __global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
       if (w0 >= 0 && w0 < W) mem[w0] = -1;
       q.head(c) = q.tail(c) = seg0;
       // one bulk vl enqueue of the class's live chunks (back = 0)
-      const int L = s_cnt[c];
-      const int* ids = live + s_base[c];
+      const int L = sh.cnt[c];
+      const int* ids = live + sh.base[c];
       const int n_new = fdiv(L, spc);
       for (int j = 0; j < n_new; ++j) newc[j] = q.pool_pop();
       for (int j = 0; j < n_new; ++j)
@@ -203,8 +254,8 @@ __global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
         heap_set(mem, (long long)(j == 0 ? seg0 : newc[j - 1]) * wpc, W,
                  newc[j]);
       for (int r = 0; r < L; ++r) {
-        const int s = r / spc;
-        const int seg = s == 0 ? seg0 : newc[s - 1];
+        const int sg = r / spc;
+        const int seg = sg == 0 ? seg0 : newc[sg - 1];
         heap_set(mem, (long long)seg * wpc + 1 + r % spc, W, ids[r]);
       }
       if (n_new > 0) q.tail(c) = newc[n_new - 1];
@@ -212,16 +263,40 @@ __global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
     }
   }
   __syncthreads();
-  for (int i = tid; i < d.core_ctl_words; i += nt) ctl[i] = s_ctl[i];
+  for (int i = tid; i < d.core_ctl_words; i += nt) ctl[i] = sh.ctl[i];
 }
 
-// ---- host launchers (plain C interface, loaded with ctypes) -------------
+__global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                                  const int* src, const int* dst,
+                                  const int* sizes, int M) {
+  __shared__ WaveShared sh;
+  extern __shared__ int dyn[];
+  wave_extract(d, mem, 1, 0, src, dst, sizes, M);
+  wave_insert_rebuild(d, mem, ctl, 0, src, dst, sizes, M, sh, dyn);
+}
+
+// mem/ctl (S, Mw) / (S, Cw) row-major; src/dst GLOBAL offsets.
+__global__ void sharded_defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                                          int S, int Mw, int Cw,
+                                          const int* src, const int* dst,
+                                          const int* sizes, int M) {
+  __shared__ WaveShared sh;
+  extern __shared__ int dyn[];
+  wave_extract(d, mem, S, Mw, src, dst, sizes, M);
+  for (int s = 0; s < S; ++s)
+    wave_insert_rebuild(d, mem + (long long)s * Mw, ctl + (long long)s * Cw,
+                        s, src, dst, sizes, M, sh, dyn);
+}
+
+// ---- launch geometry (also used by the emulation harness) -------------
 
 extern "C" size_t defrag_txn_smem_bytes(ArenaDesc d) {
   const size_t nwords = (d.num_chunks + 31) / 32;
   return (2 * (size_t)d.num_chunks + nwords + d.num_chunks / d.spc + 2)
          * sizeof(int);
 }
+
+// ---- host launchers (plain C interface, loaded with ctypes) -------------
 
 extern "C" int defrag_txn_launch(ArenaDesc d, int* mem, int* ctl,
                                  const int* src, const int* dst,
@@ -235,5 +310,22 @@ extern "C" int defrag_txn_launch(ArenaDesc d, int* mem, int* ctl,
   }
   defrag_txn_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(
       d, mem, ctl, src, dst, sizes, M);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sharded_defrag_txn_launch(ArenaDesc d, int* mem, int* ctl,
+                                         int S, int Mw, int Cw,
+                                         const int* src, const int* dst,
+                                         const int* sizes, int M,
+                                         void* stream) {
+  const size_t smem = defrag_txn_smem_bytes(d);
+  if (smem > 48 * 1024) {
+    int err = (int)cudaFuncSetAttribute(
+        (const void*)sharded_defrag_txn_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  sharded_defrag_txn_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(
+      d, mem, ctl, S, Mw, Cw, src, dst, sizes, M);
   return (int)cudaGetLastError();
 }

@@ -129,12 +129,14 @@ __global__ void paged_attention_kernel(
   }
 }
 
-// ---- host launchers (plain C interface, loaded with ctypes) -------------
+// ---- launch geometry (also used by the emulation harness) -------------
 
 extern "C" size_t paged_attention_smem_bytes(int G, int D, int page) {
   return (size_t)(2 * G * D + 2 * page * D + G * page + 3 * G)
          * sizeof(float);
 }
+
+// ---- host launchers (plain C interface, loaded with ctypes) -------------
 
 template <typename T>
 static int launch(const void* q, const void* k, const void* v,

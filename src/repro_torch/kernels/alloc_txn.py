@@ -1,12 +1,13 @@
 """Wrappers of the CUDA allocator transaction kernels
 (``csrc/alloc_txn.cu``): one launch per whole alloc or free transaction
-on an arena that lies on the card.
+on an arena, or a sharded arena, that lies on the card.
 
 Each wrapper checks devices, dtypes, shapes and contiguity, allocates
 its output with ``torch.empty``, launches on the current stream, and
 raises if the launch reports an error.  ``mem`` and ``ctl`` are updated
-in place.  The plain version is ``core/transactions.alloc_math`` /
-``free_math``; ``kernels/ops`` picks between them by device.
+in place.  The plain versions are ``core/transactions.alloc_math`` /
+``free_math`` / ``sharded_alloc_math`` / ``sharded_free_math``;
+``kernels/ops`` picks between them by device.
 """
 from __future__ import annotations
 
@@ -17,13 +18,14 @@ import torch
 
 from repro_torch.core import arena
 from repro_torch.core.heap import _log2i
+from repro_torch.core.shards import shard_config
 from repro_torch.core.transactions import check_variant
 from repro_torch.kernels import build, ops
 
 _FIELDS = ("total_words", "num_chunks", "wpc", "bw", "num_classes",
            "min_page_log2", "chunk_bytes", "min_page_words", "max_ppc",
            "spc", "pool_off", "bitmap_off", "free_off", "class_off",
-           "ctl_words", "core_ctl_words", "wrap_capacity")
+           "ctl_words", "core_ctl_words", "wrap_capacity", "walk_bins")
 MAX_CTL = 256
 MAX_CLASSES = 32
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
@@ -53,7 +55,7 @@ def descriptor(lay: arena.ArenaLayout) -> ArenaDesc:
         free_off=lay.region("free_count").offset,
         class_off=lay.region("chunk_class").offset,
         ctl_words=lay.ctl_words, core_ctl_words=lay.core_ctl_words,
-        wrap_capacity=lay.wrap_capacity)
+        wrap_capacity=lay.wrap_capacity, walk_bins=arena.TELE_WALK_BINS)
 
 
 def _lib():
@@ -68,6 +70,14 @@ def _lib():
         lib.alloc_txn_smem_bytes.restype = ctypes.c_size_t
         lib.free_txn_smem_bytes.argtypes = [ArenaDesc, I]
         lib.free_txn_smem_bytes.restype = ctypes.c_size_t
+        lib.sharded_alloc_txn_launch.argtypes = [ArenaDesc, P, P, I, I, I,
+                                                 P, P, P, I, I, P, P]
+        lib.sharded_alloc_txn_launch.restype = I
+        lib.sharded_free_txn_launch.argtypes = [ArenaDesc, P, P, I, I, I,
+                                                P, P, P, I, P]
+        lib.sharded_free_txn_launch.restype = I
+        lib.sharded_alloc_txn_smem_bytes.argtypes = [ArenaDesc, I]
+        lib.sharded_alloc_txn_smem_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
@@ -84,15 +94,22 @@ def _check(name, t, dtype, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _prepare(cfg, kind, family, mem, ctl, n):
+def _prepare(cfg, kind, family, mem, ctl, n, num_shards=None):
+    """Layout, descriptor and device of a transaction's arena; with
+    ``num_shards`` the arena is sharded (``cfg`` the global config) and
+    the layout and descriptor are one shard's."""
     check_variant(kind, family)
+    lead = ()
+    if num_shards is not None:
+        cfg = shard_config(cfg, num_shards)
+        lead = (num_shards,)
     lay = arena.layout(cfg, kind, family)
     dev = mem.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA transaction kernel needs an arena on "
                          f"the card, got {dev}")
-    _check("mem", mem, torch.int32, (lay.mem_words,), dev)
-    _check("ctl", ctl, torch.int32, (lay.ctl_words,), dev)
+    _check("mem", mem, torch.int32, lead + (lay.mem_words,), dev)
+    _check("ctl", ctl, torch.int32, lead + (lay.ctl_words,), dev)
     if n > cfg.max_alloc_batch:
         raise ValueError(f"{n} lanes exceed max_alloc_batch "
                          f"{cfg.max_alloc_batch}")
@@ -142,3 +159,54 @@ def arena_free_txn(cfg, kind, family, mem, ctl, offsets_words, sizes_bytes,
     if err:
         raise RuntimeError(f"free_txn launch failed: CUDA error {err}")
     ops.count("free_txn")
+
+
+def sharded_arena_alloc_txn(cfg, num_shards, kind, family, mem, ctl,
+                            sizes_bytes, mask, home, walk):
+    """One sharded alloc transaction (the (walk+1, S) overflow-walk
+    schedule) in one launch; returns GLOBAL offsets (n,) int32."""
+    n = sizes_bytes.shape[0]
+    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, n, num_shards)
+    _check("sizes_bytes", sizes_bytes, torch.int32, (n,), dev)
+    _check("mask", mask, torch.bool, (n,), dev)
+    _check("home", home, torch.int32, (n,), dev)
+    if not isinstance(walk, int) or not 0 <= walk < num_shards:
+        raise ValueError(f"walk must be an int in [0, {num_shards}), got "
+                         f"{walk!r}")
+    lib = _lib()
+    if lib.sharded_alloc_txn_smem_bytes(desc, n) > SMEM_LIMIT:
+        raise ValueError(f"{n} lanes need more shared memory than a block "
+                         f"has")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    err = lib.sharded_alloc_txn_launch(
+        desc, mem.data_ptr(), ctl.data_ptr(), num_shards, lay.mem_words,
+        lay.ctl_words, sizes_bytes.data_ptr(), mask.data_ptr(),
+        home.data_ptr(), n, walk, out.data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"sharded_alloc_txn launch failed: CUDA error "
+                           f"{err}")
+    ops.count("sharded_alloc_txn")
+    return out
+
+
+def sharded_arena_free_txn(cfg, num_shards, kind, family, mem, ctl,
+                           offsets_words, sizes_bytes, mask):
+    """One sharded free transaction in one launch of S blocks, one per
+    shard (``mem``/``ctl`` in place)."""
+    n = offsets_words.shape[0]
+    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, n, num_shards)
+    _check("offsets_words", offsets_words, torch.int32, (n,), dev)
+    _check("sizes_bytes", sizes_bytes, torch.int32, (n,), dev)
+    _check("mask", mask, torch.bool, (n,), dev)
+    lib = _lib()
+    if lib.free_txn_smem_bytes(desc, n) > SMEM_LIMIT:
+        raise ValueError(f"{n} lanes over {lay.cfg.num_chunks} chunks a "
+                         f"shard need more shared memory than a block has")
+    err = lib.sharded_free_txn_launch(
+        desc, mem.data_ptr(), ctl.data_ptr(), num_shards, lay.mem_words,
+        lay.ctl_words, offsets_words.data_ptr(), sizes_bytes.data_ptr(),
+        mask.data_ptr(), n, _stream(dev))
+    if err:
+        raise RuntimeError(f"sharded_free_txn launch failed: CUDA error "
+                           f"{err}")
+    ops.count("sharded_free_txn")

@@ -15,7 +15,8 @@ counts before such a run).
 from __future__ import annotations
 
 LAUNCHES = {"alloc_txn": 0, "free_txn": 0, "defrag_txn": 0,
-            "paged_attention": 0}
+            "sharded_alloc_txn": 0, "sharded_free_txn": 0,
+            "sharded_defrag_txn": 0, "paged_attention": 0}
 
 
 def reset_launches() -> None:
@@ -63,6 +64,49 @@ def arena_defrag_txn(cfg, kind, family, mem, ctl, src, dst, sizes):
         return
     from repro_torch.core.defrag import migrate_math
     migrate_math(cfg, kind, family, mem, ctl, src, dst, sizes)
+
+
+def sharded_arena_alloc_txn(cfg, num_shards, kind, family, mem, ctl,
+                            sizes_bytes, mask, home, walk):
+    """One whole sharded alloc transaction (the (walk+1, S) overflow-walk
+    schedule), in place on ``mem``/``ctl`` (S, ·); returns the GLOBAL
+    word offsets (−1 = failed lane)."""
+    if _on_cuda(mem):
+        from repro_torch.kernels import alloc_txn
+        return alloc_txn.sharded_arena_alloc_txn(
+            cfg, num_shards, kind, family, mem, ctl, sizes_bytes, mask,
+            home, walk)
+    from repro_torch.core.transactions import sharded_alloc_math
+    return sharded_alloc_math(cfg, num_shards, kind, family, mem, ctl,
+                              sizes_bytes, mask, home, walk)[2]
+
+
+def sharded_arena_free_txn(cfg, num_shards, kind, family, mem, ctl,
+                           offsets_words, sizes_bytes, mask):
+    """One whole sharded free transaction, in place on ``mem``/``ctl``."""
+    if _on_cuda(mem):
+        from repro_torch.kernels import alloc_txn
+        alloc_txn.sharded_arena_free_txn(cfg, num_shards, kind, family, mem,
+                                         ctl, offsets_words, sizes_bytes,
+                                         mask)
+        return
+    from repro_torch.core.transactions import sharded_free_math
+    sharded_free_math(cfg, num_shards, kind, family, mem, ctl, offsets_words,
+                      sizes_bytes, mask)
+
+
+def sharded_arena_defrag_txn(cfg, num_shards, kind, family, mem, ctl, src,
+                             dst, sizes):
+    """One whole sharded migration wave (in-shard compaction or
+    cross-shard rebalance), in place on ``mem``/``ctl``."""
+    if _on_cuda(mem):
+        from repro_torch.kernels import defrag_txn
+        defrag_txn.sharded_arena_defrag_txn(cfg, num_shards, kind, family,
+                                            mem, ctl, src, dst, sizes)
+        return
+    from repro_torch.core.defrag import sharded_migrate_math
+    sharded_migrate_math(cfg, num_shards, kind, family, mem, ctl, src, dst,
+                         sizes)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):

@@ -30,6 +30,10 @@ def main(argv=None):
                     help="fire a proactive defrag wave when frag_ratio "
                          "exceeds RATIO (0-1; default: only the "
                          "allocation-failure retry defrags)")
+    ap.add_argument("--num-shards", type=int, default=1,
+                    help="shard the KV page allocator into N independent "
+                         "arenas with overflow routing (core/shards.py); "
+                         "per-shard occupancy lands in the engine stats")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
@@ -50,7 +54,7 @@ def main(argv=None):
     eng = ServingEngine(model, params, max_batch=args.max_batch,
                         max_seq=args.max_seq,
                         defrag_threshold=args.defrag_threshold,
-                        device=device)
+                        num_shards=args.num_shards, device=device)
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         plen = int(rng.integers(4, args.max_seq // 4))

@@ -65,23 +65,30 @@ def init_paged_kv(num_layers: int, num_pages: int, batch: int,
         seq_lens=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
-def make_kv_allocator(num_pages: int, device="cuda"):
+def make_kv_allocator(num_pages: int, device="cuda", num_shards: int = 1):
     """Ouroboros instance managing the page-id space: each logical page
     is one 256-B region of a single-class heap of 4096-B chunks, so
     word offset // 64 ↔ page id.  Returns (ouro, words_per_page,
     physical_pages); size the KV heaps with ``physical_pages``, since
     vl queue segments occupy chunks of the same heap and make granted
-    ids sparse in it."""
+    ids sparse in it.
+
+    ``num_shards > 1`` partitions the page space into that many
+    independent arenas, each sized for its share of the pages plus its
+    own segment overhead; page ids stay global."""
     chunk = 4096
     pages_per_chunk = chunk // 256
-    data_chunks = -(-num_pages // pages_per_chunk)
+    pages_per_shard = -(-num_pages // num_shards)
+    data_chunks = -(-pages_per_shard // pages_per_chunk)
     # vl segments: one per size class (5) + chunk-queue chain growth
-    # (1023 ids per segment) + headroom
+    # (1023 ids per segment) + headroom, per shard
     seg_chunks = 5 + data_chunks // 1023 + 3
-    cfg = HeapConfig(total_bytes=(data_chunks + seg_chunks) * chunk,
-                     chunk_bytes=chunk, min_page_bytes=256)
+    cfg = HeapConfig(
+        total_bytes=num_shards * (data_chunks + seg_chunks) * chunk,
+        chunk_bytes=chunk, min_page_bytes=256)
     physical_pages = cfg.total_words // 64
-    return Ouroboros(cfg, "vl_chunk", device=device), 64, physical_pages
+    return (Ouroboros(cfg, "vl_chunk", device=device,
+                      num_shards=num_shards), 64, physical_pages)
 
 
 def _table_ids(page_table, pidx):

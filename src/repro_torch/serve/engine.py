@@ -20,7 +20,16 @@ request.  ``defrag_threshold`` adds a proactive wave whenever the
 arena's ``frag_ratio`` exceeds it; ``cancel`` drops a request in any
 state.
 
-Host loop only: the fused decode mega-step (ROADMAP A9), shards (A11),
+``num_shards > 1`` splits the page space into independent arenas
+(``core/shards.py``): each slot's grants home on ``slot % num_shards``
+and overflow to neighbour shards inside the same transaction (one
+``sharded_alloc_txn`` launch; frees are one ``sharded_free_txn``, waves
+one ``sharded_defrag_txn``).  ``rebalance_threshold`` adds a
+cross-shard rebalance wave whenever the live pages of the fullest and
+the emptiest shard differ by more than that many pages (checked after
+admission, before each decode tick).
+
+Host loop only: the fused decode mega-step (ROADMAP A9),
 snapshot/restore (A13), tracer and metrics (A14) are still to port.
 """
 from __future__ import annotations
@@ -52,10 +61,25 @@ class ServingEngine:
     def __init__(self, model: Model, params, *, max_batch: int = 8,
                  max_seq: int = 512, num_pages: Optional[int] = None,
                  kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
-                 defrag_threshold: Optional[float] = None, device="cuda"):
+                 defrag_threshold: Optional[float] = None,
+                 num_shards: int = 1,
+                 rebalance_threshold: Optional[int] = None, device="cuda"):
         for name, v in (("max_batch", max_batch), ("max_seq", max_seq)):
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
+        if not isinstance(num_shards, int) or num_shards < 1:
+            raise ValueError(
+                f"num_shards must be a positive int, got {num_shards!r}")
+        if rebalance_threshold is not None:
+            if num_shards == 1:
+                raise ValueError(
+                    "rebalance_threshold requires num_shards > 1")
+            if (not isinstance(rebalance_threshold, int)
+                    or rebalance_threshold < 1):
+                raise ValueError(
+                    f"rebalance_threshold must be None or a positive "
+                    f"int (pages of max-min shard imbalance), got "
+                    f"{rebalance_threshold!r}")
         if defrag_threshold is not None and not (
                 0.0 < float(defrag_threshold) < 1.0):
             raise ValueError(
@@ -77,12 +101,18 @@ class ServingEngine:
         self.defrag_threshold = (None if defrag_threshold is None
                                  else float(defrag_threshold))
         self.page_bytes = 256  # logical bytes per page in the heap
+        self.num_shards = num_shards
+        self.rebalance_threshold = rebalance_threshold
 
         # the paper's allocator manages the page-id space; its arena
         # lives on the engine's device, so the transactions run there
         self.ouro, self.wpp, physical_pages = KV.make_kv_allocator(
-            self.num_pages, device=self.device)
+            self.num_pages, device=self.device, num_shards=num_shards)
         self.alloc_state = self.ouro.init()
+        self._shard_words = (self.ouro.layout.shard_words
+                             if num_shards > 1
+                             else self.ouro.cfg.total_words)
+        self._shard_pages = np.zeros(num_shards, np.int64)  # live/shard
         # KV heaps sized by the PHYSICAL page space (segment chunks make
         # granted ids sparse in it)
         self.caches = model.make_decode_caches(
@@ -101,6 +131,11 @@ class ServingEngine:
                       "alloc_failures": 0,
                       "arena_mem_words": int(self.alloc_state.mem.numel()),
                       "arena_ctl_words": int(self.alloc_state.ctl.numel()),
+                      # live pages per shard, and grants that landed off
+                      # their home shard (the overflow walk at work)
+                      "num_shards": num_shards,
+                      "shard_pages_live": [0] * num_shards,
+                      "alloc_overflows": 0,
                       # transactions issued: one kernel launch each
                       "alloc_txns": 0, "free_txns": 0,
                       # the allocation-failure path: waves run (one
@@ -108,7 +143,10 @@ class ServingEngine:
                       # defrag_threshold, pages they moved, slots
                       # evicted and requeued, requests cancelled
                       "defrag_waves": 0, "auto_defrag_waves": 0,
-                      "pages_migrated": 0, "evictions": 0, "cancels": 0}
+                      "pages_migrated": 0, "evictions": 0, "cancels": 0,
+                      # cross-shard waves past rebalance_threshold (one
+                      # sharded_defrag_txn launch each)
+                      "rebalance_waves": 0}
         self.refresh_frag_stats()
 
     # ---- request lifecycle -------------------------------------------------
@@ -118,33 +156,54 @@ class ServingEngine:
                                     max_new_tokens, eos_id))
         return self._uid
 
-    def _bulk_alloc(self, n_pages: int) -> List[int]:
-        """ONE allocator transaction granting ``n_pages`` pages; lanes
-        of every growing slot coalesce into this single launch."""
+    def _bulk_alloc(self, homes: List[int]) -> List[int]:
+        """ONE allocator transaction granting one page per entry of
+        ``homes`` (the requesting slot's home shard; a grant overflows
+        to neighbour shards when that shard is full).  Lanes of every
+        growing slot coalesce into this single launch."""
+        n_pages = len(homes)
         lanes = max(self.max_batch * 2, n_pages)
         sizes = torch.full((lanes,), self.page_bytes, dtype=torch.int32,
                            device=self.device)
         mask = torch.arange(lanes, device=self.device) < n_pages
+        home = np.zeros(lanes, np.int32)
+        home[:n_pages] = homes
         self.stats["alloc_txns"] += 1
-        self.alloc_state, offs = self.ouro.alloc(self.alloc_state, sizes,
-                                                 mask)
+        if self.num_shards > 1:
+            self.alloc_state, offs = self.ouro.alloc(
+                self.alloc_state, sizes, mask,
+                shard_hint=torch.from_numpy(home).to(self.device))
+        else:
+            self.alloc_state, offs = self.ouro.alloc(self.alloc_state, sizes,
+                                                     mask)
         offs = offs[:n_pages].cpu().numpy()
         ok = offs >= 0
         self.stats["allocs"] += int(ok.sum())
         self.stats["alloc_failures"] += int((~ok).sum())
+        shard = self._note_shard_pages(offs[ok], +1)
+        self.stats["alloc_overflows"] += int(
+            (shard != home[:n_pages][ok]).sum())
         return [int(o) // self.wpp if o >= 0 else -1 for o in offs]
 
-    def _alloc_pages(self, n_pages: int) -> List[int]:
+    def _alloc_pages(self, homes: List[int]) -> List[int]:
         """Bulk page grant with defragmentation recovery: if any lane
         fails, return this transaction's partial grants, run ONE defrag
         wave and retry once.  The retry's result is returned as it is
         (−1 for a page still not granted)."""
-        got = self._bulk_alloc(n_pages)
+        got = self._bulk_alloc(homes)
         if all(g >= 0 for g in got):
             return got
         self._bulk_free([g for g in got if g >= 0])
         self.defrag()
-        return self._bulk_alloc(n_pages)
+        return self._bulk_alloc(homes)
+
+    def _note_shard_pages(self, offs, delta: int):
+        """Move the per-shard live-page counts by ``delta`` for granted
+        or freed word offsets; returns their owning shards."""
+        shard = offs // self._shard_words
+        np.add.at(self._shard_pages, shard, delta)
+        self.stats["shard_pages_live"] = [int(x) for x in self._shard_pages]
+        return shard
 
     def _bulk_free(self, pages: List[int]):
         if not pages:
@@ -159,6 +218,7 @@ class ServingEngine:
                                           offs_t >= 0)
         self.stats["frees"] += len(pages)
         self.stats["free_txns"] += 1
+        self._note_shard_pages(offs[offs >= 0], -1)
 
     def _map_pages(self, slot: int, upto_tokens: int) -> bool:
         """Grow a slot's page table to cover ``upto_tokens`` positions
@@ -169,7 +229,7 @@ class ServingEngine:
         missing = need - len(self.slot_pages[slot])
         if missing <= 0:
             return True
-        got = self._alloc_pages(missing)
+        got = self._alloc_pages([slot % self.num_shards] * missing)
         if any(g < 0 for g in got):
             self._bulk_free([g for g in got if g >= 0])
             return False
@@ -194,7 +254,8 @@ class ServingEngine:
 
     def refresh_frag_stats(self):
         """``free_words``, ``largest_free_extent`` and ``frag_ratio``
-        of the arena into ``stats``."""
+        of the arena into ``stats`` (lists, one entry per shard, when
+        ``num_shards > 1``)."""
         fs = self.ouro.frag_stats(self.alloc_state)
         self.stats.update(fs)
         return fs
@@ -215,19 +276,38 @@ class ServingEngine:
         return moved
 
     def _maybe_auto_defrag(self):
-        """One wave when ``frag_ratio`` exceeds ``defrag_threshold``
-        (checked after every step), counted also in
-        ``auto_defrag_waves``."""
+        """One wave when ``frag_ratio`` (its largest over the shards)
+        exceeds ``defrag_threshold`` (checked after every step), counted
+        also in ``auto_defrag_waves``."""
         if self.defrag_threshold is None:
             return
-        if self.refresh_frag_stats()["frag_ratio"] > self.defrag_threshold:
+        ratio = self.refresh_frag_stats()["frag_ratio"]
+        if self.num_shards > 1:
+            ratio = max(ratio)
+        if ratio > self.defrag_threshold:
             self.defrag()
             self.stats["auto_defrag_waves"] += 1
+
+    def _maybe_rebalance(self):
+        """One cross-shard rebalance wave when the live pages of the
+        fullest and the emptiest shard differ by more than
+        ``rebalance_threshold``."""
+        if self.num_shards == 1 or self.rebalance_threshold is None:
+            return
+        live = self._shard_pages
+        if int(live.max() - live.min()) <= self.rebalance_threshold:
+            return
+        self.alloc_state, fwd = self.ouro.rebalance(self.alloc_state)
+        moved = self._apply_forwarding(fwd)
+        self.stats["rebalance_waves"] += 1
+        self.stats["pages_migrated"] += moved
+        self.refresh_frag_stats()
 
     def _apply_forwarding(self, fwd) -> int:
         """Remap the engine's page references through a forwarding
         table: KV rows move old→new in place, page-table entries and
-        ``slot_pages`` are rewritten.  Returns the pages migrated."""
+        ``slot_pages`` are rewritten, and the per-shard live counts
+        follow pages that change shards.  Returns the pages migrated."""
         src = fwd.src.cpu()
         if not bool((src >= 0).any()):
             return 0
@@ -239,7 +319,13 @@ class ServingEngine:
         mapping = {s: d for s, d in zip(sp, dp) if s >= 0}
         for pages in self.slot_pages:
             for i, p in enumerate(pages):
-                pages[i] = mapping.get(p, p)
+                if p in mapping:
+                    old_sh = p * self.wpp // self._shard_words
+                    new_sh = mapping[p] * self.wpp // self._shard_words
+                    self._shard_pages[old_sh] -= 1
+                    self._shard_pages[new_sh] += 1
+                    pages[i] = mapping[p]
+        self.stats["shard_pages_live"] = [int(x) for x in self._shard_pages]
         return len(mapping)
 
     def _admit(self):
@@ -327,7 +413,7 @@ class ServingEngine:
                 slots.extend([s] * (need - len(self.slot_pages[s])))
             if not slots:
                 return active
-            got = self._alloc_pages(len(slots))
+            got = self._alloc_pages([s % self.num_shards for s in slots])
             if all(g >= 0 for g in got):
                 self._map_granted(slots, got)
                 return active
@@ -372,6 +458,7 @@ class ServingEngine:
         """Admit, decode one token for all active slots, retire finished
         requests.  Returns the requests finished this step."""
         self._admit()
+        self._maybe_rebalance()
         finished = self._step_host()
         self.stats["steps"] += 1
         self._maybe_auto_defrag()

@@ -2,23 +2,19 @@
 // by tests/test_torch_cuda_emulated.py).  alloc_emu.inc,
 // defrag_emu.inc and attention_emu.inc are the kernel sources with their
 // host launchers cut off, written by the test before it compiles this
-// file; the block sizes and shared-memory sizes here repeat the
-// launchers'.  The kernels' shared header (arena_dev.cuh) comes from the
-// source directory.
+// file; the block and shared-memory sizes come from the sources' own
+// launch-geometry functions, which precede the host launchers.  The
+// kernels' shared header (arena_dev.cuh) comes from the source
+// directory.
 #include "shim.h"
 #include "alloc_emu.inc"
 #include "defrag_emu.inc"
 #include "attention_emu.inc"
 
-static int block_threads(int n) {
-  int t = ((n + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
-}
-
 extern "C" void emu_alloc_txn(ArenaDesc d, int* mem, int* ctl,
                               const int* sizes, const uint8_t* mask, int n,
                               int* out) {
-  emu_launch(1, block_threads(n), (size_t)n * sizeof(int), [&] {
+  emu_launch(1, block_threads(n), alloc_txn_smem_bytes(d, n), [&] {
     alloc_txn_kernel(d, mem, ctl, sizes, mask, n, out);
   });
 }
@@ -26,22 +22,45 @@ extern "C" void emu_alloc_txn(ArenaDesc d, int* mem, int* ctl,
 extern "C" void emu_free_txn(ArenaDesc d, int* mem, int* ctl,
                              const int* offs, const int* sizes,
                              const uint8_t* mask, int n) {
-  const int nwords = (d.num_chunks + 31) / 32, m = n / d.spc + 1;
-  const size_t smem =
-      ((size_t)nwords + 3 * (size_t)n + (size_t)d.num_classes * m) *
-      sizeof(int);
-  emu_launch(1, block_threads(n), smem, [&] {
+  emu_launch(1, block_threads(n), free_txn_smem_bytes(d, n), [&] {
     free_txn_kernel(d, mem, ctl, offs, sizes, mask, n);
+  });
+}
+
+extern "C" void emu_sharded_alloc_txn(ArenaDesc d, int* mem, int* ctl, int S,
+                                      int Mw, int Cw, const int* sizes,
+                                      const uint8_t* mask, const int* home,
+                                      int n, int walk, int* out) {
+  emu_launch(1, block_threads(n), sharded_alloc_txn_smem_bytes(d, n), [&] {
+    sharded_alloc_txn_kernel(d, mem, ctl, S, Mw, Cw, sizes, mask, home, n,
+                             walk, out);
+  });
+}
+
+// One block per shard; the emulation runs a grid's blocks one after
+// another, which the kernel allows: its blocks share no words.
+extern "C" void emu_sharded_free_txn(ArenaDesc d, int* mem, int* ctl, int S,
+                                     int Mw, int Cw, const int* offs,
+                                     const int* sizes, const uint8_t* mask,
+                                     int n) {
+  emu_launch(S, block_threads(n), free_txn_smem_bytes(d, n), [&] {
+    sharded_free_txn_kernel(d, mem, ctl, Mw, Cw, offs, sizes, mask, n);
+  });
+}
+
+extern "C" void emu_sharded_defrag_txn(ArenaDesc d, int* mem, int* ctl, int S,
+                                       int Mw, int Cw, const int* src,
+                                       const int* dst, const int* sizes,
+                                       int M, int threads) {
+  emu_launch(1, threads, defrag_txn_smem_bytes(d), [&] {
+    sharded_defrag_txn_kernel(d, mem, ctl, S, Mw, Cw, src, dst, sizes, M);
   });
 }
 
 extern "C" void emu_defrag_txn(ArenaDesc d, int* mem, int* ctl,
                                const int* src, const int* dst,
                                const int* sizes, int M, int threads) {
-  const int nc = d.num_chunks, nwords = (nc + 31) / 32;
-  const size_t smem =
-      (2 * (size_t)nc + nwords + nc / d.spc + 2) * sizeof(int);
-  emu_launch(1, threads, smem, [&] {
+  emu_launch(1, threads, defrag_txn_smem_bytes(d), [&] {
     defrag_txn_kernel(d, mem, ctl, src, dst, sizes, M);
   });
 }
@@ -51,9 +70,7 @@ extern "C" void emu_paged_attention(int bf16, const void* q, const void* k,
                                     const int* seq_lens, float* out, int B,
                                     int Hq, int Hkv, int D, int page, int P,
                                     int NP, int wpp, float scale) {
-  const int G = Hq / Hkv;
-  const size_t smem =
-      (size_t)(2 * G * D + 2 * page * D + G * page + 3 * G) * sizeof(float);
+  const size_t smem = paged_attention_smem_bytes(Hq / Hkv, D, page);
   if (bf16)
     emu_launch(B * Hkv, 128, smem, [&] {
       paged_attention_kernel<__nv_bfloat16>(

@@ -242,7 +242,9 @@ def test_cpu_transactions_launch_no_kernel():
     ot.free(st, offs, sizes, mask)
     assert bool((offs >= 0).all())
     assert ops.LAUNCHES == {"alloc_txn": 0, "free_txn": 0,
-                            "defrag_txn": 0, "paged_attention": 0}
+                            "defrag_txn": 0, "sharded_alloc_txn": 0,
+                            "sharded_free_txn": 0, "sharded_defrag_txn": 0,
+                            "paged_attention": 0}
 
 
 @pytest.mark.parametrize("variant", ("page", "chunk", "va_page", "vl_page",

@@ -163,3 +163,125 @@ def test_defrag_kernel_matches_plain_math_word_for_word(cuda, cfgkw, page, k,
         from repro_torch.kernels import defrag_txn
         defrag_txn.arena_defrag_txn(o_gpu.cfg, "chunk", "vl", sg.mem,
                                     sg.ctl, fg.src[:-1], fg.dst, fg.sizes)
+
+
+# a sharded arena of the engine's geometry: 4 shards x 12 chunks
+SHARD_CFG = dict(total_bytes=4 * 12 * 4096, chunk_bytes=4096,
+                 min_page_bytes=256)
+
+
+@pytest.mark.parametrize("walk,hinting,n,n_ops", [
+    (None, "hashed", 16, 30),
+    (None, "pinned-array", 16, 40),   # every home on shard 0: exhausts it
+    (1, "mixed", 32, 30),             # a bounded walk
+    (None, "hashed", 4096, 6),        # 4096 lanes: every shard runs dry
+], ids=("hashed", "exhausting-walk", "walk-1", "4096-lanes"))
+def test_sharded_alloc_kernels_match_plain_replay_word_for_word(
+        cuda, walk, hinting, n, n_ops):
+    """Sharded alloc/free traces on the card and on the CPU: one
+    ``sharded_alloc_txn`` / ``sharded_free_txn`` launch per transaction,
+    offsets and words identical to the plain replay after every one,
+    lanes served at walk attempts > 0."""
+    kw = dict(num_shards=4, overflow_walk=walk)
+    o_gpu = Ouroboros(HeapConfig(**SHARD_CFG), "vl_chunk", device=cuda, **kw)
+    o_cpu = Ouroboros(HeapConfig(**SHARD_CFG), "vl_chunk", device="cpu",
+                      **kw)
+    sg, sc = o_gpu.init(), o_cpu.init()
+    rng = np.random.default_rng(5)
+    live = []
+    ops.reset_launches()
+    n_alloc = n_free = 0
+    for step in range(n_ops):
+        if live and step % 4 == 3:
+            k = min(len(live), int(rng.integers(1, n + 1)))
+            pick = set(rng.choice(len(live), k, replace=False).tolist())
+            drop = [x for i, x in enumerate(live) if i in pick]
+            live = [x for i, x in enumerate(live) if i not in pick]
+            fo = np.full(n, -1, np.int32)
+            fs = np.zeros(n, np.int32)
+            fo[:k] = [a for a, _ in drop]
+            fs[:k] = [b for _, b in drop]
+            perm = rng.permutation(n)
+            fo_t = torch.from_numpy(fo[perm].copy())
+            fs_t = torch.from_numpy(fs[perm].copy())
+            sc = o_cpu.free(sc, fo_t, fs_t, fo_t >= 0)
+            sg = o_gpu.free(sg, fo_t.to(cuda), fs_t.to(cuda),
+                            (fo_t >= 0).to(cuda))
+            n_free += 1
+        else:
+            if hinting == "hashed":
+                hint = None
+            elif hinting == "pinned-array":
+                hint = np.zeros(n, np.int32)
+            else:
+                hint = (rng.integers(-4, 8, n).astype(np.int32) if step % 2
+                        else None)
+            sizes = torch.from_numpy(
+                rng.choice([256, 512, 1024, 4096, 8192], n,
+                           p=[.6, .15, .1, .1, .05]).astype(np.int32))
+            mask = torch.from_numpy(rng.random(n) < 0.9)
+            sc, oc = o_cpu.alloc(sc, sizes, mask, shard_hint=hint)
+            sg, og = o_gpu.alloc(
+                sg, sizes.to(cuda), mask.to(cuda),
+                shard_hint=None if hint is None
+                else torch.from_numpy(hint).to(cuda))
+            assert torch.equal(og.cpu(), oc), step
+            live += [(a, b) for a, b in zip(oc.tolist(), sizes.tolist())
+                     if a >= 0]
+            n_alloc += 1
+        assert torch.equal(sg.mem.cpu(), sc.mem), step
+        assert torch.equal(sg.ctl.cpu(), sc.ctl), step
+    assert ops.LAUNCHES["sharded_alloc_txn"] == n_alloc
+    assert ops.LAUNCHES["sharded_free_txn"] == n_free
+    lay = o_cpu.layout.shard
+    bins = sc.ctl[:, lay.off_t_walk:lay.off_t_walk + 4].sum(0)
+    fails = sc.ctl[:, lay.off_t_fail:lay.off_t_fail + lay.num_classes]
+    if hinting != "hashed":
+        assert int(bins[1:].sum()) > 0     # lanes served by neighbours
+    if n == 4096:
+        assert int(fails.sum()) > 0        # every shard ran dry
+
+
+@pytest.mark.parametrize("chunk_bytes,page,max_moves,rounds", [
+    (4096, 256, 128, 30),
+    (64, 16, 4, 4),       # 15 queue ids a segment; pool claims
+], ids=("kv-geometry", "tiny-chunks"))
+def test_sharded_defrag_kernel_matches_plain_math_word_for_word(
+        cuda, chunk_bytes, page, max_moves, rounds):
+    """The same churned sharded arena on the card and on the CPU: a
+    sharded compaction wave, then a cross-shard rebalance wave, one
+    ``sharded_defrag_txn`` launch each, plans and words identical."""
+    cfg = HeapConfig(total_bytes=4 * 12 * chunk_bytes,
+                     chunk_bytes=chunk_bytes, min_page_bytes=page)
+    outs = []
+    for dev in (cuda, "cpu"):
+        o = Ouroboros(cfg, "vl_chunk", device=dev, num_shards=4)
+        rng = np.random.default_rng(3)
+        n = 16
+        sizes = torch.full((n,), page, dtype=torch.int32, device=dev)
+        home = torch.zeros(n, dtype=torch.int32, device=dev)
+        st, live = o.init(), []
+        for _ in range(rounds):
+            mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+            st, offs = o.alloc(st, sizes, mask, shard_hint=home)
+            live += [x for x in offs.tolist() if x >= 0]
+        drop = [x for i, x in enumerate(live) if i % 3]
+        rng.shuffle(drop)
+        for i in range(0, len(drop), n):
+            fo = torch.full((n,), -1, dtype=torch.int32)
+            fo[:len(drop[i:i + n])] = torch.tensor(drop[i:i + n],
+                                                   dtype=torch.int32)
+            fo = fo.to(dev)
+            st = o.free(st, fo, sizes, fo >= 0)
+        ops.reset_launches()
+        st, f1 = o.defrag(st, max_moves=max_moves)
+        st, f2 = o.rebalance(st, max_moves=max_moves)
+        outs.append((st, f1, f2, dict(ops.LAUNCHES)))
+    (sg, g1, g2, lg), (sc, c1, c2, _) = outs
+    for a, b in zip(g1 + g2, c1 + c2):
+        assert torch.equal(a.cpu(), b)
+    torch.cuda.synchronize()
+    assert torch.equal(sg.mem.cpu(), sc.mem)
+    assert torch.equal(sg.ctl.cpu(), sc.ctl)
+    assert int((c1.src >= 0).sum()) > 0 and int((c2.src >= 0).sum()) > 0
+    assert lg["sharded_defrag_txn"] == 2 and lg["defrag_txn"] == 0

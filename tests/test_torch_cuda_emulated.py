@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import HeapConfig, Ouroboros, arena, defrag
+from repro_torch.core import HeapConfig, Ouroboros, arena, defrag, shards
 from repro_torch.kernels import ref
 from repro_torch.kernels.alloc_txn import ArenaDesc, descriptor
 
@@ -67,8 +67,15 @@ def emu(tmp_path_factory):
     so.emu_defrag_txn.argtypes = [ArenaDesc, P, P, P, P, P, I, I]
     so.emu_paged_attention.argtypes = [I, P, P, P, P, P, P] + [I] * 8 + [
         ctypes.c_float]
+    so.emu_sharded_alloc_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
+                                         I, I, P]
+    so.emu_sharded_free_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
+                                        I]
+    so.emu_sharded_defrag_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
+                                          I, I]
     for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_defrag_txn,
-              so.emu_paged_attention):
+              so.emu_paged_attention, so.emu_sharded_alloc_txn,
+              so.emu_sharded_free_txn, so.emu_sharded_defrag_txn):
         f.restype = None
     return so
 
@@ -124,6 +131,167 @@ def test_alloc_kernels_match_plain_math(emu, cfgkw, menu, n, ops_, bias):
                              _p(fm), n)
         assert torch.equal(mem, st.mem), f"mem differs after op {step}"
         assert torch.equal(ctl, st.ctl), f"ctl differs after op {step}"
+
+
+def test_single_arena_alloc_kernel_bins_served_lanes_at_walk_bin_0(emu):
+    """The walk-bin argument of the shared transaction body: a single
+    arena's served lanes all land in walk bin 0, as before."""
+    o = Ouroboros(HeapConfig(total_bytes=1 << 16, chunk_bytes=1 << 11,
+                             min_page_bytes=16), "vl_chunk", device="cpu")
+    lay = o.layout
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    sizes = torch.tensor([16, 64, 2048, 8192] * 8, dtype=torch.int32)
+    mask = torch.ones(32, dtype=torch.bool)
+    for _ in range(3):
+        st, want = o.alloc(st, sizes, mask)
+        got = torch.empty(32, dtype=torch.int32)
+        emu.emu_alloc_txn(descriptor(lay), _p(mem), _p(ctl), _p(sizes),
+                          _p(mask), 32, _p(got))
+        assert torch.equal(got, want) and torch.equal(ctl, st.ctl)
+    walk = ctl[lay.off_t_walk:lay.off_t_walk + arena.TELE_WALK_BINS]
+    served = int(ctl[lay.off_t_alloc:lay.off_t_alloc
+                     + lay.num_classes].sum())
+    assert served > 0 and walk.tolist() == [served] + [0] * 7
+
+
+# a sharded arena of the engine's geometry: 4 shards x 12 chunks
+SHARD_CFG = dict(total_bytes=4 * 12 * 4096, chunk_bytes=4096,
+                 min_page_bytes=256)
+
+
+def _sharded_step(emu, o, st, mem, ctl, rng, live, n, hint):
+    """One alloc (homes from ``hint``: None hashes, an array pins) or
+    free transaction through the plain replay (the facade on the CPU)
+    and through the emulated kernel on copies of the words."""
+    slay = o.layout
+    d = descriptor(slay.shard)
+    S, Mw, Cw = o.num_shards, slay.mem_words, slay.ctl_words
+    if hint is not False:
+        sizes = torch.from_numpy(rng.choice([256, 512, 1024, 4096, 8192],
+                                            n, p=[.6, .15, .1, .1, .05])
+                                 .astype(np.int32))
+        mask = torch.from_numpy(rng.random(n) < 0.9)
+        home = shards.home_shards(n, S, hint)
+        st, want = o.alloc(st, sizes, mask, shard_hint=hint)
+        got = torch.empty(n, dtype=torch.int32)
+        emu.emu_sharded_alloc_txn(d, _p(mem), _p(ctl), S, Mw, Cw, _p(sizes),
+                                  _p(mask), _p(home), n, o.walk, _p(got))
+        assert torch.equal(got, want)
+        live += [(a, b) for a, b in zip(want.tolist(), sizes.tolist())
+                 if a >= 0]
+    else:
+        k = min(len(live), int(rng.integers(1, n + 1)))
+        pick = set(rng.choice(len(live), k, replace=False).tolist())
+        drop = [x for i, x in enumerate(live) if i in pick]
+        live[:] = [x for i, x in enumerate(live) if i not in pick]
+        fo = np.full(n, -1, np.int32)
+        fs = np.zeros(n, np.int32)
+        fo[:k] = [a for a, _ in drop]
+        fs[:k] = [b for _, b in drop]
+        perm = rng.permutation(n)
+        fo_t = torch.from_numpy(fo[perm].copy())
+        fs_t = torch.from_numpy(fs[perm].copy())
+        fm = fo_t >= 0
+        st = o.free(st, fo_t, fs_t, fm)
+        emu.emu_sharded_free_txn(d, _p(mem), _p(ctl), S, Mw, Cw, _p(fo_t),
+                                 _p(fs_t), _p(fm), n)
+    return st
+
+
+@pytest.mark.parametrize("walk,hinting,n,ops_", [
+    (None, "hashed", 16, 30),
+    (None, "pinned-array", 16, 40),   # every home on shard 0: exhausts it
+    (1, "mixed", 32, 30),             # a bounded walk
+], ids=("hashed", "exhausting-walk", "walk-1"))
+def test_sharded_alloc_kernels_match_plain_replay(emu, walk, hinting, n,
+                                                  ops_):
+    """Sharded alloc/free traces: the emulated ``sharded_alloc_txn`` /
+    ``sharded_free_txn`` leave the plain replay's words and offsets
+    after every transaction, with lanes served at walk attempts > 0 and
+    (exhausting) steps that select no lane."""
+    o = Ouroboros(HeapConfig(**SHARD_CFG), "vl_chunk", device="cpu",
+                  num_shards=4, overflow_walk=walk)
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    rng = np.random.default_rng(5)
+    live = []
+    for step in range(ops_):
+        if live and step % 4 == 3:
+            hint = False
+        elif hinting == "hashed":
+            hint = None
+        elif hinting == "pinned-array":
+            hint = np.zeros(n, np.int32)
+        else:
+            hint = rng.integers(-4, 8, n).astype(np.int32) if step % 2 \
+                else None
+        st = _sharded_step(emu, o, st, mem, ctl, rng, live, n, hint)
+        assert torch.equal(mem, st.mem), \
+            f"mem differs after op {step} at " \
+            f"{torch.nonzero(mem != st.mem)[:8].tolist()}"
+        assert torch.equal(ctl, st.ctl), f"ctl differs after op {step}"
+    lay = o.layout.shard
+    bins = ctl[:, lay.off_t_walk:lay.off_t_walk + o.walk + 1].sum(0)
+    assert int(bins[1:].sum()) > 0, bins
+
+
+def _emu_sharded_wave(emu, o, st, src, dst, sizes, threads=256):
+    slay = o.layout
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    emu.emu_sharded_defrag_txn(descriptor(slay.shard), _p(mem), _p(ctl),
+                               o.num_shards, slay.mem_words, slay.ctl_words,
+                               _p(src), _p(dst), _p(sizes), src.shape[0],
+                               threads)
+    defrag.sharded_migrate_math(o.cfg, o.num_shards, o.kind, o.family,
+                                st.mem, st.ctl, src, dst, sizes)
+    assert torch.equal(mem, st.mem), \
+        f"mem differs at {torch.nonzero(mem != st.mem)[:8].tolist()}"
+    assert torch.equal(ctl, st.ctl), \
+        f"ctl differs at {torch.nonzero(ctl != st.ctl)[:8].tolist()}"
+
+
+@pytest.mark.parametrize("chunk_bytes,page,max_moves,rounds", [
+    (4096, 256, 128, 30),
+    # 15 queue ids a segment; two shards left empty, so the rebalance
+    # claims pool chunks of an idle receiver
+    (64, 16, 4, 4),
+], ids=("kv-geometry", "tiny-chunks"))
+def test_sharded_defrag_kernel_matches_plain_math(emu, chunk_bytes, page,
+                                                  max_moves, rounds):
+    """Churn with every lane homed on shard 0 (so it overflows), then a
+    sharded compaction wave and a rebalance wave (cross-shard moves,
+    claims of the receiver's pool chunks, every shard rebuilt): the
+    emulated ``sharded_defrag_txn`` leaves ``sharded_migrate_math``'s
+    words."""
+    cfg = HeapConfig(total_bytes=4 * 12 * chunk_bytes,
+                     chunk_bytes=chunk_bytes, min_page_bytes=page)
+    o = Ouroboros(cfg, "vl_chunk", device="cpu", num_shards=4)
+    rng = np.random.default_rng(3)
+    n = 16
+    sizes = torch.full((n,), page, dtype=torch.int32)
+    st, live = o.init(), []
+    for _ in range(rounds):
+        st, offs = o.alloc(st, sizes, torch.from_numpy(rng.random(n) < 0.9),
+                           shard_hint=np.zeros(n, np.int32))
+        live += [x for x in offs.tolist() if x >= 0]
+    drop = [x for i, x in enumerate(live) if i % 3]
+    rng.shuffle(drop)
+    for i in range(0, len(drop), n):
+        fo = torch.full((n,), -1, dtype=torch.int32)
+        fo[:len(drop[i:i + n])] = torch.tensor(drop[i:i + n],
+                                               dtype=torch.int32)
+        st = o.free(st, fo, sizes, fo >= 0)
+    plan = defrag.sharded_plan_math(o.cfg, 4, o.kind, o.family, st.mem,
+                                    st.ctl, max_moves=max_moves)
+    assert int((plan[0] >= 0).sum()) > 0
+    _emu_sharded_wave(emu, o, st, *plan)
+    plan = shards.rebalance_plan_math(o.cfg, 4, o.kind, o.family, st.mem,
+                                      st.ctl, max_moves=max_moves)
+    src_sh = plan[0][plan[0] >= 0] // o.layout.shard_words
+    dst_sh = plan[1][plan[1] >= 0] // o.layout.shard_words
+    assert src_sh.numel() > 0 and bool((src_sh != dst_sh).all())
+    _emu_sharded_wave(emu, o, st, *plan)
 
 
 def _churn(o, st, rng, n, page, until_full, keep_every=5, rounds=14):
