@@ -26,11 +26,17 @@ Phases, each reporting on its own lines:
    are served at walk attempts 1-3), then ``sharded_defrag_txn``
    compaction and cross-shard rebalance waves (plans identical); and a
    4096-lane trace and both waves on the 4-shard arena for 65536 pages
-   against CPU copies;
+   against CPU copies.  Then one admission's and one retirement's lanes
+   of full-width mamba2-780m (298,656 pages of 256 B, lane tables in the
+   device workspace) on the mamba2 engine's arena, single and 4-shard,
+   against the plain math run on a second arena on the card;
 4. ``paged_attention`` against its plain version at qwen2-0.5b decode
    shapes (B 8, Hq 14, Hkv 2, D 64, page 16, P 32), ragged lengths and
    holes, page-id and word-offset tables, float32 and bf16 (both sides
-   widen the same values to float32: atol 1e-5 for each);
+   widen the same values to float32: atol 1e-5 for each); ``ssd_scan``
+   against ``ssd_plain`` at mamba2-780m's heads (H 48, P 64, N 128, G 1,
+   chunk 64) at 1, 4 and 7 chunks, bf16 and float32 (atol 1e-4 + rtol
+   1e-4), and its times at 1-7 chunks;
 5. serve full-width qwen2-0.5b (random weights from ``--seed``) in bf16:
    16 requests, prompts 16-448 tokens, 32 new tokens each, max_batch 8,
    max_seq 512.  The launch counters are zeroed just before and read just
@@ -55,7 +61,18 @@ Phases, each reporting on its own lines:
    tokens must equal the unpressured run's, its launches the engine's
    counts (no single-arena allocator kernel launches), its shards must
    drain, and its log replayed through the plain math on the CPU must
-   end on the engine's words;
+   end on the engine's words.  Last, full-width mamba2-780m (random
+   weights from ``--seed``, bf16) serves phase 5's request lengths, 32
+   new tokens each, max_batch 8: one ``alloc_txn`` of 298,656 lanes per
+   admission, one ``free_txn`` per retirement, one ``ssd_scan`` per
+   prefill layer and no other launch; the timed run carries no check,
+   and its grants, logged without a copy or a sync, are checked after
+   it: every grant page-aligned, inside the heap and disjoint from every
+   live page; ``allocs == frees`` and every slot's and shard's pages back
+   to 0.  The same traffic on a second fresh engine (the checked run)
+   must give the same tokens, and its first admission's grant and first
+   retirement are replayed through the plain math on card copies of the
+   words they started from;
 6. kernel times from ``torch.profiler`` (allocator and defrag kernels
    replayed at the engine's recorded inputs; defrag also at the
    65536-page arena with M = 128; the sharded kernels at the sharded
@@ -81,6 +98,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 
 
 def log(*a):
@@ -124,7 +142,8 @@ KERNEL_SYMBOLS = {"alloc_txn": "alloc_txn_kernel",
                   "sharded_alloc_txn": "sharded_alloc_txn_kernel",
                   "sharded_free_txn": "sharded_free_txn_kernel",
                   "sharded_defrag_txn": "sharded_defrag_txn_kernel",
-                  "paged_attention": "paged_attention_kernel"}
+                  "paged_attention": "paged_attention_kernel",
+                  "ssd_scan": "ssd_scan_kernel"}
 
 
 class DeviceProfile:
@@ -552,18 +571,32 @@ def shard_lay(ouro):
 
 
 class CountingModel:
-    """Delegates to the model and counts decode ticks."""
+    """Delegates to the model, counts decode ticks, keeps each prefill's
+    prompt length, and sums the host wall of the calls (each ends where
+    the engine reads its token ids back, which syncs)."""
 
     def __init__(self, model):
         self._model = model
         self.decode_calls = 0
+        self.prefill_lens = []
+        self.secs = {"prefill": 0.0, "decode": 0.0}
 
     def __getattr__(self, name):
         return getattr(self._model, name)
 
     def decode_step(self, *a, **kw):
         self.decode_calls += 1
-        return self._model.decode_step(*a, **kw)
+        t0 = time.perf_counter()
+        out = self._model.decode_step(*a, **kw)
+        self.secs["decode"] += time.perf_counter() - t0
+        return out
+
+    def prefill(self, params, batch, *a, **kw):
+        self.prefill_lens.append(int(batch["tokens"].shape[1]))
+        t0 = time.perf_counter()
+        out = self._model.prefill(params, batch, *a, **kw)
+        self.secs["prefill"] += time.perf_counter() - t0
+        return out
 
 
 def make_requests(cfg, seed, n, lo, hi):
@@ -818,9 +851,9 @@ def phase_serve(device, seed):
                              f"transactions {st['alloc_txns']}/"
                              f"{st['free_txns']}")
     if any(launches[k] for k in ("sharded_alloc_txn", "sharded_free_txn",
-                                 "sharded_defrag_txn")):
-        raise AssertionError(f"a single-arena engine launched a sharded "
-                             f"kernel: {launches}")
+                                 "sharded_defrag_txn", "ssd_scan")):
+        raise AssertionError(f"a single-arena dense engine launched a "
+                             f"sharded or SSD kernel: {launches}")
     want_pa = cfg.num_layers * counting.decode_calls
     if launches["paged_attention"] != want_pa:
         raise AssertionError(f"paged_attention launches "
@@ -933,7 +966,8 @@ def phase_pressure(device, serve):
     want_l = {"alloc_txn": st["alloc_txns"], "free_txn": st["free_txns"],
               "defrag_txn": st["defrag_waves"], "sharded_alloc_txn": 0,
               "sharded_free_txn": 0, "sharded_defrag_txn": 0,
-              "paged_attention": eng.cfg.num_layers * counting.decode_calls}
+              "paged_attention": eng.cfg.num_layers * counting.decode_calls,
+              "ssd_scan": 0}
     if launches != want_l:
         raise AssertionError(f"launches {launches} != the engine's counts "
                              f"{want_l}")
@@ -1313,7 +1347,7 @@ def phase_sharded_serve(device, serve):
                   "sharded_defrag_txn": st["defrag_waves"]
                   + st["rebalance_waves"],
                   "paged_attention": eng.cfg.num_layers
-                  * counting.decode_calls}
+                  * counting.decode_calls, "ssd_scan": 0}
         if launches != want_l:
             raise AssertionError(f"sharded {name}: launches {launches} != "
                                  f"the engine's counts {want_l}")
@@ -1398,7 +1432,8 @@ def phase_timing(device, serve, alloc_logs, pressure, waves):
     busy = prof.busy_ms()
     wall = 1e3 * serve["wall"]
     log(f"phase 6: serving device busy {busy:.0f} ms of the unprofiled "
-        f"run's {wall:.0f} ms wall: device idle {100 * (1 - busy / wall):.1f}%")
+        f"run's {wall:.0f} ms wall: device idle "
+        f"{100 * (1 - busy / wall):.1f}%")
     for key, us, n in prof.rows[:8]:
         log(f"phase 6:   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
     return dict(k_times=k_times, p_times=p_times, bounds=bounds, defrag=dk)
@@ -1516,6 +1551,490 @@ def phase_small_model(device, seed):
             + (f"; {fired}" if "defrag_threshold" in kw else ""))
 
 
+# ---------------------------------------------------------------------------
+# the ssm slice: 298,656-lane transactions, ssd_scan, serving mamba2-780m
+# ---------------------------------------------------------------------------
+
+MAMBA = "mamba2-780m"
+
+
+def aux_geometry():
+    """mamba2-780m's aux pages per slot, and the serving engine's page
+    count for max_batch 8 (256 KV-page budget + 8 slots' aux pages)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.paged.kv_cache import modality_page_quota
+    aux = modality_page_quota(get_arch(MAMBA))
+    return aux, 256 + 8 * aux
+
+
+def phase_aux_pairs(device, reps=3):
+    """One admission's and one retirement's lanes of full-width
+    mamba2-780m (298,656 256-B pages) on the engine's arena, single and
+    4-shard: the kernels (lane tables in the device workspace) against
+    the plain math, word for word (single: on a second arena on the
+    card, its words after the grant kept for phase 5; 4-shard: on CPU
+    copies, the faster host for the plain chain); then the kernels'
+    device times (``torch.profiler``, each alloc from a fresh arena, each
+    free of that alloc's grant), the plain versions' times and the byte
+    bounds."""
+    import torch
+    from repro_torch.core import shards
+    from repro_torch.core import transactions as T
+    from repro_torch.kernels import alloc_txn as AT
+    from repro_torch.paged.kv_cache import make_kv_allocator
+
+    n, n_pages = aux_geometry()
+    res = {}
+    for S in (1, SHARDS):
+        o, _, _ = make_kv_allocator(n_pages, device=device, num_shards=S)
+        lay = shard_lay(o)
+        desc = AT.descriptor(lay)
+        lib = AT._lib()
+        ws = ((lib.alloc_txn_workspace_bytes(desc, n, AT.TABLE_SMEM_LIMIT)
+               if S == 1 else lib.sharded_alloc_txn_workspace_bytes(
+                   desc, n, AT.TABLE_SMEM_LIMIT)),
+              lib.free_txn_workspace_bytes(desc, n, S, AT.TABLE_SMEM_LIMIT))
+        if not all(ws):
+            raise AssertionError(f"{n} lanes fit in shared memory: {ws}")
+        pdev = device if S == 1 else "cpu"
+        sk = o.init()
+        sp = (o if S == 1 else make_kv_allocator(
+            n_pages, device="cpu", num_shards=S)[0]).init()
+        fresh = (sk.mem.clone(), sk.ctl.clone())
+        sizes = torch.full((n,), 256, dtype=torch.int32, device=device)
+        mask = torch.ones(n, dtype=torch.bool, device=device)
+        psz, pmask = sizes.to(pdev), mask.to(pdev)
+        base = (o.kind, o.family, sp.mem, sp.ctl)
+        _, offs = o.alloc(sk, sizes, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if S == 1:
+            want = T.alloc_math(o.cfg, *base, psz, pmask)[2]
+        else:
+            home = shards.home_shards(n, S, None, device=pdev)
+            want = T.sharded_alloc_math(o.cfg, S, *base, psz, pmask, home,
+                                        o.walk)[2]
+        torch.cuda.synchronize()
+        plain_alloc = 1e3 * (time.perf_counter() - t0)
+        err = {"words": 0, "max_abs": 0}
+        merge_err(err, word_err(offs, want), word_err(sk.mem, sp.mem),
+                  word_err(sk.ctl, sp.ctl))
+        if err["words"] or not bool((want >= 0).all()):
+            raise AssertionError(f"{n}-lane alloc, {S} shard(s): "
+                                 f"{err['words']} differing words")
+        granted = (sk.mem.clone(), sk.ctl.clone())
+        if S == 1:
+            res["grant"] = dict(fresh=fresh, offs=want, mem=granted[0],
+                                ctl=granted[1])
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(1))
+        fo = offs[perm.to(device)].contiguous()
+        o.free(sk, fo, sizes, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if S == 1:
+            T.free_math(o.cfg, *base, fo, psz, pmask)
+        else:
+            T.sharded_free_math(o.cfg, S, *base, fo.cpu(), psz, pmask)
+        torch.cuda.synchronize()
+        plain_free = 1e3 * (time.perf_counter() - t0)
+        merge_err(err, word_err(sk.mem, sp.mem), word_err(sk.ctl, sp.ctl))
+        if err["words"]:
+            raise AssertionError(f"{n}-lane free, {S} shard(s): "
+                                 f"{err['words']} differing words")
+
+        def session():
+            with DeviceProfile() as prof:
+                for _ in range(reps):
+                    sk.mem.copy_(fresh[0])
+                    sk.ctl.copy_(fresh[1])
+                    o.alloc(sk, sizes, mask)
+                    o.free(sk, fo, sizes, mask)
+            return prof
+
+        ka, kf = kernel_of(o, "alloc"), kernel_of(o, "free")
+        got = profiled(session, {ka: reps, kf: reps})
+        # bytes: lanes in and out, the ctl blocks, every changed word
+        # read and written once
+        ctl = 8 * lay.ctl_words * S
+        chg_a = int((granted[0] != fresh[0]).sum())
+        chg_f = int((sk.mem != granted[0]).sum())
+        bound_a = (9 * n + (4 * n if S > 1 else 0) + ctl + 8 * chg_a) \
+            / HBM_BYTES_PER_S * 1e3
+        bound_f = (9 * n + ctl + 8 * chg_f) / HBM_BYTES_PER_S * 1e3
+        res[S] = dict(alloc=dict(ms=got[ka][0], plain=plain_alloc,
+                                 bound=bound_a),
+                      free=dict(ms=got[kf][0], plain=plain_free,
+                                bound=bound_f), err=err, plain_on=pdev)
+        log(f"phase 3: {n} lanes ({S} shard(s), {o.cfg.num_chunks} chunks, "
+            f"workspace {ws[0]} / {ws[1]} B): alloc and free, 0 differing "
+            f"words and offsets; {ka} {got[ka][0]:.3f} ms, {kf} "
+            f"{got[kf][0]:.3f} ms (profiler device time, {got[ka][1]} / "
+            f"{got[kf][1]} of {reps} launches recorded); plain math on the "
+            f"{'card' if S == 1 else 'CPU'} {plain_alloc:.0f} / "
+            f"{plain_free:.0f} ms; bounds {1e3 * bound_a:.2f} / "
+            f"{1e3 * bound_f:.2f} us")
+        del sk, sp, granted
+        torch.cuda.empty_cache()
+    return res
+
+
+SSD_SHAPE = dict(H=48, P=64, G=1, N=128, Q=64)   # mamba2-780m's heads
+
+
+def ssd_inputs(device, chunks, seed=0, dtype=None):
+    """A single-row prefill's scan inputs at mamba2-780m's head shapes:
+    bf16 x, B, C; softplus steps around dt_bias -3; a = -4."""
+    import numpy as np
+    import torch
+    dtype = dtype or torch.bfloat16
+    H, P, G, N, Q = (SSD_SHAPE[k] for k in "HPGNQ")
+    L = Q * chunks
+    rng = np.random.default_rng(seed + chunks)
+    x = torch.from_numpy(rng.standard_normal((1, L, H, P), np.float32))
+    raw = rng.standard_normal((1, L, H)).astype(np.float32) - 3.0
+    dt = torch.nn.functional.softplus(torch.from_numpy(raw))
+    b = torch.from_numpy(rng.standard_normal((1, L, G, N), np.float32))
+    c = torch.from_numpy(rng.standard_normal((1, L, G, N), np.float32))
+    return (x.to(dtype).to(device), dt.to(device),
+            torch.full((H,), -4.0, device=device), b.to(dtype).to(device),
+            c.to(dtype).to(device))
+
+
+def ssd_bound_ms(x, b, chunks) -> tuple:
+    """Least time of one scan: the bytes (x, dt, a, B, C read once; y and
+    h_final written once) at the memory rate, or the operations the
+    inputs need.  Per chunk: for each group the Q(Q+1)/2 unmasked entries
+    of C B^T (N multiply-adds each; shared by the group's heads, exact on
+    the bf16 tensor cores with float32 sums when B and C are bf16), and
+    for each head the Q(Q+1)/2 P multiply-adds of W x and the 2 Q P N of
+    exp(cum) C h^T and of the state update, in float32 outside the tensor
+    cores.  The two kinds of unit run side by side, so the operations
+    take the larger of their two times; the elementwise decay weights
+    (Q(Q+1)/2 per head) are not counted.  Returns the larger of bytes and
+    operations, and which."""
+    import torch
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    Q = SSD_SHAPE["Q"]
+    tri = Q * (Q + 1) // 2
+    el = x.element_size()
+    nbytes = (B * L * H * P * el + B * L * H * 4 + 2 * B * L * G * N * el
+              + H * 4 + B * L * H * P * 4 + B * H * P * N * 4)
+    cb = chunks * B * G * 2 * tri * N
+    f32 = chunks * B * H * 2 * (tri * P + 2 * Q * P * N)
+    if b.dtype == torch.bfloat16:      # C B^T on the tensor cores
+        ops_s = max(f32 / F32_FLOP_PER_S, cb / BF16_FLOP_PER_S)
+    else:
+        ops_s = (f32 + cb) / F32_FLOP_PER_S
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+SSD_ATOL = SSD_RTOL = 1e-4
+
+
+def phase_ssd(device):
+    """``ssd_scan`` against ``ssd_plain`` on the same card tensors at 1,
+    4 and 7 chunks of the full-width shapes, bf16 and float32 (both
+    widen the same values): |err| <= 1e-4 + 1e-4 |plain|.  Then the
+    kernel's and the plain version's times (CUDA events) and the bound
+    at every chunk count a single-row prefill of 16-448 tokens gives
+    (1-7)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    Q = SSD_SHAPE["Q"]
+    max_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for chunks in (1, 4, 7):
+            x, dt, a, b, c = ssd_inputs(device, chunks, dtype=dtype)
+            y, hf = ssd.ssd_scan(x, dt, a, b, c, chunk=Q)
+            wy, wh = ssd.ssd_plain(x, dt, a, b, c, Q)
+            torch.cuda.synchronize()
+            for got, want in ((y, wy), (hf, wh)):
+                excess = ((got - want).abs()
+                          - SSD_RTOL * want.abs()).max().item()
+                if not (excess <= SSD_ATOL) or not torch.isfinite(got).all():
+                    raise AssertionError(f"ssd_scan {dtype}, {chunks} "
+                                         f"chunks: off its plain version")
+            err = max(float((y - wy).abs().max()),
+                      float((hf - wh).abs().max()))
+            max_err = max(max_err, err)
+            log(f"phase 4: ssd_scan {str(dtype).split('.')[-1]}, {chunks} "
+                f"chunk(s) (L {chunks * Q}): max error {err:.3g} (atol "
+                f"{SSD_ATOL} + rtol {SSD_RTOL}); y max "
+                f"{float(wy.abs().max()):.3g}")
+    times = {}
+    for chunks in range(1, 8):
+        x, dt, a, b, c = ssd_inputs(device, chunks)
+        ms = time_ms(lambda: ssd.ssd_scan(x, dt, a, b, c, chunk=Q), 20)
+        plain = time_ms(lambda: ssd.ssd_plain(x, dt, a, b, c, Q), 3, 1)
+        bound, by = ssd_bound_ms(x, b, chunks)
+        times[chunks] = dict(ms=ms, plain=plain, bound=bound, by=by)
+        log(f"phase 4: ssd_scan bf16, B 1, {chunks} chunk(s): kernel "
+            f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.5f} ms ({by})")
+    return dict(err=max_err, times=times)
+
+
+class GrantLog:
+    """Delegates to the engine's allocator and keeps each transaction's
+    lane tensors (references: no copy, no sync), to be checked after the
+    run.  With ``snap`` it also copies the arena words around the first
+    alloc and the first free (a checked run's device copies, kept out of
+    the timed run)."""
+
+    def __init__(self, ouro, snap=False):
+        self._ouro = ouro
+        self.snap = snap
+        self.log = []
+        self.first = {}
+
+    def __getattr__(self, name):
+        return getattr(self._ouro, name)
+
+    def _words(self, state):
+        return (state.mem.clone(), state.ctl.clone())
+
+    def alloc(self, state, sizes, mask, **kw):
+        before = (self._words(state) if self.snap
+                  and "alloc" not in self.first else None)
+        state, offs = self._ouro.alloc(state, sizes, mask, **kw)
+        if before is not None:
+            self.first["alloc"] = (sizes, mask, offs, before,
+                                   self._words(state))
+        self.log.append(("alloc", offs, mask))
+        return state, offs
+
+    def free(self, state, offs, sizes, mask):
+        before = (self._words(state) if self.snap
+                  and "free" not in self.first else None)
+        state = self._ouro.free(state, offs, sizes, mask)
+        if before is not None:
+            self.first["free"] = (offs, sizes, mask, before,
+                                  self._words(state))
+        self.log.append(("free", offs, mask))
+        return state
+
+
+def check_grants(log_, words, wpp, quota, device):
+    """A GrantLog replayed in order on a bitmap of live pages: every
+    transaction is one slot's whole quota; every grant page-aligned,
+    inside the heap and disjoint from every page still live (the other
+    slots' included); every free returns live pages; none left live."""
+    import torch
+    live = torch.zeros(words // wpp, dtype=torch.bool, device=device)
+    for kind, offs, mask in log_:
+        got = offs[mask & (offs >= 0)].long()
+        if int(mask.sum()) != quota or got.numel() != quota:
+            raise AssertionError(f"a {kind} is not one slot's whole quota")
+        pages = got // wpp
+        if kind == "alloc":
+            if bool(((got % wpp != 0) | (got >= words)).any()):
+                raise AssertionError("a grant is off a page boundary or "
+                                     "past the heap")
+            if bool(live[pages].any()) or \
+                    torch.unique(pages).numel() != pages.numel():
+                raise AssertionError("a grant overlaps a live page")
+            live[pages] = True
+        else:
+            if not bool(live[pages].all()):
+                raise AssertionError("a free returns a page that is not "
+                                     "live")
+            live[pages] = False
+    if bool(live.any()):
+        raise AssertionError("pages still live after draining")
+
+
+def time_calls(obj, names):
+    """Wraps ``obj``'s methods ``names`` to sum each one's host wall;
+    returns the sums (filled as the calls run)."""
+    secs = {name: 0.0 for name in names}
+    for name in names:
+        def timed(*a, _fn=getattr(obj, name), _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                secs[_name] += time.perf_counter() - t0
+        setattr(obj, name, timed)
+    return secs
+
+
+def prompts_of_lengths(cfg, seed, lengths):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, cfg.vocab_size, n) for n in lengths]
+
+
+def mamba_engine(model, params, prompts, snap, device):
+    """A fresh mamba2 engine (max_batch 8, max_seq 512, bf16) with the
+    prompts submitted, its allocator wrapped in a GrantLog and its model
+    in a CountingModel."""
+    import torch
+    from repro_torch.serve.engine import ServingEngine
+    eng = ServingEngine(model, params, max_batch=8, max_seq=512,
+                        kv_dtype=torch.bfloat16,
+                        compute_dtype=torch.bfloat16, device=device)
+    grants = GrantLog(eng.ouro, snap)
+    eng.ouro = grants
+    counting = CountingModel(eng.model)
+    eng.model = counting
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    torch.cuda.synchronize()
+    return eng, grants, counting
+
+
+def phase_mamba_serve(device, seed, lengths, grant):
+    """Serve full-width mamba2-780m (random weights from ``seed``, bf16):
+    phase 5's 16 request lengths, 32 new tokens, max_batch 8.  Every
+    admission's aux pages are one ``alloc_txn`` of 298,656 lanes and
+    every retirement's one ``free_txn``; every prefill layer is one
+    ``ssd_scan``.  The timed run carries no check inside its window: its
+    grants are checked afterwards from the lane tensors it logged.  Then
+    the same traffic on a second fresh engine (the checked run) must give
+    the same tokens, and its first admission's grant is held to phase 3's
+    plain replay of the same lanes on the same fresh arena (``grant``)
+    and its first retirement replayed through the plain math on a card
+    copy of the words it started from."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import transactions as T
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch(MAMBA)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device=device)
+    prompts = prompts_of_lengths(cfg, seed, lengths)
+    eng, grants, counting = mamba_engine(model, params, prompts, False,
+                                         device)
+    host = time_calls(eng, ("_alloc_aux", "_free_aux"))
+    aux = eng.aux_pages
+    log(f"phase 5: {MAMBA} full width ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.ssm_nheads} SSD heads x {cfg.ssm_headdim}, "
+        f"state {cfg.ssm_state}, vocab {cfg.padded_vocab}) bf16; set-up "
+        f"{time.perf_counter() - t0:.1f} s; {aux} aux pages per slot; arena "
+        f"{eng.stats['arena_mem_words']} words "
+        f"({eng.ouro.cfg.num_chunks} chunks)")
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = dict(eng.stats)
+    toks = sum(len(r.out_tokens) for r in done)
+    admissions = len(counting.prefill_lens)
+    log(f"phase 5: {MAMBA}: served {len(done)} requests, {toks} tokens, "
+        f"{st['steps']} steps, {counting.decode_calls} decode ticks, "
+        f"{admissions} admissions in {wall:.2f} s: {toks / wall:.1f} tok/s "
+        f"(prefill included; no check inside the timed run)")
+    log(f"phase 5: {MAMBA}: stats {json.dumps(st)}")
+    log(f"phase 5: {MAMBA}: launches {json.dumps(launches)}")
+    host = {**counting.secs, "aux alloc": host["_alloc_aux"],
+            "aux free": host["_free_aux"]}
+    log(f"phase 5: {MAMBA}: host wall by call (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in host.items())
+        + f", rest {wall - sum(host.values()):.3f}")
+    if len(done) != 16 or any(len(r.out_tokens) != 32 or not r.done
+                              for r in done):
+        raise AssertionError("not every request finished with 32 tokens")
+    for r in done:
+        if any(not (0 <= t < cfg.padded_vocab) for t in r.out_tokens):
+            raise AssertionError(f"request {r.uid}: token out of range")
+    want_l = {k: 0 for k in launches}
+    want_l.update(alloc_txn=st["alloc_txns"], free_txn=st["free_txns"],
+                  ssd_scan=cfg.num_layers * admissions)
+    if launches != want_l:
+        raise AssertionError(f"launches {launches} != the engine's counts "
+                             f"{want_l}")
+    if st["alloc_txns"] != admissions or st["free_txns"] != 16:
+        raise AssertionError("not one alloc per admission and one free per "
+                             "retirement")
+    if st["allocs"] != st["frees"] or st["allocs"] != aux * admissions \
+            or st["alloc_failures"] or any(st["shard_pages_live"]):
+        raise AssertionError(f"allocs {st['allocs']} / frees {st['frees']} /"
+                             f" failures / live pages per shard "
+                             f"{st['shard_pages_live']}")
+    if any(a.size for a in eng.slot_aux):
+        raise AssertionError("pages still held after draining")
+    check_grants(grants.log, eng.ouro.cfg.total_words, eng.wpp, aux, device)
+    eng.ouro = grants._ouro
+    log(f"phase 5: {MAMBA}: {admissions} grants of {aux} pages each "
+        f"page-aligned, in the heap and disjoint from every live page "
+        f"(checked after the run from its logged lanes); allocs == frees "
+        f"== {st['allocs']}; every slot's and shard's pages back to 0")
+
+    # the checked run: the same traffic on a fresh engine; its first
+    # grant (on a fresh arena, with the same lanes as phase 3's
+    # single-arena pair) must end on phase 3's plain replay of it, and
+    # its first retirement is replayed through the plain math on a card
+    # copy of the words it started from
+    t0 = time.perf_counter()
+    eng_b, grants_b, _ = mamba_engine(model, params, prompts, True,
+                                          device)
+    del params
+    done_b = eng_b.run_until_done()
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    tokens = {r.uid: list(r.out_tokens) for r in done}
+    if {r.uid: list(r.out_tokens) for r in done_b} != tokens:
+        raise AssertionError("the checked run's tokens differ from the "
+                             "timed run's")
+    errs = {"alloc": {"words": 0, "max_abs": 0},
+            "free": {"words": 0, "max_abs": 0}}
+    t0 = time.perf_counter()
+    sizes, mask, offs, (m0, c0), (m1, c1) = grants_b.first["alloc"]
+    same = (word_err(m0, grant["fresh"][0])[0] == 0
+            and word_err(c0, grant["fresh"][1])[0] == 0
+            and bool((sizes == 256).all()) and bool(mask.all())
+            and mask.shape[0] == grant["offs"].shape[0])
+    if not same:
+        raise AssertionError("the first grant is not phase 3's pair")
+    merge_err(errs["alloc"], word_err(offs, grant["offs"]),
+              word_err(m1, grant["mem"]), word_err(c1, grant["ctl"]))
+    offs_f, sizes_f, mask_f, (m0, c0), (m1, c1) = grants_b.first["free"]
+    m, c = m0.clone(), c0.clone()
+    T.free_math(eng_b.ouro.cfg, eng_b.ouro.kind, eng_b.ouro.family, m, c,
+                offs_f, sizes_f, mask_f)
+    merge_err(errs["free"], word_err(m1, m), word_err(c1, c))
+    torch.cuda.synchronize()
+    log(f"phase 5: {MAMBA}: the checked run ({wall_b:.2f} s, set-up "
+        f"included) gives the same tokens; its first grant "
+        f"({int(mask.sum())} lanes, on phase 3's fresh arena) ends on phase "
+        f"3's plain replay of it, and its first retirement replayed through "
+        f"the plain math on the card ({time.perf_counter() - t0:.1f} s): "
+        f"{errs['alloc']['words']} / {errs['free']['words']} differing "
+        f"words and offsets")
+    if errs["alloc"]["words"] or errs["free"]["words"]:
+        raise AssertionError("the plain replay differs from the kernels")
+    del eng_b, grants_b, m0, c0, m1, c1, m, c
+    torch.cuda.empty_cache()
+    chunks = [-(-n // SSD_SHAPE["Q"]) for n in counting.prefill_lens]
+    return dict(launches=launches, tok_s=toks / wall, wall=wall, stats=st,
+                chunks=chunks, errs=errs, engine=eng, prompts=prompts,
+                host=host)
+
+
+def phase_mamba_profile(mamba):
+    """Where the mamba2 run's device time went: the same traffic again
+    under the profiler (its wall is the profiler's, not the server's)."""
+    eng = mamba.pop("engine")
+    for p in mamba["prompts"]:
+        eng.submit(p, max_new_tokens=32)
+    with DeviceProfile() as prof:
+        eng.run_until_done()
+    busy = prof.busy_ms()
+    wall = 1e3 * mamba["wall"]
+    log(f"phase 6: {MAMBA} serving device busy {busy:.0f} ms of the "
+        f"unprofiled run's {wall:.0f} ms wall: device idle "
+        f"{100 * (1 - busy / wall):.1f}%")
+    for key, us, n in prof.rows[:8]:
+        log(f"phase 6:   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1556,10 +2075,12 @@ def main(argv=None) -> int:
     alloc_logs, alloc_errs = phase_alloc(device, seed=args.seed)
     waves, defrag_err = phase_defrag(device, seed=args.seed)
     sh3, sharded_errs = phase_sharded(device, seed=args.seed)
+    aux_pairs = phase_aux_pairs(device)
     log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     attn = phase_attention(device)
+    ssd = phase_ssd(device)
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1567,12 +2088,16 @@ def main(argv=None) -> int:
     pressure = phase_pressure(device, serve)
     sharded_runs = phase_sharded_serve(device, serve)
     phase_small_model(device, args.seed)
+    mamba = phase_mamba_serve(device, args.seed,
+                              [len(p) for p in serve["prompts"]],
+                              aux_pairs.pop("grant"))
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     timing = phase_timing(device, serve, alloc_logs, pressure, waves)
     sh_timing = phase_sharded_timing(device, sh3, sharded_runs)
     del serve["engine"]
+    phase_mamba_profile(mamba)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     def mean(xs):
@@ -1580,10 +2105,22 @@ def main(argv=None) -> int:
 
     main_attn = attn[(torch.bfloat16, None)]
     kernels = []
+    def aux_fields(S, kind):
+        t = aux_pairs[S][kind]
+        plain = ("plain_ms_298656_lanes" if aux_pairs[S]["plain_on"] != "cpu"
+                 else "plain_cpu_ms_298656_lanes")
+        return {"ms_298656_lanes": t["ms"], plain: t["plain"],
+                "bound_ms_298656_lanes": t["bound"]}
+
     for name, kind in (("alloc_txn", "alloc"), ("free_txn", "free")):
-        # phase 3 per transaction, and both serving runs' final words
+        # phase 3 per transaction, both qwen2 serving runs' final words,
+        # the 298,656-lane pair and mamba2's first grant and retirement
         err = dict(alloc_errs[kind])
         merge_err(err, *serve["replay_err"], *pressure["replay_err"])
+        merge_err(err, (aux_pairs[1]["err"]["words"],
+                        aux_pairs[1]["err"]["max_abs"]),
+                  (mamba["errs"][kind]["words"],
+                   mamba["errs"][kind]["max_abs"]))
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/alloc_txn.cu",
@@ -1592,10 +2129,12 @@ def main(argv=None) -> int:
             "launches": serve["launches"][name],
             "max_abs_err": err["max_abs"], "max_err": err["max_abs"],
             "differing_words": err["words"],
+            "launches_by_run": {"qwen2-0.5b": serve["launches"][name],
+                                MAMBA: mamba["launches"][name]},
             "ms": timing["k_times"][kind][0],
             "plain_ms": mean(timing["p_times"][kind]),
             "bound_ms": mean(timing["bounds"][kind]), "bound_by": "bytes",
-            "library_ms": None})
+            "library_ms": None, **aux_fields(1, kind)})
     # phase 3 per wave, and the pressure run's plans and final words
     err = dict(defrag_err)
     merge_err(err, *pressure["replay_err"])
@@ -1622,6 +2161,9 @@ def main(argv=None) -> int:
         err = dict(sharded_errs[kind])
         for run in sharded_runs.values():
             merge_err(err, *run["replay_err"])
+        if kind != "defrag":
+            merge_err(err, (aux_pairs[SHARDS]["err"]["words"],
+                            aux_pairs[SHARDS]["err"]["max_abs"]))
         t = sh_timing[kind]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1638,7 +2180,8 @@ def main(argv=None) -> int:
             "bound_by": "bytes", "library_ms": None,
             "ms_65536_pages": t[65536]["ms"],
             "plain_ms_65536_pages": t[65536]["plain"],
-            "bound_ms_65536_pages": t[65536]["bound"]})
+            "bound_ms_65536_pages": t[65536]["bound"],
+            **(aux_fields(SHARDS, kind) if kind != "defrag" else {})})
     kernels.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -1649,12 +2192,31 @@ def main(argv=None) -> int:
         "ms": main_attn["ms"], "plain_ms": main_attn["plain"],
         "bound_ms": main_attn["bound"], "bound_by": main_attn["by"],
         "library_ms": None})
+    # the mamba2 run's prefills: each launch's chunk count, its time,
+    # plain time and bound at that count, averaged over the run
+    st_ = [ssd["times"][ch] for ch in mamba["chunks"]]
+    by = {t["by"] for t in st_}
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:66",
+        "launches": mamba["launches"]["ssd_scan"],
+        "max_abs_err": ssd["err"], "max_err": ssd["err"],
+        "ms": mean([t["ms"] for t in st_]),
+        "plain_ms": mean([t["plain"] for t in st_]),
+        "bound_ms": mean([t["bound"] for t in st_]),
+        "bound_by": by.pop() if len(by) == 1 else "operations",
+        "library_ms": None,
+        "ms_by_chunks": {ch: t["ms"] for ch, t in ssd["times"].items()},
+        "bound_ms_by_chunks": {ch: t["bound"]
+                               for ch, t in ssd["times"].items()}})
     p_toks = sum(len(t) for t in serve["tokens"].values())
     log(f"phase 6: total {time.perf_counter() - t_start:.1f} s; serving "
         f"{serve['tok_s']:.1f} tok/s; under pressure "
         f"{p_toks / pressure['wall']:.1f} tok/s; sharded "
         + "; ".join(f"{k} {r['tok_s']:.1f} tok/s"
-                    for k, r in sharded_runs.items()))
+                    for k, r in sharded_runs.items())
+        + f"; {MAMBA} {mamba['tok_s']:.1f} tok/s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

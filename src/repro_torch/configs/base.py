@@ -31,7 +31,7 @@ def get_arch(name: str) -> "ModelConfig":
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | ssm (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -52,6 +52,15 @@ class ModelConfig:
 
     num_experts: int = 0
     num_experts_per_tok: int = 0
+
+    # ssm (mamba2 SSD)
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_ngroups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 64
+
     attn_period: int = 3
     enc_layers: int = 0
     modality: Optional[str] = None
@@ -61,6 +70,14 @@ class ModelConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
     @property
     def padded_vocab(self) -> int:
@@ -83,6 +100,9 @@ class ModelConfig:
             head_dim=32,
             vocab_size=512,
             num_experts=min(self.num_experts, 4),
+            ssm_state=min(self.ssm_state, 32),
+            ssm_headdim=16 if self.ssm_state else self.ssm_headdim,
+            ssm_chunk=16,
             sliding_window=64 if self.sliding_window else None,
             enc_layers=min(self.enc_layers, 2),
             mrope_sections=(4, 6, 6) if self.mrope_sections else None,

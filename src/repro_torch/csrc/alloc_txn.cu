@@ -20,17 +20,28 @@
 // dependent global-memory round trips.
 //
 // Design: one thread block per transaction.  Work with no order
-// dependence runs block-wide: size class per lane (__clz), per-class
-// ranks by block scan into a rank->lane table in shared memory, free's
-// bit clears (atomics commute, so the result equals the reference's
-// scatter-add), the ascending revived-chunk list (a shared bitset
-// compacted by scan), and the telemetry counts.  The ctl block is
-// staged in shared memory and written back once.  Heap, bitmap and
-// queue words stay in global memory; thread 0 drives the serial chain,
-// free's re-enqueue value writes included, in exactly the reference's
-// order.  The
-// layout comes in as a small struct of ints built once from the
-// ArenaLayout, so a transaction makes no host reads.
+// dependence runs block-wide: size class per lane (__clz), each lane's
+// per-class rank by block scan, free's bit clears (atomics commute, so
+// the result equals the reference's scatter-add), the ascending
+// revived-chunk list (a bitset compacted by scan), and the telemetry
+// counts.  The ctl block is staged in shared memory and written back
+// once.  Heap, bitmap and queue words stay in global memory; thread 0
+// drives the serial chain, free's re-enqueue value writes included, in
+// exactly the reference's order.  The alloc chain writes each grant to
+// its rank's slot of a rank -> offset table, and the lanes read theirs
+// after it, so the chain issues stores only.  The layout comes in as a
+// small struct of ints built once from the ArenaLayout, so a
+// transaction makes no host reads.
+//
+// Lane tables (alloc's rank -> offset table, the sharded alloc's local
+// offsets and selection, free's chunk bitset, revived-chunk lists and
+// new segments) live in dynamic shared memory when they fit, else in a
+// device workspace the wrapper allocates with torch.empty: the kernels
+// take one pointer, `ws`, and use shared memory when it is null.  The
+// body is the same either way, so a transaction takes any lane count;
+// each kernel has one instance per address space, picked at launch, so
+// the shared-memory case keeps shared-memory loads and stores instead of
+// generic ones and carries no code of the other.
 //
 // Sharded arenas (mem (S, Mw), ctl (S, Cw); global offset = s * Ws +
 // local).  The alloc is a schedule, attempt-major then shard-minor: at
@@ -92,22 +103,24 @@ struct AllocShared {
 
 // One alloc transaction on one arena (mem, ctl) for the lanes with
 // sel[i] != 0, block-wide; out[i] receives the local word offset, -1 for
-// a failed or unselected lane.  table: n ints of shared memory (rank ->
-// lane, class-major).  Served lanes count in walk bin walk_bin.
-__device__ void alloc_body(const ArenaDesc& d, int* mem, int* ctl,
-                           const int* sizes, const uint8_t* sel, int n,
-                           int* out, int walk_bin, AllocShared& sh,
-                           int* table) {
+// a failed or unselected lane.  grant: n ints of shared or global memory
+// (rank -> granted offset, ranks class-major, lanes in order within a
+// class).  Served lanes count in walk bin walk_bin.
+__device__ __forceinline__ void alloc_body(
+    const ArenaDesc& d, int* mem, int* ctl, const int* sizes,
+    const uint8_t* sel, int n, int* out, int walk_bin, AllocShared& sh,
+    int* grant) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
   __syncthreads();
   for (int i = tid; i < d.ctl_words; i += nt)
     sh.ctl[i] = sh.old[i] = ctl[i];
   for (int i = tid; i < C; i += nt) sh.served[i] = sh.failed[i] = 0;
-  for (int i = tid; i < n; i += nt) out[i] = -1;
+  for (int i = tid; i < n; i += nt) grant[i] = -1;
 
-  // per-class ranks, lanes in order, by block scan
+  // out[i] = the lane's rank, by block scan (-1: not selected, or no class)
   const int per = (n + nt - 1) / nt;
   const int lo = min(n, tid * per), hi = min(n, lo + per);
+  for (int i = lo; i < hi; ++i) out[i] = -1;
   int start = 0;
   for (int c = 0; c < C; ++c) {
     int local = 0;
@@ -116,7 +129,7 @@ __device__ void alloc_body(const ArenaDesc& d, int* mem, int* ctl,
     int total;
     int r = start + block_excl_scan(local, &total, sh.warp);
     for (int i = lo; i < hi; ++i)
-      if (sel[i] && size_class(d, sizes[i]) == c) table[r++] = i;
+      if (sel[i] && size_class(d, sizes[i]) == c) out[i] = r++;
     if (tid == 0) sh.count[c] = total;
     start += total;
   }
@@ -163,8 +176,7 @@ __device__ void alloc_body(const ArenaDesc& d, int* mem, int* ctl,
             const int b = __ffs(freeb) - 1;
             freeb &= freeb - 1u;
             take |= 1u << b;
-            const int page = lo_bit + b;
-            out[table[base + served + k]] = chunk * d.wpc + page * pw;
+            grant[base + served + k] = chunk * d.wpc + (lo_bit + b) * pw;
             ++k;
           }
           if (in_range && take) bitmap[chunk * bw + w] += take;
@@ -178,12 +190,13 @@ __device__ void alloc_body(const ArenaDesc& d, int* mem, int* ctl,
   }
   __syncthreads();
 
-  // telemetry: per-class served / failed lanes
+  // each ranked lane takes its grant; per-class served / failed lanes
   for (int i = tid; i < n; i += nt) {
-    if (!sel[i]) continue;
+    if (out[i] < 0) continue;
+    const int g = grant[out[i]];
+    out[i] = g;
     const int c = size_class(d, sizes[i]);
-    if (c >= C) continue;
-    if (out[i] >= 0) atomicAdd(&sh.served[c], 1);
+    if (g >= 0) atomicAdd(&sh.served[c], 1);
     else atomicAdd(&sh.failed[c], 1);
   }
   __syncthreads();
@@ -198,29 +211,31 @@ __device__ void alloc_body(const ArenaDesc& d, int* mem, int* ctl,
   for (int i = tid; i < d.ctl_words; i += nt) ctl[i] = sh.ctl[i];
 }
 
-__global__ void alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
-                                 const int* sizes, const uint8_t* mask,
-                                 int n, int* out) {
+// Each kernel has one instance per home of its lane tables: kWs puts
+// them in the device workspace ws, else in dynamic shared memory.  The
+// body is the same; the shared-memory instance keeps shared-memory
+// addressing and carries no code of the other.
+template <bool kWs>
+__global__ void __launch_bounds__(1024)
+alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                 const int* sizes, const uint8_t* mask,
+                 int n, int* out, int* ws) {
   __shared__ AllocShared sh;
-  extern __shared__ int table[];  // n: rank -> lane, class-major
-  alloc_body(d, mem, ctl, sizes, mask, n, out, 0, sh, table);
+  extern __shared__ int dyn[];  // the lane tables, unless ws holds them
+  // grant: n ints, rank -> granted offset
+  alloc_body(d, mem, ctl, sizes, mask, n, out, 0, sh, kWs ? ws : dyn);
 }
 
 // The (walk + 1, S) overflow-walk schedule in one block.  mem/ctl are
 // (S, Mw) / (S, Cw) row-major; out receives GLOBAL offsets.
-__global__ void sharded_alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
-                                         int S, int Mw, int Cw,
-                                         const int* sizes,
-                                         const uint8_t* mask,
-                                         const int* home, int n, int walk,
-                                         int* out) {
-  __shared__ AllocShared sh;
-  __shared__ int s_nsel;
-  // dynamic: table (n ints) | local offsets (n ints) | selection (n bytes)
-  extern __shared__ int sdyn[];
-  int* table = sdyn;
-  int* local = sdyn + n;
-  uint8_t* sel = reinterpret_cast<uint8_t*>(sdyn + 2 * n);
+// tables: grant (n ints) | local offsets (n ints) | selection (n bytes)
+__device__ __forceinline__ void sharded_alloc_schedule(
+    const ArenaDesc& d, int* mem, int* ctl, int S, int Mw, int Cw,
+    const int* sizes, const uint8_t* mask, const int* home, int n, int walk,
+    int* out, AllocShared& sh, int& s_nsel, int* tables) {
+  int* grant = tables;
+  int* local = grant + n;
+  uint8_t* sel = reinterpret_cast<uint8_t*>(grant + 2 * n);
   const int tid = threadIdx.x, nt = blockDim.x, Ws = d.total_words;
   for (int i = tid; i < n; i += nt) out[i] = -1;
   for (int a = 0; a <= walk; ++a) {
@@ -237,12 +252,27 @@ __global__ void sharded_alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
       __syncthreads();
       if (s_nsel == 0) continue;  // uniform: read after the barrier
       alloc_body(d, mem + (long long)s * Mw, ctl + (long long)s * Cw, sizes,
-                 sel, n, local, min(a, d.walk_bins - 1), sh, table);
+                 sel, n, local, min(a, d.walk_bins - 1), sh, grant);
       __syncthreads();
       for (int i = tid; i < n; i += nt)
         if (sel[i] && local[i] >= 0) out[i] = s * Ws + local[i];
     }
   }
+}
+
+template <bool kWs>
+__global__ void __launch_bounds__(1024)
+sharded_alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                         int S, int Mw, int Cw,
+                         const int* sizes,
+                         const uint8_t* mask,
+                         const int* home, int n, int walk,
+                         int* out, int* ws) {
+  __shared__ AllocShared sh;
+  __shared__ int s_nsel;
+  extern __shared__ int dyn[];  // the lane tables, unless ws holds them
+  sharded_alloc_schedule(d, mem, ctl, S, Mw, Cw, sizes, mask, home, n,
+                         walk, out, sh, s_nsel, kWs ? ws : dyn);
 }
 
 // ---- free ----------------------------------------------------------------
@@ -270,19 +300,20 @@ struct FreeShared {
   int nnew[MAX_CLASSES], rev;
 };
 
-// One free transaction on one arena (mem, ctl), block-wide.  dyn: shared
-// memory of free_txn_smem_bytes.
-__device__ void free_body(const ArenaDesc& d, int* mem, int* ctl,
-                          FreeLanes L, const int* sizes, int n,
-                          FreeShared& sh, int* dyn) {
+// One free transaction on one arena (mem, ctl), block-wide.  tables:
+// free_txn_table_bytes of shared or global memory.
+__device__ __forceinline__ void free_body(const ArenaDesc& d, int* mem,
+                                          int* ctl, FreeLanes L,
+                                          const int* sizes, int n,
+                                          FreeShared& sh, int* tables) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
   const int nc = d.num_chunks, wpc = d.wpc, spc = d.spc;
   const int nwords = (nc + 31) / 32;
   const int m = n / spc + 1;
-  // dynamic: bitset (ceil(nc/32)) | rev ids (n) | rev class (n) |
-  //          rev rank (n) | new segment chunks (C * m)
-  unsigned* bitset = reinterpret_cast<unsigned*>(dyn);
-  int* rev_id = dyn + nwords;
+  // tables: bitset (ceil(nc/32)) | rev ids (n) | rev class (n) |
+  //         rev rank (n) | new segment chunks (C * m)
+  unsigned* bitset = reinterpret_cast<unsigned*>(tables);
+  int* rev_id = tables + nwords;
   int* rev_cls = rev_id + n;
   int* rev_rank = rev_cls + n;
   int* newc = rev_rank + n;
@@ -419,49 +450,83 @@ __device__ void free_body(const ArenaDesc& d, int* mem, int* ctl,
   for (int i = tid; i < d.ctl_words; i += nt) ctl[i] = sh.ctl[i];
 }
 
-__global__ void free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
-                                const int* offs, const int* sizes,
-                                const uint8_t* mask, int n) {
+template <bool kWs>
+__global__ void __launch_bounds__(1024)
+free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                const int* offs, const int* sizes,
+                const uint8_t* mask, int n, int* ws) {
   __shared__ FreeShared sh;
   extern __shared__ int dyn[];
-  free_body(d, mem, ctl, FreeLanes{offs, mask, 0, 0, false}, sizes, n, sh,
-            dyn);
+  const FreeLanes L{offs, mask, 0, 0, false};
+  free_body(d, mem, ctl, L, sizes, n, sh, kWs ? ws : dyn);
 }
 
 // One block per shard: block s frees the lanes whose offsets it owns.
-__global__ void sharded_free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
-                                        int Mw, int Cw, const int* offs,
-                                        const int* sizes,
-                                        const uint8_t* mask, int n) {
+// A workspace holds one table set per block (ws_ints ints each).
+template <bool kWs>
+__global__ void __launch_bounds__(1024)
+sharded_free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                        int Mw, int Cw, const int* offs,
+                        const int* sizes,
+                        const uint8_t* mask, int n, int* ws,
+                        long long ws_ints) {
   __shared__ FreeShared sh;
   extern __shared__ int dyn[];
   const int s = blockIdx.x;
-  free_body(d, mem + (long long)s * Mw, ctl + (long long)s * Cw,
-            FreeLanes{offs, mask, s, d.total_words, true}, sizes, n, sh, dyn);
+  int* m = mem + (long long)s * Mw;
+  int* c = ctl + (long long)s * Cw;
+  const FreeLanes L{offs, mask, s, d.total_words, true};
+  free_body(d, m, c, L, sizes, n, sh, kWs ? ws + s * ws_ints : dyn);
 }
 
 // ---- launch geometry (also used by the emulation harness) -------------
+//
+// *_table_bytes: the bytes of a transaction's lane tables (per block).
+// *_workspace_bytes: 0 when they fit in smem_limit bytes of dynamic
+// shared memory, else the bytes of device workspace the caller passes as
+// ws (one table set per block).  A launch with ws uses no dynamic shared
+// memory; one without puts the tables there.
 
 static int block_threads(int n) {
   int t = ((n + 31) / 32) * 32;
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
 }
 
-extern "C" size_t alloc_txn_smem_bytes(ArenaDesc d, int n) {
+extern "C" size_t alloc_txn_table_bytes(ArenaDesc d, int n) {
   (void)d;
   return (size_t)n * sizeof(int);
 }
 
-extern "C" size_t free_txn_smem_bytes(ArenaDesc d, int n) {
+extern "C" size_t free_txn_table_bytes(ArenaDesc d, int n) {
   const int nwords = (d.num_chunks + 31) / 32;
   const int m = n / d.spc + 1;
   return ((size_t)nwords + 3 * (size_t)n + (size_t)d.num_classes * m)
          * sizeof(int);
 }
 
-extern "C" size_t sharded_alloc_txn_smem_bytes(ArenaDesc d, int n) {
+extern "C" size_t sharded_alloc_txn_table_bytes(ArenaDesc d, int n) {
   (void)d;
-  return 2 * (size_t)n * sizeof(int) + (size_t)n;
+  size_t b = 2 * (size_t)n * sizeof(int) + (size_t)n;
+  return (b + 3) & ~(size_t)3;
+}
+
+static size_t workspace_bytes(size_t table, size_t smem_limit, int blocks) {
+  return table <= smem_limit ? 0 : table * (size_t)blocks;
+}
+
+extern "C" size_t alloc_txn_workspace_bytes(ArenaDesc d, int n,
+                                            size_t smem_limit) {
+  return workspace_bytes(alloc_txn_table_bytes(d, n), smem_limit, 1);
+}
+
+extern "C" size_t free_txn_workspace_bytes(ArenaDesc d, int n, int blocks,
+                                           size_t smem_limit) {
+  return workspace_bytes(free_txn_table_bytes(d, n), smem_limit, blocks);
+}
+
+extern "C" size_t sharded_alloc_txn_workspace_bytes(ArenaDesc d, int n,
+                                                    size_t smem_limit) {
+  return workspace_bytes(sharded_alloc_txn_table_bytes(d, n), smem_limit, 1);
 }
 
 // ---- host launchers (plain C interface, loaded with ctypes) -------------
@@ -474,23 +539,26 @@ static int launch_smem(const void* fn, size_t bytes) {
 
 extern "C" int alloc_txn_launch(ArenaDesc d, int* mem, int* ctl,
                                 const int* sizes, const uint8_t* mask, int n,
-                                int* out, void* stream) {
-  const size_t smem = alloc_txn_smem_bytes(d, n);
-  int err = launch_smem((const void*)alloc_txn_kernel, smem);
+                                int* out, int* ws, void* stream) {
+  const size_t smem = ws ? 0 : alloc_txn_table_bytes(d, n);
+  const auto k = ws ? alloc_txn_kernel<true> : alloc_txn_kernel<false>;
+  int err = launch_smem((const void*)k, smem);
   if (err) return err;
-  alloc_txn_kernel<<<1, block_threads(n), smem, (cudaStream_t)stream>>>(
-      d, mem, ctl, sizes, mask, n, out);
+  k<<<1, block_threads(n), smem, (cudaStream_t)stream>>>(
+      d, mem, ctl, sizes, mask, n, out, ws);
   return (int)cudaGetLastError();
 }
 
 extern "C" int free_txn_launch(ArenaDesc d, int* mem, int* ctl,
                                const int* offs, const int* sizes,
-                               const uint8_t* mask, int n, void* stream) {
-  const size_t smem = free_txn_smem_bytes(d, n);
-  int err = launch_smem((const void*)free_txn_kernel, smem);
+                               const uint8_t* mask, int n, int* ws,
+                               void* stream) {
+  const size_t smem = ws ? 0 : free_txn_table_bytes(d, n);
+  const auto k = ws ? free_txn_kernel<true> : free_txn_kernel<false>;
+  int err = launch_smem((const void*)k, smem);
   if (err) return err;
-  free_txn_kernel<<<1, block_threads(n), smem, (cudaStream_t)stream>>>(
-      d, mem, ctl, offs, sizes, mask, n);
+  k<<<1, block_threads(n), smem, (cudaStream_t)stream>>>(
+      d, mem, ctl, offs, sizes, mask, n, ws);
   return (int)cudaGetLastError();
 }
 
@@ -499,26 +567,30 @@ extern "C" int sharded_alloc_txn_launch(ArenaDesc d, int* mem, int* ctl,
                                         const int* sizes,
                                         const uint8_t* mask,
                                         const int* home, int n, int walk,
-                                        int* out, void* stream) {
-  const size_t smem = sharded_alloc_txn_smem_bytes(d, n);
-  int err = launch_smem((const void*)sharded_alloc_txn_kernel, smem);
+                                        int* out, int* ws, void* stream) {
+  const size_t smem = ws ? 0 : sharded_alloc_txn_table_bytes(d, n);
+  const auto k = ws ? sharded_alloc_txn_kernel<true>
+                    : sharded_alloc_txn_kernel<false>;
+  int err = launch_smem((const void*)k, smem);
   if (err) return err;
-  sharded_alloc_txn_kernel<<<1, block_threads(n), smem,
-                             (cudaStream_t)stream>>>(
-      d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, walk, out);
+  k<<<1, block_threads(n), smem, (cudaStream_t)stream>>>(
+      d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, walk, out, ws);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sharded_free_txn_launch(ArenaDesc d, int* mem, int* ctl,
                                        int S, int Mw, int Cw,
                                        const int* offs, const int* sizes,
-                                       const uint8_t* mask, int n,
+                                       const uint8_t* mask, int n, int* ws,
                                        void* stream) {
-  const size_t smem = free_txn_smem_bytes(d, n);
-  int err = launch_smem((const void*)sharded_free_txn_kernel, smem);
+  const size_t table = free_txn_table_bytes(d, n);
+  const size_t smem = ws ? 0 : table;
+  const auto k = ws ? sharded_free_txn_kernel<true>
+                    : sharded_free_txn_kernel<false>;
+  int err = launch_smem((const void*)k, smem);
   if (err) return err;
-  sharded_free_txn_kernel<<<S, block_threads(n), smem,
-                            (cudaStream_t)stream>>>(
-      d, mem, ctl, Mw, Cw, offs, sizes, mask, n);
+  k<<<S, block_threads(n), smem, (cudaStream_t)stream>>>(
+      d, mem, ctl, Mw, Cw, offs, sizes, mask, n, ws,
+      (long long)(table / sizeof(int)));
   return (int)cudaGetLastError();
 }

@@ -22,23 +22,29 @@
 // chain of dependent pool pops and segment links whose order fixes
 // every later word, and thread 0 writes one queue value per live chunk.
 //
-// Design: one thread block of 1024 threads.  Block-wide, in the
-// reference's order and with barriers between the stages: (1) copy the
-// extents' words and clear the source bits / return their pages
+// Design: one thread block of 1024 threads (__launch_bounds__ keeps each
+// kernel within the 64 registers a thread that this allows).  Block-wide,
+// in the reference's order and with barriers between the stages: (1) copy
+// the extents' words and clear the source bits / return their pages
 // (atomics commute, as in free_txn); then, on the arena: (2) claim
-// destination chunks that are still unbound (a bitset in shared memory;
-// the per-lane bindings on thread 0 in lane order, so a repeated
-// chunk's last lane wins as in the reference's scatter); (3) set the
-// destination bits; (4) unbind fully-free chunks, parallel over chunks;
-// (5) rebuild the whole pool ring (unbound ids at ranks from a block
-// scan, NULL elsewhere), NULL the vl directory, and compact each
-// class's live chunks into an ascending list by block scans.  Then (6)
-// thread 0 rebuilds the class queues class-major, exactly as the
-// reference: one pool pop for a fresh segment, its word 0 set NULL,
-// head = tail = it, then one bulk vl enqueue of the class's live chunks
-// (grow pops, NULL words, links, then values).  The ctl block is staged
-// in shared memory; only its core words are written back, so the
-// telemetry words pass through.
+// destination chunks that are still unbound (a bitset; the per-lane
+// bindings on thread 0 in lane order, so a repeated chunk's last lane
+// wins as in the reference's scatter); (3) set the destination bits; (4)
+// unbind fully-free chunks, parallel over chunks; (5) rebuild the whole
+// pool ring (unbound ids at ranks from a block scan, NULL elsewhere),
+// NULL the vl directory, and compact each class's live chunks into an
+// ascending list by block scans.  Then (6) thread 0 rebuilds the class
+// queues class-major, exactly as the reference: one pool pop for a fresh
+// segment, its word 0 set NULL, head = tail = it, then one bulk vl
+// enqueue of the class's live chunks (grow pops, NULL words, links, then
+// values).  The ctl block is staged in shared memory; only its core words
+// are written back, so the telemetry words pass through.  The per-chunk
+// tables (chunk state, claimed bitset, live lists, new segments) live in
+// dynamic shared memory when they fit, else in a device workspace the
+// wrapper allocates (`ws`, null for shared memory), through the same
+// body (one kernel instance per address space, so the shared-memory
+// case keeps shared-memory addressing), so a wave takes an arena of any
+// chunk count.
 //
 // Sharded arenas (mem (S, Mw), ctl (S, Cw); global offset = s * Ws +
 // local): a rebuild pops fresh segments from the rebuilt pool and
@@ -109,15 +115,15 @@ __device__ void wave_extract(const ArenaDesc& d, int* mem, int S,
 }
 
 // 2.-6. on one arena (mem, ctl: shard s's rows), for the lanes whose
-// destination shard is s.  dyn: shared memory of defrag_txn_smem_bytes.
-__device__ void wave_insert_rebuild(const ArenaDesc& d, int* mem, int* ctl,
-                                    int s, const int* src, const int* dst,
-                                    const int* sizes, int M, WaveShared& sh,
-                                    int* dyn) {
+// destination shard is s.  dyn: defrag_txn_table_bytes of shared or
+// global memory.
+__device__ __forceinline__ void wave_insert_rebuild(
+    const ArenaDesc& d, int* mem, int* ctl, int s, const int* src,
+    const int* dst, const int* sizes, int M, WaveShared& sh, int* dyn) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
   const int nc = d.num_chunks, wpc = d.wpc, bw = d.bw, spc = d.spc;
   const int W = d.total_words, nwords = (nc + 31) / 32;
-  // dynamic: chunk state (nc) | claimed bitset (ceil(nc/32)) |
+  // tables: chunk state (nc) | claimed bitset (ceil(nc/32)) |
   //          live lists, class-major (nc) | new segment chunks (nc/spc+2)
   int* s_state = dyn;
   unsigned* claimed = reinterpret_cast<unsigned*>(dyn + nc);
@@ -266,66 +272,91 @@ __device__ void wave_insert_rebuild(const ArenaDesc& d, int* mem, int* ctl,
   for (int i = tid; i < d.core_ctl_words; i += nt) ctl[i] = sh.ctl[i];
 }
 
-__global__ void defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
-                                  const int* src, const int* dst,
-                                  const int* sizes, int M) {
+// One instance per home of the per-chunk tables: kWs puts them in the
+// device workspace ws, else in dynamic shared memory (the same body; the
+// shared-memory instance keeps shared-memory addressing and carries no
+// code of the other).
+template <bool kWs>
+__global__ void __launch_bounds__(1024)
+defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                  const int* src, const int* dst,
+                  const int* sizes, int M, int* ws) {
   __shared__ WaveShared sh;
   extern __shared__ int dyn[];
   wave_extract(d, mem, 1, 0, src, dst, sizes, M);
-  wave_insert_rebuild(d, mem, ctl, 0, src, dst, sizes, M, sh, dyn);
+  wave_insert_rebuild(d, mem, ctl, 0, src, dst, sizes, M, sh,
+                      kWs ? ws : dyn);
 }
 
 // mem/ctl (S, Mw) / (S, Cw) row-major; src/dst GLOBAL offsets.
-__global__ void sharded_defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
-                                          int S, int Mw, int Cw,
-                                          const int* src, const int* dst,
-                                          const int* sizes, int M) {
+template <bool kWs>
+__global__ void __launch_bounds__(1024)
+sharded_defrag_txn_kernel(ArenaDesc d, int* mem, int* ctl,
+                          int S, int Mw, int Cw,
+                          const int* src, const int* dst,
+                          const int* sizes, int M,
+                          int* ws) {
   __shared__ WaveShared sh;
   extern __shared__ int dyn[];
   wave_extract(d, mem, S, Mw, src, dst, sizes, M);
-  for (int s = 0; s < S; ++s)
-    wave_insert_rebuild(d, mem + (long long)s * Mw, ctl + (long long)s * Cw,
-                        s, src, dst, sizes, M, sh, dyn);
+  for (int s = 0; s < S; ++s) {
+    int* m = mem + (long long)s * Mw;
+    int* c = ctl + (long long)s * Cw;
+    wave_insert_rebuild(d, m, c, s, src, dst, sizes, M, sh, kWs ? ws : dyn);
+  }
 }
 
 // ---- launch geometry (also used by the emulation harness) -------------
+//
+// defrag_txn_table_bytes: the bytes of a wave's per-chunk tables.
+// defrag_txn_workspace_bytes: 0 when they fit in smem_limit bytes of
+// dynamic shared memory, else the bytes of device workspace the caller
+// passes as ws (a launch with ws uses no dynamic shared memory).
 
-extern "C" size_t defrag_txn_smem_bytes(ArenaDesc d) {
+extern "C" size_t defrag_txn_table_bytes(ArenaDesc d) {
   const size_t nwords = (d.num_chunks + 31) / 32;
   return (2 * (size_t)d.num_chunks + nwords + d.num_chunks / d.spc + 2)
          * sizeof(int);
 }
 
+extern "C" size_t defrag_txn_workspace_bytes(ArenaDesc d,
+                                             size_t smem_limit) {
+  const size_t t = defrag_txn_table_bytes(d);
+  return t <= smem_limit ? 0 : t;
+}
+
 // ---- host launchers (plain C interface, loaded with ctypes) -------------
+
+static int set_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 extern "C" int defrag_txn_launch(ArenaDesc d, int* mem, int* ctl,
                                  const int* src, const int* dst,
-                                 const int* sizes, int M, void* stream) {
-  const size_t smem = defrag_txn_smem_bytes(d);
-  if (smem > 48 * 1024) {
-    int err = (int)cudaFuncSetAttribute(
-        (const void*)defrag_txn_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-  }
-  defrag_txn_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(
-      d, mem, ctl, src, dst, sizes, M);
+                                 const int* sizes, int M, int* ws,
+                                 void* stream) {
+  const size_t smem = ws ? 0 : defrag_txn_table_bytes(d);
+  const auto k = ws ? defrag_txn_kernel<true> : defrag_txn_kernel<false>;
+  int err = set_smem((const void*)k, smem);
+  if (err) return err;
+  k<<<1, 1024, smem, (cudaStream_t)stream>>>(
+      d, mem, ctl, src, dst, sizes, M, ws);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sharded_defrag_txn_launch(ArenaDesc d, int* mem, int* ctl,
                                          int S, int Mw, int Cw,
                                          const int* src, const int* dst,
-                                         const int* sizes, int M,
+                                         const int* sizes, int M, int* ws,
                                          void* stream) {
-  const size_t smem = defrag_txn_smem_bytes(d);
-  if (smem > 48 * 1024) {
-    int err = (int)cudaFuncSetAttribute(
-        (const void*)sharded_defrag_txn_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-  }
-  sharded_defrag_txn_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(
-      d, mem, ctl, S, Mw, Cw, src, dst, sizes, M);
+  const size_t smem = ws ? 0 : defrag_txn_table_bytes(d);
+  const auto k = ws ? sharded_defrag_txn_kernel<true>
+                    : sharded_defrag_txn_kernel<false>;
+  int err = set_smem((const void*)k, smem);
+  if (err) return err;
+  k<<<1, 1024, smem, (cudaStream_t)stream>>>(
+      d, mem, ctl, S, Mw, Cw, src, dst, sizes, M, ws);
   return (int)cudaGetLastError();
 }

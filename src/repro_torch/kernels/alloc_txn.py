@@ -4,10 +4,13 @@ on an arena, or a sharded arena, that lies on the card.
 
 Each wrapper checks devices, dtypes, shapes and contiguity, allocates
 its output with ``torch.empty``, launches on the current stream, and
-raises if the launch reports an error.  ``mem`` and ``ctl`` are updated
-in place.  The plain versions are ``core/transactions.alloc_math`` /
-``free_math`` / ``sharded_alloc_math`` / ``sharded_free_math``;
-``kernels/ops`` picks between them by device.
+raises if the launch reports an error.  A transaction takes any lane
+count: lane tables that do not fit in a block's shared memory go to a
+device workspace, also from ``torch.empty`` (:func:`workspace`).
+``mem`` and ``ctl`` are updated in place.  The plain versions are
+``core/transactions.alloc_math`` / ``free_math`` /
+``sharded_alloc_math`` / ``sharded_free_math``; ``kernels/ops`` picks
+between them by device.
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ _FIELDS = ("total_words", "num_chunks", "wpc", "bw", "num_classes",
            "ctl_words", "core_ctl_words", "wrap_capacity", "walk_bins")
 MAX_CTL = 256
 MAX_CLASSES = 32
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+# dynamic shared memory for lane tables: a block may use 232,448 bytes
+# on the H100, of which the kernels' static shared structs take under 3 KB
+TABLE_SMEM_LIMIT = 232448 - 4096
 
 
 class ArenaDesc(ctypes.Structure):
@@ -62,22 +67,23 @@ def _lib():
     lib = build.load("alloc_txn")
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.alloc_txn_launch.argtypes = [ArenaDesc, P, P, P, P, I, P, P]
+        Z = ctypes.c_size_t
+        lib.alloc_txn_launch.argtypes = [ArenaDesc, P, P, P, P, I, P, P, P]
         lib.alloc_txn_launch.restype = I
-        lib.free_txn_launch.argtypes = [ArenaDesc, P, P, P, P, P, I, P]
+        lib.free_txn_launch.argtypes = [ArenaDesc, P, P, P, P, P, I, P, P]
         lib.free_txn_launch.restype = I
-        lib.alloc_txn_smem_bytes.argtypes = [ArenaDesc, I]
-        lib.alloc_txn_smem_bytes.restype = ctypes.c_size_t
-        lib.free_txn_smem_bytes.argtypes = [ArenaDesc, I]
-        lib.free_txn_smem_bytes.restype = ctypes.c_size_t
         lib.sharded_alloc_txn_launch.argtypes = [ArenaDesc, P, P, I, I, I,
-                                                 P, P, P, I, I, P, P]
+                                                 P, P, P, I, I, P, P, P]
         lib.sharded_alloc_txn_launch.restype = I
         lib.sharded_free_txn_launch.argtypes = [ArenaDesc, P, P, I, I, I,
-                                                P, P, P, I, P]
+                                                P, P, P, I, P, P]
         lib.sharded_free_txn_launch.restype = I
-        lib.sharded_alloc_txn_smem_bytes.argtypes = [ArenaDesc, I]
-        lib.sharded_alloc_txn_smem_bytes.restype = ctypes.c_size_t
+        for name in ("alloc_txn", "sharded_alloc_txn"):
+            fn = getattr(lib, f"{name}_workspace_bytes")
+            fn.argtypes = [ArenaDesc, I, Z]
+            fn.restype = Z
+        lib.free_txn_workspace_bytes.argtypes = [ArenaDesc, I, I, Z]
+        lib.free_txn_workspace_bytes.restype = Z
         lib._typed = True
     return lib
 
@@ -94,7 +100,7 @@ def _check(name, t, dtype, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _prepare(cfg, kind, family, mem, ctl, n, num_shards=None):
+def _prepare(cfg, kind, family, mem, ctl, num_shards=None):
     """Layout, descriptor and device of a transaction's arena; with
     ``num_shards`` the arena is sharded (``cfg`` the global config) and
     the layout and descriptor are one shard's."""
@@ -110,10 +116,21 @@ def _prepare(cfg, kind, family, mem, ctl, n, num_shards=None):
                          f"the card, got {dev}")
     _check("mem", mem, torch.int32, lead + (lay.mem_words,), dev)
     _check("ctl", ctl, torch.int32, lead + (lay.ctl_words,), dev)
-    if n > cfg.max_alloc_batch:
-        raise ValueError(f"{n} lanes exceed max_alloc_batch "
-                         f"{cfg.max_alloc_batch}")
     return lay, descriptor(lay), dev
+
+
+def workspace(nbytes: int, dev):
+    """The device workspace of a launch whose lane tables need
+    ``nbytes`` beyond shared memory (``*_workspace_bytes``), or None
+    when they fit there.  The caching allocator keeps it for the launch:
+    it is freed on the launch's stream, after the launch in order."""
+    if not nbytes:
+        return None
+    return torch.empty(-(-nbytes // 4), dtype=torch.int32, device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _stream(dev):
@@ -123,17 +140,16 @@ def _stream(dev):
 def arena_alloc_txn(cfg, kind, family, mem, ctl, sizes_bytes, mask):
     """One alloc transaction in one launch; returns offsets (n,) int32."""
     n = sizes_bytes.shape[0]
-    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, n)
+    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl)
     _check("sizes_bytes", sizes_bytes, torch.int32, (n,), dev)
     _check("mask", mask, torch.bool, (n,), dev)
     lib = _lib()
-    if lib.alloc_txn_smem_bytes(desc, n) > SMEM_LIMIT:
-        raise ValueError(f"{n} lanes need more shared memory than a block "
-                         f"has")
+    ws = workspace(lib.alloc_txn_workspace_bytes(desc, n, TABLE_SMEM_LIMIT),
+                   dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     err = lib.alloc_txn_launch(desc, mem.data_ptr(), ctl.data_ptr(),
                                sizes_bytes.data_ptr(), mask.data_ptr(), n,
-                               out.data_ptr(), _stream(dev))
+                               out.data_ptr(), _ptr(ws), _stream(dev))
     if err:
         raise RuntimeError(f"alloc_txn launch failed: CUDA error {err}")
     ops.count("alloc_txn")
@@ -144,18 +160,17 @@ def arena_free_txn(cfg, kind, family, mem, ctl, offsets_words, sizes_bytes,
                    mask):
     """One free transaction in one launch (``mem``/``ctl`` in place)."""
     n = offsets_words.shape[0]
-    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, n)
+    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl)
     _check("offsets_words", offsets_words, torch.int32, (n,), dev)
     _check("sizes_bytes", sizes_bytes, torch.int32, (n,), dev)
     _check("mask", mask, torch.bool, (n,), dev)
     lib = _lib()
-    if lib.free_txn_smem_bytes(desc, n) > SMEM_LIMIT:
-        raise ValueError(f"{n} lanes over {cfg.num_chunks} chunks need more "
-                         f"shared memory than a block has")
+    ws = workspace(lib.free_txn_workspace_bytes(desc, n, 1, TABLE_SMEM_LIMIT),
+                   dev)
     err = lib.free_txn_launch(desc, mem.data_ptr(), ctl.data_ptr(),
                               offsets_words.data_ptr(),
                               sizes_bytes.data_ptr(), mask.data_ptr(), n,
-                              _stream(dev))
+                              _ptr(ws), _stream(dev))
     if err:
         raise RuntimeError(f"free_txn launch failed: CUDA error {err}")
     ops.count("free_txn")
@@ -166,7 +181,7 @@ def sharded_arena_alloc_txn(cfg, num_shards, kind, family, mem, ctl,
     """One sharded alloc transaction (the (walk+1, S) overflow-walk
     schedule) in one launch; returns GLOBAL offsets (n,) int32."""
     n = sizes_bytes.shape[0]
-    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, n, num_shards)
+    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, num_shards)
     _check("sizes_bytes", sizes_bytes, torch.int32, (n,), dev)
     _check("mask", mask, torch.bool, (n,), dev)
     _check("home", home, torch.int32, (n,), dev)
@@ -174,14 +189,14 @@ def sharded_arena_alloc_txn(cfg, num_shards, kind, family, mem, ctl,
         raise ValueError(f"walk must be an int in [0, {num_shards}), got "
                          f"{walk!r}")
     lib = _lib()
-    if lib.sharded_alloc_txn_smem_bytes(desc, n) > SMEM_LIMIT:
-        raise ValueError(f"{n} lanes need more shared memory than a block "
-                         f"has")
+    ws = workspace(lib.sharded_alloc_txn_workspace_bytes(desc, n,
+                                                         TABLE_SMEM_LIMIT),
+                   dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     err = lib.sharded_alloc_txn_launch(
         desc, mem.data_ptr(), ctl.data_ptr(), num_shards, lay.mem_words,
         lay.ctl_words, sizes_bytes.data_ptr(), mask.data_ptr(),
-        home.data_ptr(), n, walk, out.data_ptr(), _stream(dev))
+        home.data_ptr(), n, walk, out.data_ptr(), _ptr(ws), _stream(dev))
     if err:
         raise RuntimeError(f"sharded_alloc_txn launch failed: CUDA error "
                            f"{err}")
@@ -194,18 +209,17 @@ def sharded_arena_free_txn(cfg, num_shards, kind, family, mem, ctl,
     """One sharded free transaction in one launch of S blocks, one per
     shard (``mem``/``ctl`` in place)."""
     n = offsets_words.shape[0]
-    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, n, num_shards)
+    lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, num_shards)
     _check("offsets_words", offsets_words, torch.int32, (n,), dev)
     _check("sizes_bytes", sizes_bytes, torch.int32, (n,), dev)
     _check("mask", mask, torch.bool, (n,), dev)
     lib = _lib()
-    if lib.free_txn_smem_bytes(desc, n) > SMEM_LIMIT:
-        raise ValueError(f"{n} lanes over {lay.cfg.num_chunks} chunks a "
-                         f"shard need more shared memory than a block has")
+    ws = workspace(lib.free_txn_workspace_bytes(desc, n, num_shards,
+                                                TABLE_SMEM_LIMIT), dev)
     err = lib.sharded_free_txn_launch(
         desc, mem.data_ptr(), ctl.data_ptr(), num_shards, lay.mem_words,
         lay.ctl_words, offsets_words.data_ptr(), sizes_bytes.data_ptr(),
-        mask.data_ptr(), n, _stream(dev))
+        mask.data_ptr(), n, _ptr(ws), _stream(dev))
     if err:
         raise RuntimeError(f"sharded_free_txn launch failed: CUDA error "
                            f"{err}")

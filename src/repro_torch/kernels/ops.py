@@ -2,9 +2,9 @@
 
 Each public function here routes by the device of its tensors: CUDA
 tensors launch the hand-written kernel (``kernels/alloc_txn.py``,
-``kernels/defrag_txn.py``, ``kernels/paged_attention.py``, which raise
-on anything the kernel does not take), CPU tensors run the kernel's
-plain PyTorch version.  There is no fallback from the card to the plain
+``kernels/defrag_txn.py``, ``kernels/paged_attention.py``,
+``kernels/ssd_scan.py``, which raise on anything the kernel does not
+take), CPU tensors run the kernel's plain PyTorch version.  There is no fallback from the card to the plain
 version.
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 LAUNCHES = {"alloc_txn": 0, "free_txn": 0, "defrag_txn": 0,
             "sharded_alloc_txn": 0, "sharded_free_txn": 0,
-            "sharded_defrag_txn": 0, "paged_attention": 0}
+            "sharded_defrag_txn": 0, "paged_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -119,3 +119,14 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
     from repro_torch.kernels import ref
     return ref.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                                wpp=wpp)
+
+
+def ssd_scan(x, dt, a, b, c, h0=None, *, chunk: int):
+    """The Mamba-2 SSD chunked scan: ``(y (B, L, H, P), h_final (B, H, P,
+    N))``, both float32.  The kernel takes L a multiple of ``chunk``; the
+    plain version pads (callers pad first, so both paths see the same
+    shapes)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    if _on_cuda(x):
+        return ssd.ssd_scan(x, dt, a, b, c, h0, chunk=chunk)
+    return ssd.ssd_plain(x, dt, a, b, c, chunk, h0)

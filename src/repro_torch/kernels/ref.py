@@ -6,7 +6,9 @@ float32 scaled after the dot, tokens at or past ``seq_len`` and table
 holes masked, online softmax over the pages in table order, output
 ``acc / (l + 1e-30)``.  The allocator transaction kernels' plain
 version is the core math itself (``core/transactions.alloc_math`` /
-``free_math``).
+``free_math``).  ``ssd_ref`` is the naive sequential recurrence of the
+Mamba-2 SSD, the oracle the chunked scan (``kernels/ssd_scan.py``) is
+held to.
 """
 from __future__ import annotations
 
@@ -52,3 +54,26 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
         acc = alpha * acc + torch.einsum("bhgt,bthd->bhgd", p, v)
         m = m_new
     return (acc / (l + 1e-30)).reshape(B, Hq, D)
+
+
+def ssd_ref(x, dt, a, b, c, h0=None):
+    """Mamba-2 SSD, naive sequential recurrence (the oracle).
+
+    x (B, L, H, P); dt (B, L, H) positive steps; a (H,) negative decay
+    rates; b, c (B, L, G, N) with H % G == 0; h0 (B, H, P, N) or None.
+    Returns (y (B, L, H, P), h_final (B, H, P, N)), float32."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep = H // G
+    bh = torch.repeat_interleave(b, rep, dim=2)  # (B, L, H, N)
+    ch = torch.repeat_interleave(c, rep, dim=2)
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(L):
+        decay = torch.exp(dt[:, t] * a[None, :])  # (B, H)
+        h = (h * decay[:, :, None, None]
+             + (dt[:, t, :, None] * x[:, t]).float()[..., None]
+             * bh[:, t, :, None, :].float())
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, ch[:, t].float()))
+    return torch.stack(ys, dim=1), h

@@ -1,5 +1,5 @@
-"""Parameters of the dense decoder (port): init from a seed, and the
-converter from the reference's parameter tree.
+"""Parameters of the dense decoder and the Mamba-2 stack (port): init
+from a seed, and the converter from the reference's parameter tree.
 
 The port's tree mirrors the reference's names with the layer axis
 unstacked into a list::
@@ -9,30 +9,41 @@ unstacked into a list::
                  "bq", "bk", "bv"}, "norm2": {"scale"},
                  "ffn": {"w_gate", "w_up", "w_down"}}, ...]}
 
+or, for the ssm family, blocks ``{"norm": {"scale"}, "mixer": {"in_proj",
+"conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_scale",
+"out_proj"}}``.
+
 Matrices keep the reference's ``x @ W`` layout, W as (d_in, d_out), and
 attention heads stay merged.  :func:`init` draws the same shapes and
 distributions as the reference ``Model.init``: a normal leaf has
-std = 1/sqrt(shape[0]) of its *stacked* spec, so every block matrix has
-std 1/sqrt(num_layers) and the embedding 1/sqrt(V_pad); norm scales
-are ones and biases zeros.  The numbers differ (a ``torch.Generator``,
+std = scale/sqrt(shape[0]) of its *stacked* spec, so every block matrix
+has std 1/sqrt(num_layers) (``conv_w`` 1/sqrt(ssm_conv * num_layers))
+and the embedding 1/sqrt(V_pad); norm scales, ``d_skip`` and
+``norm_scale`` are ones, biases (``conv_b`` too) zeros, ``a_log`` the
+constant log 4 and ``dt_bias`` the constant -3.  The numbers differ (a ``torch.Generator``,
 not a JAX key); tests that need the same numbers convert the
 reference's tree with :func:`params_from_jax`.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as Ssm
 
 # leaves multiplied into activations: cast to the compute dtype once
 _MATRICES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up",
-             "w_down")
+             "w_down", "in_proj", "conv_w", "conv_b", "out_proj")
 
 
 def _block_shapes(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return {"norm": {"scale": (cfg.d_model,)},
+                "mixer": Ssm.ssm_shapes(cfg)}
     hd, d, f = cfg.head_dim_, cfg.d_model, cfg.d_ff
     nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
     attn = {"wq": (d, nq), "wk": (d, nkv), "wv": (d, nkv), "wo": (nq, d)}
@@ -43,11 +54,13 @@ def _block_shapes(cfg: ModelConfig):
 
 
 def check_supported(cfg: ModelConfig):
-    """The port runs the dense decoder as qwen2 configures it: RMSNorm,
-    SwiGLU, rotate-half RoPE, tied embedding, full attention.  Anything
-    else comes with its family (ROADMAP A12)."""
+    """The port runs the dense decoder as qwen2 configures it (RMSNorm,
+    SwiGLU, rotate-half RoPE, tied embedding, full attention) and the
+    Mamba-2 stack as mamba2 configures it.  Anything else comes with its
+    family (ROADMAP A12)."""
     unsupported = {
-        "family": cfg.family != "dense", "num_experts": cfg.num_experts,
+        "family": cfg.family not in ("dense", "ssm"),
+        "num_experts": cfg.num_experts,
         "enc_layers": cfg.enc_layers, "norm": cfg.norm != "rmsnorm",
         "act": cfg.act != "silu", "parallel_block": cfg.parallel_block,
         "tie_embeddings": not cfg.tie_embeddings,
@@ -69,17 +82,21 @@ def init(cfg: ModelConfig, seed: int, device="cpu",
     g.manual_seed(int(seed))
     L = cfg.num_layers
 
-    def normal(shape, fan_in):
+    def normal(shape, fan_in, scale=1.0):
         x = torch.randn(shape, generator=g, device=device,
                         dtype=torch.float32)
-        return (x * (1.0 / fan_in ** 0.5)).to(dtype)
+        return (x * (scale / fan_in ** 0.5)).to(dtype)
 
     def leaf(group, name, shape):
-        if group.startswith("norm"):
+        if group.startswith("norm") or name in ("d_skip", "norm_scale"):
             return torch.ones(shape, dtype=dtype, device=device)
-        if name in ("bq", "bk", "bv"):
+        if name in ("bq", "bk", "bv", "conv_b"):
             return torch.zeros(shape, dtype=dtype, device=device)
-        return normal(shape, L)  # stacked spec: fan_in = layers
+        if name in ("a_log", "dt_bias"):
+            return torch.full(shape, math.log(4.0) if name == "a_log"
+                              else -3.0, dtype=dtype, device=device)
+        scale = 1.0 / math.sqrt(cfg.ssm_conv) if name == "conv_w" else 1.0
+        return normal(shape, L, scale)  # stacked spec: fan_in = layers
 
     shapes = _block_shapes(cfg)
     blocks = [{grp: {nm: leaf(grp, nm, shp) for nm, shp in leaves.items()}

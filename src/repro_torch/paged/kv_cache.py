@@ -91,6 +91,36 @@ def make_kv_allocator(num_pages: int, device="cuda", num_shards: int = 1):
                       num_shards=num_shards), 64, physical_pages)
 
 
+
+def modality_page_quota(cfg, page_bytes: int = 256) -> int:
+    """Arena pages of per-sequence state beyond the KV pages (the
+    per-modality page policy): the serving engine grants this many pages
+    to each slot at admission (``slot_aux``) and frees them at
+    retirement, eviction or cancel, out of the same arena as the KV
+    pages.
+
+    - ``ssm`` (mamba2): per layer the SSD state, ``(nheads, headdim,
+      state)`` float32, plus the ``(conv-1, conv_dim)`` bf16 conv tail;
+    - dense: 0 (its per-sequence state is all KV pages).
+
+    The hybrid (RG-LRU state) and MoE (expert buffers) quotas come with
+    their families (ROADMAP A12).
+
+    >>> from repro_torch.configs import get_arch
+    >>> modality_page_quota(get_arch("mamba2-780m"))
+    298656
+    """
+    if cfg.family == "ssm":
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        per_layer = (cfg.ssm_nheads * cfg.ssm_headdim * cfg.ssm_state * 4
+                     + (cfg.ssm_conv - 1) * conv_dim * 2)
+        return -(-cfg.num_layers * per_layer // page_bytes)
+    if cfg.family == "hybrid" or cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} page quota comes with its "
+            f"family (ROADMAP A12)")
+    return 0
+
 def _table_ids(page_table, pidx):
     """``page_table[b, pidx[b, j]]``; columns past the table read −1."""
     P = page_table.shape[1]

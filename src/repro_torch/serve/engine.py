@@ -29,6 +29,17 @@ cross-shard rebalance wave whenever the live pages of the fullest and
 the emptiest shard differ by more than that many pages (checked after
 admission, before each decode tick).
 
+Per-modality aux pages: a model whose per-sequence state is not KV (the
+ssm family's SSD state and conv tail) holds ``aux_pages``
+(``kv_cache.modality_page_quota``) pages of the same arena per admitted
+slot: granted in ONE bulk alloc before its prefill (the request is
+requeued when the grant fails), freed in ONE bulk free at retirement,
+eviction or cancel.  The arena is sized ``num_pages + max_batch *
+aux_pages``.  An attention-free model has no page table: its slots grow
+no KV pages, and its state lives in the model's dense state caches
+(the admitted slot's rows written in place by its prefill).  Page ids
+of a slot's aux grant are kept as one int64 numpy array.
+
 Host loop only: the fused decode mega-step (ROADMAP A9),
 snapshot/restore (A13), tracer and metrics (A14) are still to port.
 """
@@ -45,6 +56,9 @@ from repro_torch.models.model import Model
 from repro_torch.models.params import cast_for_compute
 from repro_torch.models.transformer import Caches
 from repro_torch.paged import kv_cache as KV
+
+
+_NO_PAGES = np.zeros(0, np.int64)
 
 
 @dataclasses.dataclass
@@ -104,10 +118,14 @@ class ServingEngine:
         self.num_shards = num_shards
         self.rebalance_threshold = rebalance_threshold
 
+        # per-modality page policy: the SSM state rides the same arena
+        # as KV pages, aux_pages per admitted slot (0 for dense models)
+        self.aux_pages = KV.modality_page_quota(cfg, self.page_bytes)
         # the paper's allocator manages the page-id space; its arena
         # lives on the engine's device, so the transactions run there
         self.ouro, self.wpp, physical_pages = KV.make_kv_allocator(
-            self.num_pages, device=self.device, num_shards=num_shards)
+            self.num_pages + max_batch * self.aux_pages, device=self.device,
+            num_shards=num_shards)
         self.alloc_state = self.ouro.init()
         self._shard_words = (self.ouro.layout.shard_words
                              if num_shards > 1
@@ -120,6 +138,8 @@ class ServingEngine:
             num_pages=physical_pages, device=self.device)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
+        # each admitted slot's aux page ids (empty when it holds none)
+        self.slot_aux: List[np.ndarray] = [_NO_PAGES] * max_batch
         self.slot_len = np.zeros(max_batch, np.int64)  # host truth
         self.waiting: List[Request] = []
         self._uid = 0
@@ -146,7 +166,9 @@ class ServingEngine:
                       "pages_migrated": 0, "evictions": 0, "cancels": 0,
                       # cross-shard waves past rebalance_threshold (one
                       # sharded_defrag_txn launch each)
-                      "rebalance_waves": 0}
+                      "rebalance_waves": 0,
+                      # arena pages each admitted slot holds beyond KV
+                      "aux_pages_per_slot": self.aux_pages}
         self.refresh_frag_stats()
 
     # ---- request lifecycle -------------------------------------------------
@@ -156,12 +178,14 @@ class ServingEngine:
                                     max_new_tokens, eos_id))
         return self._uid
 
-    def _bulk_alloc(self, homes: List[int]) -> List[int]:
+    def _bulk_alloc(self, homes) -> np.ndarray:
         """ONE allocator transaction granting one page per entry of
         ``homes`` (the requesting slot's home shard; a grant overflows
         to neighbour shards when that shard is full).  Lanes of every
-        growing slot coalesce into this single launch."""
-        n_pages = len(homes)
+        growing slot coalesce into this single launch.  Returns the page
+        ids (int64, −1 for a failed lane)."""
+        homes = np.asarray(homes, np.int32)
+        n_pages = homes.shape[0]
         lanes = max(self.max_batch * 2, n_pages)
         sizes = torch.full((lanes,), self.page_bytes, dtype=torch.int32,
                            device=self.device)
@@ -183,17 +207,17 @@ class ServingEngine:
         shard = self._note_shard_pages(offs[ok], +1)
         self.stats["alloc_overflows"] += int(
             (shard != home[:n_pages][ok]).sum())
-        return [int(o) // self.wpp if o >= 0 else -1 for o in offs]
+        return np.where(ok, offs.astype(np.int64) // self.wpp, -1)
 
-    def _alloc_pages(self, homes: List[int]) -> List[int]:
+    def _alloc_pages(self, homes) -> np.ndarray:
         """Bulk page grant with defragmentation recovery: if any lane
         fails, return this transaction's partial grants, run ONE defrag
         wave and retry once.  The retry's result is returned as it is
         (−1 for a page still not granted)."""
         got = self._bulk_alloc(homes)
-        if all(g >= 0 for g in got):
+        if (got >= 0).all():
             return got
-        self._bulk_free([g for g in got if g >= 0])
+        self._bulk_free(got[got >= 0])
         self.defrag()
         return self._bulk_alloc(homes)
 
@@ -201,22 +225,26 @@ class ServingEngine:
         """Move the per-shard live-page counts by ``delta`` for granted
         or freed word offsets; returns their owning shards."""
         shard = offs // self._shard_words
-        np.add.at(self._shard_pages, shard, delta)
+        self._shard_pages += delta * np.bincount(
+            shard, minlength=self.num_shards).astype(np.int64)
         self.stats["shard_pages_live"] = [int(x) for x in self._shard_pages]
         return shard
 
-    def _bulk_free(self, pages: List[int]):
-        if not pages:
+    def _bulk_free(self, pages):
+        """ONE free transaction returning ``pages`` (ids, a list or an
+        array)."""
+        pages = np.asarray(pages, np.int64)
+        if not pages.size:
             return
-        lanes = max(self.max_batch * 2, len(pages))
+        lanes = max(self.max_batch * 2, pages.shape[0])
         offs = np.full(lanes, -1, np.int32)
-        offs[:len(pages)] = np.asarray(pages, np.int32) * self.wpp
+        offs[:pages.shape[0]] = pages * self.wpp
         offs_t = torch.from_numpy(offs).to(self.device)
         sizes = torch.full((lanes,), self.page_bytes, dtype=torch.int32,
                            device=self.device)
         self.alloc_state = self.ouro.free(self.alloc_state, offs_t, sizes,
                                           offs_t >= 0)
-        self.stats["frees"] += len(pages)
+        self.stats["frees"] += int(pages.shape[0])
         self.stats["free_txns"] += 1
         self._note_shard_pages(offs[offs >= 0], -1)
 
@@ -225,16 +253,36 @@ class ServingEngine:
         (admission path; decode growth coalesces in ``_grow_active``).
         False, with the partial grants returned, when the heap cannot
         hold them even after a defrag wave."""
+        if self.caches.kv is None:  # attention-free: no KV pages
+            return True
         need = -(-upto_tokens // self.page)
         missing = need - len(self.slot_pages[slot])
         if missing <= 0:
             return True
         got = self._alloc_pages([slot % self.num_shards] * missing)
-        if any(g < 0 for g in got):
-            self._bulk_free([g for g in got if g >= 0])
+        if (got < 0).any():
+            self._bulk_free(got[got >= 0])
             return False
-        self._map_granted([slot] * missing, got)
+        self._map_granted([slot] * missing, got.tolist())
         return True
+
+    def _alloc_aux(self, slot: int) -> bool:
+        """Grant the slot its ``aux_pages`` in ONE bulk transaction (with
+        the defrag retry); on failure the partial grant goes back and
+        False is returned."""
+        if self.aux_pages == 0:
+            return True
+        got = self._alloc_pages(np.full(self.aux_pages,
+                                        slot % self.num_shards, np.int32))
+        if (got < 0).any():
+            self._bulk_free(got[got >= 0])
+            return False
+        self.slot_aux[slot] = got
+        return True
+
+    def _free_aux(self, slot: int):
+        self._bulk_free(self.slot_aux[slot])
+        self.slot_aux[slot] = _NO_PAGES
 
     def _map_granted(self, slots: List[int], pages: List[int]):
         """Extend the slots' page tables with granted page ids (one
@@ -312,21 +360,33 @@ class ServingEngine:
         if not bool((src >= 0).any()):
             return 0
         max_span = self.ouro.cfg.words_per_chunk // self.wpp
-        KV.apply_forwarding(self.caches.kv, fwd, self.wpp,
-                            max_span=max_span)
-        sp, dp = (x.cpu().tolist() for x in
+        if self.caches.kv is not None:
+            KV.apply_forwarding(self.caches.kv, fwd, self.wpp,
+                                max_span=max_span)
+        sp, dp = (x.cpu().numpy().astype(np.int64) for x in
                   KV.forwarding_page_map(fwd, self.wpp, max_span))
-        mapping = {s: d for s, d in zip(sp, dp) if s >= 0}
+        keep = sp >= 0
+        sp, dp = sp[keep], dp[keep]
+        order = np.argsort(sp, kind="stable")
+        sp, dp = sp[order], dp[order]
+
+        def remap(pages):
+            """New ids of ``pages`` (int64); moved pages change shards'
+            live counts."""
+            idx = np.searchsorted(sp, pages)
+            hit = idx < len(sp)
+            hit[hit] = sp[idx[hit]] == pages[hit]
+            new = pages.copy()
+            new[hit] = dp[idx[hit]]
+            self._note_shard_pages(pages[hit] * self.wpp, -1)
+            self._note_shard_pages(new[hit] * self.wpp, +1)
+            return new
+
         for pages in self.slot_pages:
-            for i, p in enumerate(pages):
-                if p in mapping:
-                    old_sh = p * self.wpp // self._shard_words
-                    new_sh = mapping[p] * self.wpp // self._shard_words
-                    self._shard_pages[old_sh] -= 1
-                    self._shard_pages[new_sh] += 1
-                    pages[i] = mapping[p]
-        self.stats["shard_pages_live"] = [int(x) for x in self._shard_pages]
-        return len(mapping)
+            if pages:
+                pages[:] = remap(np.asarray(pages, np.int64)).tolist()
+        self.slot_aux = [remap(a) if a.size else a for a in self.slot_aux]
+        return len(sp)
 
     def _admit(self):
         for slot in range(self.max_batch):
@@ -334,23 +394,33 @@ class ServingEngine:
                 continue
             req = self.waiting.pop(0)
             lp = len(req.prompt)
+            if not self._alloc_aux(slot):
+                self.waiting.insert(0, req)  # heap full; retry later
+                break
             if not self._map_pages(slot, lp + 1):
+                self._free_aux(slot)
                 self.waiting.insert(0, req)  # heap full; retry later
                 break
             # prefill the admitted row alone: its own table row, the
-            # shared heaps, seq_len 0 — the reference's padded batch with
-            # the other rows' tables hidden writes exactly these pages
-            kv = self.caches.kv
-            row = KV.PagedKV(layers=kv.layers,
-                             page_table=kv.page_table[slot:slot + 1],
-                             seq_lens=torch.zeros(1, dtype=torch.int32,
-                                                  device=self.device))
+            # shared heaps, seq_len 0 (the reference's padded batch with
+            # the other rows' tables hidden writes exactly these pages);
+            # an SSM model writes the final states into the slot's rows
+            kv, c = self.caches.kv, self.caches
+            row = Caches(
+                kv=None if kv is None else KV.PagedKV(
+                    layers=kv.layers,
+                    page_table=kv.page_table[slot:slot + 1],
+                    seq_lens=torch.zeros(1, dtype=torch.int32,
+                                         device=self.device)),
+                ssm_h=None if c.ssm_h is None else c.ssm_h[:, slot:slot + 1],
+                ssm_conv=(None if c.ssm_conv is None
+                          else c.ssm_conv[:, slot:slot + 1]))
             tokens = torch.as_tensor(req.prompt[None], dtype=torch.int64,
                                      device=self.device)
             logits, _ = self.model.prefill(self.params, {"tokens": tokens},
-                                           Caches(kv=row),
-                                           dtype=self.compute_dtype)
-            kv.seq_lens[slot] = lp
+                                           row, dtype=self.compute_dtype)
+            if kv is not None:
+                kv.seq_lens[slot] = lp
             req.out_tokens.append(int(torch.argmax(logits[0])))
             self.slot_req[slot] = req
             self.slot_len[slot] = lp + 1
@@ -406,6 +476,8 @@ class ServingEngine:
         wave, evicts the youngest slot and retries; never raises.
         Returns the slots still active."""
         active = list(active)
+        if self.caches.kv is None:  # attention-free: no KV pages
+            return active
         while True:
             slots = []
             for s in active:
@@ -414,10 +486,10 @@ class ServingEngine:
             if not slots:
                 return active
             got = self._alloc_pages([s % self.num_shards for s in slots])
-            if all(g >= 0 for g in got):
-                self._map_granted(slots, got)
+            if (got >= 0).all():
+                self._map_granted(slots, got.tolist())
                 return active
-            self._bulk_free([g for g in got if g >= 0])
+            self._bulk_free(got[got >= 0])
             victim = self._youngest_active()
             if victim is None:
                 return active
@@ -465,11 +537,15 @@ class ServingEngine:
         return finished
 
     def _release(self, slot: int):
+        """Free every page the slot holds (KV, then aux: one transaction
+        each) and zero its state."""
         self._bulk_free(self.slot_pages[slot])
         self.slot_pages[slot] = []
+        self._free_aux(slot)
         kv = self.caches.kv
-        kv.page_table[slot] = -1
-        kv.seq_lens[slot] = 0
+        if kv is not None:
+            kv.page_table[slot] = -1
+            kv.seq_lens[slot] = 0
         self.slot_req[slot] = None
         self.slot_len[slot] = 0
         self._admit_ord[slot] = 0

@@ -1,8 +1,8 @@
 // Plain C entry points around the emulated kernels (loaded with ctypes
 // by tests/test_torch_cuda_emulated.py).  alloc_emu.inc,
-// defrag_emu.inc and attention_emu.inc are the kernel sources with their
-// host launchers cut off, written by the test before it compiles this
-// file; the block and shared-memory sizes come from the sources' own
+// defrag_emu.inc, attention_emu.inc and ssd_emu.inc are the kernel
+// sources with their host launchers cut off, written by the test before
+// it compiles this file; the block and shared-memory sizes come from the sources' own
 // launch-geometry functions, which precede the host launchers.  The
 // kernels' shared header (arena_dev.cuh) comes from the source
 // directory.
@@ -10,30 +10,53 @@
 #include "alloc_emu.inc"
 #include "defrag_emu.inc"
 #include "attention_emu.inc"
+#include "ssd_emu.inc"
+
+// The transaction and wave kernels' tables: in the launch's dynamic shared
+// memory when they fit in smem_limit bytes, else in a workspace standing
+// in for the device one (the wrappers pass a lowered limit to reach that
+// path at small lane counts); each home has its kernel instance, picked
+// as the host launchers pick it.
+static int* emu_workspace(std::vector<int>& buf, size_t bytes) {
+  if (!bytes) return nullptr;
+  buf.assign(bytes / sizeof(int) + 1, 0x5a5a5a5a);
+  return buf.data();
+}
 
 extern "C" void emu_alloc_txn(ArenaDesc d, int* mem, int* ctl,
                               const int* sizes, const uint8_t* mask, int n,
-                              int* out) {
-  emu_launch(1, block_threads(n), alloc_txn_smem_bytes(d, n), [&] {
-    alloc_txn_kernel(d, mem, ctl, sizes, mask, n, out);
+                              int* out, size_t smem_limit) {
+  std::vector<int> buf;
+  int* ws = emu_workspace(buf, alloc_txn_workspace_bytes(d, n, smem_limit));
+  emu_launch(1, block_threads(n), ws ? 0 : alloc_txn_table_bytes(d, n), [&] {
+    (ws ? alloc_txn_kernel<true> : alloc_txn_kernel<false>)(
+        d, mem, ctl, sizes, mask, n, out, ws);
   });
 }
 
 extern "C" void emu_free_txn(ArenaDesc d, int* mem, int* ctl,
                              const int* offs, const int* sizes,
-                             const uint8_t* mask, int n) {
-  emu_launch(1, block_threads(n), free_txn_smem_bytes(d, n), [&] {
-    free_txn_kernel(d, mem, ctl, offs, sizes, mask, n);
+                             const uint8_t* mask, int n, size_t smem_limit) {
+  std::vector<int> buf;
+  int* ws = emu_workspace(buf, free_txn_workspace_bytes(d, n, 1, smem_limit));
+  emu_launch(1, block_threads(n), ws ? 0 : free_txn_table_bytes(d, n), [&] {
+    (ws ? free_txn_kernel<true> : free_txn_kernel<false>)(
+        d, mem, ctl, offs, sizes, mask, n, ws);
   });
 }
 
 extern "C" void emu_sharded_alloc_txn(ArenaDesc d, int* mem, int* ctl, int S,
                                       int Mw, int Cw, const int* sizes,
                                       const uint8_t* mask, const int* home,
-                                      int n, int walk, int* out) {
-  emu_launch(1, block_threads(n), sharded_alloc_txn_smem_bytes(d, n), [&] {
-    sharded_alloc_txn_kernel(d, mem, ctl, S, Mw, Cw, sizes, mask, home, n,
-                             walk, out);
+                                      int n, int walk, int* out,
+                                      size_t smem_limit) {
+  std::vector<int> buf;
+  int* ws = emu_workspace(
+      buf, sharded_alloc_txn_workspace_bytes(d, n, smem_limit));
+  emu_launch(1, block_threads(n),
+             ws ? 0 : sharded_alloc_txn_table_bytes(d, n), [&] {
+    (ws ? sharded_alloc_txn_kernel<true> : sharded_alloc_txn_kernel<false>)(
+        d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, walk, out, ws);
   });
 }
 
@@ -42,26 +65,40 @@ extern "C" void emu_sharded_alloc_txn(ArenaDesc d, int* mem, int* ctl, int S,
 extern "C" void emu_sharded_free_txn(ArenaDesc d, int* mem, int* ctl, int S,
                                      int Mw, int Cw, const int* offs,
                                      const int* sizes, const uint8_t* mask,
-                                     int n) {
-  emu_launch(S, block_threads(n), free_txn_smem_bytes(d, n), [&] {
-    sharded_free_txn_kernel(d, mem, ctl, Mw, Cw, offs, sizes, mask, n);
+                                     int n, size_t smem_limit) {
+  std::vector<int> buf;
+  const size_t table = free_txn_table_bytes(d, n);
+  int* ws = emu_workspace(buf, free_txn_workspace_bytes(d, n, S, smem_limit));
+  emu_launch(S, block_threads(n), ws ? 0 : table, [&] {
+    (ws ? sharded_free_txn_kernel<true> : sharded_free_txn_kernel<false>)(
+        d, mem, ctl, Mw, Cw, offs, sizes, mask, n, ws,
+        (long long)(table / sizeof(int)));
   });
 }
 
 extern "C" void emu_sharded_defrag_txn(ArenaDesc d, int* mem, int* ctl, int S,
                                        int Mw, int Cw, const int* src,
                                        const int* dst, const int* sizes,
-                                       int M, int threads) {
-  emu_launch(1, threads, defrag_txn_smem_bytes(d), [&] {
-    sharded_defrag_txn_kernel(d, mem, ctl, S, Mw, Cw, src, dst, sizes, M);
+                                       int M, int threads,
+                                       size_t smem_limit) {
+  std::vector<int> buf;
+  int* ws = emu_workspace(buf, defrag_txn_workspace_bytes(d, smem_limit));
+  emu_launch(1, threads, ws ? 0 : defrag_txn_table_bytes(d), [&] {
+    (ws ? sharded_defrag_txn_kernel<true>
+        : sharded_defrag_txn_kernel<false>)(d, mem, ctl, S, Mw, Cw, src,
+                                            dst, sizes, M, ws);
   });
 }
 
 extern "C" void emu_defrag_txn(ArenaDesc d, int* mem, int* ctl,
                                const int* src, const int* dst,
-                               const int* sizes, int M, int threads) {
-  emu_launch(1, threads, defrag_txn_smem_bytes(d), [&] {
-    defrag_txn_kernel(d, mem, ctl, src, dst, sizes, M);
+                               const int* sizes, int M, int threads,
+                               size_t smem_limit) {
+  std::vector<int> buf;
+  int* ws = emu_workspace(buf, defrag_txn_workspace_bytes(d, smem_limit));
+  emu_launch(1, threads, ws ? 0 : defrag_txn_table_bytes(d), [&] {
+    (ws ? defrag_txn_kernel<true> : defrag_txn_kernel<false>)(
+        d, mem, ctl, src, dst, sizes, M, ws);
   });
 }
 
@@ -83,5 +120,23 @@ extern "C" void emu_paged_attention(int bf16, const void* q, const void* k,
       paged_attention_kernel<float>((const float*)q, (const float*)k,
                                     (const float*)v, table, seq_lens, out, Hq,
                                     Hkv, D, page, P, NP, wpp, scale);
+    });
+}
+
+extern "C" void emu_ssd_scan(int bf16, const void* x, const float* dt,
+                             const float* a, const void* b, const void* c,
+                             const float* h0, float* y, float* hf, int B,
+                             int L, int H, int P, int G, int N, int Q) {
+  const size_t smem = ssd_scan_smem_bytes(P, N, Q);
+  if (bf16)
+    emu_launch(B * H, SSD_THREADS, smem, [&] {
+      ssd_scan_kernel<__nv_bfloat16>(
+          (const __nv_bfloat16*)x, dt, a, (const __nv_bfloat16*)b,
+          (const __nv_bfloat16*)c, h0, y, hf, L, H, P, G, N, Q);
+    });
+  else
+    emu_launch(B * H, SSD_THREADS, smem, [&] {
+      ssd_scan_kernel<float>((const float*)x, dt, a, (const float*)b,
+                             (const float*)c, h0, y, hf, L, H, P, G, N, Q);
     });
 }

@@ -20,6 +20,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
 

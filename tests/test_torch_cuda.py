@@ -285,3 +285,113 @@ def test_sharded_defrag_kernel_matches_plain_math_word_for_word(
     assert torch.equal(sg.ctl.cpu(), sc.ctl)
     assert int((c1.src >= 0).sum()) > 0 and int((c2.src >= 0).sum()) > 0
     assert lg["sharded_defrag_txn"] == 2 and lg["defrag_txn"] == 0
+
+
+AUX_LANES = 298656   # mamba2-780m's aux pages per slot (one admission)
+
+
+@pytest.mark.parametrize("num_shards", (1, 4), ids=("single", "sharded"))
+def test_full_width_aux_transactions_match_plain_math(cuda, num_shards):
+    """One admission's and one retirement's lanes of full-width
+    mamba2-780m (298,656 pages of 256 B) on the engine's arena for 8
+    slots: the kernels, whose lane tables go to a device workspace,
+    against the plain math on a second arena on the card, offsets and
+    words identical; one launch each."""
+    from repro_torch.core import shards
+    from repro_torch.core import transactions as T
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    o, _, _ = make_kv_allocator(256 + 8 * AUX_LANES, device=cuda,
+                                num_shards=num_shards)
+    sk, sp = o.init(), o.init()
+    n, S = AUX_LANES, num_shards
+    sizes = torch.full((n,), 256, dtype=torch.int32, device=cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    base = (o.kind, o.family, sp.mem, sp.ctl)
+    ops.reset_launches()
+    _, offs = o.alloc(sk, sizes, mask)
+    if S == 1:
+        want = T.alloc_math(o.cfg, *base, sizes, mask)[2]
+    else:
+        home = shards.home_shards(n, S, None, device=cuda)
+        want = T.sharded_alloc_math(o.cfg, S, *base, sizes, mask, home,
+                                    o.walk)[2]
+    assert bool((want >= 0).all())
+    assert torch.equal(offs, want)
+    assert torch.equal(sk.mem, sp.mem) and torch.equal(sk.ctl, sp.ctl)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(1))
+    fo = want[perm.to(cuda)].contiguous()
+    o.free(sk, fo, sizes, mask)
+    if S == 1:
+        T.free_math(o.cfg, *base, fo, sizes, mask)
+    else:
+        T.sharded_free_math(o.cfg, S, *base, fo, sizes, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(sk.mem, sp.mem) and torch.equal(sk.ctl, sp.ctl)
+    name = "alloc_txn" if S == 1 else "sharded_alloc_txn"
+    assert ops.LAUNCHES[name] == 1
+    assert ops.LAUNCHES[name.replace("alloc", "free")] == 1
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("B,chunks,with_h0", [(1, 1, False), (1, 4, False),
+                                              (1, 7, False), (2, 3, True)])
+def test_ssd_scan_kernel_matches_plain_at_full_width(cuda, dtype, B, chunks,
+                                                     with_h0):
+    """``ssd_scan`` at mamba2-780m's shapes (H 48, P 64, N 128, G 1,
+    chunk 64; the engine's single-row prefill is B 1, 1-7 chunks)
+    against ``ssd_plain`` on the same card tensors (bf16 widened to
+    float32 by both): atol and rtol 1e-4."""
+    from repro_torch.kernels import ssd_scan as ssd
+    H, P, G, N, Q = 48, 64, 1, 128, 64
+    L = Q * chunks
+    rng = np.random.default_rng(chunks)
+    x = torch.from_numpy(rng.standard_normal((B, L, H, P), np.float32))
+    raw = rng.standard_normal((B, L, H)).astype(np.float32) - 3.0
+    dt = torch.nn.functional.softplus(torch.from_numpy(raw))
+    a = -torch.full((H,), 4.0)
+    b = torch.from_numpy(rng.standard_normal((B, L, G, N), np.float32))
+    c = torch.from_numpy(rng.standard_normal((B, L, G, N), np.float32))
+    h0 = (torch.from_numpy(rng.standard_normal((B, H, P, N), np.float32))
+          .to(cuda) if with_h0 else None)
+    x, b, c = (t.to(dtype).to(cuda) for t in (x, b, c))
+    dt, a = dt.to(cuda), a.to(cuda)
+    ops.reset_launches()
+    y, hf = ops.ssd_scan(x, dt, a, b, c, h0, chunk=Q)
+    wy, wh = ssd.ssd_plain(x, dt, a, b, c, Q, h0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(hf, wh, atol=1e-4, rtol=1e-4)
+
+
+def test_defrag_wave_on_the_mamba2_arena_matches_plain_math(cuda):
+    """A wave on the mamba2-780m engine's arena (149,497 chunks, whose
+    per-chunk tables go to a device workspace): one admission's grant,
+    all but every fifth page freed, then ``defrag_txn`` against
+    ``migrate_math`` on a copy of the same words on the card."""
+    from repro_torch.core import defrag
+    from repro_torch.core import transactions as T
+    from repro_torch.kernels import alloc_txn as AT
+    from repro_torch.kernels import defrag_txn as DT
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    o, _, _ = make_kv_allocator(256 + 8 * AUX_LANES, device=cuda)
+    d = AT.descriptor(o.layout)
+    assert DT._lib().defrag_txn_workspace_bytes(d, AT.TABLE_SMEM_LIMIT) > 0
+    st = o.init()
+    n = AUX_LANES
+    sizes = torch.full((n,), 256, dtype=torch.int32, device=cuda)
+    st, offs = o.alloc(st, sizes, torch.ones(n, dtype=torch.bool,
+                                             device=cuda))
+    keep = torch.arange(n, device=cuda) % 5 == 0
+    fo = torch.where(keep, torch.full_like(offs, -1), offs)
+    st = o.free(st, fo, sizes, fo >= 0)
+    plan = defrag.plan_math(o.cfg, o.kind, o.family, st.mem, st.ctl,
+                            max_moves=o._moves(None))
+    assert int((plan[0] >= 0).sum()) > 0
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    ops.reset_launches()
+    T.migrate(o.cfg, o.kind, o.family, st, *plan)
+    defrag.migrate_math(o.cfg, o.kind, o.family, mem, ctl, *plan)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["defrag_txn"] == 1
+    assert torch.equal(st.mem, mem) and torch.equal(st.ctl, ctl)

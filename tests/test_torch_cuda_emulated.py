@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.core import HeapConfig, Ouroboros, arena, defrag, shards
 from repro_torch.kernels import ref
-from repro_torch.kernels.alloc_txn import ArenaDesc, descriptor
+from repro_torch.kernels.alloc_txn import (TABLE_SMEM_LIMIT, ArenaDesc,
+                                           descriptor)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EMU = ROOT / "tests" / "cuda_emu"
@@ -51,6 +52,8 @@ def emu(tmp_path_factory):
         _device_part((CSRC / "defrag_txn.cu").read_text()))
     (out / "attention_emu.inc").write_text(
         _device_part((CSRC / "paged_attention.cu").read_text()))
+    (out / "ssd_emu.inc").write_text(
+        _device_part((CSRC / "ssd_scan.cu").read_text()))
     lib = out / "libemu.so"
     cmd = [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
            f"-I{EMU / 'include'}", f"-I{EMU}", f"-I{out}", f"-I{CSRC}",
@@ -61,21 +64,30 @@ def emu(tmp_path_factory):
         pytest.skip(f"host compiler lacks C++20: {r.stderr[:200]}")
     assert r.returncode == 0, r.stderr
     so = ctypes.CDLL(str(lib))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    so.emu_alloc_txn.argtypes = [ArenaDesc, P, P, P, P, I, P]
-    so.emu_free_txn.argtypes = [ArenaDesc, P, P, P, P, P, I]
-    so.emu_defrag_txn.argtypes = [ArenaDesc, P, P, P, P, P, I, I]
+    P, I, Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    so.emu_alloc_txn.argtypes = [ArenaDesc, P, P, P, P, I, P, Z]
+    so.emu_free_txn.argtypes = [ArenaDesc, P, P, P, P, P, I, Z]
+    so.emu_defrag_txn.argtypes = [ArenaDesc, P, P, P, P, P, I, I, Z]
     so.emu_paged_attention.argtypes = [I, P, P, P, P, P, P] + [I] * 8 + [
         ctypes.c_float]
     so.emu_sharded_alloc_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
-                                         I, I, P]
+                                         I, I, P, Z]
     so.emu_sharded_free_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
-                                        I]
+                                        I, Z]
     so.emu_sharded_defrag_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
-                                          I, I]
+                                          I, I, Z]
+    so.defrag_txn_workspace_bytes.argtypes = [ArenaDesc, Z]
+    so.defrag_txn_workspace_bytes.restype = Z
+    so.emu_ssd_scan.argtypes = [I] + [P] * 8 + [I] * 7
+    for name in ("alloc_txn", "sharded_alloc_txn"):
+        fn = getattr(so, f"{name}_workspace_bytes")
+        fn.argtypes, fn.restype = [ArenaDesc, I, Z], Z
+    so.free_txn_workspace_bytes.argtypes = [ArenaDesc, I, I, Z]
+    so.free_txn_workspace_bytes.restype = Z
     for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_defrag_txn,
               so.emu_paged_attention, so.emu_sharded_alloc_txn,
-              so.emu_sharded_free_txn, so.emu_sharded_defrag_txn):
+              so.emu_sharded_free_txn, so.emu_sharded_defrag_txn,
+              so.emu_ssd_scan):
         f.restype = None
     return so
 
@@ -84,20 +96,41 @@ def _p(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-@pytest.mark.parametrize("cfgkw,menu,n,ops_,bias", [
+# A lowered shared-memory limit for the lane tables: every transaction
+# of a small trace then keeps its tables in the device workspace, as a
+# transaction of hundreds of thousands of lanes does at the real limit.
+SPILL = 16
+
+
+@pytest.mark.parametrize("cfgkw,menu,n,ops_,bias,limit", [
     (dict(total_bytes=1 << 16, chunk_bytes=1 << 11, min_page_bytes=16),
-     [16, 24, 100, 256, 1000, 2048, 8192], 16, 20, 0.6),
+     [16, 24, 100, 256, 1000, 2048, 8192], 16, 20, 0.6, TABLE_SMEM_LIMIT),
     (dict(total_bytes=1 << 16, chunk_bytes=64, min_page_bytes=16),
-     [16, 32, 64, 128], 16, 24, 0.6),
+     [16, 32, 64, 128], 16, 24, 0.6, TABLE_SMEM_LIMIT),
     (dict(total_bytes=1 << 12, chunk_bytes=64, min_page_bytes=16),
-     [16, 32, 64], 64, 40, 0.8),
+     [16, 32, 64], 64, 40, 0.8, TABLE_SMEM_LIMIT),
     (dict(total_bytes=24 * 4096, chunk_bytes=4096, min_page_bytes=256),
-     [256, 512, 4096, 8192], 128, 24, 0.6),
-], ids=("mixed", "segment-churn", "exhausting", "kv-geometry"))
-def test_alloc_kernels_match_plain_math(emu, cfgkw, menu, n, ops_, bias):
+     [256, 512, 4096, 8192], 128, 24, 0.6, TABLE_SMEM_LIMIT),
+    (dict(total_bytes=1 << 16, chunk_bytes=1 << 11, min_page_bytes=16),
+     [16, 24, 100, 256, 1000, 2048, 8192], 16, 20, 0.6, SPILL),
+    (dict(total_bytes=1 << 12, chunk_bytes=64, min_page_bytes=16),
+     [16, 32, 64], 64, 40, 0.8, SPILL),
+    (dict(total_bytes=24 * 4096, chunk_bytes=4096, min_page_bytes=256),
+     [256, 512, 4096, 8192], 128, 24, 0.6, SPILL),
+], ids=("mixed", "segment-churn", "exhausting", "kv-geometry",
+        "mixed-workspace", "exhausting-workspace", "kv-geometry-workspace"))
+def test_alloc_kernels_match_plain_math(emu, cfgkw, menu, n, ops_, bias,
+                                        limit):
+    """Alloc/free traces: the emulated ``alloc_txn``/``free_txn`` leave
+    the plain math's words and offsets after every transaction, with the
+    lane tables in shared memory and (``*-workspace``) in the device
+    workspace."""
     cfg = HeapConfig(**cfgkw)
     o = Ouroboros(cfg, "vl_chunk", device="cpu")
     d = descriptor(o.layout)
+    spill = (emu.alloc_txn_workspace_bytes(d, n, limit) > 0,
+             emu.free_txn_workspace_bytes(d, n, 1, limit) > 0)
+    assert spill == ((True, True) if limit == SPILL else (False, False))
     st = o.init()
     mem, ctl = st.mem.clone(), st.ctl.clone()
     rng = np.random.default_rng(7)
@@ -109,7 +142,7 @@ def test_alloc_kernels_match_plain_math(emu, cfgkw, menu, n, ops_, bias):
             st, want = o.alloc(st, sizes, mask)
             got = torch.empty(n, dtype=torch.int32)
             emu.emu_alloc_txn(d, _p(mem), _p(ctl), _p(sizes), _p(mask), n,
-                              _p(got))
+                              _p(got), limit)
             assert torch.equal(got, want), step
             live += [(int(a), int(b)) for a, b in
                      zip(want.tolist(), sizes.tolist()) if a >= 0]
@@ -128,7 +161,7 @@ def test_alloc_kernels_match_plain_math(emu, cfgkw, menu, n, ops_, bias):
             fm = fo_t >= 0
             st = o.free(st, fo_t, fs_t, fm)
             emu.emu_free_txn(d, _p(mem), _p(ctl), _p(fo_t), _p(fs_t),
-                             _p(fm), n)
+                             _p(fm), n, limit)
         assert torch.equal(mem, st.mem), f"mem differs after op {step}"
         assert torch.equal(ctl, st.ctl), f"ctl differs after op {step}"
 
@@ -147,7 +180,7 @@ def test_single_arena_alloc_kernel_bins_served_lanes_at_walk_bin_0(emu):
         st, want = o.alloc(st, sizes, mask)
         got = torch.empty(32, dtype=torch.int32)
         emu.emu_alloc_txn(descriptor(lay), _p(mem), _p(ctl), _p(sizes),
-                          _p(mask), 32, _p(got))
+                          _p(mask), 32, _p(got), TABLE_SMEM_LIMIT)
         assert torch.equal(got, want) and torch.equal(ctl, st.ctl)
     walk = ctl[lay.off_t_walk:lay.off_t_walk + arena.TELE_WALK_BINS]
     served = int(ctl[lay.off_t_alloc:lay.off_t_alloc
@@ -160,7 +193,7 @@ SHARD_CFG = dict(total_bytes=4 * 12 * 4096, chunk_bytes=4096,
                  min_page_bytes=256)
 
 
-def _sharded_step(emu, o, st, mem, ctl, rng, live, n, hint):
+def _sharded_step(emu, o, st, mem, ctl, rng, live, n, hint, limit):
     """One alloc (homes from ``hint``: None hashes, an array pins) or
     free transaction through the plain replay (the facade on the CPU)
     and through the emulated kernel on copies of the words."""
@@ -176,7 +209,8 @@ def _sharded_step(emu, o, st, mem, ctl, rng, live, n, hint):
         st, want = o.alloc(st, sizes, mask, shard_hint=hint)
         got = torch.empty(n, dtype=torch.int32)
         emu.emu_sharded_alloc_txn(d, _p(mem), _p(ctl), S, Mw, Cw, _p(sizes),
-                                  _p(mask), _p(home), n, o.walk, _p(got))
+                                  _p(mask), _p(home), n, o.walk, _p(got),
+                                  limit)
         assert torch.equal(got, want)
         live += [(a, b) for a, b in zip(want.tolist(), sizes.tolist())
                  if a >= 0]
@@ -195,23 +229,33 @@ def _sharded_step(emu, o, st, mem, ctl, rng, live, n, hint):
         fm = fo_t >= 0
         st = o.free(st, fo_t, fs_t, fm)
         emu.emu_sharded_free_txn(d, _p(mem), _p(ctl), S, Mw, Cw, _p(fo_t),
-                                 _p(fs_t), _p(fm), n)
+                                 _p(fs_t), _p(fm), n, limit)
     return st
 
 
-@pytest.mark.parametrize("walk,hinting,n,ops_", [
-    (None, "hashed", 16, 30),
-    (None, "pinned-array", 16, 40),   # every home on shard 0: exhausts it
-    (1, "mixed", 32, 30),             # a bounded walk
-], ids=("hashed", "exhausting-walk", "walk-1"))
+@pytest.mark.parametrize("walk,hinting,n,ops_,limit", [
+    (None, "hashed", 16, 30, TABLE_SMEM_LIMIT),
+    # every home on shard 0: exhausts it
+    (None, "pinned-array", 16, 40, TABLE_SMEM_LIMIT),
+    (1, "mixed", 32, 30, TABLE_SMEM_LIMIT),             # a bounded walk
+    (None, "hashed", 16, 30, SPILL),
+    (None, "pinned-array", 16, 40, SPILL),
+], ids=("hashed", "exhausting-walk", "walk-1", "hashed-workspace",
+        "exhausting-walk-workspace"))
 def test_sharded_alloc_kernels_match_plain_replay(emu, walk, hinting, n,
-                                                  ops_):
+                                                  ops_, limit):
     """Sharded alloc/free traces: the emulated ``sharded_alloc_txn`` /
     ``sharded_free_txn`` leave the plain replay's words and offsets
     after every transaction, with lanes served at walk attempts > 0 and
-    (exhausting) steps that select no lane."""
+    (exhausting) steps that select no lane; with the lane tables in
+    shared memory and (``*-workspace``, one table set per shard's block
+    for the free) in the device workspace."""
     o = Ouroboros(HeapConfig(**SHARD_CFG), "vl_chunk", device="cpu",
                   num_shards=4, overflow_walk=walk)
+    d = descriptor(o.layout.shard)
+    spill = (emu.sharded_alloc_txn_workspace_bytes(d, n, limit) > 0,
+             emu.free_txn_workspace_bytes(d, n, 4, limit) > 0)
+    assert spill == ((True, True) if limit == SPILL else (False, False))
     st = o.init()
     mem, ctl = st.mem.clone(), st.ctl.clone()
     rng = np.random.default_rng(5)
@@ -226,7 +270,7 @@ def test_sharded_alloc_kernels_match_plain_replay(emu, walk, hinting, n,
         else:
             hint = rng.integers(-4, 8, n).astype(np.int32) if step % 2 \
                 else None
-        st = _sharded_step(emu, o, st, mem, ctl, rng, live, n, hint)
+        st = _sharded_step(emu, o, st, mem, ctl, rng, live, n, hint, limit)
         assert torch.equal(mem, st.mem), \
             f"mem differs after op {step} at " \
             f"{torch.nonzero(mem != st.mem)[:8].tolist()}"
@@ -236,13 +280,16 @@ def test_sharded_alloc_kernels_match_plain_replay(emu, walk, hinting, n,
     assert int(bins[1:].sum()) > 0, bins
 
 
-def _emu_sharded_wave(emu, o, st, src, dst, sizes, threads=256):
+def _emu_sharded_wave(emu, o, st, src, dst, sizes, threads=256,
+                      limit=TABLE_SMEM_LIMIT):
     slay = o.layout
     mem, ctl = st.mem.clone(), st.ctl.clone()
-    emu.emu_sharded_defrag_txn(descriptor(slay.shard), _p(mem), _p(ctl),
+    d = descriptor(slay.shard)
+    assert (emu.defrag_txn_workspace_bytes(d, limit) > 0) == (limit == SPILL)
+    emu.emu_sharded_defrag_txn(d, _p(mem), _p(ctl),
                                o.num_shards, slay.mem_words, slay.ctl_words,
                                _p(src), _p(dst), _p(sizes), src.shape[0],
-                               threads)
+                               threads, limit)
     defrag.sharded_migrate_math(o.cfg, o.num_shards, o.kind, o.family,
                                 st.mem, st.ctl, src, dst, sizes)
     assert torch.equal(mem, st.mem), \
@@ -251,14 +298,15 @@ def _emu_sharded_wave(emu, o, st, src, dst, sizes, threads=256):
         f"ctl differs at {torch.nonzero(ctl != st.ctl)[:8].tolist()}"
 
 
-@pytest.mark.parametrize("chunk_bytes,page,max_moves,rounds", [
-    (4096, 256, 128, 30),
+@pytest.mark.parametrize("chunk_bytes,page,max_moves,rounds,limit", [
+    (4096, 256, 128, 30, TABLE_SMEM_LIMIT),
     # 15 queue ids a segment; two shards left empty, so the rebalance
     # claims pool chunks of an idle receiver
-    (64, 16, 4, 4),
-], ids=("kv-geometry", "tiny-chunks"))
+    (64, 16, 4, 4, TABLE_SMEM_LIMIT),
+    (4096, 256, 128, 30, SPILL),
+], ids=("kv-geometry", "tiny-chunks", "kv-geometry-workspace"))
 def test_sharded_defrag_kernel_matches_plain_math(emu, chunk_bytes, page,
-                                                  max_moves, rounds):
+                                                  max_moves, rounds, limit):
     """Churn with every lane homed on shard 0 (so it overflows), then a
     sharded compaction wave and a rebalance wave (cross-shard moves,
     claims of the receiver's pool chunks, every shard rebuilt): the
@@ -285,13 +333,13 @@ def test_sharded_defrag_kernel_matches_plain_math(emu, chunk_bytes, page,
     plan = defrag.sharded_plan_math(o.cfg, 4, o.kind, o.family, st.mem,
                                     st.ctl, max_moves=max_moves)
     assert int((plan[0] >= 0).sum()) > 0
-    _emu_sharded_wave(emu, o, st, *plan)
+    _emu_sharded_wave(emu, o, st, *plan, limit=limit)
     plan = shards.rebalance_plan_math(o.cfg, 4, o.kind, o.family, st.mem,
                                       st.ctl, max_moves=max_moves)
     src_sh = plan[0][plan[0] >= 0] // o.layout.shard_words
     dst_sh = plan[1][plan[1] >= 0] // o.layout.shard_words
     assert src_sh.numel() > 0 and bool((src_sh != dst_sh).all())
-    _emu_sharded_wave(emu, o, st, *plan)
+    _emu_sharded_wave(emu, o, st, *plan, limit=limit)
 
 
 def _churn(o, st, rng, n, page, until_full, keep_every=5, rounds=14):
@@ -317,12 +365,15 @@ def _churn(o, st, rng, n, page, until_full, keep_every=5, rounds=14):
     return st, live[::keep_every]
 
 
-def _emu_wave(emu, o, st, src, dst, sizes, threads):
+def _emu_wave(emu, o, st, src, dst, sizes, threads, limit=TABLE_SMEM_LIMIT):
     """The emulated kernel on copies of the arena against
-    ``migrate_math`` on the arena itself."""
+    ``migrate_math`` on the arena itself (the per-chunk tables in the
+    device workspace when ``limit`` is lowered)."""
     mem, ctl = st.mem.clone(), st.ctl.clone()
-    emu.emu_defrag_txn(descriptor(o.layout), _p(mem), _p(ctl), _p(src),
-                       _p(dst), _p(sizes), src.shape[0], threads)
+    d = descriptor(o.layout)
+    assert (emu.defrag_txn_workspace_bytes(d, limit) > 0) == (limit == SPILL)
+    emu.emu_defrag_txn(d, _p(mem), _p(ctl), _p(src),
+                       _p(dst), _p(sizes), src.shape[0], threads, limit)
     defrag.migrate_math(o.cfg, o.kind, o.family, st.mem, st.ctl, src, dst,
                         sizes)
     assert torch.equal(mem, st.mem), \
@@ -331,17 +382,23 @@ def _emu_wave(emu, o, st, src, dst, sizes, threads):
         f"ctl differs at {torch.nonzero(ctl != st.ctl)[:8, 0].tolist()}"
 
 
-@pytest.mark.parametrize("cfgkw,page,n,threads", [
+@pytest.mark.parametrize("cfgkw,page,n,threads,limit", [
     (dict(total_bytes=1 << 15, chunk_bytes=1 << 11, min_page_bytes=64),
-     64, 16, 1024),
+     64, 16, 1024, TABLE_SMEM_LIMIT),
     (dict(total_bytes=1 << 15, chunk_bytes=1 << 11, min_page_bytes=64),
-     128, 16, 64),
+     128, 16, 64, TABLE_SMEM_LIMIT),
     (dict(total_bytes=30 * 4096, chunk_bytes=4096, min_page_bytes=256),
-     256, 16, 256),
+     256, 16, 256, TABLE_SMEM_LIMIT),
     (dict(total_bytes=1 << 12, chunk_bytes=64, min_page_bytes=16),
-     16, 64, 128),
-], ids=("test-defrag-cfg", "class-1", "kv-geometry", "tiny-chunks"))
-def test_defrag_kernel_matches_plain_math(emu, cfgkw, page, n, threads):
+     16, 64, 128, TABLE_SMEM_LIMIT),
+    (dict(total_bytes=30 * 4096, chunk_bytes=4096, min_page_bytes=256),
+     256, 16, 256, SPILL),
+    (dict(total_bytes=1 << 12, chunk_bytes=64, min_page_bytes=16),
+     16, 64, 128, SPILL),
+], ids=("test-defrag-cfg", "class-1", "kv-geometry", "tiny-chunks",
+        "kv-geometry-workspace", "tiny-chunks-workspace"))
+def test_defrag_kernel_matches_plain_math(emu, cfgkw, page, n, threads,
+                                          limit):
     """Churn until full, wave, churn again, wave: the kernel's words
     equal ``migrate_math``'s after every wave."""
     o = Ouroboros(HeapConfig(**cfgkw), "vl_chunk", device="cpu")
@@ -353,7 +410,7 @@ def test_defrag_kernel_matches_plain_math(emu, cfgkw, page, n, threads):
         src, dst, sizes = defrag.plan_math(o.cfg, o.kind, o.family, st.mem,
                                            st.ctl)
         moved += int((src >= 0).sum())
-        _emu_wave(emu, o, st, src, dst, sizes, threads)
+        _emu_wave(emu, o, st, src, dst, sizes, threads, limit)
     assert moved > 0
 
 
@@ -440,3 +497,45 @@ def test_paged_attention_kernel_matches_plain(emu, dtype, wpp):
                             _p(v), _p(tt), _p(st), _p(got), B, Hq, Hkv, D,
                             page, P, NP, int(wpp or 0), 1.0 / D ** 0.5)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+def _ssd_inputs(rng, B, L, H, P, G, N, dtype, with_h0):
+    """Mamba-2-like inputs: softplus steps around the reference's init
+    (dt_bias -3), a = -exp(log 4), unit-variance x, B and C."""
+    x = torch.from_numpy(rng.standard_normal((B, L, H, P), np.float32))
+    raw = rng.standard_normal((B, L, H)).astype(np.float32) - 3.0
+    dt = torch.nn.functional.softplus(torch.from_numpy(raw))
+    a = -torch.exp(torch.from_numpy(
+        (np.log(4.0) + 0.3 * rng.standard_normal(H)).astype(np.float32)))
+    b = torch.from_numpy(rng.standard_normal((B, L, G, N), np.float32))
+    c = torch.from_numpy(rng.standard_normal((B, L, G, N), np.float32))
+    h0 = (torch.from_numpy(rng.standard_normal((B, H, P, N), np.float32))
+          if with_h0 else None)
+    x, b, c = (t.to(dtype).contiguous() for t in (x, b, c))
+    return x, dt, a, b, c, h0
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("B,L,H,P,G,N,Q,with_h0", [
+    (1, 128, 2, 64, 1, 128, 64, True),    # mamba2-780m's head shapes
+    (2, 48, 4, 16, 2, 32, 16, False),     # the smoke config, two groups
+    (1, 24, 3, 8, 3, 16, 8, True),        # G == H, tiles half empty
+], ids=("full-width-heads", "smoke-groups", "small"))
+def test_ssd_scan_kernel_matches_plain(emu, dtype, B, L, H, P, G, N, Q,
+                                       with_h0):
+    """The emulated ``ssd_scan`` against ``ssd_plain`` on the same
+    values (bf16 inputs are widened to float32 by both): atol and rtol
+    1e-4, the same float32 products summed in another order."""
+    from repro_torch.kernels.ssd_scan import ssd_plain
+    rng = np.random.default_rng(B * 100 + L)
+    x, dt, a, b, c, h0 = _ssd_inputs(rng, B, L, H, P, G, N, dtype, with_h0)
+    want_y, want_h = ssd_plain(x, dt, a, b, c, Q, h0)
+    y = torch.empty((B, L, H, P), dtype=torch.float32)
+    hf = torch.empty((B, H, P, N), dtype=torch.float32)
+    emu.emu_ssd_scan(int(dtype == torch.bfloat16), _p(x), _p(dt), _p(a),
+                     _p(b), _p(c), None if h0 is None else _p(h0), _p(y),
+                     _p(hf), B, L, H, P, G, N, Q)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(hf.numpy(), want_h.numpy(), atol=1e-4,
+                               rtol=1e-4)
