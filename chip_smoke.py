@@ -29,7 +29,21 @@ Phases, each reporting on its own lines:
    against CPU copies.  Then one admission's and one retirement's lanes
    of full-width mamba2-780m (298,656 pages of 256 B, lane tables in the
    device workspace) on the mamba2 engine's arena, single and 4-shard,
-   against the plain math run on a second arena on the card;
+   against the plain math run on a second arena on the card.  No
+   piecewise kernel launches in this phase.  Then "phase 3 (piecewise)":
+   the piecewise allocator API of all six variants (page and chunk over
+   the ring, va and vl families) on the 65536-page geometry, seeded
+   alloc/free traces at 16 and 4096 lanes through ``piecewise=True`` on
+   the card (``ring_txn_pop``, ``ring_txn_push``, ``chunk_txn_claim``,
+   ``ring_window``, ``bitmap_select``) against the plain route on CPU
+   copies, word for word after every transaction; ``compact`` once per
+   chunk variant; the ``vl_chunk`` traces also through the fused
+   ``alloc_txn``/``free_txn`` (the same words outside the telemetry);
+   every piecewise counter above 0 (and 0 in every serving run of phase
+   5); then the ring steps and ``ring_window`` (m 4096) at the ring page
+   variant's counters and past 2^31, and ``bitmap_select`` /
+   ``bitmap_select_indices`` on the chunk variant's whole bitmap
+   (k 4096), against their plain versions on the card;
 4. ``paged_attention`` against its plain version at qwen2-0.5b decode
    shapes (B 8, Hq 14, Hkv 2, D 64, page 16, P 32), ragged lengths and
    holes, page-id and word-offset tables, float32 and bf16 (both sides
@@ -76,8 +90,9 @@ Phases, each reporting on its own lines:
 6. kernel times from ``torch.profiler`` (allocator and defrag kernels
    replayed at the engine's recorded inputs; defrag also at the
    65536-page arena with M = 128; the sharded kernels at the sharded
-   pressure run's inputs and on the 4-shard 65536-page arena), then one
-   JSON line of per-kernel
+   pressure run's inputs and on the 4-shard 65536-page arena; the five
+   piecewise kernels at phase 3 (piecewise)'s inputs), then one JSON
+   line of per-kernel
    numbers, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -143,7 +158,12 @@ KERNEL_SYMBOLS = {"alloc_txn": "alloc_txn_kernel",
                   "sharded_free_txn": "sharded_free_txn_kernel",
                   "sharded_defrag_txn": "sharded_defrag_txn_kernel",
                   "paged_attention": "paged_attention_kernel",
-                  "ssd_scan": "ssd_scan_kernel"}
+                  "ssd_scan": "ssd_scan_kernel",
+                  "ring_txn_pop": "ring_txn_pop_kernel",
+                  "ring_txn_push": "ring_txn_push_kernel",
+                  "chunk_txn_claim": "chunk_txn_claim_kernel",
+                  "ring_window": "ring_window_kernel",
+                  "bitmap_select": "bitmap_select_kernel"}
 
 
 class DeviceProfile:
@@ -407,6 +427,313 @@ def phase_defrag(device, seed=0):
                 bound=defrag_bound_ms(lay, before.mem, mem_c, plan_c[0],
                                       plan_c[2])))
     return waves, err
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (piecewise): the piecewise allocator of all six variants
+# ---------------------------------------------------------------------------
+
+PIECEWISE = ("ring_txn_pop", "ring_txn_push", "chunk_txn_claim",
+             "ring_window", "bitmap_select")
+PIECEWISE_VARIANTS = tuple((k, f) for k in ("page", "chunk")
+                           for f in ("ring", "va", "vl"))
+PIECEWISE_TRACES = ((16, 12), (4096, 3))
+WRAP = 2 ** 31
+
+
+def no_piecewise(launches, where):
+    """Raise if any piecewise step launched in ``where``."""
+    hit = {k: launches[k] for k in PIECEWISE if launches[k]}
+    if hit:
+        raise AssertionError(f"{where} launched piecewise steps: {hit}")
+
+
+def piecewise_arena(cfg, kind, family, device, piecewise):
+    """A fresh arena of one variant and its views, initialised by the
+    piecewise API (``piecewise`` picks its route)."""
+    from repro_torch.core import arena, chunk_alloc, page_alloc
+    lay = arena.layout(cfg, kind, family)
+    st = arena.blank(lay, device)
+    views = page_alloc.AllocState(*arena.unpack(lay, st))
+    mod = page_alloc if kind == "page" else chunk_alloc
+    mod.init(cfg, family, views, piecewise=piecewise)
+    return st, views
+
+
+def phase_piecewise(device, seed=0):
+    """The piecewise allocator API (``core/page_alloc``,
+    ``core/chunk_alloc``) of all six variants on the serving engine's
+    arena geometry for 65536 pages: seeded alloc/free traces at lane
+    widths 16 and 4096 through the piecewise route on the card, held
+    word for word after every transaction to the plain route on CPU
+    copies (``mem``, ``ctl`` and offsets); ``compact`` once on each chunk
+    variant; the ``vl_chunk`` traces also through the fused
+    ``alloc_txn``/``free_txn``, on the same words outside the telemetry.
+    Then ``ring_window`` and ``bitmap_select``/``bitmap_select_indices``,
+    and the ring steps at counters past 2^31, against their plain
+    versions on the card's tensors.  Returns (the launches of the traces,
+    the inputs phase 6 times the five kernels at, the measured errors per
+    kernel)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import arena, chunk_alloc, groups, page_alloc
+    from repro_torch.core.heap import size_to_class_device
+    from repro_torch.kernels import ops, ref
+    from repro_torch.paged.kv_cache import make_kv_allocator
+
+    fused, _, _ = make_kv_allocator(65536, device=device)
+    cfg = fused.cfg
+    rng = np.random.default_rng(seed + 15)
+    errs = {k: {"words": 0, "max_abs": 0} for k in PIECEWISE}
+    trace_err = {"words": 0, "max_abs": 0}
+    inputs = {}
+    ops.reset_launches()
+    t_all = time.perf_counter()
+    for kind, family in PIECEWISE_VARIANTS:
+        mod = page_alloc if kind == "page" else chunk_alloc
+        name = f"{family}_{kind}"
+        for lanes, n_ops in PIECEWISE_TRACES:
+            t0 = time.perf_counter()
+            sd, vd = piecewise_arena(cfg, kind, family, device, True)
+            sc, vc = piecewise_arena(cfg, kind, family, "cpu", False)
+            sf = fused.init() if name == "vl_chunk" else None
+
+            def check(what):
+                em, ec = word_err(sd.mem, sc.mem), word_err(sd.ctl, sc.ctl)
+                merge_err(trace_err, em, ec)
+                if em[0] or ec[0]:
+                    raise AssertionError(f"piecewise {name}, {lanes} lanes, "
+                                         f"{what}: {em[0]} mem / {ec[0]} ctl "
+                                         f"words differ")
+                if sf is not None:
+                    core = arena.layout(cfg, kind, family).core_ctl_words
+                    fm = word_err(sd.mem, sf.mem)[0]
+                    fc = word_err(sd.ctl[:core], sf.ctl[:core])[0]
+                    if fm or fc:
+                        raise AssertionError(
+                            f"piecewise vl_chunk, {lanes} lanes, {what}: "
+                            f"{fm} mem / {fc} core ctl words differ from "
+                            f"the fused kernels'")
+
+            check("init")
+            live = []
+            for i, op in enumerate(alloc_trace(rng, n_ops, lanes)):
+                if op[0] == "alloc":
+                    sizes, mask = torch.from_numpy(op[1]), \
+                        torch.from_numpy(op[2])
+                    _, oc = mod.alloc(cfg, family, vc, sizes, mask)
+                    _, od = mod.alloc(cfg, family, vd, sizes.to(device),
+                                      mask.to(device), piecewise=True)
+                    e = word_err(od, oc)
+                    merge_err(trace_err, e)
+                    if e[0]:
+                        raise AssertionError(f"piecewise {name}, {lanes} "
+                                             f"lanes, alloc {i}: offsets "
+                                             f"differ")
+                    if sf is not None:
+                        sf, _ = fused.alloc(sf, sizes.to(device),
+                                            mask.to(device))
+                    live += [(int(o), int(s)) for o, s in
+                             zip(oc.tolist(), op[1].tolist()) if o >= 0]
+                    if lanes == 4096 and name == "ring_page" \
+                            and "pop" not in inputs:
+                        inputs["pop"] = (sizes.to(device), mask.to(device))
+                else:
+                    k = min(op[1], len(live))
+                    pick = rng.choice(len(live), k, replace=False)
+                    sel = set(pick.tolist())
+                    drop = [live[j] for j in pick]
+                    live = [x for j, x in enumerate(live) if j not in sel]
+                    fo = np.full(lanes, -1, np.int32)
+                    fs = np.zeros(lanes, np.int32)
+                    fo[:k] = [o for o, _ in drop]
+                    fs[:k] = [s for _, s in drop]
+                    perm = rng.permutation(lanes)
+                    fo_t, fs_t = torch.from_numpy(fo[perm]), \
+                        torch.from_numpy(fs[perm])
+                    mod.free(cfg, family, vc, fo_t, fs_t, fo_t >= 0)
+                    fo_d, fs_d = fo_t.to(device), fs_t.to(device)
+                    mod.free(cfg, family, vd, fo_d, fs_d, fo_d >= 0,
+                             piecewise=True)
+                    if sf is not None:
+                        sf = fused.free(sf, fo_d, fs_d, fo_d >= 0)
+                    if lanes == 4096 and name == "ring_page" \
+                            and "push" not in inputs:
+                        inputs["push"] = (fo_d, fs_d)
+                check(f"{op[0]} {i}")
+            tail = ""
+            if kind == "chunk" and lanes == 16:
+                chunk_alloc.compact(cfg, family, vc)
+                chunk_alloc.compact(cfg, family, vd, piecewise=True)
+                sf = None
+                check("compact")
+                tail = ", compact"
+            if lanes == 4096 and name in ("ring_page", "vl_chunk"):
+                inputs[name] = (sd, vd)
+            log(f"phase 3 (piecewise): {name}, lanes {lanes}: {n_ops} "
+                f"transactions{tail}, 0 differing words"
+                + ("; the fused alloc_txn/free_txn on the same words "
+                   "outside the telemetry" if name == "vl_chunk" else "")
+                + f" ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"phase 3 (piecewise): launches of the traces "
+        f"{json.dumps({k: launches[k] for k in PIECEWISE})} "
+        f"({time.perf_counter() - t_all:.1f} s)")
+    if min(launches[k] for k in PIECEWISE) == 0:
+        raise AssertionError(f"a piecewise kernel never launched: "
+                             f"{launches}")
+    for k in PIECEWISE:
+        merge_err(errs[k], (trace_err["words"], trace_err["max_abs"]))
+
+    # the steps at phase 6's inputs and at counters past 2^31, against
+    # their plain versions on the same tensors of the card
+    def hold(k, got, want):
+        for g, w in zip(got, want):
+            e = word_err(g, w)
+            merge_err(errs[k], e)
+            if e[0]:
+                raise AssertionError(f"{k}: {e[0]} words differ from the "
+                                     f"plain version")
+
+    q = inputs["ring_page"][1].q
+    sizes, mask = inputs["pop"]
+    cls = size_to_class_device(cfg, sizes)
+    valid = mask & (cls < cfg.num_classes)
+    # the grant windows: each class's granted count of the first alloc
+    counts = torch.minimum(groups.segment_counts(cls, valid,
+                                                 cfg.num_classes),
+                           q.back - q.front)
+    fo, fs = inputs["push"]
+    fcls = size_to_class_device(cfg, fs)
+    fvalid = (fo >= 0) & (fcls < cfg.num_classes)
+    # the same inventories with every counter moved past 2^31 (int32
+    # wrap): the largest back lands 5 past it
+    shift = WRAP - int(q.back.max()) + 5
+    past = [(x.long() + shift + WRAP) % 2 ** 32 - WRAP for x in (q.front,
+                                                                q.back)]
+    fronts = ((q.front, q.back), tuple(x.to(torch.int32) for x in past))
+    for f, b in fronts:
+        for limit in (True, False):
+            hold("ring_txn_pop",
+                 ops.ring_txn_pop(q.store, f, b, cls, valid, limit=limit),
+                 ref.ring_txn_pop_ref(q.store, f, b, cls, valid, limit))
+        store = q.store.clone()
+        hold("ring_txn_push",
+             ops.ring_txn_push(store, b, fcls, fo, fvalid),
+             ref.ring_txn_push_ref(q.store.clone(), b, fcls, fo, fvalid))
+        hold("ring_window",
+             (ops.ring_window(q.store, f, counts, m=4096),),
+             (ref.ring_window_ref(q.store, f, counts, 4096),))
+    views = inputs["vl_chunk"][1]
+    bitmap = views.meta.bitmap.reshape(-1)
+    W = -(-bitmap.shape[0] // 32) * 32
+    words = torch.zeros(W, dtype=torch.int32, device=device)
+    words[:bitmap.shape[0]] = bitmap
+    for k in (0, 4096, 10 ** 9):
+        hold("bitmap_select", (ops.bitmap_select(words, k),),
+             (ref.bitmap_select_ref(words, k),))
+        got = ops.bitmap_select_indices(words, k, max_k=4096)
+        want = ops.bitmap_select_indices(words.cpu(), k, max_k=4096)
+        hold("bitmap_select", got, want)
+    row = views.meta.bitmap[int(torch.argmax(
+        (views.meta.free_count > 0).to(torch.int32)))]
+    ppc = cfg.pages_per_chunk(0)
+    for take in (0, 3, ppc, 10 ** 6):
+        hold("chunk_txn_claim", ops.chunk_txn_claim(row, take, ppc=ppc),
+             ref.chunk_txn_claim_ref(row, take, ppc))
+    log(f"phase 3 (piecewise): ring_txn_pop, ring_txn_push and ring_window "
+        f"(m 4096) on ring_page's class rings, at its counters and past "
+        f"2^31; bitmap_select and bitmap_select_indices on vl_chunk's whole "
+        f"bitmap ({bitmap.shape[0]} words padded to {W}), k 0, 4096, 1e9; "
+        f"chunk_txn_claim takes 0-1e6: 0 differing words")
+    timing = dict(store=q.store, front=q.front, back=q.back, cls=cls,
+                  valid=valid, counts=counts, fo=fo, fcls=fcls,
+                  fvalid=fvalid, words=words, row=row, ppc=ppc)
+    return launches, timing, errs
+
+
+def piecewise_bytes(t, granted):
+    """The bytes each piecewise kernel must move at phase 6's inputs
+    (each input word it needs read once, each output written once):
+    the pop reads the granted slots only, the push writes its members'
+    slots, the window reads the counted slots."""
+    import torch
+    C = t["front"].shape[0]
+    n, nf = t["cls"].shape[0], t["fcls"].shape[0]
+    pushed = int(t["fvalid"].sum())
+    read = int(torch.clamp(t["counts"], max=4096).sum())
+    bw = t["row"].shape[0]
+    W = t["words"].shape[0]
+    return {"ring_txn_pop": 5 * n + 8 * C + 4 * granted + 4 * n + 4 * C,
+            "ring_txn_push": 5 * nf + 4 * C + 8 * pushed + 4 * C,
+            "chunk_txn_claim": 4 * bw + 128 * bw + 4 * bw + 4,
+            "ring_window": 8 * C + 4 * read + 4 * C * 4096,
+            "bitmap_select": 4 * W + 128 * W}
+
+
+def phase_piecewise_timing(t, reps=50):
+    """The five piecewise kernels' device times from ``torch.profiler``
+    at phase 3 (piecewise)'s inputs (``reps`` launches in one session;
+    the launch counters must count exactly those), the plain versions'
+    times on the same tensors of the card (CUDA events; they read back,
+    so they sync), and the byte bounds.  The push writes a copy of the
+    store."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    store = t["store"].clone()
+    calls = {
+        "ring_txn_pop": (
+            lambda: ops.ring_txn_pop(t["store"], t["front"], t["back"],
+                                     t["cls"], t["valid"], limit=True),
+            lambda: ref.ring_txn_pop_ref(t["store"], t["front"], t["back"],
+                                         t["cls"], t["valid"], True)),
+        "ring_txn_push": (
+            lambda: ops.ring_txn_push(store, t["back"], t["fcls"], t["fo"],
+                                      t["fvalid"]),
+            lambda: ref.ring_txn_push_ref(store, t["back"], t["fcls"],
+                                          t["fo"], t["fvalid"])),
+        "chunk_txn_claim": (
+            lambda: ops.chunk_txn_claim(t["row"], t["ppc"], ppc=t["ppc"]),
+            lambda: ref.chunk_txn_claim_ref(t["row"], t["ppc"], t["ppc"])),
+        "ring_window": (
+            lambda: ops.ring_window(t["store"], t["front"], t["counts"],
+                                    m=4096),
+            lambda: ref.ring_window_ref(t["store"], t["front"], t["counts"],
+                                        4096)),
+        "bitmap_select": (
+            lambda: ops.bitmap_select(t["words"], 4096),
+            lambda: ref.bitmap_select_ref(t["words"], 4096)),
+    }
+    granted = int((calls["ring_txn_pop"][0]()[0] >= 0).sum())
+    nbytes = piecewise_bytes(t, granted)
+    out = {}
+    for name, (kern, plain) in calls.items():
+        kern()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+
+        def session():
+            with DeviceProfile() as prof:
+                for _ in range(reps):
+                    kern()
+            return prof
+
+        (ms, seen), = profiled(session, {name: reps}).values()
+        sessions = ops.LAUNCHES[name] // reps
+        if ops.LAUNCHES[name] != sessions * reps or sessions < 1:
+            raise AssertionError(f"{name}: {ops.LAUNCHES[name]} launches "
+                                 f"counted for {reps} a session")
+        p_ms = time_ms(plain, 10)
+        bound = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(ms=ms, plain=p_ms, bound=bound)
+        log(f"phase 6: {name} at phase 3 (piecewise)'s inputs: kernel "
+            f"{1e3 * ms:.2f} us (profiler device time, {seen} of {reps} "
+            f"launches recorded, {ops.LAUNCHES[name]} counted in "
+            f"{sessions} session(s)), plain version on the card "
+            f"{1e3 * p_ms:.1f} us, bound {1e6 * bound:.2f} ns "
+            f"({nbytes[name]} bytes)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -854,6 +1181,7 @@ def phase_serve(device, seed):
                                  "sharded_defrag_txn", "ssd_scan")):
         raise AssertionError(f"a single-arena dense engine launched a "
                              f"sharded or SSD kernel: {launches}")
+    no_piecewise(launches, "the qwen2-0.5b serving run")
     want_pa = cfg.num_layers * counting.decode_calls
     if launches["paged_attention"] != want_pa:
         raise AssertionError(f"paged_attention launches "
@@ -967,7 +1295,7 @@ def phase_pressure(device, serve):
               "defrag_txn": st["defrag_waves"], "sharded_alloc_txn": 0,
               "sharded_free_txn": 0, "sharded_defrag_txn": 0,
               "paged_attention": eng.cfg.num_layers * counting.decode_calls,
-              "ssd_scan": 0}
+              "ssd_scan": 0, **{k: 0 for k in PIECEWISE}}
     if launches != want_l:
         raise AssertionError(f"launches {launches} != the engine's counts "
                              f"{want_l}")
@@ -1347,7 +1675,8 @@ def phase_sharded_serve(device, serve):
                   "sharded_defrag_txn": st["defrag_waves"]
                   + st["rebalance_waves"],
                   "paged_attention": eng.cfg.num_layers
-                  * counting.decode_calls, "ssd_scan": 0}
+                  * counting.decode_calls, "ssd_scan": 0,
+                  **{k: 0 for k in PIECEWISE}}
         if launches != want_l:
             raise AssertionError(f"sharded {name}: launches {launches} != "
                                  f"the engine's counts {want_l}")
@@ -1506,12 +1835,14 @@ def phase_small_model(device, seed):
     pressure: identical tokens, stats and final arena words."""
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ServingEngine
 
     cfg = get_arch("qwen2-0.5b").smoke()
     model = build_model(cfg)
     params = model.init(seed, device="cpu")
+    ops.reset_launches()
     runs = (("unpressured", dict(max_batch=2, max_seq=96),
              make_requests(cfg, seed + 1, 5, 4, 40), 6),
             ("under pressure", dict(max_batch=8, max_seq=512, **PRESSURE),
@@ -1545,6 +1876,7 @@ def phase_small_model(device, seed):
         if sg != sc:
             raise AssertionError(f"float32 smoke model {name}: stats {sg} != "
                                  f"{sc}")
+        no_piecewise(ops.LAUNCHES, f"the float32 smoke model {name}")
         fired = {k: sg[k] for k in FAILURE_STATS if k in sg}
         log(f"phase 5: float32 smoke model {name} on the card and the CPU: "
             f"{len(tg)} requests, identical tokens, stats and arena words"
@@ -2072,11 +2404,18 @@ def main(argv=None) -> int:
             log(f"phase 2: {name}: {ln.strip()}")
 
     t0 = time.perf_counter()
+    ops.reset_launches()
     alloc_logs, alloc_errs = phase_alloc(device, seed=args.seed)
     waves, defrag_err = phase_defrag(device, seed=args.seed)
     sh3, sharded_errs = phase_sharded(device, seed=args.seed)
     aux_pairs = phase_aux_pairs(device)
-    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    no_piecewise(ops.LAUNCHES, "phase 3's kernels and plain replays")
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s; no piecewise step "
+        f"launched")
+    t0 = time.perf_counter()
+    pw_launches, pw_inputs, pw_errs = phase_piecewise(device,
+                                                      seed=args.seed)
+    log(f"phase 3 (piecewise): {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     attn = phase_attention(device)
@@ -2098,6 +2437,7 @@ def main(argv=None) -> int:
     sh_timing = phase_sharded_timing(device, sh3, sharded_runs)
     del serve["engine"]
     phase_mamba_profile(mamba)
+    pw_timing = phase_piecewise_timing(pw_inputs)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     def mean(xs):
@@ -2210,6 +2550,26 @@ def main(argv=None) -> int:
         "ms_by_chunks": {ch: t["ms"] for ch, t in ssd["times"].items()},
         "bound_ms_by_chunks": {ch: t["bound"]
                                for ch, t in ssd["times"].items()}})
+    # phase 3 (piecewise): the traces' launches, their word errors and
+    # the direct comparisons, the times at the traces' inputs
+    for name, source, replaces in (
+            ("ring_txn_pop", "ring_txn.cu", "kernels/alloc_txn.py:114"),
+            ("ring_txn_push", "ring_txn.cu", "kernels/alloc_txn.py:182"),
+            ("chunk_txn_claim", "bitmap_txn.cu", "kernels/alloc_txn.py:241"),
+            ("ring_window", "ring_txn.cu", "kernels/ring_window.py:34"),
+            ("bitmap_select", "bitmap_txn.cu",
+             "kernels/bitmap_select.py:40")):
+        t = pw_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/{replaces}",
+            "launches": pw_launches[name],
+            "max_abs_err": pw_errs[name]["max_abs"],
+            "max_err": pw_errs[name]["max_abs"],
+            "differing_words": pw_errs[name]["words"],
+            "ms": t["ms"], "plain_ms": t["plain"], "bound_ms": t["bound"],
+            "bound_by": "bytes", "library_ms": None})
     p_toks = sum(len(t) for t in serve["tokens"].values())
     log(f"phase 6: total {time.perf_counter() - t_start:.1f} s; serving "
         f"{serve['tok_s']:.1f} tok/s; under pressure "

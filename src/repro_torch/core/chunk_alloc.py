@@ -1,22 +1,27 @@
-"""Chunk allocator (paper §4.2, fig. 2) over the vl queue family: the
-plain PyTorch transaction math.
+"""Chunk allocator (paper §4.2, fig. 2) over any queue family: the
+plain PyTorch transaction math, and the piecewise allocator API.
 
 Queues hold chunk ids; every chunk carries a page-occupancy bitmap.
 ``alloc`` serves each size class in turn: it pops a chunk from the
 class queue (or claims a fresh one from the pool), claims the first
 free bits of its bitmap, and re-enqueues the chunk if pages remain.
 ``free`` clears bits and re-enqueues chunks on their full → non-full
-transition, in ascending chunk-id order.
+transition, in ascending chunk-id order.  ``compact`` returns fully
+free chunks to the pool and rebuilds the queues.
 
-This is the plain version of the CUDA transaction kernels
-(``csrc/alloc_txn.cu``): the CPU path and the parity tests run it.  It
-updates the arena views in place.  The chunk-drain loop is a Python
-loop whose control scalars are read back with ``int()``; the kernel
-drives the same chain with one thread and no host reads.
+On the default route this is the plain version of the CUDA transaction
+kernels (``csrc/alloc_txn.cu``): the CPU path and the parity tests run
+it.  With ``piecewise=True`` (the reference's ``backend="pallas"``) the
+device steps go through ``kernels/ops``: the queue and pool pops and
+pushes (``ring_txn_pop``/``ring_txn_push``, the ``va`` shrink window),
+the claim of a chunk's pages (``chunk_txn_claim``) and the scan for
+revived chunks (``bitmap_select_indices``): CUDA kernels on the card,
+their plain versions on the CPU.  Both update the arena views in
+place.  The chunk-drain loop is a Python loop whose control scalars
+are read back with ``int()`` on both routes; the fused kernel drives
+the same chain with one thread and no host reads.
 """
 from __future__ import annotations
-
-from typing import Any, NamedTuple
 
 import torch
 
@@ -24,19 +29,18 @@ from repro_torch.core import groups, queues
 from repro_torch.core._index import gather_clamp, gather_fill, wrap32
 from repro_torch.core.arena import ChunkMeta
 from repro_torch.core.heap import HeapConfig, size_to_class_device
+from repro_torch.core.page_alloc import AllocState  # re-exported
+from repro_torch.kernels import ops
 
 
-class AllocState(NamedTuple):
-    q: Any                 # queue-family state (views)
-    ctx: queues.AllocCtx   # heap words + free-chunk pool (views)
-    meta: ChunkMeta        # bitmaps / free counts / bindings (views)
-
-
-def init(cfg: HeapConfig, family_name: str, state: AllocState) -> AllocState:
-    """Fill the pool with every chunk, then give each class queue its
-    first segment (in place on blank arena views)."""
+def init(cfg: HeapConfig, family_name: str, state: AllocState, *,
+         piecewise: bool = False) -> AllocState:
+    """Fill the pool with every chunk, then empty the class queues (a
+    virtualized queue takes its first segment from the pool), in place
+    on blank arena views."""
     queues.pool_init(cfg, state.ctx.pool)
-    queues.virt_init(cfg, state.q, state.ctx, family_name)
+    queues.init_queues(cfg, family_name, state.q, state.ctx,
+                       piecewise=piecewise)
     return state
 
 
@@ -78,7 +82,7 @@ def _set_bits(meta: ChunkMeta, chunk, page_idx, sign: int):
 
 
 def alloc(cfg: HeapConfig, family_name: str, state: AllocState, sizes_bytes,
-          mask):
+          mask, *, piecewise: bool = False):
     """One bulk alloc.  Returns (state, word offsets); −1 marks a
     masked, over-large or unserved lane."""
     fam = queues.family(family_name)
@@ -103,11 +107,13 @@ def alloc(cfg: HeapConfig, family_name: str, state: AllocState, sizes_bytes,
         served, fail = 0, False
         while served < counts[c] and not fail:
             if int(fam.count(q)[c]) > 0:
-                q, ctx, ch = fam.bulk_dequeue(cfg, q, ctx, ccls, zero, one)
+                q, ctx, ch = fam.bulk_dequeue(cfg, q, ctx, ccls, zero, one,
+                                              piecewise=piecewise)
                 chunk, fail_now = int(ch[0]), False
             else:
                 has = int(queues.pool_count(ctx.pool)) > 0
-                _, ch = queues.pool_dequeue(cfg, ctx.pool, one & has)
+                _, ch = queues.pool_dequeue(cfg, ctx.pool, one & has,
+                                            piecewise=piecewise)
                 chunk, fail_now = int(ch[0]), not has
                 if has and 0 <= chunk < cfg.num_chunks:
                     meta.bitmap[chunk] = 0
@@ -121,22 +127,33 @@ def alloc(cfg: HeapConfig, family_name: str, state: AllocState, sizes_bytes,
             f = int(gather_clamp(meta.free_count, ct)[0])
             t = min(counts[c] - served, f)
             row = gather_clamp(meta.bitmap, ct)[0]
-            page_idx = _select_free_pages(row, ppc, t)
-            k = page_idx.shape[0]
-            chunk_t = torch.full((k,), chunk, dtype=torch.int32, device=dev)
-            _set_bits(meta, chunk_t, page_idx, +1)
+            if piecewise:
+                # one kernel: rank-select, bit claim, claimed count
+                page_idx, new_row, nsel = ops.chunk_txn_claim(row, t, ppc=ppc)
+                k = int(nsel[0])
+                if k > 0 and 0 <= chunk < cfg.num_chunks:
+                    meta.bitmap[chunk] = new_row
+                    meta.free_count[chunk] -= k
+                page_idx = page_idx[:k]
+            else:
+                page_idx = _select_free_pages(row, ppc, t)
+                k = page_idx.shape[0]
+                chunk_t = torch.full((k,), chunk, dtype=torch.int32,
+                                     device=dev)
+                _set_bits(meta, chunk_t, page_idx, +1)
             out[req_pos[served:served + k]] = chunk * wpc + page_idx * pw
             # chunk still has pages → back into the class queue
             fc = gather_clamp(meta.free_count, ct)
             fam.bulk_enqueue(cfg, q, ctx, ccls, zero,
                              torch.full((1,), chunk, dtype=torch.int32,
-                                        device=dev), fc > 0)
+                                        device=dev), fc > 0,
+                             piecewise=piecewise)
             served += t
     return AllocState(q, ctx, meta), out
 
 
 def free(cfg: HeapConfig, family_name: str, state: AllocState, offsets_words,
-         sizes_bytes, mask):
+         sizes_bytes, mask, *, piecewise: bool = False):
     """One bulk free; masked, over-large or negative-offset lanes are
     no-ops.  Revived chunks re-enter their class queues in ascending
     chunk-id order, ranked per class."""
@@ -161,11 +178,59 @@ def free(cfg: HeapConfig, family_name: str, state: AllocState, offsets_words,
     hit = chunk[valid].to(torch.int64)
     touched[hit[hit < nc]] = True
     revived = touched & (old_free == 0)
-    ids = torch.nonzero(revived)[:, 0].to(torch.int32)
     rev_ids = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if piecewise:
+        ids, _ = ops.bitmap_select_indices(_pack_bits(revived), n, max_k=n)
+    else:
+        ids = torch.nonzero(revived)[:, 0].to(torch.int32)
     rev_ids[:ids.shape[0]] = ids
     rev_ok = rev_ids >= 0
     rev_cls = gather_fill(meta.chunk_class, rev_ids, 0)
     rank, _ = groups.masked_rank(rev_cls, rev_ok, C)
-    fam.bulk_enqueue(cfg, q, ctx, rev_cls, rank, rev_ids, rev_ok)
+    fam.bulk_enqueue(cfg, q, ctx, rev_cls, rank, rev_ids, rev_ok,
+                     piecewise=piecewise)
     return AllocState(q, ctx, meta)
+
+
+def _pack_bits(flags):
+    """(nbits,) bool → int32 words (bit b of word w is flag 32 w + b),
+    zero-padded to a multiple of 32 words, as ``bitmap_select`` takes
+    them."""
+    nb = flags.shape[0]
+    W = -(-nb // 1024) * 32
+    bits = torch.zeros(32 * W, dtype=torch.int64, device=flags.device)
+    bits[:nb] = flags.to(torch.int64)
+    sh = torch.arange(32, dtype=torch.int64, device=flags.device)
+    return wrap32((bits.reshape(W, 32) << sh[None, :]).sum(1))
+
+
+def compact(cfg: HeapConfig, family_name: str, state: AllocState, *,
+            piecewise: bool = False) -> AllocState:
+    """Return every fully free chunk to the pool and rebuild the queues,
+    in place: unbind the fully free chunks, refill an emptied pool with
+    every unbound chunk in ascending order, empty the class queues (a
+    virtualized queue takes its first segment from the new pool), and
+    re-enqueue every bound chunk with free pages, ranked per class in
+    ascending order.  The words of the old queue segments are left as
+    they were."""
+    fam = queues.family(family_name)
+    C = cfg.num_classes
+    nc = cfg.num_chunks
+    q, ctx, meta = state
+    dev = meta.chunk_class.device
+    ids = torch.arange(nc, dtype=torch.int32, device=dev)
+    ppc = torch.tensor([0] + [cfg.pages_per_chunk(c) for c in range(C)],
+                       dtype=torch.int32, device=dev)
+    cc = meta.chunk_class
+    fully_free = (cc >= 0) & (meta.free_count ==
+                              ppc[(cc + 1).clamp(0, C).to(torch.int64)])
+    cc.copy_(torch.where(fully_free, torch.full_like(cc, -1), cc))
+
+    queues.ring_init(ctx.pool)
+    queues.pool_enqueue(cfg, ctx.pool, ids, cc < 0, piecewise=piecewise)
+    queues.init_queues(cfg, family_name, q, ctx, piecewise=piecewise)
+    live = (cc >= 0) & (meta.free_count > 0)
+    rank, _ = groups.masked_rank(cc, live, C)
+    fam.bulk_enqueue(cfg, q, ctx, cc.clone(), rank, ids, live,
+                     piecewise=piecewise)
+    return state

@@ -294,7 +294,7 @@ def insert_rebuild_math(cfg: HeapConfig, kind: str, family: str, mem, ctl,
     full = cfg.max_pages_per_chunk >> torch.clamp(cc, 0, C - 1)
     cc.masked_fill_((cc >= 0) & (meta.free_count == full), -1)
     ids = torch.arange(nc, dtype=torch.int32, device=dev)
-    queues.ring_reset(ctx.pool)
+    queues.ring_init(ctx.pool)
     queues.pool_enqueue(cfg, ctx.pool, ids, cc < 0)
 
     # class-major queue rebuild: every pool pop happens in class order

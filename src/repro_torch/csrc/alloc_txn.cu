@@ -487,11 +487,6 @@ sharded_free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
 // ws (one table set per block).  A launch with ws uses no dynamic shared
 // memory; one without puts the tables there.
 
-static int block_threads(int n) {
-  int t = ((n + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
-}
-
 extern "C" size_t alloc_txn_table_bytes(ArenaDesc d, int n) {
   (void)d;
   return (size_t)n * sizeof(int);

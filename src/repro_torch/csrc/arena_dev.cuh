@@ -2,9 +2,10 @@
 // (alloc_txn.cu, defrag_txn.cu): the layout descriptor, the reference's
 // indexing semantics (floor division and modulo, gathers that read a
 // fill value and scatters that drop out of range after an index in
-// [-n, 0) wraps to i + n), the size-class map, a block-wide exclusive
-// scan, and the serial queue operations one thread drives with the ctl
-// block staged in shared memory.
+// [-n, 0) wraps to i + n), the size-class map, a block's thread count
+// for n lanes, a block-wide exclusive scan, and the serial queue
+// operations one thread drives with the ctl block staged in shared
+// memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,6 +75,13 @@ __device__ __forceinline__ int size_class(const ArenaDesc& d, int raw) {
   int bits = 32 - __clz(s - 1);
   int c = bits - d.min_page_log2;
   return (raw < 0 || s > d.chunk_bytes) ? d.num_classes : c;
+}
+
+// launch geometry of a block over n lanes (or words): one thread each,
+// up to 1024, a multiple of 32
+static inline int block_threads(int n) {
+  int t = ((n + 31) / 32) * 32;
+  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
 }
 
 // Exclusive block-wide scan of one int per thread; blockDim.x is a

@@ -1,6 +1,9 @@
 """Wrappers of the CUDA allocator transaction kernels
 (``csrc/alloc_txn.cu``): one launch per whole alloc or free transaction
-on an arena, or a sharded arena, that lies on the card.
+on an arena, or a sharded arena, that lies on the card.  Also the
+piecewise allocator's steps (``csrc/ring_txn.cu``,
+``csrc/bitmap_txn.cu``): ``ring_txn_pop``, ``ring_txn_push`` and
+``chunk_txn_claim``, one launch each.
 
 Each wrapper checks devices, dtypes, shapes and contiguity, allocates
 its output with ``torch.empty``, launches on the current stream, and
@@ -224,3 +227,123 @@ def sharded_arena_free_txn(cfg, num_shards, kind, family, mem, ctl,
         raise RuntimeError(f"sharded_free_txn launch failed: CUDA error "
                            f"{err}")
     ops.count("sharded_free_txn")
+
+
+# ---------------------------------------------------------------------------
+# the piecewise allocator's steps (csrc/ring_txn.cu, csrc/bitmap_txn.cu)
+# ---------------------------------------------------------------------------
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def ring_lib():
+    """The loaded ``ring_txn.cu`` library, its launchers typed."""
+    lib = build.load("ring_txn")
+    if not getattr(lib, "_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.ring_txn_pop_launch.argtypes = [P, P, P, P, P, I, I, I, I, P, P,
+                                            P]
+        lib.ring_txn_push_launch.argtypes = [P, P, P, P, P, I, I, I, P, P]
+        lib.ring_window_launch.argtypes = [P, P, P, I, I, I, P, P]
+        for fn in (lib.ring_txn_pop_launch, lib.ring_txn_push_launch,
+                   lib.ring_window_launch):
+            fn.restype = I
+        lib._typed = True
+    return lib
+
+
+def bitmap_lib():
+    """The loaded ``bitmap_txn.cu`` library, its launchers typed."""
+    lib = build.load("bitmap_txn")
+    if not getattr(lib, "_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.chunk_txn_claim_launch.argtypes = [P, I, I, I, P, P, P, P]
+        lib.bitmap_select_launch.argtypes = [P, I, I, P, P]
+        lib.chunk_txn_claim_launch.restype = I
+        lib.bitmap_select_launch.restype = I
+        lib._typed = True
+    return lib
+
+
+def on_card(name, t):
+    """The device of a piecewise step's first tensor, which must lie on
+    the card."""
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA {name} kernel needs tensors on the "
+                         f"card, got {t.device}")
+    return t.device
+
+
+def launched(name, err):
+    """Raise if a launch reported an error, else count it."""
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    ops.count(name)
+
+
+def _ring_lanes(name, store, counters, cls, valid, extra=()):
+    C, cap = store.shape
+    dev = on_card(name, store)
+    _check("store", store, torch.int32, (C, cap), dev)
+    for nm, t in counters:
+        _check(nm, t, torch.int32, (C,), dev)
+    n = cls.shape[0]
+    _check("cls", cls, torch.int32, (n,), dev)
+    _check("valid", valid, torch.bool, (n,), dev)
+    for nm, t in extra:
+        _check(nm, t, torch.int32, (n,), dev)
+    return C, cap, n, dev
+
+
+def ring_txn_pop(store, front, back, cls, valid, *, limit: bool):
+    """Bulk pop of the class rings (``ref.ring_txn_pop_ref``) in one
+    launch of C blocks.  Returns ``(vals (n,), new front (C,))``.  A
+    transaction of 0 lanes launches nothing."""
+    C, cap, n, dev = _ring_lanes("ring_txn_pop", store,
+                                 (("front", front), ("back", back)), cls,
+                                 valid)
+    vals = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return vals, front.clone()
+    new_front = torch.empty(C, dtype=torch.int32, device=dev)
+    err = ring_lib().ring_txn_pop_launch(
+        store.data_ptr(), front.data_ptr(), back.data_ptr(), cls.data_ptr(),
+        valid.data_ptr(), n, C, cap, int(bool(limit)), vals.data_ptr(),
+        new_front.data_ptr(), _stream(dev))
+    launched("ring_txn_pop", err)
+    return vals, new_front
+
+
+def ring_txn_push(store, back, cls, vals, valid):
+    """Bulk push (``ref.ring_txn_push_ref``), in place on ``store``, in
+    one launch of C blocks.  Returns ``(store, new back (C,))``.  A
+    transaction of 0 lanes launches nothing."""
+    C, cap, n, dev = _ring_lanes("ring_txn_push", store, (("back", back),),
+                                 cls, valid, (("vals", vals),))
+    if n == 0:
+        return store, back.clone()
+    new_back = torch.empty(C, dtype=torch.int32, device=dev)
+    err = ring_lib().ring_txn_push_launch(
+        store.data_ptr(), back.data_ptr(), cls.data_ptr(), vals.data_ptr(),
+        valid.data_ptr(), n, C, cap, new_back.data_ptr(), _stream(dev))
+    launched("ring_txn_push", err)
+    return store, new_back
+
+
+def chunk_txn_claim(row, take: int, *, ppc: int):
+    """Claim of one chunk's first ``take`` free pages below ``ppc``
+    (``ref.chunk_txn_claim_ref``) in one launch of one block.  Returns
+    ``(page_idx (32 bw,), new row (bw,), claimed count (1,))``; every
+    call launches, ``take`` 0 included."""
+    dev = on_card("chunk_txn_claim", row)
+    bw = row.shape[0]
+    _check("row", row, torch.int32, (bw,), dev)
+    take = max(-1, min(int(take), INT32_MAX))
+    page_idx = torch.empty(32 * bw, dtype=torch.int32, device=dev)
+    new_row = torch.empty(bw, dtype=torch.int32, device=dev)
+    nsel = torch.empty(1, dtype=torch.int32, device=dev)
+    err = bitmap_lib().chunk_txn_claim_launch(
+        row.data_ptr(), bw, take, int(ppc), page_idx.data_ptr(),
+        new_row.data_ptr(), nsel.data_ptr(), _stream(dev))
+    launched("chunk_txn_claim", err)
+    return page_idx, new_row, nsel

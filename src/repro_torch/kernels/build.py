@@ -25,7 +25,9 @@ from typing import Dict, Iterable, Optional
 SOURCES = {"alloc_txn": "alloc_txn.cu",
            "defrag_txn": "defrag_txn.cu",
            "paged_attention": "paged_attention.cu",
-           "ssd_scan": "ssd_scan.cu"}
+           "ssd_scan": "ssd_scan.cu",
+           "ring_txn": "ring_txn.cu",
+           "bitmap_txn": "bitmap_txn.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

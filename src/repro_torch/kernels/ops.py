@@ -3,9 +3,15 @@
 Each public function here routes by the device of its tensors: CUDA
 tensors launch the hand-written kernel (``kernels/alloc_txn.py``,
 ``kernels/defrag_txn.py``, ``kernels/paged_attention.py``,
-``kernels/ssd_scan.py``, which raise on anything the kernel does not
-take), CPU tensors run the kernel's plain PyTorch version.  There is no fallback from the card to the plain
-version.
+``kernels/ssd_scan.py``, ``kernels/ring_window.py``,
+``kernels/bitmap_select.py``, which raise on anything the kernel does
+not take), CPU tensors run the kernel's plain PyTorch version.  There
+is no fallback from the card to the plain version.
+
+The piecewise allocator's steps (``ring_txn_pop``, ``ring_txn_push``,
+``chunk_txn_claim``, ``ring_window``, ``bitmap_select``) are reached
+only from the core math's ``piecewise=True`` route; the transactions,
+the facade and the serving engine never launch them.
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
@@ -16,7 +22,9 @@ from __future__ import annotations
 
 LAUNCHES = {"alloc_txn": 0, "free_txn": 0, "defrag_txn": 0,
             "sharded_alloc_txn": 0, "sharded_free_txn": 0,
-            "sharded_defrag_txn": 0, "paged_attention": 0, "ssd_scan": 0}
+            "sharded_defrag_txn": 0, "paged_attention": 0, "ssd_scan": 0,
+            "ring_txn_pop": 0, "ring_txn_push": 0, "chunk_txn_claim": 0,
+            "ring_window": 0, "bitmap_select": 0}
 
 
 def reset_launches() -> None:
@@ -130,3 +138,71 @@ def ssd_scan(x, dt, a, b, c, h0=None, *, chunk: int):
     if _on_cuda(x):
         return ssd.ssd_scan(x, dt, a, b, c, h0, chunk=chunk)
     return ssd.ssd_plain(x, dt, a, b, c, chunk, h0)
+
+
+# ---- the piecewise allocator's steps ---------------------------------------
+
+def ring_txn_pop(store, front, back, cls, valid, *, limit: bool):
+    """Bulk pop of the class rings: ``(vals (n,), new front (C,))``."""
+    if _on_cuda(store):
+        from repro_torch.kernels import alloc_txn
+        return alloc_txn.ring_txn_pop(store, front, back, cls, valid,
+                                      limit=limit)
+    from repro_torch.kernels import ref
+    return ref.ring_txn_pop_ref(store, front, back, cls, valid, limit)
+
+
+def ring_txn_push(store, back, cls, vals, valid):
+    """Bulk push, in place on ``store``: ``(store, new back (C,))``."""
+    if _on_cuda(store):
+        from repro_torch.kernels import alloc_txn
+        return alloc_txn.ring_txn_push(store, back, cls, vals, valid)
+    from repro_torch.kernels import ref
+    return ref.ring_txn_push_ref(store, back, cls, vals, valid)
+
+
+def chunk_txn_claim(row, take, *, ppc: int):
+    """Claim of one chunk's first ``take`` free pages:
+    ``(page_idx (32 bw,), new row (bw,), claimed count (1,))``."""
+    if _on_cuda(row):
+        from repro_torch.kernels import alloc_txn
+        return alloc_txn.chunk_txn_claim(row, take, ppc=ppc)
+    from repro_torch.kernels import ref
+    return ref.chunk_txn_claim_ref(row, take, ppc)
+
+
+def ring_window(store, front, counts, *, m: int):
+    """``out[c, j] = store[c, (front[c] + j) mod cap]`` for
+    ``j < counts[c]``, else −1: (C, m)."""
+    if _on_cuda(store):
+        from repro_torch.kernels import ring_window as rw
+        return rw.ring_window(store, front, counts, m=m)
+    from repro_torch.kernels import ref
+    return ref.ring_window_ref(store, front, counts, m)
+
+
+def bitmap_select(words, k: int):
+    """Dense rank map of the set bits of (W,) words: rank if below
+    ``k``, else −1 (32 W,)."""
+    if _on_cuda(words):
+        from repro_torch.kernels import bitmap_select as bs
+        return bs.bitmap_select(words, k)
+    from repro_torch.kernels import ref
+    return ref.bitmap_select_ref(words, k)
+
+
+def bitmap_select_indices(words, k: int, *, max_k: int):
+    """The first ``max_k`` entries of the ascending indices of the
+    first ``k`` set bits, −1-padded, and their validity; each of length
+    ``min(max_k, 32 W)``.  The rank map compacts in plain tensor code
+    (a scatter by rank, no host read), as the reference compacts
+    outside its kernel."""
+    import torch
+    dense = bitmap_select(words, k)
+    L = min(max_k, dense.shape[0])
+    slot = torch.where((dense >= 0) & (dense < L), dense.to(torch.int64),
+                       torch.full_like(dense, L, dtype=torch.int64))
+    idx = torch.full((L + 1,), -1, dtype=torch.int32, device=dense.device)
+    idx.scatter_(0, slot, torch.arange(dense.shape[0], dtype=torch.int32,
+                                       device=dense.device))
+    return idx[:L], idx[:L] >= 0

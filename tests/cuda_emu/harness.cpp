@@ -1,6 +1,7 @@
 // Plain C entry points around the emulated kernels (loaded with ctypes
 // by tests/test_torch_cuda_emulated.py).  alloc_emu.inc,
-// defrag_emu.inc, attention_emu.inc and ssd_emu.inc are the kernel
+// defrag_emu.inc, attention_emu.inc, ssd_emu.inc, ring_emu.inc and
+// bitmap_emu.inc are the kernel
 // sources with their host launchers cut off, written by the test before
 // it compiles this file; the block and shared-memory sizes come from the sources' own
 // launch-geometry functions, which precede the host launchers.  The
@@ -11,6 +12,8 @@
 #include "defrag_emu.inc"
 #include "attention_emu.inc"
 #include "ssd_emu.inc"
+#include "ring_emu.inc"
+#include "bitmap_emu.inc"
 
 // The transaction and wave kernels' tables: in the launch's dynamic shared
 // memory when they fit in smem_limit bytes, else in a workspace standing
@@ -139,4 +142,50 @@ extern "C" void emu_ssd_scan(int bf16, const void* x, const float* dt,
       ssd_scan_kernel<float>((const float*)x, dt, a, (const float*)b,
                              (const float*)c, h0, y, hf, L, H, P, G, N, Q);
     });
+}
+
+// The piecewise allocator's steps: one block per class for the ring
+// pop and push, a (tiles of m, C) grid for the window (the emulation
+// runs a 1-D grid of tiles x C blocks and splits each block's index),
+// one block for the bitmap kernels.
+extern "C" void emu_ring_txn_pop(const int* store, const int* front,
+                                 const int* back, const int* cls,
+                                 const uint8_t* valid, int n, int C, int cap,
+                                 int limit, int* vals, int* new_front) {
+  emu_launch(C, block_threads(n), 0, [&] {
+    ring_txn_pop_kernel(store, front, back, cls, valid, n, C, cap, limit,
+                        vals, new_front);
+  });
+}
+
+extern "C" void emu_ring_txn_push(int* store, const int* back,
+                                  const int* cls, const int* vals,
+                                  const uint8_t* valid, int n, int C, int cap,
+                                  int* new_back) {
+  emu_launch(C, block_threads(n), 0, [&] {
+    ring_txn_push_kernel(store, back, cls, vals, valid, n, cap, new_back);
+  });
+}
+
+extern "C" void emu_ring_window(const int* store, const int* front,
+                                const int* counts, int C, int cap, int m,
+                                int* out) {
+  const int tiles = (m + RING_WINDOW_THREADS - 1) / RING_WINDOW_THREADS;
+  emu_launch(tiles * C, RING_WINDOW_THREADS, 0, [&] {
+    blockIdx.y = blockIdx.x / tiles;
+    blockIdx.x %= tiles;
+    ring_window_kernel(store, front, counts, cap, m, out);
+  });
+}
+
+extern "C" void emu_chunk_txn_claim(const int* row, int bw, int take, int ppc,
+                                    int* page_idx, int* new_row, int* nsel) {
+  emu_launch(1, block_threads(bw), 0, [&] {
+    chunk_txn_claim_kernel(row, bw, take, ppc, page_idx, new_row, nsel);
+  });
+}
+
+extern "C" void emu_bitmap_select(const int* words, int W, int k, int* out) {
+  emu_launch(1, block_threads(W), 0,
+             [&] { bitmap_select_kernel(words, W, k, out); });
 }

@@ -244,7 +244,10 @@ def test_cpu_transactions_launch_no_kernel():
     assert ops.LAUNCHES == {"alloc_txn": 0, "free_txn": 0,
                             "defrag_txn": 0, "sharded_alloc_txn": 0,
                             "sharded_free_txn": 0, "sharded_defrag_txn": 0,
-                            "paged_attention": 0, "ssd_scan": 0}
+                            "paged_attention": 0, "ssd_scan": 0,
+                            "ring_txn_pop": 0, "ring_txn_push": 0,
+                            "chunk_txn_claim": 0, "ring_window": 0,
+                            "bitmap_select": 0}
 
 
 @pytest.mark.parametrize("variant", ("page", "chunk", "va_page", "vl_page",

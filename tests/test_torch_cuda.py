@@ -395,3 +395,137 @@ def test_defrag_wave_on_the_mamba2_arena_matches_plain_math(cuda):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["defrag_txn"] == 1
     assert torch.equal(st.mem, mem) and torch.equal(st.ctl, ctl)
+
+
+# ---- the piecewise allocator's steps and API --------------------------------
+
+PIECEWISE = ("ring_txn_pop", "ring_txn_push", "chunk_txn_claim",
+             "ring_window", "bitmap_select")
+
+
+@pytest.mark.parametrize("n,C,cap,base", [
+    (16, 3, 48, 0), (4096, 5, 10944, -2 ** 31 + 7),
+    (4096, 5, 1000, 2 ** 31 - 300)],
+    ids=("16-lanes", "4096-lanes-wrapped", "4096-lanes-crossing"))
+def test_ring_kernels_match_plain_on_the_card(cuda, n, C, cap, base):
+    """``ring_txn_pop`` (both grants), ``ring_txn_push`` and
+    ``ring_window`` against their plain versions on the same tensors of
+    the card: multi-tile ranks, counters past 2^31, masked lanes and
+    lanes of an out-of-range class; one launch each."""
+    rng = np.random.default_rng(n + cap)
+    store = torch.from_numpy(rng.integers(0, 10 ** 6, (C, cap))
+                             .astype(np.int32)).to(cuda)
+    front = base + rng.integers(0, 3 * cap, C)
+    back = front + rng.integers(0, cap + 1, C)
+    front, back = (torch.from_numpy(x.astype(np.int32)).to(cuda)
+                   for x in (front, back))
+    cls = torch.from_numpy(rng.integers(-1, C + 1, n).astype(np.int32)
+                           ).to(cuda)
+    valid = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+    vals = torch.from_numpy(rng.integers(0, 10 ** 6, n).astype(np.int32)
+                            ).to(cuda)
+    ops.reset_launches()
+    for limit in (True, False):
+        got = ops.ring_txn_pop(store, front, back, cls, valid, limit=limit)
+        want = ref.ring_txn_pop_ref(store, front, back, cls, valid, limit)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), limit
+    gs, gb = ops.ring_txn_push(store.clone(), back, cls, vals, valid)
+    ws, wb = ref.ring_txn_push_ref(store.clone(), back, cls, vals, valid)
+    assert torch.equal(gs, ws) and torch.equal(gb, wb)
+    m = min(cap, 4096)
+    counts = torch.from_numpy(rng.integers(0, m + 1, C).astype(np.int32)
+                              ).to(cuda)
+    assert torch.equal(ops.ring_window(store, front, counts, m=m),
+                       ref.ring_window_ref(store, front, counts, m))
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] for k in PIECEWISE[:2] + ("ring_window",)} \
+        == {"ring_txn_pop": 2, "ring_txn_push": 1, "ring_window": 1}
+
+
+@pytest.mark.parametrize("bw,ppc,W", [(1, 16, 32), (4, 128, 4128),
+                                      (1100, 1100 * 32 - 5, 1056)])
+def test_bitmap_kernels_match_plain_on_the_card(cuda, bw, ppc, W):
+    """``chunk_txn_claim`` (takes 0, a few, all, past the free bits) and
+    ``bitmap_select`` / ``bitmap_select_indices`` (k 0, 1, 4096, past
+    the set bits; several tiles of 1024 words) against their plain
+    versions on the card."""
+    rng = np.random.default_rng(bw + W)
+    row = torch.from_numpy(rng.integers(0, 2 ** 32, bw, dtype=np.uint64)
+                           .astype(np.uint32).view(np.int32)).to(cuda)
+    for take in (0, 3, ppc, 10 ** 6):
+        got = ops.chunk_txn_claim(row, take, ppc=ppc)
+        want = ref.chunk_txn_claim_ref(row, take, ppc)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), take
+    words = torch.from_numpy(rng.integers(0, 2 ** 32, W, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(cuda)
+    for k in (0, 1, 4096, 10 ** 9):
+        assert torch.equal(ops.bitmap_select(words, k),
+                           ref.bitmap_select_ref(words, k)), k
+        gi, gv = ops.bitmap_select_indices(words, k, max_k=4096)
+        wi, wv = ops.bitmap_select_indices(words.cpu(), k, max_k=4096)
+        assert torch.equal(gi.cpu(), wi) and torch.equal(gv.cpu(), wv), k
+
+
+@pytest.mark.parametrize("kind,family", [
+    (k, f) for k in ("page", "chunk") for f in ("ring", "va", "vl")],
+    ids=[f"{f}_{k}" for k in ("page", "chunk") for f in ("ring", "va", "vl")])
+def test_piecewise_traces_match_plain_on_the_card(cuda, kind, family):
+    """The piecewise API of one variant on the card (its steps through
+    the five kernels) against the plain route on the CPU: offsets and
+    arena words after every transaction (and, for chunk kinds, after
+    ``compact``), 16-lane traces of mixed sizes; the kernels launched
+    and the fused transaction kernels not."""
+    from repro_torch.core import arena, chunk_alloc, page_alloc
+    cfg = HeapConfig(total_bytes=1 << 16, chunk_bytes=1 << 11,
+                     min_page_bytes=16)
+    mod = page_alloc if kind == "page" else chunk_alloc
+    lay = arena.layout(cfg, kind, family)
+    arenas, views = [], []
+    ops.reset_launches()
+    for dev, pw in ((cuda, True), ("cpu", False)):
+        st = arena.blank(lay, dev)
+        v = page_alloc.AllocState(*arena.unpack(lay, st))
+        mod.init(cfg, family, v, piecewise=pw)
+        arenas.append(st)
+        views.append(v)
+    rng = np.random.default_rng(3)
+    live = []
+    for step in range(24):
+        if live and step % 3 == 2:
+            k = min(len(live), 16)
+            fo = np.full(16, -1, np.int32)
+            fs = np.zeros(16, np.int32)
+            fo[:k] = [o for o, _ in live[:k]]
+            fs[:k] = [s for _, s in live[:k]]
+            live = live[k:]
+            for (dev, pw), v in zip(((cuda, True), ("cpu", False)), views):
+                t = torch.from_numpy(fo).to(dev)
+                mod.free(cfg, family, v, t, torch.from_numpy(fs).to(dev),
+                         t >= 0, piecewise=pw)
+        else:
+            sizes = rng.choice([16, 24, 64, 100, 256, 1000, 2048, 4096], 16
+                               ).astype(np.int32)
+            mask = rng.random(16) < 0.9
+            outs = [mod.alloc(cfg, family, v, torch.from_numpy(sizes).to(dev),
+                              torch.from_numpy(mask).to(dev),
+                              piecewise=pw)[1].cpu()
+                    for (dev, pw), v in zip(((cuda, True), ("cpu", False)),
+                                            views)]
+            assert torch.equal(*outs), step
+            live += [(o, s) for o, s in zip(outs[1].tolist(), sizes.tolist())
+                     if o >= 0]
+        assert torch.equal(arenas[0].mem.cpu(), arenas[1].mem), step
+        assert torch.equal(arenas[0].ctl.cpu(), arenas[1].ctl), step
+    if kind == "chunk":
+        chunk_alloc.compact(cfg, family, views[0], piecewise=True)
+        chunk_alloc.compact(cfg, family, views[1])
+        assert torch.equal(arenas[0].mem.cpu(), arenas[1].mem)
+        assert torch.equal(arenas[0].ctl.cpu(), arenas[1].ctl)
+    torch.cuda.synchronize()
+    used = {"ring_txn_pop", "ring_txn_push"}
+    if kind == "chunk":
+        used |= {"chunk_txn_claim", "bitmap_select"}
+    if family == "va":
+        used.add("ring_window")
+    assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES
+    assert ops.LAUNCHES["alloc_txn"] == ops.LAUNCHES["free_txn"] == 0

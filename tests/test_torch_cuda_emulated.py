@@ -54,6 +54,10 @@ def emu(tmp_path_factory):
         _device_part((CSRC / "paged_attention.cu").read_text()))
     (out / "ssd_emu.inc").write_text(
         _device_part((CSRC / "ssd_scan.cu").read_text()))
+    (out / "ring_emu.inc").write_text(
+        _device_part((CSRC / "ring_txn.cu").read_text()))
+    (out / "bitmap_emu.inc").write_text(
+        _device_part((CSRC / "bitmap_txn.cu").read_text()))
     lib = out / "libemu.so"
     cmd = [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
            f"-I{EMU / 'include'}", f"-I{EMU}", f"-I{out}", f"-I{CSRC}",
@@ -84,10 +88,17 @@ def emu(tmp_path_factory):
         fn.argtypes, fn.restype = [ArenaDesc, I, Z], Z
     so.free_txn_workspace_bytes.argtypes = [ArenaDesc, I, I, Z]
     so.free_txn_workspace_bytes.restype = Z
+    so.emu_ring_txn_pop.argtypes = [P] * 5 + [I] * 4 + [P] * 2
+    so.emu_ring_txn_push.argtypes = [P] * 5 + [I] * 3 + [P]
+    so.emu_ring_window.argtypes = [P] * 3 + [I] * 3 + [P]
+    so.emu_chunk_txn_claim.argtypes = [P] + [I] * 3 + [P] * 3
+    so.emu_bitmap_select.argtypes = [P, I, I, P]
     for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_defrag_txn,
               so.emu_paged_attention, so.emu_sharded_alloc_txn,
               so.emu_sharded_free_txn, so.emu_sharded_defrag_txn,
-              so.emu_ssd_scan):
+              so.emu_ssd_scan, so.emu_ring_txn_pop, so.emu_ring_txn_push,
+              so.emu_ring_window, so.emu_chunk_txn_claim,
+              so.emu_bitmap_select):
         f.restype = None
     return so
 
@@ -539,3 +550,124 @@ def test_ssd_scan_kernel_matches_plain(emu, dtype, B, L, H, P, G, N, Q,
                                rtol=1e-4)
     np.testing.assert_allclose(hf.numpy(), want_h.numpy(), atol=1e-4,
                                rtol=1e-4)
+
+
+# ---- the piecewise allocator's steps (csrc/ring_txn.cu, bitmap_txn.cu) -----
+
+def _bool(a):
+    return torch.from_numpy(np.asarray(a, dtype=bool))
+
+
+def _i32(a):
+    return torch.from_numpy(np.asarray(a, dtype=np.int64).astype(np.int32))
+
+
+# counters past 2^31 (wrapped negative), and just below it (ranks carry
+# them across), for ring rows of every size the allocator uses
+RING_CASES = [(16, 3, 48, 0), (4096, 5, 1024, -2 ** 31 + 7),
+              (4096, 5, 1000, 2 ** 31 - 300)]
+RING_IDS = ("16-lanes", "4096-lanes-wrapped", "4096-lanes-crossing")
+
+
+def _ring_inputs(n, C, cap, base, seed):
+    rng = np.random.default_rng(seed)
+    store = _i32(rng.integers(0, 10 ** 6, (C, cap)))
+    front = base + rng.integers(0, 3 * cap, C)
+    back = front + rng.integers(0, cap + 1, C)
+    # lanes of the classes -1 and C lie outside [0, C)
+    cls = _i32(rng.integers(-1, C + 1, n))
+    valid = _bool(rng.random(n) < 0.8)
+    return store, _i32(front), _i32(back), cls, valid
+
+
+@pytest.mark.parametrize("limit", (True, False), ids=("limit", "pool"))
+@pytest.mark.parametrize("n,C,cap,base", RING_CASES, ids=RING_IDS)
+def test_ring_txn_pop_kernel_matches_plain(emu, n, C, cap, base, limit):
+    """The emulated ``ring_txn_pop`` (one block per class, ranks by a
+    block scan carried over tiles of 1024 lanes) gives the plain
+    version's values and fronts: masked lanes and lanes of an
+    out-of-range class read −1, ``limit`` grants the inventory's rank
+    prefix."""
+    store, front, back, cls, valid = _ring_inputs(n, C, cap, base, n + C)
+    want_v, want_f = ref.ring_txn_pop_ref(store, front, back, cls, valid,
+                                          limit)
+    vals = torch.full((n,), 12345, dtype=torch.int32)
+    nf = torch.empty(C, dtype=torch.int32)
+    emu.emu_ring_txn_pop(_p(store), _p(front), _p(back), _p(cls), _p(valid),
+                         n, C, cap, int(limit), _p(vals), _p(nf))
+    assert torch.equal(vals, want_v) and torch.equal(nf, want_f)
+    assert int((want_v >= 0).sum()) > 0 and int((want_v < 0).sum()) > 0
+
+
+@pytest.mark.parametrize("n,C,cap,base", RING_CASES, ids=RING_IDS)
+def test_ring_txn_push_kernel_matches_plain(emu, n, C, cap, base):
+    """The emulated ``ring_txn_push`` writes the plain version's store
+    in place (only its members' slots) and its backs."""
+    store, _, back, cls, valid = _ring_inputs(n, C, cap, base, 2 * n + C)
+    counts = torch.bincount(cls[valid & (cls >= 0) & (cls < C)].long(),
+                            minlength=C)
+    assert int(counts.max()) <= cap
+    vals = _i32(np.random.default_rng(n).integers(0, 10 ** 6, n))
+    want_s, want_b = ref.ring_txn_push_ref(store.clone(), back, cls, vals,
+                                           valid)
+    got_s = store.clone()
+    nb = torch.empty(C, dtype=torch.int32)
+    emu.emu_ring_txn_push(_p(got_s), _p(back), _p(cls), _p(vals), _p(valid),
+                          n, C, cap, _p(nb))
+    assert torch.equal(got_s, want_s) and torch.equal(nb, want_b)
+    assert not torch.equal(got_s, store)
+
+
+@pytest.mark.parametrize("C,cap,m,base", [
+    (5, 256, 100, -2 ** 31 + 3), (3, 1024, 1024, 2 ** 31 - 600),
+    (1, 32, 8, 30)], ids=("wrapped", "full-ring-crossing", "small"))
+def test_ring_window_kernel_matches_plain(emu, C, cap, m, base):
+    """The emulated ``ring_window`` (a grid of tiles x classes) gives
+    the plain window, wrapped rows and empty classes included."""
+    rng = np.random.default_rng(cap)
+    store = _i32(rng.integers(0, 10 ** 6, (C, cap)))
+    front = _i32(base + rng.integers(0, 2 * cap, C))
+    counts = _i32(rng.integers(0, m + 1, C))
+    counts[0] = 0
+    want = ref.ring_window_ref(store, front, counts, m)
+    got = torch.empty((C, m), dtype=torch.int32)
+    emu.emu_ring_window(_p(store), _p(front), _p(counts), C, cap, m,
+                        _p(got))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bw,ppc", [(1, 16), (1, 32), (4, 128),
+                                    (1100, 1100 * 32 - 5)],
+                         ids=("ppc-16", "ppc-32", "4-words", "2-tiles"))
+def test_chunk_txn_claim_kernel_matches_plain(emu, bw, ppc):
+    """The emulated ``chunk_txn_claim`` gives the plain claim's page
+    indices, row and count for takes of 0, a few, and past the free
+    bits, on a row spanning two tiles of 1024 words."""
+    rng = np.random.default_rng(bw)
+    for take in (0, 3, 40, 10 ** 6):
+        row = _i32(rng.integers(0, 2 ** 32, bw, dtype=np.uint64)
+                   .astype(np.uint32).view(np.int32))
+        want = ref.chunk_txn_claim_ref(row, take, ppc)
+        pidx = torch.full((32 * bw,), 777, dtype=torch.int32)
+        nrow = torch.empty(bw, dtype=torch.int32)
+        nsel = torch.empty(1, dtype=torch.int32)
+        emu.emu_chunk_txn_claim(_p(row), bw, take, ppc, _p(pidx), _p(nrow),
+                                _p(nsel))
+        for g, w in zip((pidx, nrow, nsel), want):
+            assert torch.equal(g, w), take
+
+
+@pytest.mark.parametrize("W", (32, 64, 1056),
+                         ids=("32-words", "64-words", "1056-words-2-tiles"))
+def test_bitmap_select_kernel_matches_plain(emu, W):
+    """The emulated ``bitmap_select`` gives the plain rank map with the
+    prefix carried across tiles of 1024 words, for k of 0, 1, 100 and
+    past every set bit."""
+    rng = np.random.default_rng(W)
+    words = _i32(rng.integers(0, 2 ** 32, W, dtype=np.uint64)
+                 .astype(np.uint32).view(np.int32))
+    for k in (0, 1, 100, 10 ** 6):
+        want = ref.bitmap_select_ref(words, k)
+        got = torch.empty(32 * W, dtype=torch.int32)
+        emu.emu_bitmap_select(_p(words), W, k, _p(got))
+        assert torch.equal(got, want), k
