@@ -43,7 +43,21 @@ Phases, each reporting on its own lines:
    5); then the ring steps and ``ring_window`` (m 4096) at the ring page
    variant's counters and past 2^31, and ``bitmap_select`` /
    ``bitmap_select_indices`` on the chunk variant's whole bitmap
-   (k 4096), against their plain versions on the card;
+   (k 4096), against their plain versions on the card.  Then "phase 3
+   (variants)": all six variants through the fused ``alloc_txn``,
+   ``free_txn``, ``sharded_alloc_txn``, ``sharded_free_txn``,
+   ``defrag_txn`` and ``sharded_defrag_txn``, word for word against the
+   plain math on CPU copies after every transaction and wave: seeded
+   traces on the 65536-page geometry at 16 and 4096 lanes, an exhausting
+   trace on the 256-page geometry, a 4-shard trace with lanes served at
+   walk attempts > 0, compaction and rebalance waves of ``chunk`` and
+   ``va_chunk``; then the paper's figure sweeps (figs 1-6) on its heap
+   (32 MiB, 8 KiB chunks, 16-B pages): per variant sizes 16-8192 B at
+   1024 lanes and 32-8192 lanes at 1000 B (chunk kinds 32-2048), 10
+   rounds of alloc, ``write_pattern``, ``check_pattern``, free a cell,
+   ``check_pattern`` true on every granted lane, each cell's first alloc
+   and free held to the plain math, one line a cell with its times
+   (CUDA events around each transaction);
 4. ``paged_attention`` against its plain version at qwen2-0.5b decode
    shapes (B 8, Hq 14, Hkv 2, D 64, page 16, P 32), ragged lengths and
    holes, page-id and word-offset tables, float32 and bf16 (both sides
@@ -91,8 +105,9 @@ Phases, each reporting on its own lines:
    replayed at the engine's recorded inputs; defrag also at the
    65536-page arena with M = 128; the sharded kernels at the sharded
    pressure run's inputs and on the 4-shard 65536-page arena; the five
-   piecewise kernels at phase 3 (piecewise)'s inputs), then one JSON
-   line of per-kernel
+   piecewise kernels at phase 3 (piecewise)'s inputs; the six widened
+   kernels per variant at the figure cell of 1024 x 256 B), then one
+   JSON line of per-kernel
    numbers, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -737,6 +752,421 @@ def phase_piecewise_timing(t, reps=50):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (variants): the six variants through the fused kernels
+# ---------------------------------------------------------------------------
+
+VARIANTS = ("page", "chunk", "va_page", "vl_page", "va_chunk", "vl_chunk")
+TXN_KERNELS = ("alloc_txn", "free_txn", "sharded_alloc_txn",
+               "sharded_free_txn", "defrag_txn", "sharded_defrag_txn")
+VARIANT_TRACES = ((16, 12), (4096, 3))
+# the paper's benchmark heap and sweeps (the reference's
+# benchmarks/common.py: BENCH_HEAP, ITERS, SIZE_SWEEP, THREAD_SWEEP,
+# THREAD_SWEEP_CHUNK), copied: this script imports nothing of JAX
+BENCH_HEAP = dict(total_bytes=32 << 20, chunk_bytes=8 << 10,
+                  min_page_bytes=16)
+BENCH_ITERS = 10
+SIZE_SWEEP = (16, 64, 256, 1024, 4096, 8192)        # at 1024 lanes
+THREAD_SWEEP = (32, 128, 512, 1024, 4096, 8192)     # at 1000 B
+THREAD_SWEEP_CHUNK = (32, 128, 512, 1024, 2048)
+
+
+def sweep_cells(variant):
+    """(lanes, size) of the paper's two sweeps for one variant."""
+    threads = THREAD_SWEEP_CHUNK if "chunk" in variant else THREAD_SWEEP
+    return ([(1024, s) for s in SIZE_SWEEP]
+            + [(n, 1000) for n in threads])
+
+
+def hold_words(sd, sc, errs, kernel, what, *extra):
+    """Add the differing words of arena ``sd`` (card) against ``sc``
+    (CPU) and of the ``extra`` (differing, max) pairs into
+    ``errs[kernel]``; raise if any word differs."""
+    em, ec = word_err(sd.mem, sc.mem), word_err(sd.ctl, sc.ctl)
+    merge_err(errs[kernel], em, ec, *extra)
+    bad = em[0] + ec[0] + sum(e[0] for e in extra)
+    if bad:
+        raise AssertionError(f"{what}: {bad} words differ ({em[0]} mem, "
+                             f"{ec[0]} ctl)")
+
+
+class Lockstep:
+    """One variant's facade on the card and on the CPU driven by the
+    same transactions and waves; each one's offsets or plan and the
+    arena words are held word for word (errors into ``errs`` by
+    kernel)."""
+
+    def __init__(self, cfg, variant, device, errs, **kw):
+        from repro_torch.core import Ouroboros
+        self.od = Ouroboros(cfg, variant, device=device, **kw)
+        self.oc = Ouroboros(cfg, variant, device="cpu", **kw)
+        self.sd, self.sc = self.od.init(), self.oc.init()
+        self.dev, self.errs = device, errs
+        self.pre = "sharded_" if self.oc.num_shards > 1 else ""
+        self.live, self.failed, self.n = [], 0, 0
+        self.hold("init", "alloc_txn")
+
+    def hold(self, what, kernel, *extra):
+        hold_words(self.sd, self.sc, self.errs, kernel,
+                   f"{self.oc.variant} ({self.oc.num_shards} shard(s)) "
+                   f"{what}", *extra)
+        self.n += 1
+
+    def alloc(self, sizes, mask, hint=None):
+        import torch
+        hk = {} if hint is None else {"shard_hint": torch.as_tensor(hint)}
+        self.sc, oc = self.oc.alloc(self.sc, sizes, mask, **hk)
+        if hint is not None:
+            hk = {"shard_hint": hk["shard_hint"].to(self.dev)}
+        self.sd, od = self.od.alloc(self.sd, sizes.to(self.dev),
+                                    mask.to(self.dev), **hk)
+        self.hold(f"alloc {self.n}", self.pre + "alloc_txn",
+                  word_err(od, oc))
+        self.failed += int(((oc < 0) & mask).sum())
+        self.live += [(int(o), int(s)) for o, s in
+                      zip(oc.tolist(), sizes.tolist()) if o >= 0]
+
+    def free_some(self, rng, k, lanes):
+        import numpy as np
+        import torch
+        k = min(k, len(self.live))
+        pick = set(rng.choice(len(self.live), k, replace=False).tolist())
+        drop = [x for i, x in enumerate(self.live) if i in pick]
+        self.live = [x for i, x in enumerate(self.live) if i not in pick]
+        fo = np.full(lanes, -1, np.int32)
+        fs = np.zeros(lanes, np.int32)
+        fo[:k] = [o for o, _ in drop]
+        fs[:k] = [s for _, s in drop]
+        perm = rng.permutation(lanes)
+        fo_t, fs_t = torch.from_numpy(fo[perm]), torch.from_numpy(fs[perm])
+        self.sc = self.oc.free(self.sc, fo_t, fs_t, fo_t >= 0)
+        fo_d = fo_t.to(self.dev)
+        self.sd = self.od.free(self.sd, fo_d, fs_t.to(self.dev), fo_d >= 0)
+        self.hold(f"free {self.n}", self.pre + "free_txn")
+
+    def trace(self, rng, n_ops, lanes, hints=None):
+        """``alloc_trace``'s ops (a free with nothing live allocates)."""
+        import torch
+        for i, op in enumerate(alloc_trace(rng, n_ops, lanes)):
+            if op[0] == "alloc" or not self.live:
+                sizes, mask = op[1:] if op[0] == "alloc" else \
+                    alloc_trace(rng, 1, lanes)[0][1:]
+                self.alloc(torch.from_numpy(sizes), torch.from_numpy(mask),
+                           None if hints is None else hints(rng, i, lanes))
+            else:
+                self.free_some(rng, op[1], lanes)
+        return self
+
+    def wave(self, kind):
+        self.sc, fc = getattr(self.oc, kind)(self.sc)
+        self.sd, fd = getattr(self.od, kind)(self.sd)
+        self.hold(f"{kind} wave", self.pre + "defrag_txn",
+                  *(word_err(a, b) for a, b in zip(fd, fc)))
+        return int((fc.src >= 0).sum())
+
+
+def phase_variants(device, seed=0):
+    """The six variants (page and chunk over the ring, va and vl
+    families) through the fused transaction and wave kernels, held word
+    for word to the plain math on CPU copies: seeded alloc/free traces
+    on the 65536-page arena geometry at 16 and 4096 lanes, an exhausting
+    trace on the 256-page geometry, a 4-shard trace (hashed homes, every
+    lane pinned to shard 0, per-lane hints; lanes served at walk
+    attempts > 0), then for chunk and va_chunk compaction and rebalance
+    waves.  Returns (the traces' launches, the measured errors per
+    kernel)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.paged.kv_cache import make_kv_allocator
+
+    big = make_kv_allocator(65536, device="cpu")[0].cfg
+    small = make_kv_allocator(256, device="cpu")[0].cfg
+    shard4 = make_kv_allocator(256, device="cpu", num_shards=SHARDS)[0].cfg
+    errs = {k: {"words": 0, "max_abs": 0} for k in TXN_KERNELS}
+    rng = np.random.default_rng(seed + 16)
+    ops.reset_launches()
+    t_all = time.perf_counter()
+
+    def hints(rng, i, lanes):
+        return (None, np.zeros(lanes, np.int32),
+                rng.integers(-4, 8, lanes).astype(np.int32))[i % 3]
+
+    for v in VARIANTS:
+        t0 = time.perf_counter()
+        notes = []
+        for lanes, n_ops in VARIANT_TRACES:
+            ls = Lockstep(big, v, device, errs).trace(rng, n_ops, lanes)
+            notes.append(f"{lanes} lanes x {n_ops}")
+        ls = Lockstep(small, v, device, errs).trace(rng, 30, 64)
+        if not ls.failed:
+            raise AssertionError(f"{v}: the exhausting trace failed no lane")
+        notes.append(f"exhausting 64 lanes x 30 ({ls.failed} failed lanes)")
+        ls = Lockstep(shard4, v, device, errs, num_shards=SHARDS).trace(
+            rng, 24, 64, hints=hints)
+        lay = shard_lay(ls.oc)
+        walked = int(ls.sc.ctl[:, lay.off_t_walk + 1:
+                               lay.off_t_walk + SHARDS].sum())
+        if not walked:
+            raise AssertionError(f"{v}: no lane served at a walk attempt "
+                                 f"> 0")
+        notes.append(f"{SHARDS} shards 64 lanes x 24 ({walked} lanes "
+                     f"served at walk attempts > 0)")
+        if v in ("chunk", "va_chunk"):
+            ls = Lockstep(small, v, device, errs)
+            churn(ls.oc, ls.sc, np.random.default_rng(seed + 1), 16, 256,
+                  True)
+            churn(ls.od, ls.sd, np.random.default_rng(seed + 1), 16, 256,
+                  True)
+            ls.hold("churn", "alloc_txn")
+            m1 = ls.wave("defrag")
+            ls = Lockstep(shard4, v, device, errs, num_shards=SHARDS)
+            for o, st in ((ls.oc, ls.sc), (ls.od, ls.sd)):
+                dev = st.mem.device
+                r = np.random.default_rng(seed + 2)
+                sizes = torch.full((16,), 256, dtype=torch.int32, device=dev)
+                home = torch.zeros(16, dtype=torch.int32, device=dev)
+                live = []
+                for _ in range(8):
+                    mask = torch.from_numpy(r.random(16) < 0.9).to(dev)
+                    st, offs = o.alloc(st, sizes, mask, shard_hint=home)
+                    live += [x for x in offs.tolist() if x >= 0]
+                drop = torch.tensor([x for i, x in enumerate(live) if i % 3],
+                                    dtype=torch.int32)
+                for i in range(0, drop.numel(), 16):
+                    fo = torch.full((16,), -1, dtype=torch.int32)
+                    fo[:drop[i:i + 16].numel()] = drop[i:i + 16]
+                    fo = fo.to(dev)
+                    o.free(st, fo, sizes, fo >= 0)
+            ls.hold("churn", "sharded_alloc_txn")
+            m2, m3 = ls.wave("defrag"), ls.wave("rebalance")
+            if not (m1 and m2 and m3):
+                raise AssertionError(f"{v}: a wave moved nothing ({m1}, "
+                                     f"{m2}, {m3})")
+            notes.append(f"waves: compaction {m1} moves, sharded "
+                         f"compaction {m2}, rebalance {m3}")
+        log(f"phase 3 (variants): {v}: " + "; ".join(notes)
+            + f": 0 differing words ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in TXN_KERNELS}
+    log(f"phase 3 (variants): launches of the traces and waves "
+        f"{json.dumps(launches)} ({time.perf_counter() - t_all:.1f} s)")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a widened kernel never launched: {launches}")
+    return launches, errs
+
+
+def phase_sweeps(device, errs):
+    """The paper's figure sweeps (figs 1-6, as the reference's
+    ``benchmarks/common.bench_variant`` runs them) for the six variants
+    on the paper's heap: per cell a fresh arena, ``BENCH_ITERS`` rounds
+    of alloc -> ``write_pattern`` -> ``check_pattern`` -> free of every
+    lane at one size, each transaction timed by CUDA events around it;
+    ``check_pattern`` must hold on every granted lane and some lane must
+    be granted.  Each cell's first alloc and first free are held word
+    for word to the plain math on a CPU copy of the arena (the write
+    between them applied to both).  The launch counters are zeroed just
+    before the sweeps and read just after.  Returns the sweeps'
+    launches."""
+    import torch
+    from repro_torch.core import HeapConfig, Ouroboros
+    from repro_torch.kernels import ops
+
+    cfg = HeapConfig(**BENCH_HEAP)
+    t_all = time.perf_counter()
+    ops.reset_launches()
+    for v in VARIANTS:
+        t0 = time.perf_counter()
+        od = Ouroboros(cfg, v, device=device)
+        oc = Ouroboros(cfg, v, device="cpu")
+        init_c = oc.init()
+        cells = sweep_cells(v)
+        for lanes, size in cells:
+            st = od.init()
+            if (lanes, size) == cells[0]:
+                hold_words(st, init_c, errs, "alloc_txn", f"{v} init")
+            sizes = torch.full((lanes,), size, dtype=torch.int32,
+                               device=device)
+            mask = torch.ones(lanes, dtype=torch.bool, device=device)
+            tags = torch.arange(lanes, dtype=torch.int32, device=device)
+            times = {"alloc": [], "free": []}
+            ok_all, granted_max = True, 0
+            for it in range(BENCH_ITERS):
+                if it == 0:
+                    sc = type(st)(st.mem.to("cpu", copy=True),
+                                  st.ctl.to("cpu", copy=True))
+                a, b = _events()
+                a.record()
+                st, offs = od.alloc(st, sizes, mask)
+                b.record()
+                torch.cuda.synchronize()
+                times["alloc"].append(a.elapsed_time(b))
+                if it == 0:
+                    sc, oc_offs = oc.alloc(sc, sizes.cpu(), mask.cpu())
+                    hold_words(st, sc, errs, "alloc_txn",
+                               f"{v} sweep {lanes} x {size} B alloc",
+                               word_err(offs, oc_offs))
+                st = od.write_pattern(st, offs, sizes, tags)
+                ok = od.check_pattern(st, offs, sizes, tags)
+                granted = offs >= 0
+                ok_all &= bool(ok[granted].all()) and bool(granted.any())
+                granted_max = max(granted_max, int(granted.sum()))
+                if it == 0:
+                    sc = oc.write_pattern(sc, offs.cpu(), sizes.cpu(),
+                                          tags.cpu())
+                a, b = _events()
+                a.record()
+                st = od.free(st, offs, sizes, mask)
+                b.record()
+                torch.cuda.synchronize()
+                times["free"].append(a.elapsed_time(b))
+                if it == 0:
+                    sc = oc.free(sc, offs.cpu(), sizes.cpu(), mask.cpu())
+                    hold_words(st, sc, errs, "free_txn",
+                               f"{v} sweep {lanes} x {size} B free")
+            if not ok_all:
+                raise AssertionError(f"{v} {lanes} x {size} B: check_pattern "
+                                     f"failed or no lane granted")
+            us = {f"{k}_us_{w}": 1e3 * sum(t[i0:]) / len(t[i0:])
+                  for k, t in times.items()
+                  for w, i0 in (("all", 0), ("subsequent", 1))}
+            row = dict(variant=v, n=lanes, size=size, granted=granted_max,
+                       data_ok=ok_all, **us)
+            log(f"phase 3 (variants): sweep {json.dumps(row)}")
+        log(f"phase 3 (variants): {v}: {len(cells)} cells, check_pattern "
+            f"true on every granted lane, first alloc and free of each "
+            f"cell 0 differing words ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in TXN_KERNELS}
+    log(f"phase 3 (variants): launches of the sweeps {json.dumps(launches)} "
+        f"({time.perf_counter() - t_all:.1f} s)")
+    if not (launches["alloc_txn"] and launches["free_txn"]):
+        raise AssertionError(f"the sweeps launched no transaction kernel: "
+                             f"{launches}")
+    return launches
+
+
+def cell_log(ouro_cpu, lanes, size, iters=2, wave=False):
+    """The records (``replay_kernels``' vocabulary) of one figure cell on
+    a CPU arena: ``iters`` rounds of alloc and free of every lane, homes
+    hashed when sharded; with ``wave``, one alloc, a free of two of
+    every three grants and a defrag wave of the plan the CPU makes.
+    Returns (records, the index of the first record to time)."""
+    import torch
+    st = ouro_cpu.init()
+    sizes = torch.full((lanes,), size, dtype=torch.int32)
+    mask = torch.ones(lanes, dtype=torch.bool)
+    log_ = []
+    for _ in range(1 if wave else iters):
+        st, offs = ouro_cpu.alloc(st, sizes, mask)
+        log_.append(("alloc", sizes, mask, offs))
+        fm = mask & (torch.arange(lanes) % 3 != 0) if wave else mask
+        st = ouro_cpu.free(st, offs, sizes, fm)
+        log_.append(("free", offs, sizes, fm))
+    if wave:
+        src, dst, sz = plan_of(ouro_cpu, st, "defrag",
+                               ouro_cpu._moves(None))
+        log_.append(("defrag", src, dst, sz))
+        return log_, 2
+    return log_, 0
+
+
+def wave_bound_ms(ouro_cpu, log_):
+    """``defrag_bound_ms`` of the wave that ends ``log_``."""
+    st = ouro_cpu.init()
+    for rec in log_[:-1]:
+        if rec[0] == "alloc":
+            st, _ = ouro_cpu.alloc(st, rec[1], rec[2])
+        else:
+            st = ouro_cpu.free(st, *rec[1:4])
+    before = st.mem.clone()
+    st = migrate(ouro_cpu, st, *log_[-1][1:4])
+    return defrag_bound_ms(shard_lay(ouro_cpu), before, st.mem,
+                           log_[-1][1], log_[-1][3])
+
+
+def time_from_copies(ouro, pre, fn, kernel, reps=20):
+    """Mean device ms per launch of ``kernel`` (``torch.profiler``) over
+    ``reps`` calls of ``fn(state)``, each on a fresh copy of the arena
+    words ``pre`` (the copies are other kernels)."""
+    from repro_torch.core.arena import Arena
+    from repro_torch.core.shards import ShardedArena
+    st = (Arena if ouro.num_shards == 1 else ShardedArena)(
+        *(t.clone() for t in pre))
+
+    def session():
+        with DeviceProfile() as prof:
+            for _ in range(reps):
+                st.mem.copy_(pre[0])
+                st.ctl.copy_(pre[1])
+                fn(st)
+        return prof
+
+    return profiled(session, {kernel: reps})[kernel][0]
+
+
+def phase_variants_timing(device, lanes=1024, size=256, reps=20):
+    """Each widened kernel's device time per variant from
+    ``torch.profiler`` at the figure cell of ``lanes`` x ``size`` B on
+    the paper's heap: the alloc of every lane from a fresh arena and the
+    free of that grant, single and 4 shards with hashed homes, and for
+    chunk kinds a defrag wave after two of three grants are freed, each
+    ``reps`` times from copies of the words before it; the plain math on
+    the card's tensors (CUDA events) and the byte bounds.  Returns
+    {variant: {kernel: {ms, plain, bound}}}."""
+    import torch
+    from repro_torch.core import HeapConfig, Ouroboros
+    cfg = HeapConfig(**BENCH_HEAP)
+    sizes = torch.full((lanes,), size, dtype=torch.int32, device=device)
+    mask = torch.ones(lanes, dtype=torch.bool, device=device)
+    out = {}
+    for v in VARIANTS:
+        out[v] = {}
+        for S in (1, SHARDS):
+            kw = {"num_shards": S} if S > 1 else {}
+            od = Ouroboros(cfg, v, device=device, **kw)
+            oc = Ouroboros(cfg, v, device="cpu", **kw)
+            pre = "sharded_" if S > 1 else ""
+            st = od.init()
+            words = (st.mem.clone(), st.ctl.clone())
+            st, offs = od.alloc(st, sizes, mask)
+            ms = {"alloc": time_from_copies(
+                      od, words, lambda s: od.alloc(s, sizes, mask),
+                      pre + "alloc_txn", reps),
+                  "free": time_from_copies(
+                      od, (st.mem.clone(), st.ctl.clone()),
+                      lambda s: od.free(s, offs, sizes, mask),
+                      pre + "free_txn", reps)}
+            log_, _ = cell_log(oc, lanes, size)
+            p = time_plain_txns(od, log_)
+            b = txn_bound_ms(oc, log_)
+            for kind in ("alloc", "free"):
+                out[v][f"{pre}{kind}_txn"] = dict(
+                    ms=ms[kind], plain=sum(p[kind]) / len(p[kind]),
+                    bound=sum(b[kind]) / len(b[kind]))
+            if od.kind == "chunk":
+                log_, start = cell_log(oc, lanes, size, wave=True)
+                st = od.init()
+                for rec in log_[:start]:
+                    args = [x.to(device) for x in rec[1:4]]
+                    if rec[0] == "alloc":
+                        st, _ = od.alloc(st, args[0], args[1])
+                    else:
+                        st = od.free(st, *args)
+                wave = {"pre": (st.mem.clone(), st.ctl.clone()),
+                        "plan": [x.to(device) for x in log_[start][1:4]]}
+                ms, _, _, plain = time_defrag_waves(od, [wave], reps=reps)
+                out[v][f"{pre}defrag_txn"] = dict(
+                    ms=ms, plain=plain, bound=wave_bound_ms(oc, log_))
+        log(f"phase 6: {v} at the {lanes} x {size}-B cell of the paper's "
+            f"heap ({reps} launches of each kernel, from copies of the "
+            f"words before it): " + "; ".join(
+                f"{name} {1e3 * t['ms']:.2f} us (plain on the card "
+                f"{1e3 * t['plain']:.1f} us, bound {1e6 * t['bound']:.2f} "
+                f"ns)" for name, t in out[v].items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: paged attention, kernel vs plain version
 # ---------------------------------------------------------------------------
 
@@ -1087,13 +1517,37 @@ def reached_shards(ouro, rec, offs) -> int:
     return len(reached)
 
 
+def page_reads(ouro, old_ctl, new_ctl, offs) -> int:
+    """Words a page kind's alloc must read beyond its lanes and ctl
+    block: each granted lane's queue value (a ring store slot, or a heap
+    word) and, for va and vl, one directory slot or chain link for each
+    segment the grants span.  0 for chunk kinds (their reads are the
+    words they change)."""
+    if ouro.kind != "page":
+        return 0
+    lay = shard_lay(ouro)
+    words = int((offs >= 0).sum())
+    if ouro.family == "ring":
+        return words
+    spc = ouro.shard_cfg.slots_per_segment(ouro.family)
+    o = old_ctl.reshape(-1, lay.ctl_words).long()
+    n = new_ctl.reshape(-1, lay.ctl_words).long()
+    for row in range(o.shape[0]):
+        for c in range(lay.num_classes):
+            f0 = int(o[row, lay.off_front + c])
+            k = int(n[row, lay.off_front + c]) - f0
+            if k > 0:
+                words += (f0 + k - 1) // spc - f0 // spc + 1
+    return words
+
+
 def txn_bound_ms(ouro_cpu, log_, start=0):
     """Per-transaction least time (bytes) of the records from ``start``
     on: lane inputs and outputs, the ctl blocks of the shards the
-    transaction reaches read and written, and every arena word it
-    changed read and written once, at the device memory rate.  Waves in
-    the log, and the records before ``start``, are applied, not
-    bounded."""
+    transaction reaches read and written, every arena word it changed
+    read and written once, and a page kind's gathered queue words
+    (``page_reads``), at the device memory rate.  Waves in the log, and
+    the records before ``start``, are applied, not bounded."""
     st = ouro_cpu.init()
     S = ouro_cpu.num_shards
     ctl_words = shard_lay(ouro_cpu).ctl_words
@@ -1102,7 +1556,7 @@ def txn_bound_ms(ouro_cpu, log_, start=0):
         if rec[0] in WAVES:
             st = migrate(ouro_cpu, st, *rec[1:4])
             continue
-        before = st.mem.clone()
+        before, before_ctl = st.mem.clone(), st.ctl.clone()
         if rec[0] == "alloc":  # sizes + mask (+ homes) in, offsets out
             st, offs = ouro_cpu.alloc(st, rec[1], rec[2], **hint_kw(rec))
             lane = 9 if S == 1 else 13
@@ -1113,7 +1567,9 @@ def txn_bound_ms(ouro_cpu, log_, start=0):
             continue
         changed = int((st.mem != before).sum())
         ctl = 8 * ctl_words * reached_shards(ouro_cpu, rec, offs)
-        nbytes = lane * rec[1].shape[0] + ctl + 8 * changed
+        reads = page_reads(ouro_cpu, before_ctl, st.ctl, offs) \
+            if rec[0] == "alloc" else 0
+        nbytes = lane * rec[1].shape[0] + ctl + 8 * changed + 4 * reads
         out[rec[0]].append(nbytes / HBM_BYTES_PER_S * 1e3)
     return out
 
@@ -1351,10 +1807,11 @@ def time_defrag_waves(ouro, waves, reps=5):
         a, b = _events()
         a.record()
         if S == 1:
-            defrag.migrate_math(cfg, "chunk", "vl", mem, ctl, *w["plan"])
+            defrag.migrate_math(cfg, ouro.kind, ouro.family, mem, ctl,
+                                *w["plan"])
         else:
-            defrag.sharded_migrate_math(cfg, S, "chunk", "vl", mem, ctl,
-                                        *w["plan"])
+            defrag.sharded_migrate_math(cfg, S, ouro.kind, ouro.family, mem,
+                                        ctl, *w["plan"])
         b.record()
         torch.cuda.synchronize()
         plain.append(a.elapsed_time(b))
@@ -2416,6 +2873,12 @@ def main(argv=None) -> int:
     pw_launches, pw_inputs, pw_errs = phase_piecewise(device,
                                                       seed=args.seed)
     log(f"phase 3 (piecewise): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    var_launches, var_errs = phase_variants(device, seed=args.seed)
+    no_piecewise(ops.LAUNCHES, "phase 3 (variants)' traces and waves")
+    sweep_launches = phase_sweeps(device, var_errs)
+    no_piecewise(ops.LAUNCHES, "phase 3 (variants)' figure sweeps")
+    log(f"phase 3 (variants): {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     attn = phase_attention(device)
@@ -2438,6 +2901,7 @@ def main(argv=None) -> int:
     del serve["engine"]
     phase_mamba_profile(mamba)
     pw_timing = phase_piecewise_timing(pw_inputs)
+    var_timing = phase_variants_timing(device)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     def mean(xs):
@@ -2452,6 +2916,24 @@ def main(argv=None) -> int:
         return {"ms_298656_lanes": t["ms"], plain: t["plain"],
                 "bound_ms_298656_lanes": t["bound"]}
 
+    def variant_runs(name):
+        """The widened kernel's launches in phase 3 (variants)."""
+        out = {"phase 3 (variants) traces and waves": var_launches[name]}
+        if sweep_launches[name]:
+            out["phase 3 (variants) figure sweeps"] = sweep_launches[name]
+        return out
+
+    def variant_fields(name):
+        """Its time, plain time and bound per variant at the figure cell
+        of 1024 x 256 B (variants whose kind launches it)."""
+        t = {v: var_timing[v][name] for v in VARIANTS
+             if name in var_timing[v]}
+        return {"ms_by_variant_1024x256B": {v: x["ms"] for v, x in t.items()},
+                "plain_ms_by_variant_1024x256B":
+                    {v: x["plain"] for v, x in t.items()},
+                "bound_ms_by_variant_1024x256B":
+                    {v: x["bound"] for v, x in t.items()}}
+
     for name, kind in (("alloc_txn", "alloc"), ("free_txn", "free")):
         # phase 3 per transaction, both qwen2 serving runs' final words,
         # the 298,656-lane pair and mamba2's first grant and retirement
@@ -2460,7 +2942,8 @@ def main(argv=None) -> int:
         merge_err(err, (aux_pairs[1]["err"]["words"],
                         aux_pairs[1]["err"]["max_abs"]),
                   (mamba["errs"][kind]["words"],
-                   mamba["errs"][kind]["max_abs"]))
+                   mamba["errs"][kind]["max_abs"]),
+                  (var_errs[name]["words"], var_errs[name]["max_abs"]))
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/alloc_txn.cu",
@@ -2470,27 +2953,35 @@ def main(argv=None) -> int:
             "max_abs_err": err["max_abs"], "max_err": err["max_abs"],
             "differing_words": err["words"],
             "launches_by_run": {"qwen2-0.5b": serve["launches"][name],
-                                MAMBA: mamba["launches"][name]},
+                                MAMBA: mamba["launches"][name],
+                                **variant_runs(name)},
             "ms": timing["k_times"][kind][0],
             "plain_ms": mean(timing["p_times"][kind]),
             "bound_ms": mean(timing["bounds"][kind]), "bound_by": "bytes",
-            "library_ms": None, **aux_fields(1, kind)})
+            "library_ms": None, **aux_fields(1, kind),
+            **variant_fields(name)})
     # phase 3 per wave, and the pressure run's plans and final words
     err = dict(defrag_err)
-    merge_err(err, *pressure["replay_err"])
+    merge_err(err, *pressure["replay_err"],
+              (var_errs["defrag_txn"]["words"],
+               var_errs["defrag_txn"]["max_abs"]))
     dk = timing["defrag"]
     kernels.append({
         "name": "defrag_txn", "route": "cuda",
         "source": "src/repro_torch/csrc/defrag_txn.cu",
         "replaces": "src/repro/kernels/defrag_txn.py:71",
         "launches": pressure["launches"]["defrag_txn"],
+        "launches_by_run": {"qwen2-0.5b under pressure":
+                            pressure["launches"]["defrag_txn"],
+                            **variant_runs("defrag_txn")},
         "max_abs_err": err["max_abs"], "max_err": err["max_abs"],
         "differing_words": err["words"],
         "ms": dk["ms"], "plain_ms": dk["plain"], "bound_ms": dk["bound"],
         "bound_by": "bytes", "library_ms": None,
         "ms_65536_pages": dk[65536]["ms"],
         "plain_ms_65536_pages": dk[65536]["plain"],
-        "bound_ms_65536_pages": dk[65536]["bound"]})
+        "bound_ms_65536_pages": dk[65536]["bound"],
+        **variant_fields("defrag_txn")})
     # phase 3 per transaction and wave, and both sharded runs' replays
     for name, kind, replaces in (
             ("sharded_alloc_txn", "alloc",
@@ -2504,6 +2995,7 @@ def main(argv=None) -> int:
         if kind != "defrag":
             merge_err(err, (aux_pairs[SHARDS]["err"]["words"],
                             aux_pairs[SHARDS]["err"]["max_abs"]))
+        merge_err(err, (var_errs[name]["words"], var_errs[name]["max_abs"]))
         t = sh_timing[kind]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2512,8 +3004,9 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": sum(run["launches"][name]
                             for run in sharded_runs.values()),
-            "launches_by_run": {k: run["launches"][name]
-                                for k, run in sharded_runs.items()},
+            "launches_by_run": {**{k: run["launches"][name]
+                                   for k, run in sharded_runs.items()},
+                                **variant_runs(name)},
             "max_abs_err": err["max_abs"], "max_err": err["max_abs"],
             "differing_words": err["words"],
             "ms": t["ms"], "plain_ms": t["plain"], "bound_ms": t["bound"],
@@ -2521,7 +3014,8 @@ def main(argv=None) -> int:
             "ms_65536_pages": t[65536]["ms"],
             "plain_ms_65536_pages": t[65536]["plain"],
             "bound_ms_65536_pages": t[65536]["bound"],
-            **(aux_fields(SHARDS, kind) if kind != "defrag" else {})})
+            **(aux_fields(SHARDS, kind) if kind != "defrag" else {}),
+            **variant_fields(name)})
     kernels.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",

@@ -269,6 +269,15 @@ def heap_of(lay: ArenaLayout, arena: Arena):
     return arena.mem[:lay.cfg.total_words]
 
 
+def with_heap(lay: ArenaLayout, arena: Arena, heap) -> Arena:
+    """Write ``heap`` over the heap region of ``arena.mem`` (offset 0),
+    in place, and return the arena (nothing to copy when ``heap`` is
+    the view :func:`heap_of` returns)."""
+    if heap.data_ptr() != arena.mem.data_ptr():
+        arena.mem[:lay.cfg.total_words] = heap
+    return arena
+
+
 def pack(lay: ArenaLayout, q, ctx: queues.AllocCtx,
          meta: Optional[ChunkMeta], tele=None) -> Arena:
     """Concatenate view tuples into a fresh (mem, ctl) arena; ``tele``

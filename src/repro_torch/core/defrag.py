@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import arena, groups, queues
-from repro_torch.core._index import gather_fill, scatter_drop_
+from repro_torch.core._index import gather_fill, scatter_drop_, wrap32
 from repro_torch.core.chunk_alloc import _set_bits
 from repro_torch.core.heap import HeapConfig, size_to_class_device
 
@@ -256,15 +256,14 @@ def insert_rebuild_math(cfg: HeapConfig, kind: str, family: str, mem, ctl,
     (bitmap reset, full free count, bound to the move's class, as
     alloc's from-pool path), set the destination bits, then the
     class-major rebuild: unbind fully-free chunks, re-prime a fresh
-    pool with every unbound id in ascending order, and rebuild each
-    class queue from a fresh segment with its live chunks in ascending
-    order.  Runs even for an empty selection.  Updates ``mem``/``ctl``
+    pool with every unbound id in ascending order, empty the class
+    queues and enqueue each class's live chunks in ascending order (a
+    ring at slots 0..k-1; a virtualized queue after one fresh segment
+    from the pool, which vl terminates and va enters at directory slot
+    0).  Runs even for an empty selection.  Updates ``mem``/``ctl``
     in place (telemetry words pass through) and returns them."""
     lay = arena.layout(cfg, kind, family)
     q, ctx, meta = arena.unpack(lay, arena.Arena(mem, ctl))
-    if family != "vl":
-        raise NotImplementedError(
-            f"{family!r} queue rebuild is not ported yet (ROADMAP A3)")
     C = cfg.num_classes
     nc = cfg.num_chunks
     W = cfg.total_words
@@ -297,21 +296,34 @@ def insert_rebuild_math(cfg: HeapConfig, kind: str, family: str, mem, ctl,
     queues.ring_init(ctx.pool)
     queues.pool_enqueue(cfg, ctx.pool, ids, cc < 0)
 
-    # class-major queue rebuild: every pool pop happens in class order
-    queues.virt_reset(q)
+    # class-major queue rebuild: empty queues, then per class (a
+    # virtualized queue first pops one fresh segment: vl terminates it,
+    # va enters it at directory slot 0) one bulk enqueue of the class's
+    # live chunks in ascending order; every pool pop happens in class
+    # order
+    fam = queues.family(family)
+    if family == "ring":
+        queues.ring_init(q)
+    else:
+        queues.virt_reset(q)
     one = torch.ones(1, dtype=torch.bool, device=dev)
     ones = torch.ones(nc, dtype=torch.int32, device=dev)
     for c in range(C):
         live_c = (cc == c) & (meta.free_count > 0)
-        _, seg0 = queues.pool_dequeue(cfg, ctx.pool, one)
-        w0 = seg0.to(torch.int64) * wpc
-        scatter_drop_(ctx.heap, torch.where((w0 >= 0) & (w0 < W), w0, W),
-                      queues.NULL)
-        q.head[c:c + 1] = seg0
-        q.tail[c:c + 1] = seg0
+        if family != "ring":
+            _, seg0 = queues.pool_dequeue(cfg, ctx.pool, one)
+            if family == "vl":
+                w0 = seg0.to(torch.int64) * wpc
+                scatter_drop_(ctx.heap,
+                              torch.where((w0 >= 0) & (w0 < W), w0, W),
+                              queues.NULL)
+            else:
+                q.directory[c, 0] = seg0[0]
+            q.head[c:c + 1] = seg0
+            q.tail[c:c + 1] = seg0
         rk = groups.masked_prefix_sum(ones, live_c)
-        queues.vl_bulk_enqueue(cfg, q, ctx, torch.full_like(ids, c), rk,
-                               ids, live_c)
+        fam.bulk_enqueue(cfg, q, ctx, torch.full_like(ids, c), rk, ids,
+                         live_c)
     return mem, ctl
 
 
@@ -382,14 +394,22 @@ def _pool_members(cfg: HeapConfig, pool):
 
 
 def frag_stats_math(cfg: HeapConfig, kind: str, family: str, mem, ctl):
-    """``(free_words, largest_free_extent)`` of one chunk-kind arena: a
-    word is free iff its chunk sits in the pool or it belongs to a free
-    page of a bound chunk; the largest extent is the longest run."""
-    if kind != "chunk":
-        raise NotImplementedError(
-            "frag stats of page kinds come with them (ROADMAP A3)")
+    """``(free_words, largest_free_extent)`` of one arena.  Chunk kinds:
+    a word is free iff its chunk sits in the pool or it belongs to a
+    free page of a bound chunk; the largest extent is the longest run.
+    Page kinds carve their inventory at init: the free words are the
+    queued pages of each class times its page words, the largest extent
+    the largest page class still queued."""
     lay = arena.layout(cfg, kind, family)
     C = cfg.num_classes
+    if kind != "chunk":
+        front = ctl[lay.off_front:lay.off_front + C]
+        back = ctl[lay.off_back:lay.off_back + C]
+        counts = back - front
+        pws = torch.tensor([cfg.page_words(c) for c in range(C)],
+                           dtype=torch.int32, device=ctl.device)
+        return (wrap32((counts.to(torch.int64) * pws).sum()),
+                torch.where(counts > 0, pws, torch.zeros_like(pws)).max())
     _, ctx, meta = arena.unpack(lay, arena.Arena(mem, ctl))
     dev = mem.device
     wpc = cfg.words_per_chunk

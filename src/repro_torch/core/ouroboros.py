@@ -5,6 +5,13 @@
     state, offs = ouro.alloc(state, sizes_bytes, mask)    # offs in words
     state = ouro.free(state, offs, sizes_bytes, mask)
     state, fwd = ouro.defrag(state)                       # one wave
+    state = ouro.write_pattern(state, offs, sizes_bytes, tag)  # data path
+    ok = ouro.check_pattern(state, offs, sizes_bytes, tag)
+
+The six variants of the paper (its figures 1-6) are ``page``/``chunk``
+(plain ring queues) and ``va_*``/``vl_*`` (virtualized array and list
+queues) of pages or of chunks with occupancy bitmaps; all six run every
+path below.
 
 Unlike the reference there is no ``backend``/``lowering`` knob: an
 arena on the card runs every transaction as one CUDA kernel launch
@@ -26,7 +33,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from repro_torch.core import arena, defrag as _defrag, shards, transactions
+from repro_torch.core._index import gather_fill, scatter_drop_
 from repro_torch.core.heap import HeapConfig
 from repro_torch.device import resolve_device
 
@@ -56,7 +66,6 @@ class Ouroboros:
 
     def __post_init__(self):
         kind, family = _split(self.variant)
-        transactions.check_variant(kind, family)
         if self.num_shards != 1:
             shards.layout(self.cfg, self.num_shards, kind, family)
             shards.resolve_walk(self.num_shards, self.overflow_walk)
@@ -137,6 +146,16 @@ class Ouroboros:
             self.cfg, self.num_shards, self.kind, self.family, state,
             offsets_words, sizes_bytes, mask)
 
+    def compact(self, state):
+        """Chunk rebind of chunk kinds (fully free chunks back to the
+        pool, queues rebuilt; every shard when sharded), in place; page
+        kinds are left as they are.  No live word moves."""
+        if self.num_shards == 1:
+            return transactions.compact(self.cfg, self.kind, self.family,
+                                        state)
+        return transactions.sharded_compact(
+            self.cfg, self.num_shards, self.kind, self.family, state)
+
     def heap(self, state):
         """The heap proper: a view into ``state.mem`` for one arena; for
         a sharded arena the shards' heaps concatenated in shard order (a
@@ -144,6 +163,26 @@ class Ouroboros:
         if self.num_shards == 1:
             return arena.heap_of(self.layout, state)
         return shards.heap_of(self.layout, state)
+
+    def _with_heap(self, state, heap):
+        if self.num_shards == 1:
+            return arena.with_heap(self.layout, state, heap)
+        return shards.with_heap(self.layout, state, heap)
+
+    # -- the paper's data path: write some data, check it reads back -----
+
+    def write_pattern(self, state, offsets_words, sizes_bytes, tag):
+        """Fill every granted extent with its lane's ``tag`` word, in
+        place; returns the state."""
+        heap = write_words(self.cfg, self.heap(state), offsets_words,
+                           sizes_bytes, tag)
+        return self._with_heap(state, heap)
+
+    def check_pattern(self, state, offsets_words, sizes_bytes, tag):
+        """Per lane: granted, and every word of its extent still holds
+        its tag (an overlapping grant breaks this)."""
+        return check_words(self.cfg, self.heap(state), offsets_words,
+                           sizes_bytes, tag)
 
     def frag_stats(self, state):
         """``free_words``, ``largest_free_extent`` and ``frag_ratio``
@@ -217,3 +256,35 @@ class Ouroboros:
             self.cfg, self.num_shards, self.kind, self.family, state, src,
             dst, sizes)
         return state, _defrag.Forwarding(src=src, dst=dst, sizes=sizes)
+
+
+def _word_grid(cfg: HeapConfig, offsets_words, sizes_bytes):
+    """(n, words_per_chunk) heap word indices of each lane's extent, and
+    which of them belong to it (a granted lane's first size/4 words)."""
+    maxw = cfg.words_per_chunk  # largest page
+    nw = torch.clamp(torch.div(sizes_bytes, 4, rounding_mode="floor"),
+                     min=1).to(torch.int32)
+    j = torch.arange(maxw, dtype=torch.int32,
+                     device=offsets_words.device)[None, :]
+    ok = (j < nw[:, None]) & (offsets_words[:, None] >= 0)
+    return offsets_words[:, None] + j, ok
+
+
+def write_words(cfg: HeapConfig, heap, offsets_words, sizes_bytes, tag):
+    """Write ``tag[i]`` over lane i's extent of ``heap`` (the heap view,
+    ``cfg.total_words`` long), in place; words past its end are
+    dropped.  Returns ``heap``."""
+    words, ok = _word_grid(cfg, offsets_words, sizes_bytes)
+    vals = torch.broadcast_to(tag.to(torch.int32)[:, None], words.shape)
+    W = heap.shape[0]
+    return scatter_drop_(heap, torch.where(ok, words, W).reshape(-1),
+                         vals.reshape(-1))
+
+
+def check_words(cfg: HeapConfig, heap, offsets_words, sizes_bytes, tag):
+    """Per lane (bool): granted, and every word of its extent holds
+    ``tag[i]``; a word past the heap's end reads −1."""
+    words, ok = _word_grid(cfg, offsets_words, sizes_bytes)
+    got = gather_fill(heap, words.reshape(-1), -1).reshape(words.shape)
+    good = torch.where(ok, got == tag.to(torch.int32)[:, None], True)
+    return good.all(1) & (offsets_words >= 0)

@@ -13,8 +13,8 @@ State is the views of a page-kind arena (``arena.unpack`` of an
 one ``ring_txn_push``; the virtualized families' pool pops and pushes
 and the ``va`` shrink window likewise): CUDA kernels on the card,
 their plain versions on the CPU.  The default route is plain tensor
-code.  The fused transactions of ``core/transactions.py`` serve
-``(chunk, vl)`` only (ROADMAP A3).
+code, which is also the plain version of the fused transaction kernels
+(``csrc/alloc_txn.cu``) for page kinds.
 """
 from __future__ import annotations
 

@@ -405,7 +405,11 @@ def vl_bulk_dequeue(cfg: HeapConfig, q: VirtState, ctx: AllocCtx, cls, rank,
     grid = _grid_mask(n_free, m)
     pool_enqueue(cfg, ctx.pool, chain[:, :m].reshape(-1), grid.reshape(-1),
                  piecewise=piecewise)
-    head = chain[torch.arange(C, device=dev), n_free.to(torch.int64)]
+    # plain indexing: an index in [-(m+1), 0) wraps, any other out of
+    # range clamps (n_free turns negative once front + counts wraps 2^31)
+    col = n_free.to(torch.int64)
+    col = torch.clamp(torch.where(col < 0, col + m + 1, col), 0, m)
+    head = chain[torch.arange(C, device=dev), col]
     q.head.copy_(head)
     q.front.add_(counts)
     return q, ctx, vals

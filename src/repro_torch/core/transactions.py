@@ -4,8 +4,9 @@ Every variant is a ``(kind, family)`` pair and every transaction runs
 against one :class:`arena.Arena`.  Two paths share one contract:
 
 ``alloc_math`` / ``free_math``  the plain PyTorch transaction: unpack
-    the arena into views, run ``chunk_alloc`` and the telemetry update,
-    all in place.  The CPU path and the parity tests run it.
+    the arena into views, run ``page_alloc`` or ``chunk_alloc`` and the
+    telemetry update, all in place.  The CPU path and the parity tests
+    run it.
 
 ``alloc`` / ``free``  the dispatcher: ``kernels/ops`` launches the CUDA
     transaction kernel for an arena on the card and runs the math for
@@ -26,10 +27,15 @@ against one :class:`arena.Arena`.  Two paths share one contract:
     launch ONE CUDA kernel per transaction or wave on the card
     (``sharded_alloc_txn``, ``sharded_free_txn``, ``sharded_defrag_txn``).
 
+``compact`` / ``sharded_compact``  the host-triggered chunk rebind of
+    chunk kinds (``chunk_alloc.compact``; a no-op for page kinds), plain
+    tensor code on either device.
+
 Both update ``mem``/``ctl`` in place (the arena is the largest state
 the allocator owns, so a transaction never copies it) and return the
-same arena.  Only ``(chunk, vl)`` is ported; the other five variants
-raise ``NotImplementedError`` naming their ROADMAP item.
+same arena.  All six variants take every path: the plain math picks
+``page_alloc`` or ``chunk_alloc`` by kind, the kernels switch on the
+kind and family in their arena descriptor.
 """
 from __future__ import annotations
 
@@ -37,39 +43,33 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core import arena, chunk_alloc, shards
+from repro_torch.core import arena, chunk_alloc, page_alloc, shards
 from repro_torch.core.heap import HeapConfig
 
-PORTED = (("chunk", "vl"),)
 
-
-def check_variant(kind: str, family: str) -> None:
-    if (kind, family) in PORTED:
-        return
-    item = "A3" if kind == "chunk" else "A3 (page kinds)"
-    raise NotImplementedError(
-        f"allocator variant (kind={kind}, family={family}) is not ported "
-        f"yet (ROADMAP {item}); the port serves (chunk, vl)")
+def _impl(kind: str):
+    return page_alloc if kind == "page" else chunk_alloc
 
 
 def _views(cfg: HeapConfig, kind: str, family: str, mem, ctl):
     lay = arena.layout(cfg, kind, family)
     q, ctx, meta = arena.unpack(lay, arena.Arena(mem, ctl))
-    return lay, chunk_alloc.AllocState(q=q, ctx=ctx, meta=meta)
+    return lay, page_alloc.AllocState(q=q, ctx=ctx, meta=meta)
 
 
 def init(cfg: HeapConfig, kind: str, family: str, device,
          num_shards: int = 1):
-    """Fresh arena on ``device``: every chunk queued in the pool, then
-    one empty vl segment per class popped from it.  With
-    ``num_shards > 1``, a :class:`shards.ShardedArena` of that many
-    identical fresh per-shard arenas."""
+    """Fresh arena on ``device``: every chunk queued in the pool, empty
+    class queues (a virtualized queue takes one segment per class from
+    the pool), and for page kinds each class's share of chunks carved
+    into pages and enqueued.  With ``num_shards > 1``, a
+    :class:`shards.ShardedArena` of that many identical fresh per-shard
+    arenas."""
     if num_shards != 1:
         return shards.init(cfg, num_shards, kind, family, device)
-    check_variant(kind, family)
     lay = arena.layout(cfg, kind, family)
     st = arena.blank(lay, device)
-    chunk_alloc.init(cfg, family, _views(cfg, kind, family, st.mem,
+    _impl(kind).init(cfg, family, _views(cfg, kind, family, st.mem,
                                          st.ctl)[1])
     return st
 
@@ -81,10 +81,9 @@ def alloc_math(cfg: HeapConfig, kind: str, family: str, mem, ctl,
     attempt it serves (0 for a single arena): the walk-depth telemetry
     bin of its served lanes."""
     from repro_torch.obs import telemetry
-    check_variant(kind, family)
     lay, st = _views(cfg, kind, family, mem, ctl)
     old_ctl = ctl.clone()
-    _, offs = chunk_alloc.alloc(cfg, family, st, sizes_bytes, mask)
+    _, offs = _impl(kind).alloc(cfg, family, st, sizes_bytes, mask)
     telemetry.alloc_update(lay, old_ctl, ctl, sizes_bytes, mask, offs,
                            attempt)
     return mem, ctl, offs
@@ -94,10 +93,9 @@ def free_math(cfg: HeapConfig, kind: str, family: str, mem, ctl,
               offsets_words, sizes_bytes, mask) -> Tuple:
     """Plain free transaction; updates ``mem``/``ctl`` in place."""
     from repro_torch.obs import telemetry
-    check_variant(kind, family)
     lay, st = _views(cfg, kind, family, mem, ctl)
     old_ctl = ctl.clone()
-    chunk_alloc.free(cfg, family, st, offsets_words, sizes_bytes, mask)
+    _impl(kind).free(cfg, family, st, offsets_words, sizes_bytes, mask)
     telemetry.free_update(lay, old_ctl, ctl, sizes_bytes, mask,
                           offsets_words)
     return mem, ctl
@@ -120,6 +118,19 @@ def free(cfg: HeapConfig, kind: str, family: str, state: arena.Arena,
     from repro_torch.kernels import ops
     ops.arena_free_txn(cfg, kind, family, state.mem, state.ctl,
                        offsets_words, sizes_bytes, mask)
+    return state
+
+
+def compact(cfg: HeapConfig, kind: str, family: str,
+            state: arena.Arena) -> arena.Arena:
+    """Host-triggered chunk rebind of chunk kinds (``chunk_alloc.compact``:
+    fully free chunks back to the pool, queues rebuilt), in place; page
+    kinds are left as they are.  It moves no live word (``migrate`` does)
+    and is not allocator traffic: the telemetry words pass through."""
+    if kind == "chunk":
+        chunk_alloc.compact(cfg, family,
+                            _views(cfg, kind, family, state.mem,
+                                   state.ctl)[1])
     return state
 
 
@@ -211,6 +222,17 @@ def sharded_free(cfg: HeapConfig, num_shards: int, kind: str, family: str,
     from repro_torch.kernels import ops
     ops.sharded_arena_free_txn(cfg, num_shards, kind, family, state.mem,
                                state.ctl, offsets_words, sizes_bytes, mask)
+    return state
+
+
+def sharded_compact(cfg: HeapConfig, num_shards: int, kind: str,
+                    family: str,
+                    state: shards.ShardedArena) -> shards.ShardedArena:
+    """``compact`` of every shard (shards are independent heaps), in
+    place."""
+    scfg = shards.shard_config(cfg, num_shards)
+    for s in range(num_shards):
+        compact(scfg, kind, family, shards.take_shard(state, s))
     return state
 
 

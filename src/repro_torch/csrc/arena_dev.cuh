@@ -1,11 +1,12 @@
 // Device-side arena vocabulary shared by the port's allocator kernels
-// (alloc_txn.cu, defrag_txn.cu): the layout descriptor, the reference's
-// indexing semantics (floor division and modulo, gathers that read a
-// fill value and scatters that drop out of range after an index in
-// [-n, 0) wraps to i + n), the size-class map, a block's thread count
-// for n lanes, a block-wide exclusive scan, and the serial queue
-// operations one thread drives with the ctl block staged in shared
-// memory.
+// (alloc_txn.cu, defrag_txn.cu): the layout descriptor of any of the six
+// variants (kind page or chunk, queue family ring, va or vl), the
+// reference's indexing semantics (floor division and modulo, 32-bit
+// wrapping counter arithmetic, gathers that read a fill value and
+// scatters that drop out of range after an index in [-n, 0) wraps to
+// i + n), the size-class map, a block's thread count for n lanes, a
+// block-wide exclusive scan, and the serial queue operations one thread
+// drives with the ctl block staged in shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,16 +22,26 @@ struct ArenaDesc {
   int chunk_bytes;
   int min_page_words;  // page_words(0)
   int max_ppc;         // pages_per_chunk(0)
-  int spc;             // queue slots per vl segment
-  int pool_off;        // mem offsets of the regions
-  int bitmap_off;
+  int spc;             // queue slots per segment of the family (va: wpc,
+                       // vl: wpc - 1 for the next pointer; ring: wpc)
+  int pool_off;        // mem offsets of the regions (bitmap, free counts
+  int bitmap_off;      // and chunk classes: chunk kinds only, else -1)
   int free_off;
   int class_off;
   int ctl_words;
   int core_ctl_words;
   int wrap_capacity;
   int walk_bins;       // overflow-walk depth bins of the telemetry
+  int kind;            // KIND_PAGE or KIND_CHUNK
+  int family;          // FAM_RING, FAM_VA or FAM_VL
+  int queue_off;       // ring: the (C, queue_cap) store; va/vl: the
+                       // (C, max_segs) segment directory
+  int queue_cap;       // ring slots per class
+  int max_segs;        // directory slots per class
 };
+
+enum { KIND_PAGE = 0, KIND_CHUNK = 1 };
+enum { FAM_RING = 0, FAM_VA = 1, FAM_VL = 2 };
 
 #define MAX_CTL 256
 #define MAX_CLASSES 32
@@ -45,6 +56,25 @@ __device__ __forceinline__ int fmodi(int a, int b) {
   int r = a % b;
   if (r != 0 && ((r < 0) != (b < 0))) r += b;
   return r;
+}
+
+// counter arithmetic that wraps at 32 bits, as int32 tensors do
+__device__ __forceinline__ int add32(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+
+__device__ __forceinline__ int sub32(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+
+__device__ __forceinline__ int mul32(int a, int b) {
+  return (int)((unsigned)a * (unsigned)b);
+}
+
+// heap word `off` of queue segment chunk `seg`: int32 arithmetic, as the
+// reference computes seg * wpc + off
+__device__ __forceinline__ int seg_word(int seg, int wpc, int off) {
+  return add32(mul32(seg, wpc), off);
 }
 
 __device__ __forceinline__ int wrapi(long long i, int n) {
@@ -112,6 +142,9 @@ __device__ int block_excl_scan(int v, int* total, int* s_warp) {
 }
 
 // ---- serial queue operations (one thread, ctl staged in shared) ---------
+//
+// The one-value dequeue and enqueue of each family, as the reference's
+// bulk operations do them for a single lane (rank 0, m = 1).
 
 struct Chain {
   const ArenaDesc& d;
@@ -124,31 +157,39 @@ struct Chain {
   __device__ int& tail(int c) { return ctl[3 * d.num_classes + c]; }
   __device__ int& pool_front() { return ctl[4 * d.num_classes]; }
   __device__ int& pool_back() { return ctl[4 * d.num_classes + 1]; }
+  __device__ int count(int c) { return sub32(back(c), front(c)); }
+  __device__ int pool_count() { return sub32(pool_back(), pool_front()); }
+  // ring store slot (class c, position p) or va directory slot (c, s)
+  __device__ int& ring(int c, int p) {
+    return mem[d.queue_off + c * d.queue_cap + fmodi(p, d.queue_cap)];
+  }
+  __device__ int& dir(int c, int s) {
+    return mem[d.queue_off + c * d.max_segs + fmodi(s, d.max_segs)];
+  }
 
   __device__ int pool_pop() {  // no inventory check, as the reference
     int pf = pool_front();
     int id = mem[d.pool_off + fmodi(pf, d.num_chunks)];
-    pool_front() = pf + 1;
+    pool_front() = add32(pf, 1);
     return id;
   }
 
   __device__ void pool_push(int id) {
     int pb = pool_back();
     mem[d.pool_off + fmodi(pb, d.num_chunks)] = id;
-    pool_back() = pb + 1;
+    pool_back() = add32(pb, 1);
   }
 
   // vl dequeue of one value from class c (m = 1: one chain hop)
   __device__ int vl_dequeue1(int c) {
     const int wpc = d.wpc, spc = d.spc, W = d.total_words;
     int h = head(c), f = front(c);
-    int nxt = h >= 0 ? heap_get(mem, (long long)h * wpc, W, -1) : -1;
-    long long word = (long long)h * wpc + 1 + fmodi(f, spc);
-    int val = heap_get(mem, word, W, -1);
-    int n_free = fdiv(f + 1, spc) - fdiv(f, spc);
+    int nxt = h >= 0 ? heap_get(mem, seg_word(h, wpc, 0), W, -1) : -1;
+    int val = heap_get(mem, seg_word(h, wpc, 1 + fmodi(f, spc)), W, -1);
+    int n_free = fdiv(add32(f, 1), spc) - fdiv(f, spc);
     if (n_free > 0) pool_push(h);
     head(c) = n_free > 0 ? nxt : h;
-    front(c) = f + 1;
+    front(c) = add32(f, 1);
     return val;
   }
 
@@ -156,15 +197,61 @@ struct Chain {
   __device__ void vl_enqueue1(int c, int val) {
     const int wpc = d.wpc, spc = d.spc, W = d.total_words;
     int b = back(c), tl = tail(c);
-    int n_new = fdiv(b + 1, spc) - fdiv(b, spc);
+    int n_new = fdiv(add32(b, 1), spc) - fdiv(b, spc);
     int nc = -1;
     if (n_new > 0) {
       nc = pool_pop();
-      heap_set(mem, (long long)nc * wpc, W, -1);
-      heap_set(mem, (long long)tl * wpc, W, nc);
+      heap_set(mem, seg_word(nc, wpc, 0), W, -1);
+      heap_set(mem, seg_word(tl, wpc, 0), W, nc);
     }
-    heap_set(mem, (long long)tl * wpc + 1 + fmodi(b, spc), W, val);
+    heap_set(mem, seg_word(tl, wpc, 1 + fmodi(b, spc)), W, val);
     if (n_new > 0) tail(c) = nc;
-    back(c) = b + 1;
+    back(c) = add32(b, 1);
+  }
+
+  // va dequeue: the value through the directory; a fully consumed
+  // segment goes back to the pool
+  __device__ int va_dequeue1(int c) {
+    const int spc = d.spc;
+    int f = front(c);
+    int seg = dir(c, fdiv(f, spc));
+    int val = heap_get(mem, seg_word(seg, d.wpc, fmodi(f, spc)),
+                       d.total_words, -1);
+    if (fdiv(add32(f, 1), spc) - fdiv(f, spc) > 0) pool_push(seg);
+    front(c) = add32(f, 1);
+    return val;
+  }
+
+  // va enqueue: a segment popped into the next directory slot when the
+  // write window crosses into it, then the value through the directory
+  __device__ void va_enqueue1(int c, int val) {
+    const int spc = d.spc;
+    int b = back(c);
+    if (fdiv(add32(b, 1), spc) - fdiv(b, spc) > 0)
+      dir(c, fdiv(b, spc) + 1) = pool_pop();
+    heap_set(mem, seg_word(dir(c, fdiv(b, spc)), d.wpc, fmodi(b, spc)),
+             d.total_words, val);
+    back(c) = add32(b, 1);
+  }
+
+  __device__ int dequeue1(int c) {
+    if (d.family == FAM_RING) {
+      int f = front(c);
+      front(c) = add32(f, 1);
+      return ring(c, f);
+    }
+    return d.family == FAM_VA ? va_dequeue1(c) : vl_dequeue1(c);
+  }
+
+  __device__ void enqueue1(int c, int val) {
+    if (d.family == FAM_RING) {
+      int b = back(c);
+      ring(c, b) = val;
+      back(c) = add32(b, 1);
+    } else if (d.family == FAM_VA) {
+      va_enqueue1(c, val);
+    } else {
+      vl_enqueue1(c, val);
+    }
   }
 };

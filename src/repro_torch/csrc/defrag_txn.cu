@@ -1,8 +1,9 @@
 // One defragmentation migration wave on the device-resident arena, for
-// the (kind=chunk, family=vl) variant: one kernel launch per wave, in
-// place on mem/ctl, with no host reads (a later tick can capture it in
-// a CUDA graph) — on a single arena (defrag_txn) or on a sharded one
-// (sharded_defrag_txn).
+// the chunk kinds over every queue family (chunk, va_chunk, vl_chunk):
+// one kernel launch per wave, in place on mem/ctl, with no host reads (a
+// later tick can capture it in a CUDA graph) — on a single arena
+// (defrag_txn) or on a sharded one (sharded_defrag_txn).  Page kinds bind
+// no chunks: their plans are empty and their waves launch nothing.
 //
 // Replaces: src/repro/kernels/defrag_txn.py::arena_defrag_txn (and its
 // region-blocked twin arena_defrag_txn_blocked), whose body is
@@ -32,13 +33,17 @@
 // wins as in the reference's scatter); (3) set the destination bits; (4)
 // unbind fully-free chunks, parallel over chunks; (5) rebuild the whole
 // pool ring (unbound ids at ranks from a block scan, NULL elsewhere),
-// NULL the vl directory, and compact each class's live chunks into an
-// ascending list by block scans.  Then (6) thread 0 rebuilds the class
-// queues class-major, exactly as the reference: one pool pop for a fresh
-// segment, its word 0 set NULL, head = tail = it, then one bulk vl
-// enqueue of the class's live chunks (grow pops, NULL words, links, then
-// values).  The ctl block is staged in shared memory; only its core words
-// are written back, so the telemetry words pass through.  The per-chunk
+// NULL the whole queue region (the ring's (C, cap) store, or the va/vl
+// directory), and compact each class's live chunks into an ascending
+// list by block scans.  Then (6) the class queues, class-major, exactly
+// as the reference rebuilds them: a ring takes each class's list at slots
+// 0..k-1, written in parallel (the slots are distinct); a virtualized
+// queue has thread 0 pop one fresh segment per class (vl: its word 0 set
+// NULL; va: entered at directory slot 0), head = tail = it, then one bulk
+// enqueue of the class's live chunks (grow pops, then vl's NULL words and
+// links or va's directory slots, then the values).  The ctl block is
+// staged in shared memory; only its core words are written back, so the
+// telemetry words pass through.  The per-chunk
 // tables (chunk state, claimed bitset, live lists, new segments) live in
 // dynamic shared memory when they fit, else in a device workspace the
 // wrapper allocates (`ws`, null for shared memory), through the same
@@ -203,7 +208,8 @@ __device__ __forceinline__ void wave_insert_rebuild(
   __syncthreads();
 
   // 5. a fresh pool ring: every unbound id in ascending order, NULL
-  // after them; a NULL vl directory; the live lists per class
+  // after them; a NULL queue region (ring store or directory); the live
+  // lists per class
   {
     const int per = (nc + nt - 1) / nt;
     const int lo = min(nc, tid * per), hi = min(nc, lo + per);
@@ -218,8 +224,8 @@ __device__ __forceinline__ void wave_insert_rebuild(
       sh.ctl[4 * C] = 0;          // pool front
       sh.ctl[4 * C + 1] = total;  // pool back
     }
-    for (int k = d.pool_off + nc + tid; k < d.bitmap_off; k += nt)
-      mem[k] = -1;
+    const int qwords = C * (d.family == FAM_RING ? d.queue_cap : d.max_segs);
+    for (int k = tid; k < qwords; k += nt) mem[d.queue_off + k] = -1;
     int start = 0;
     for (int c = 0; c < C; ++c) {
       int n = 0;
@@ -238,7 +244,17 @@ __device__ __forceinline__ void wave_insert_rebuild(
   __syncthreads();
 
   // 6. class-major queue rebuild, in the reference's order
-  if (tid == 0) {
+  if (d.family == FAM_RING) {
+    for (int c = 0; c < C; ++c)
+      for (int r = tid; r < sh.cnt[c]; r += nt)
+        mem[d.queue_off + c * d.queue_cap + fmodi(r, d.queue_cap)] =
+            live[sh.base[c] + r];
+    if (tid == 0)
+      for (int c = 0; c < C; ++c) {
+        sh.ctl[c] = 0;               // front
+        sh.ctl[C + c] = sh.cnt[c];   // back
+      }
+  } else if (tid == 0) {
     Chain q{d, mem, sh.ctl};
     for (int c = 0; c < C; ++c) {
       q.front(c) = q.back(c) = 0;
@@ -246,25 +262,36 @@ __device__ __forceinline__ void wave_insert_rebuild(
     }
     for (int c = 0; c < C; ++c) {
       const int seg0 = q.pool_pop();
-      const long long w0 = (long long)seg0 * wpc;
-      if (w0 >= 0 && w0 < W) mem[w0] = -1;
+      if (d.family == FAM_VL) {
+        const long long w0 = (long long)seg0 * wpc;
+        if (w0 >= 0 && w0 < W) mem[w0] = -1;
+      } else {
+        q.dir(c, 0) = seg0;
+      }
       q.head(c) = q.tail(c) = seg0;
-      // one bulk vl enqueue of the class's live chunks (back = 0)
+      // one bulk enqueue of the class's live chunks (back = 0)
       const int L = sh.cnt[c];
       const int* ids = live + sh.base[c];
       const int n_new = fdiv(L, spc);
       for (int j = 0; j < n_new; ++j) newc[j] = q.pool_pop();
-      for (int j = 0; j < n_new; ++j)
-        heap_set(mem, (long long)newc[j] * wpc, W, -1);
-      for (int j = 0; j < n_new; ++j)
-        heap_set(mem, (long long)(j == 0 ? seg0 : newc[j - 1]) * wpc, W,
-                 newc[j]);
-      for (int r = 0; r < L; ++r) {
-        const int sg = r / spc;
-        const int seg = sg == 0 ? seg0 : newc[sg - 1];
-        heap_set(mem, (long long)seg * wpc + 1 + r % spc, W, ids[r]);
+      if (d.family == FAM_VL) {
+        for (int j = 0; j < n_new; ++j)
+          heap_set(mem, seg_word(newc[j], wpc, 0), W, -1);
+        for (int j = 0; j < n_new; ++j)
+          heap_set(mem, seg_word(j == 0 ? seg0 : newc[j - 1], wpc, 0), W,
+                   newc[j]);
+        for (int r = 0; r < L; ++r) {
+          const int sg = r / spc;
+          const int seg = sg == 0 ? seg0 : newc[sg - 1];
+          heap_set(mem, seg_word(seg, wpc, 1 + r % spc), W, ids[r]);
+        }
+        if (n_new > 0) q.tail(c) = newc[n_new - 1];
+      } else {
+        for (int j = 0; j < n_new; ++j) q.dir(c, 1 + j) = newc[j];
+        for (int r = 0; r < L; ++r)
+          heap_set(mem, seg_word(q.dir(c, r / spc), wpc, r % spc), W,
+                   ids[r]);
       }
-      if (n_new > 0) q.tail(c) = newc[n_new - 1];
       q.back(c) = L;
     }
   }

@@ -1,6 +1,7 @@
 """Wrappers of the CUDA allocator transaction kernels
 (``csrc/alloc_txn.cu``): one launch per whole alloc or free transaction
-on an arena, or a sharded arena, that lies on the card.  Also the
+on an arena, or a sharded arena, of any of the six variants, that lies
+on the card.  Also the
 piecewise allocator's steps (``csrc/ring_txn.cu``,
 ``csrc/bitmap_txn.cu``): ``ring_txn_pop``, ``ring_txn_push`` and
 ``chunk_txn_claim``, one launch each.
@@ -25,13 +26,15 @@ import torch
 from repro_torch.core import arena
 from repro_torch.core.heap import _log2i
 from repro_torch.core.shards import shard_config
-from repro_torch.core.transactions import check_variant
 from repro_torch.kernels import build, ops
 
 _FIELDS = ("total_words", "num_chunks", "wpc", "bw", "num_classes",
            "min_page_log2", "chunk_bytes", "min_page_words", "max_ppc",
            "spc", "pool_off", "bitmap_off", "free_off", "class_off",
-           "ctl_words", "core_ctl_words", "wrap_capacity", "walk_bins")
+           "ctl_words", "core_ctl_words", "wrap_capacity", "walk_bins",
+           "kind", "family", "queue_off", "queue_cap", "max_segs")
+KINDS = {"page": 0, "chunk": 1}          # csrc/arena_dev.cuh KIND_*
+FAMILIES = {"ring": 0, "va": 1, "vl": 2}  # FAM_*
 MAX_CTL = 256
 MAX_CLASSES = 32
 # dynamic shared memory for lane tables: a block may use 232,448 bytes
@@ -45,25 +48,34 @@ class ArenaDesc(ctypes.Structure):
 
 @functools.lru_cache(maxsize=None)
 def descriptor(lay: arena.ArenaLayout) -> ArenaDesc:
-    """The kernel's view of an arena layout, built once per layout."""
+    """The kernel's view of an arena layout (any of the six variants),
+    built once per layout.  Regions a kind lacks (the chunk tables of a
+    page kind) have offset −1."""
     cfg = lay.cfg
     if lay.ctl_words > MAX_CTL or lay.num_classes > MAX_CLASSES:
         raise ValueError(f"arena with {lay.num_classes} classes / "
                          f"{lay.ctl_words} ctl words exceeds the kernel's "
                          f"{MAX_CLASSES} / {MAX_CTL}")
+
+    def off(name):
+        return lay.region(name).offset if lay.has(name) else -1
+
     return ArenaDesc(
         total_words=cfg.total_words, num_chunks=cfg.num_chunks,
         wpc=cfg.words_per_chunk, bw=cfg.bitmap_words_per_chunk,
         num_classes=lay.num_classes,
         min_page_log2=_log2i(cfg.min_page_bytes),
         chunk_bytes=cfg.chunk_bytes, min_page_words=cfg.page_words(0),
-        max_ppc=cfg.max_pages_per_chunk, spc=cfg.slots_per_segment("vl"),
-        pool_off=lay.region("pool_store").offset,
-        bitmap_off=lay.region("bitmap").offset,
-        free_off=lay.region("free_count").offset,
-        class_off=lay.region("chunk_class").offset,
+        max_ppc=cfg.max_pages_per_chunk,
+        spc=cfg.slots_per_segment(lay.family),
+        pool_off=off("pool_store"), bitmap_off=off("bitmap"),
+        free_off=off("free_count"), class_off=off("chunk_class"),
         ctl_words=lay.ctl_words, core_ctl_words=lay.core_ctl_words,
-        wrap_capacity=lay.wrap_capacity, walk_bins=arena.TELE_WALK_BINS)
+        wrap_capacity=lay.wrap_capacity, walk_bins=arena.TELE_WALK_BINS,
+        kind=KINDS[lay.kind], family=FAMILIES[lay.family],
+        queue_off=off("queue_store" if lay.family == "ring"
+                      else "directory"),
+        queue_cap=lay.queue_capacity, max_segs=lay.max_segs)
 
 
 def _lib():
@@ -107,7 +119,6 @@ def _prepare(cfg, kind, family, mem, ctl, num_shards=None):
     """Layout, descriptor and device of a transaction's arena; with
     ``num_shards`` the arena is sharded (``cfg`` the global config) and
     the layout and descriptor are one shard's."""
-    check_variant(kind, family)
     lead = ()
     if num_shards is not None:
         cfg = shard_config(cfg, num_shards)

@@ -1,6 +1,7 @@
 """Wrappers of the CUDA defragmentation wave kernels
 (``csrc/defrag_txn.cu``): one launch per migration wave on an arena, or
-a sharded arena, that lies on the card.
+a sharded arena, of a chunk kind (any queue family) that lies on the
+card.
 
 Each wrapper checks devices, dtypes, shapes and contiguity, launches on
 the current stream, and raises if the launch reports an error.  A wave
@@ -40,6 +41,9 @@ def _lib():
 
 
 def _wave(cfg, kind, family, mem, ctl, src, dst, sizes, num_shards=None):
+    if kind != "chunk":
+        raise ValueError("page kinds bind no chunks: their waves are no-ops "
+                         "and launch nothing")
     lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, num_shards)
     M = src.shape[0]
     for name, t in (("src", src), ("dst", dst), ("sizes", sizes)):

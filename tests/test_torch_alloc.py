@@ -252,9 +252,26 @@ def test_cpu_transactions_launch_no_kernel():
 
 @pytest.mark.parametrize("variant", ("page", "chunk", "va_page", "vl_page",
                                      "va_chunk"))
-def test_unported_variants_raise(variant):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Ouroboros(HeapConfig(**CFG), variant, device="cpu")
+def test_other_variants_serve_a_transaction(variant):
+    """The five variants beside ``vl_chunk`` construct, init and serve
+    one alloc and its free on the CPU, word for word with the
+    reference (``tests/test_torch_variants.py`` holds their traces)."""
+    oj = JOuro(JHeap(**CFG), variant)
+    ot = Ouroboros(HeapConfig(**CFG), variant, device="cpu")
+    sj, st = oj.init(), ot.init()
+    _same(sj, st, "init")
+    sizes = np.array([16, 64, 256, 1000] * 4, np.int32)
+    ones = np.ones(N, bool)
+    sj, oj_offs = oj.alloc(sj, jnp.asarray(sizes), jnp.asarray(ones))
+    st, ot_offs = ot.alloc(st, torch.from_numpy(sizes),
+                           torch.from_numpy(ones))
+    np.testing.assert_array_equal(np.asarray(oj_offs), ot_offs.numpy())
+    assert bool((ot_offs >= 0).all())
+    _same(sj, st, "alloc")
+    sj = oj.free(sj, oj_offs, jnp.asarray(sizes), jnp.asarray(ones))
+    st = ot.free(st, ot_offs, torch.from_numpy(sizes),
+                 torch.from_numpy(ones))
+    _same(sj, st, "free")
 
 
 def test_pack_inverts_unpack():

@@ -529,3 +529,171 @@ def test_piecewise_traces_match_plain_on_the_card(cuda, kind, family):
         used.add("ring_window")
     assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES
     assert ops.LAUNCHES["alloc_txn"] == ops.LAUNCHES["free_txn"] == 0
+
+
+# ---- the other five variants through the fused transactions and waves -----
+
+OTHER_VARIANTS = ("page", "chunk", "va_page", "vl_page", "va_chunk")
+VARIANT_CFG = dict(total_bytes=1 << 16, chunk_bytes=1 << 11,
+                   min_page_bytes=16)
+TINY = dict(total_bytes=1 << 12, chunk_bytes=64, min_page_bytes=16)
+
+
+def _past_2_31(st, lay, past=3):
+    """Each class queue's counters, and the pool's, moved so that the
+    back lies ``past`` slots below 2^31 (counts kept)."""
+    C = lay.num_classes
+    ctl = st.ctl.cpu().to(torch.int64)
+    pairs = [(lay.off_front + c, lay.off_back + c) for c in range(C)]
+    for f, b in pairs + [(lay.off_pool_front, lay.off_pool_back)]:
+        dlt = 2 ** 31 - past - int(ctl[b])
+        ctl[f] += dlt
+        ctl[b] += dlt
+    st.ctl.copy_(ctl.to(torch.int32))
+    return st
+
+
+def _card_trace(cuda, variant, cfgkw, menu, n, n_ops, bias, seed,
+                num_shards=1, hints=None, shift=False):
+    """One seeded alloc/free trace on the card and on the CPU: one
+    transaction kernel launch each on the card, offsets and words equal
+    to the plain math after every one.  Returns the CPU arena and the
+    failed lanes."""
+    kw = {"num_shards": num_shards} if num_shards > 1 else {}
+    o_gpu = Ouroboros(HeapConfig(**cfgkw), variant, device=cuda, **kw)
+    o_cpu = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu", **kw)
+    sg, sc = o_gpu.init(), o_cpu.init()
+    if shift:
+        _past_2_31(sc, o_cpu.layout)
+        sg.ctl.copy_(sc.ctl.to(cuda))
+    assert torch.equal(sg.mem.cpu(), sc.mem)
+    rng = np.random.default_rng(seed)
+    live, failed, counts = [], 0, {"alloc": 0, "free": 0}
+    ops.reset_launches()
+    for step in range(n_ops):
+        if not live or rng.random() < bias:
+            sizes = torch.from_numpy(rng.choice(menu, n).astype(np.int32))
+            mask = torch.from_numpy(rng.random(n) < 0.85)
+            hint = None if hints is None else hints(rng, step)
+            hk = {} if hint is None else {"shard_hint": hint}
+            sc, oc = o_cpu.alloc(sc, sizes, mask, **hk)
+            if hint is not None:
+                hk = {"shard_hint": torch.from_numpy(hint).to(cuda)}
+            sg, og = o_gpu.alloc(sg, sizes.to(cuda), mask.to(cuda), **hk)
+            assert torch.equal(og.cpu(), oc), step
+            failed += int(((oc < 0) & mask).sum())
+            live += [(int(a), int(b)) for a, b in
+                     zip(oc.tolist(), sizes.tolist()) if a >= 0]
+            counts["alloc"] += 1
+        else:
+            k = min(len(live), int(rng.integers(1, n + 1)))
+            pick = set(rng.choice(len(live), k, replace=False).tolist())
+            fo = np.full(n, -1, np.int32)
+            fs = np.zeros(n, np.int32)
+            drop = [x for i, x in enumerate(live) if i in pick]
+            live = [x for i, x in enumerate(live) if i not in pick]
+            fo[:k] = [a for a, _ in drop]
+            fs[:k] = [b for _, b in drop]
+            perm = rng.permutation(n)
+            fo_t = torch.from_numpy(fo[perm].copy())
+            fs_t = torch.from_numpy(fs[perm].copy())
+            sc = o_cpu.free(sc, fo_t, fs_t, fo_t >= 0)
+            sg = o_gpu.free(sg, fo_t.to(cuda), fs_t.to(cuda),
+                            (fo_t >= 0).to(cuda))
+            counts["free"] += 1
+        assert torch.equal(sg.mem.cpu(), sc.mem), step
+        assert torch.equal(sg.ctl.cpu(), sc.ctl), step
+    pre = "sharded_" if num_shards > 1 else ""
+    assert ops.LAUNCHES[pre + "alloc_txn"] == counts["alloc"]
+    assert ops.LAUNCHES[pre + "free_txn"] == counts["free"]
+    return o_cpu, sc, failed
+
+
+@pytest.mark.parametrize("case", ("mixed", "4096-lanes", "exhausting",
+                                  "past-2^31"))
+@pytest.mark.parametrize("variant", OTHER_VARIANTS)
+def test_variant_transactions_match_plain_math_on_the_card(cuda, variant,
+                                                           case):
+    """``alloc_txn``/``free_txn`` of the other five variants against the
+    plain math on the CPU: mixed classes at 32 lanes and at 4096 (every
+    class inventory drained), an exhausted tiny heap, and counters
+    carried past 2^31."""
+    if case == "mixed":
+        _card_trace(cuda, variant, VARIANT_CFG,
+                    [16, 24, 100, 256, 1000, 2048, 8192], 32, 30, 0.7, 0)
+    elif case == "4096-lanes":
+        _card_trace(cuda, variant, VARIANT_CFG, [16, 24, 100, 256, 1000],
+                    4096, 6, 0.6, 1)
+    elif case == "exhausting":
+        _, _, failed = _card_trace(cuda, variant, TINY, [16, 32, 64], 64, 40,
+                                   0.8, 7)
+        assert failed > 0
+    else:
+        _, sc, _ = _card_trace(cuda, variant, VARIANT_CFG, [16, 16, 32, 64],
+                               64, 12, 0.7, 8, shift=True)
+        assert int(sc.ctl[:16].min()) < 0
+
+
+@pytest.mark.parametrize("variant", OTHER_VARIANTS)
+def test_variant_sharded_transactions_match_plain_replay_on_the_card(
+        cuda, variant):
+    """``sharded_alloc_txn``/``sharded_free_txn`` of the other five
+    variants on 4 shards (homes hashed, pinned to shard 0, hinted per
+    lane), against the plain replay, with lanes served at walk attempts
+    > 0."""
+    o, sc, _ = _card_trace(
+        cuda, variant, SHARD_CFG, [256, 512, 1024, 4096, 8192], 32, 30, 0.75,
+        5, num_shards=4,
+        hints=lambda rng, i: (None, np.zeros(32, np.int32),
+                              rng.integers(-4, 8, 32).astype(np.int32))[i % 3])
+    lay = o.layout.shard
+    assert int(sc.ctl[:, lay.off_t_walk + 1:lay.off_t_walk + 4].sum()) > 0
+
+
+@pytest.mark.parametrize("variant", ("chunk", "va_chunk"))
+def test_ring_and_va_waves_match_plain_math_on_the_card(cuda, variant):
+    """The ring and va rebuilds on the card: a churned arena's defrag
+    wave (``defrag_txn``), then a 4-shard arena's compaction and
+    rebalance waves (``sharded_defrag_txn``), plans and words identical
+    to the plain math on the CPU."""
+    for S in (1, 4):
+        cfg = HeapConfig(total_bytes=(30 if S == 1 else 48) * 4096,
+                         chunk_bytes=4096, min_page_bytes=256)
+        outs = []
+        for dev in (cuda, "cpu"):
+            o = Ouroboros(cfg, variant, device=dev,
+                          **({"num_shards": S} if S > 1 else {}))
+            rng = np.random.default_rng(3)
+            n = 16
+            sizes = torch.full((n,), 256, dtype=torch.int32, device=dev)
+            hint = ({"shard_hint": torch.zeros(n, dtype=torch.int32,
+                                               device=dev)} if S > 1 else {})
+            st, live = o.init(), []
+            for _ in range(20 if S == 1 else 6):
+                mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+                st, offs = o.alloc(st, sizes, mask, **hint)
+                live += [x for x in offs.tolist() if x >= 0]
+            drop = [x for i, x in enumerate(live) if i % 3]
+            rng.shuffle(drop)
+            for i in range(0, len(drop), n):
+                fo = torch.full((n,), -1, dtype=torch.int32)
+                fo[:len(drop[i:i + n])] = torch.tensor(drop[i:i + n],
+                                                       dtype=torch.int32)
+                fo = fo.to(dev)
+                st = o.free(st, fo, sizes, fo >= 0)
+            ops.reset_launches()
+            st, f1 = o.defrag(st)
+            fwd = list(f1)
+            if S > 1:
+                st, f2 = o.rebalance(st)
+                fwd += list(f2)
+            outs.append((st, fwd, dict(ops.LAUNCHES)))
+        (sg, gf, lg), (sc, cf, _) = outs
+        for a, b in zip(gf, cf):
+            assert torch.equal(a.cpu(), b)
+        torch.cuda.synchronize()
+        assert torch.equal(sg.mem.cpu(), sc.mem)
+        assert torch.equal(sg.ctl.cpu(), sc.ctl)
+        assert int((cf[0] >= 0).sum()) > 0
+        want = {"defrag_txn": 1} if S == 1 else {"sharded_defrag_txn": 2}
+        assert {k: lg[k] for k in want} == want

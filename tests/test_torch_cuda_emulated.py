@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import HeapConfig, Ouroboros, arena, defrag, shards
+from repro_torch.core import (VARIANTS, HeapConfig, Ouroboros, arena,
+                              defrag, shards)
 from repro_torch.kernels import ref
 from repro_torch.kernels.alloc_txn import (TABLE_SMEM_LIMIT, ArenaDesc,
                                            descriptor)
@@ -142,10 +143,18 @@ def test_alloc_kernels_match_plain_math(emu, cfgkw, menu, n, ops_, bias,
     spill = (emu.alloc_txn_workspace_bytes(d, n, limit) > 0,
              emu.free_txn_workspace_bytes(d, n, 1, limit) > 0)
     assert spill == ((True, True) if limit == SPILL else (False, False))
-    st = o.init()
+    _emu_trace(emu, o, o.init(), menu, n, ops_, bias, limit)
+
+
+def _emu_trace(emu, o, st, menu, n, ops_, bias, limit, seed=7):
+    """A seeded alloc/free trace through the facade on the CPU (the plain
+    math) and through the emulated ``alloc_txn``/``free_txn`` on copies
+    of the words: offsets, ``mem`` and ``ctl`` equal after every
+    transaction.  Returns the failed lanes."""
+    d = descriptor(o.layout)
     mem, ctl = st.mem.clone(), st.ctl.clone()
-    rng = np.random.default_rng(7)
-    live = []
+    rng = np.random.default_rng(seed)
+    live, failed = [], 0
     for step in range(ops_):
         if not live or rng.random() < bias:
             sizes = torch.from_numpy(rng.choice(menu, n).astype(np.int32))
@@ -155,6 +164,7 @@ def test_alloc_kernels_match_plain_math(emu, cfgkw, menu, n, ops_, bias,
             emu.emu_alloc_txn(d, _p(mem), _p(ctl), _p(sizes), _p(mask), n,
                               _p(got), limit)
             assert torch.equal(got, want), step
+            failed += int(((want < 0) & mask).sum())
             live += [(int(a), int(b)) for a, b in
                      zip(want.tolist(), sizes.tolist()) if a >= 0]
         else:
@@ -173,8 +183,13 @@ def test_alloc_kernels_match_plain_math(emu, cfgkw, menu, n, ops_, bias,
             st = o.free(st, fo_t, fs_t, fm)
             emu.emu_free_txn(d, _p(mem), _p(ctl), _p(fo_t), _p(fs_t),
                              _p(fm), n, limit)
-        assert torch.equal(mem, st.mem), f"mem differs after op {step}"
-        assert torch.equal(ctl, st.ctl), f"ctl differs after op {step}"
+        assert torch.equal(mem, st.mem), \
+            f"mem differs after op {step} at " \
+            f"{torch.nonzero(mem != st.mem)[:8, 0].tolist()}"
+        assert torch.equal(ctl, st.ctl), \
+            f"ctl differs after op {step} at " \
+            f"{torch.nonzero(ctl != st.ctl)[:8, 0].tolist()}"
+    return failed
 
 
 def test_single_arena_alloc_kernel_bins_served_lanes_at_walk_bin_0(emu):
@@ -485,6 +500,151 @@ def test_defrag_kernel_claims_unbound_destination_chunks(emu):
     sizes = torch.tensor([64, 64, 64, 64, 64, 1 << 13], dtype=torch.int32)
     _emu_wave(emu, o, st, src, dst, sizes, 64)
     assert int(meta.chunk_class[a]) == 0 and int(meta.chunk_class[b]) == 0
+
+
+# ---- the other five variants: page kinds, ring and va families -------------
+
+OTHER_VARIANTS = ("page", "chunk", "va_page", "vl_page", "va_chunk")
+VARIANT_CASES = {
+    # 32 chunks of 2 KiB, 8 classes; 64 lanes: page kinds' values written
+    # in parallel
+    "mixed": (dict(total_bytes=1 << 16, chunk_bytes=1 << 11,
+                   min_page_bytes=16),
+              [16, 24, 100, 256, 1000, 2048, 8192], 64, 16, 0.6,
+              TABLE_SMEM_LIMIT),
+    # 64-B chunks: va segments of 16 slots, vl of 15
+    "segment-churn": (dict(total_bytes=1 << 16, chunk_bytes=64,
+                           min_page_bytes=16),
+                      [16, 32, 64, 128], 64, 24, 0.6, TABLE_SMEM_LIMIT),
+    "exhausting": (dict(total_bytes=1 << 12, chunk_bytes=64,
+                        min_page_bytes=16),
+                   [16, 32, 64], 64, 40, 0.8, TABLE_SMEM_LIMIT),
+    "workspace": (dict(total_bytes=1 << 16, chunk_bytes=64,
+                       min_page_bytes=16),
+                  [16, 32, 64, 128], 64, 24, 0.6, SPILL),
+}
+
+
+@pytest.mark.parametrize("case", tuple(VARIANT_CASES))
+@pytest.mark.parametrize("variant", OTHER_VARIANTS)
+def test_variant_alloc_kernels_match_plain_math(emu, variant, case):
+    """Alloc/free traces of the other five variants: the emulated
+    ``alloc_txn``/``free_txn`` leave the plain math's words and offsets
+    after every transaction (``exhausting``: failed lanes and segment
+    pops past the pool; ``workspace``: the lane tables, the page-vl chain
+    table included, in the device workspace)."""
+    cfgkw, menu, n, ops_, bias, limit = VARIANT_CASES[case]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    d = descriptor(o.layout)
+    ws = (emu.alloc_txn_workspace_bytes(d, n, limit) > 0,
+          emu.free_txn_workspace_bytes(d, n, 1, limit) > 0)
+    # a page ring or va alloc needs no lane table
+    assert ws == ((o.kind == "chunk" or o.family == "vl", True)
+                  if limit == SPILL else (False, False))
+    failed = _emu_trace(emu, o, o.init(), menu, n, ops_, bias, limit)
+    assert failed > 0 or case != "exhausting"
+
+
+def _past_2_31(st, lay, past=3):
+    """Every class queue's counters, and the pool's, moved so that the
+    back lies ``past`` slots below 2^31 (counts kept)."""
+    C = lay.num_classes
+    ctl = st.ctl.to(torch.int64)
+    for off in [lay.off_back + c for c in range(C)] + [lay.off_pool_back]:
+        front = lay.off_pool_front if off == lay.off_pool_back \
+            else off - C
+        dlt = 2 ** 31 - past - int(ctl[off])
+        ctl[off] += dlt
+        ctl[front] += dlt
+    st.ctl.copy_(ctl.to(torch.int32))
+    return st
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_variant_kernels_at_counters_past_2_31(emu, variant):
+    """Counters carried over 2^31 inside the traces: the kernels wrap
+    ``front + rank`` and the counters at 32 bits, as the plain math does
+    (a page ring's slots then collide, and thread 0 writes them)."""
+    o = Ouroboros(HeapConfig(total_bytes=1 << 16, chunk_bytes=1 << 11,
+                             min_page_bytes=16), variant, device="cpu")
+    st = _past_2_31(o.init(), o.layout)
+    _emu_trace(emu, o, st, [16, 16, 32, 64], 64, 10, 0.7, TABLE_SMEM_LIMIT)
+    assert int(st.ctl[:o.layout.core_ctl_words].min()) < 0
+
+
+@pytest.mark.parametrize("variant,limit", [
+    (v, TABLE_SMEM_LIMIT) for v in OTHER_VARIANTS] + [("va_page", SPILL)],
+    ids=list(OTHER_VARIANTS) + ["va_page-workspace"])
+def test_variant_sharded_kernels_match_plain_replay(emu, variant, limit):
+    """Sharded traces of the other five variants (4 shards, homes hashed,
+    pinned to shard 0 until they overflow, hinted per lane): the
+    emulated ``sharded_alloc_txn``/``sharded_free_txn`` leave the plain
+    replay's words and offsets, with lanes served at walk attempts > 0."""
+    o = Ouroboros(HeapConfig(**SHARD_CFG), variant, device="cpu",
+                  num_shards=4)
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    rng = np.random.default_rng(13)
+    live = []
+    n = 32
+    for step in range(24):
+        hint = False if live and step % 4 == 3 else (
+            None, np.zeros(n, np.int32),
+            rng.integers(-4, 8, n).astype(np.int32))[step % 3]
+        st = _sharded_step(emu, o, st, mem, ctl, rng, live, n, hint, limit)
+        assert torch.equal(mem, st.mem), \
+            f"mem differs after op {step} at " \
+            f"{torch.nonzero(mem != st.mem)[:8].tolist()}"
+        assert torch.equal(ctl, st.ctl), f"ctl differs after op {step}"
+    lay = o.layout.shard
+    bins = ctl[:, lay.off_t_walk:lay.off_t_walk + o.walk + 1].sum(0)
+    assert int(bins[1:].sum()) > 0, bins
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("smem", "workspace"))
+@pytest.mark.parametrize("chunk_bytes,page", [(4096, 256), (64, 16)],
+                         ids=("kv-geometry", "tiny-chunks"))
+@pytest.mark.parametrize("variant", ("chunk", "va_chunk"))
+def test_ring_and_va_waves_match_plain_math(emu, variant, chunk_bytes, page,
+                                            limit):
+    """The ring and va rebuilds: churn, then a wave (``defrag_txn``),
+    more churn and a second wave; then the same arena geometry over 4
+    shards with every lane homed on shard 0, a sharded compaction wave
+    and a rebalance wave onto the idle shards (``sharded_defrag_txn``)."""
+    cfg = HeapConfig(total_bytes=30 * chunk_bytes, chunk_bytes=chunk_bytes,
+                     min_page_bytes=page)
+    o = Ouroboros(cfg, variant, device="cpu")
+    st = o.init()
+    rng = np.random.default_rng(17)
+    moved = 0
+    for wave in range(2):
+        st, _ = _churn(o, st, rng, 16, page, until_full=(wave == 0))
+        src, dst, sizes = defrag.plan_math(o.cfg, o.kind, o.family, st.mem,
+                                           st.ctl)
+        moved += int((src >= 0).sum())
+        _emu_wave(emu, o, st, src, dst, sizes, 128, limit)
+    assert moved > 0
+    so = Ouroboros(HeapConfig(total_bytes=4 * 12 * chunk_bytes,
+                              chunk_bytes=chunk_bytes, min_page_bytes=page),
+                   variant, device="cpu", num_shards=4)
+    st, live = so.init(), []
+    sizes = torch.full((16,), page, dtype=torch.int32)
+    for _ in range(6):   # fills shard 0 (and 1 with tiny chunks) alone
+        st, offs = so.alloc(st, sizes, torch.from_numpy(rng.random(16) < .9),
+                            shard_hint=np.zeros(16, np.int32))
+        live += [x for x in offs.tolist() if x >= 0]
+    drop = [x for i, x in enumerate(live) if i % 3]
+    for i in range(0, len(drop), 16):
+        fo = torch.full((16,), -1, dtype=torch.int32)
+        fo[:len(drop[i:i + 16])] = torch.tensor(drop[i:i + 16],
+                                                dtype=torch.int32)
+        st = so.free(st, fo, sizes, fo >= 0)
+    for plan in (defrag.sharded_plan_math, shards.rebalance_plan_math):
+        src, dst, sz = plan(so.cfg, 4, so.kind, so.family, st.mem, st.ctl,
+                            max_moves=32)
+        assert int((src >= 0).sum()) > 0
+        _emu_sharded_wave(emu, so, st, src, dst, sz, limit=limit)
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
