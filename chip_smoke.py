@@ -29,7 +29,9 @@ Phases, each reporting on its own lines:
    against CPU copies.  Then one admission's and one retirement's lanes
    of full-width mamba2-780m (298,656 pages of 256 B, lane tables in the
    device workspace) on the mamba2 engine's arena, single and 4-shard,
-   against the plain math run on a second arena on the card.  No
+   against the plain math run on a second arena on the card, and on the
+   single arena the next admission's grant (the freed lanes' chunks in
+   the class queue) against the plain math on CPU copies.  No
    piecewise kernel launches in this phase.  Then "phase 3 (piecewise)":
    the piecewise allocator API of all six variants (page and chunk over
    the ring, va and vl families) on the 65536-page geometry, seeded
@@ -61,7 +63,9 @@ Phases, each reporting on its own lines:
 4. ``paged_attention`` against its plain version at qwen2-0.5b decode
    shapes (B 8, Hq 14, Hkv 2, D 64, page 16, P 32), ragged lengths and
    holes, page-id and word-offset tables, float32 and bf16 (both sides
-   widen the same values to float32: atol 1e-5 for each); ``ssd_scan``
+   widen the same values to float32: atol 1e-5 for each), its time a
+   call on CUDA events (the wrapper's host work inside) and its three
+   kernels' profiler device time; ``ssd_scan``
    against ``ssd_plain`` at mamba2-780m's heads (H 48, P 64, N 128, G 1,
    chunk 64) at 1, 4 and 7 chunks, bf16 and float32 (atol 1e-4 + rtol
    1e-4), and its times at 1-7 chunks;
@@ -100,9 +104,12 @@ Phases, each reporting on its own lines:
    to 0.  The same traffic on a second fresh engine (the checked run)
    must give the same tokens, and its first admission's grant and first
    retirement are replayed through the plain math on card copies of the
-   words they started from;
+   words they started from.  Each run prints what the alloc kernels'
+   chunk chains took, as the kernels count it (``chain_stats``);
 6. kernel times from ``torch.profiler`` (allocator and defrag kernels
-   replayed at the engine's recorded inputs; defrag also at the
+   replayed at the engine's recorded inputs; ``paged_attention`` also
+   held to its plain version at the qwen2 run's own inputs, every 8th
+   call of a rerun of its traffic; defrag also at the
    65536-page arena with M = 128; the sharded kernels at the sharded
    pressure run's inputs and on the 4-shard 65536-page arena; the five
    piecewise kernels at phase 3 (piecewise)'s inputs; the six widened
@@ -173,6 +180,8 @@ KERNEL_SYMBOLS = {"alloc_txn": "alloc_txn_kernel",
                   "sharded_free_txn": "sharded_free_txn_kernel",
                   "sharded_defrag_txn": "sharded_defrag_txn_kernel",
                   "paged_attention": "paged_attention_kernel",
+                  "paged_attention_values": "paged_attention_values_kernel",
+                  "paged_attention_merge": "paged_attention_merge_kernel",
                   "ssd_scan": "ssd_scan_kernel",
                   "ring_txn_pop": "ring_txn_pop_kernel",
                   "ring_txn_push": "ring_txn_push_kernel",
@@ -218,6 +227,23 @@ class DeviceProfile:
 
     def busy_ms(self) -> float:
         return sum(r[1] for r in self.rows) / 1e3
+
+
+def chains(reset: bool = True) -> dict:
+    """The alloc kernels' own count of what their chunk chains took since
+    the last reset (``kernels.alloc_txn.chain_stats``), then reset."""
+    from repro_torch.kernels import alloc_txn as AT
+    return AT.chain_stats(reset=reset)
+
+
+def chain_text(c: dict) -> str:
+    return (f"{c['whole_runs']} whole-chunk run(s) of {c['whole_chunks']} "
+            f"chunks, {c['dequeue_tries']} dequeue run(s) tried taking "
+            f"{c['dequeue_chunks']} chunks ({c['dequeue_short']} under 16, "
+            f"{c['dequeue_empty']} none), {c['serial_steps']} serial "
+            f"step(s) in {c['chains']} class chain(s)"
+            + (f", {c['serial_classes']} left serial by an id outside the "
+               f"heap" if c["serial_classes"] else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -884,6 +910,7 @@ def phase_variants(device, seed=0):
     shard4 = make_kv_allocator(256, device="cpu", num_shards=SHARDS)[0].cfg
     errs = {k: {"words": 0, "max_abs": 0} for k in TXN_KERNELS}
     rng = np.random.default_rng(seed + 16)
+    chains()
     ops.reset_launches()
     t_all = time.perf_counter()
 
@@ -949,7 +976,8 @@ def phase_variants(device, seed=0):
     torch.cuda.synchronize()
     launches = {k: ops.LAUNCHES[k] for k in TXN_KERNELS}
     log(f"phase 3 (variants): launches of the traces and waves "
-        f"{json.dumps(launches)} ({time.perf_counter() - t_all:.1f} s)")
+        f"{json.dumps(launches)} ({time.perf_counter() - t_all:.1f} s); "
+        f"the alloc kernels' chunk chains: {chain_text(chains())}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a widened kernel never launched: {launches}")
     return launches, errs
@@ -973,6 +1001,7 @@ def phase_sweeps(device, errs):
 
     cfg = HeapConfig(**BENCH_HEAP)
     t_all = time.perf_counter()
+    chains()
     ops.reset_launches()
     for v in VARIANTS:
         t0 = time.perf_counter()
@@ -1038,7 +1067,8 @@ def phase_sweeps(device, errs):
     torch.cuda.synchronize()
     launches = {k: ops.LAUNCHES[k] for k in TXN_KERNELS}
     log(f"phase 3 (variants): launches of the sweeps {json.dumps(launches)} "
-        f"({time.perf_counter() - t_all:.1f} s)")
+        f"({time.perf_counter() - t_all:.1f} s); the alloc kernels' chunk "
+        f"chains: {chain_text(chains())}")
     if not (launches["alloc_txn"] and launches["free_txn"]):
         raise AssertionError(f"the sweeps launched no transaction kernel: "
                              f"{launches}")
@@ -1212,7 +1242,34 @@ def attn_bound_ms(q, k, table, seq, wpp) -> tuple:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+ATTN_KERNELS = ("paged_attention", "paged_attention_values",
+                "paged_attention_merge")
+
+
+def attn_device_ms(q, k, v, table, seq, wpp, reps=50):
+    """Device ms of one ``paged_attention`` call from ``torch.profiler``
+    over ``reps`` calls: the sum over its three kernels (scores, values,
+    merge) of each one's mean over the launches the profiler recorded;
+    each kernel's part; the fewest launches recorded of any of them."""
+    from repro_torch.kernels import paged_attention as pa_kernel
+
+    def session():
+        with DeviceProfile() as prof:
+            for _ in range(reps):
+                pa_kernel.paged_attention(q, k, v, table, seq, wpp=wpp)
+        return prof
+
+    got = profiled(session, {k: reps for k in ATTN_KERNELS})
+    parts = [got[k][0] for k in ATTN_KERNELS]
+    return sum(parts), parts, min(n for _, n in got.values())
+
+
 def phase_attention(device):
+    """``paged_attention`` against its plain version at the decode
+    shapes, four lines (dtype x table mode): the max error, the device
+    time of a call (its three kernels, profiler), the CUDA-event
+    time of a call (the wrapper's host work inside), the plain version's
+    time and the bound; and the split geometry."""
     import torch
     from repro_torch.kernels import paged_attention as pa_kernel
     from repro_torch.kernels import ref
@@ -1228,17 +1285,27 @@ def phase_attention(device):
             if not (err <= atol) or not torch.isfinite(got).all():
                 raise AssertionError(f"paged_attention {dtype} wpp={wpp}: "
                                      f"max error {err} > {atol}")
-            ms = time_ms(lambda: pa_kernel.paged_attention(
+            ms, parts, rec = attn_device_ms(q, k, v, table, seq, wpp)
+            wall = time_ms(lambda: pa_kernel.paged_attention(
                 q, k, v, table, seq, wpp=wpp), 200)
             plain = time_ms(lambda: ref.paged_attention(
                 q, k, v, table, seq, wpp=wpp), 10)
             bound, by = attn_bound_ms(q, k, table, seq, wpp)
+            B, Hq, _ = q.shape
+            _, page, Hkv, _ = k.shape
+            pps, splits = pa_kernel.geometry(page, table.shape[1])
             tag = f"{str(dtype).split('.')[-1]} {'offsets' if wpp else 'ids'}"
             log(f"phase 4: paged_attention {tag}: max error {err:.3g} "
-                f"(atol {atol}); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {bound:.5f} ms ({by})")
-            res[(dtype, wpp)] = dict(err=err, ms=ms, plain=plain,
-                                     bound=bound, by=by)
+                f"(atol {atol}); kernel {ms:.5f} ms a call (profiler device "
+                f"time: scores {parts[0]:.5f} + values {parts[1]:.5f} + merge "
+                f"{parts[2]:.5f}, at least {rec} of 50 calls recorded), "
+                f"{wall:.5f} ms a call on "
+                f"CUDA events (wrapper inside), plain {plain:.4f} ms, bound "
+                f"{bound:.5f} ms ({by}); {splits} splits of {pps} pages: "
+                f"grid {B * Hkv} x {splits} blocks")
+            res[(dtype, wpp)] = dict(err=err, ms=ms, wall=wall, plain=plain,
+                                     bound=bound, by=by, pps=pps,
+                                     splits=splits)
     return res
 
 
@@ -1602,12 +1669,14 @@ def phase_serve(device, seed):
         f"{time.perf_counter() - t0:.1f} s; arena "
         f"{eng.stats['arena_mem_words']} words")
 
+    chains()
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    took = chains()
     ticks = counting.decode_calls
 
     toks = sum(len(r.out_tokens) for r in done)
@@ -1617,6 +1686,7 @@ def phase_serve(device, seed):
         f"{wall:.2f} s: {toks / wall:.1f} tok/s (prefill included)")
     log(f"phase 5: stats {json.dumps(st)}")
     log(f"phase 5: launches {json.dumps(launches)}")
+    log(f"phase 5: the alloc kernels' chunk chains: {chain_text(took)}")
     if len(done) != 16 or any(len(r.out_tokens) != 32 or not r.done
                               for r in done):
         raise AssertionError("not every request finished with 32 tokens")
@@ -1716,12 +1786,14 @@ def phase_pressure(device, serve):
         eng.submit(p, max_new_tokens=32)
     torch.cuda.synchronize()
 
+    chains()
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    took = chains()
     st = dict(eng.stats)
     toks = sum(len(r.out_tokens) for r in done)
     log(f"phase 5: under pressure ({PRESSURE}, co-tenant {bound} x "
@@ -1729,6 +1801,8 @@ def phase_pressure(device, serve):
         f"{st['steps']} steps in {wall:.2f} s: {toks / wall:.1f} tok/s")
     log(f"phase 5: under pressure: stats {json.dumps(st)}")
     log(f"phase 5: under pressure: launches {json.dumps(launches)}")
+    log(f"phase 5: under pressure: the alloc kernels' chunk chains: "
+        f"{chain_text(took)}")
     got = {r.uid: r.out_tokens for r in done}
     want = serve["tokens"]
     if sorted(got) != sorted(want):
@@ -2088,12 +2162,14 @@ def phase_sharded_serve(device, serve):
         bins0 = walk_bins(eng.ouro, eng.alloc_state.ctl)
         torch.cuda.synchronize()
 
+        chains()
         ops.reset_launches()
         t0 = time.perf_counter()
         done = eng.run_until_done()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
+        took = chains()
         st = dict(eng.stats)
         bins = [b - a for a, b in zip(bins0, walk_bins(eng.ouro,
                                                        eng.alloc_state.ctl))]
@@ -2106,6 +2182,8 @@ def phase_sharded_serve(device, serve):
         log(f"phase 5: sharded {name}: stats {json.dumps(st)}")
         log(f"phase 5: sharded {name}: launches {json.dumps(launches)}; "
             f"lanes served per walk attempt in the run {bins}")
+        log(f"phase 5: sharded {name}: the alloc kernels' chunk chains: "
+            f"{chain_text(took)}")
         got = {r.uid: r.out_tokens for r in done}
         want = serve["tokens"]
         if sorted(got) != sorted(want):
@@ -2162,6 +2240,7 @@ def phase_timing(device, serve, alloc_logs, pressure, waves):
     allocator and defrag kernels on the engines' recorded transactions
     and waves and on the phase-3 traces and arenas, the plain math at the
     engines' inputs, and where the serving run's device time went."""
+    from repro_torch.kernels import ops
     from repro_torch.paged.kv_cache import make_kv_allocator
     eng = serve["engine"]
     dev_ouro = eng.ouro._ouro
@@ -2213,8 +2292,10 @@ def phase_timing(device, serve, alloc_logs, pressure, waves):
     eng.alloc_state = eng.ouro.init()
     for p in serve["prompts"]:
         eng.submit(p, max_new_tokens=32)
+    ops.reset_launches()
     with DeviceProfile() as prof:
         eng.run_until_done()
+    calls = ops.LAUNCHES["paged_attention"]
     busy = prof.busy_ms()
     wall = 1e3 * serve["wall"]
     log(f"phase 6: serving device busy {busy:.0f} ms of the unprofiled "
@@ -2222,7 +2303,65 @@ def phase_timing(device, serve, alloc_logs, pressure, waves):
         f"{100 * (1 - busy / wall):.1f}%")
     for key, us, n in prof.rows[:8]:
         log(f"phase 6:   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
-    return dict(k_times=k_times, p_times=p_times, bounds=bounds, defrag=dk)
+    # each kernel's mean over the launches the profiler kept, times the
+    # rerun's calls: a dropped record does not shrink the total, and a
+    # kernel with none recorded leaves it unmeasured
+    got = [prof.kernel(KERNEL_SYMBOLS[k]) for k in ATTN_KERNELS]
+    recorded = ", ".join(str(n) for _, n in got)
+    if all(n for _, n in got):
+        attn = calls * sum(ms for ms, _ in got)
+        log(f"phase 6: paged_attention in that rerun: {attn:.2f} ms of "
+            f"device time ({calls} calls x the per-launch means of its "
+            f"scores, values and merge kernels, launches recorded: "
+            f"{recorded})")
+    else:
+        attn = None
+        log(f"phase 6: paged_attention in that rerun: not measured (a "
+            f"kernel had no launch recorded; scores, values, merge: "
+            f"{recorded} of {calls})")
+    attention_in_serving(eng, serve)
+    return dict(k_times=k_times, p_times=p_times, bounds=bounds, defrag=dk,
+                attention=attn)
+
+
+def attention_in_serving(eng, serve, every=8, atol=1e-5):
+    """``paged_attention`` against its plain version at the serving
+    run's own inputs (model-sized scores and values, not phase 4's unit
+    normals): the same traffic again on the engine, every ``every``-th
+    call held to the plain version on the card within ``atol``; the
+    rerun's tokens must equal the timed run's."""
+    from repro_torch.kernels import ops, ref
+    kernel, calls, worst = ops.paged_attention, [0, 0], [0.0]
+
+    def checked(q, k, v, table, seq, wpp=None):
+        out = kernel(q, k, v, table, seq, wpp=wpp)
+        if calls[0] % every == 0:
+            want = ref.paged_attention(q, k, v, table, seq, wpp=wpp)
+            worst[0] = max(worst[0], float((out - want).abs().max()))
+            calls[1] += 1
+        calls[0] += 1
+        return out
+
+    t0 = time.perf_counter()
+    ops.paged_attention = checked
+    try:
+        eng.alloc_state = eng.ouro.init()
+        for p in serve["prompts"]:
+            eng.submit(p, max_new_tokens=32)
+        done = eng.run_until_done()
+    finally:
+        ops.paged_attention = kernel
+    if not worst[0] <= atol:
+        raise AssertionError(f"paged_attention at the serving run's inputs: "
+                             f"max error {worst[0]} > {atol}")
+    if sorted(r.out_tokens for r in done) != sorted(
+            serve["tokens"].values()):
+        raise AssertionError("the checked rerun's tokens differ from the "
+                             "timed run's")
+    log(f"phase 6: paged_attention at the serving run's inputs: {calls[1]} "
+        f"of {calls[0]} calls held to the plain version on the card, max "
+        f"error {worst[0]:.3g} (atol {atol}); the rerun's tokens equal the "
+        f"timed run's ({time.perf_counter() - t0:.1f} s for this check)")
 
 
 def phase_sharded_timing(device, sh3, runs):
@@ -2394,7 +2533,9 @@ def phase_aux_pairs(device, reps=3):
         mask = torch.ones(n, dtype=torch.bool, device=device)
         psz, pmask = sizes.to(pdev), mask.to(pdev)
         base = (o.kind, o.family, sp.mem, sp.ctl)
+        chains()
         _, offs = o.alloc(sk, sizes, mask)
+        took = chains()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if S == 1:
@@ -2461,10 +2602,70 @@ def phase_aux_pairs(device, reps=3):
             f"{got[kf][1]} of {reps} launches recorded); plain math on the "
             f"{'card' if S == 1 else 'CPU'} {plain_alloc:.0f} / "
             f"{plain_free:.0f} ms; bounds {1e3 * bound_a:.2f} / "
-            f"{1e3 * bound_f:.2f} us")
+            f"{1e3 * bound_f:.2f} us; the alloc's chunk chain"
+            f"{'s' if S > 1 else ''} (the kernel's count): "
+            f"{chain_text(took)}")
+        res[S]["chain"] = took
+        if S == 1:
+            res[S]["requeued"] = requeued_alloc(o, lay, sk, sizes, mask, err,
+                                                reps)
         del sk, sp, granted
         torch.cuda.empty_cache()
     return res
+
+
+def requeued_alloc(o, lay, sk, sizes, mask, err, reps):
+    """The next admission on the engine's arena, as the serving run makes
+    it: the lanes granted again after the retirement freed them, their
+    chunks waiting in the class queue (dequeue runs take them).  The
+    kernel against the plain math on CPU copies of the freed words, word
+    for word; its device time (profiler, each alloc from the freed
+    words), the plain time and the byte bound."""
+    import torch
+    from repro_torch.core import transactions as T
+    n = sizes.shape[0]
+    freed = (sk.mem.clone(), sk.ctl.clone())   # after the session's free
+    queued = int(freed[1][lay.off_back] - freed[1][lay.off_front])
+    t_check = time.perf_counter()
+    chains()
+    _, rq = o.alloc(sk, sizes, mask)
+    took = chains()
+    cm, cc = freed[0].cpu(), freed[1].cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = T.alloc_math(o.cfg, o.kind, o.family, cm, cc, sizes.cpu(),
+                        mask.cpu())[2]
+    plain = 1e3 * (time.perf_counter() - t0)
+    e = {"words": 0, "max_abs": 0}
+    merge_err(e, word_err(rq, want), word_err(sk.mem, cm),
+              word_err(sk.ctl, cc))
+    if e["words"] or not bool((want >= 0).all()):
+        raise AssertionError(f"{n}-lane alloc after the free: {e['words']} "
+                             f"differing words")
+    merge_err(err, (e["words"], e["max_abs"]))
+    chg = int((sk.mem != freed[0]).sum())
+    del cm, cc
+
+    def session():
+        with DeviceProfile() as prof:
+            for _ in range(reps):
+                sk.mem.copy_(freed[0])
+                sk.ctl.copy_(freed[1])
+                o.alloc(sk, sizes, mask)
+        return prof
+
+    ka = kernel_of(o, "alloc")
+    ms, rec = profiled(session, {ka: reps})[ka]
+    bound = (9 * n + 8 * lay.ctl_words + 8 * chg) / HBM_BYTES_PER_S * 1e3
+    log(f"phase 3: {n} lanes, the next admission ({queued} chunks of the "
+        f"freed lanes in the class queue): 0 differing words and offsets; "
+        f"{ka} {ms:.3f} ms (profiler device time, {rec} of {reps} launches "
+        f"recorded); plain math on the CPU {plain:.0f} ms; bound "
+        f"{1e3 * bound:.2f} us; its chunk chain (the kernel's count): "
+        f"{chain_text(took)} ({time.perf_counter() - t_check:.1f} s for "
+        f"this check)")
+    del freed
+    return dict(ms=ms, plain=plain, bound=bound, queued=queued, chain=took)
 
 
 SSD_SHAPE = dict(H=48, P=64, G=1, N=128, Q=64)   # mamba2-780m's heads
@@ -2707,12 +2908,14 @@ def phase_mamba_serve(device, seed, lengths, grant):
         f"{eng.stats['arena_mem_words']} words "
         f"({eng.ouro.cfg.num_chunks} chunks)")
 
+    chains()
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    took = chains()
     st = dict(eng.stats)
     toks = sum(len(r.out_tokens) for r in done)
     admissions = len(counting.prefill_lens)
@@ -2722,6 +2925,8 @@ def phase_mamba_serve(device, seed, lengths, grant):
         f"(prefill included; no check inside the timed run)")
     log(f"phase 5: {MAMBA}: stats {json.dumps(st)}")
     log(f"phase 5: {MAMBA}: launches {json.dumps(launches)}")
+    log(f"phase 5: {MAMBA}: the alloc kernels' chunk chains: "
+        f"{chain_text(took)}")
     host = {**counting.secs, "aux alloc": host["_alloc_aux"],
             "aux free": host["_free_aux"]}
     log(f"phase 5: {MAMBA}: host wall by call (s): " + ", ".join(
@@ -2913,8 +3118,17 @@ def main(argv=None) -> int:
         t = aux_pairs[S][kind]
         plain = ("plain_ms_298656_lanes" if aux_pairs[S]["plain_on"] != "cpu"
                  else "plain_cpu_ms_298656_lanes")
+        geo = ({"chain_298656_lanes": aux_pairs[S]["chain"]}
+               if kind == "alloc" else {})
+        if kind == "alloc" and "requeued" in aux_pairs[S]:
+            r = aux_pairs[S]["requeued"]
+            geo.update(ms_298656_lanes_requeued=r["ms"],
+                       plain_cpu_ms_298656_lanes_requeued=r["plain"],
+                       bound_ms_298656_lanes_requeued=r["bound"],
+                       queued_chunks_298656_lanes_requeued=r["queued"],
+                       chain_298656_lanes_requeued=r["chain"])
         return {"ms_298656_lanes": t["ms"], plain: t["plain"],
-                "bound_ms_298656_lanes": t["bound"]}
+                "bound_ms_298656_lanes": t["bound"], **geo}
 
     def variant_runs(name):
         """The widened kernel's launches in phase 3 (variants)."""
@@ -3023,9 +3237,20 @@ def main(argv=None) -> int:
         "launches": serve["launches"]["paged_attention"],
         "max_abs_err": max(r["err"] for r in attn.values()),
         "max_err": max(r["err"] for r in attn.values()),
-        "ms": main_attn["ms"], "plain_ms": main_attn["plain"],
+        # ms: CUDA events around the wrapper (its host work inside), as
+        # for every earlier slice; device_ms: its kernels' profiler time
+        "ms": main_attn["wall"], "plain_ms": main_attn["plain"],
         "bound_ms": main_attn["bound"], "bound_by": main_attn["by"],
-        "library_ms": None})
+        "library_ms": None, "device_ms": main_attn["ms"],
+        "ms_by_input": {f"{str(dt).split('.')[-1]} "
+                        f"{'offsets' if w else 'ids'}": r["wall"]
+                        for (dt, w), r in attn.items()},
+        "device_ms_by_input": {f"{str(dt).split('.')[-1]} "
+                               f"{'offsets' if w else 'ids'}": r["ms"]
+                               for (dt, w), r in attn.items()},
+        "pages_per_split": main_attn["pps"],
+        "splits": main_attn["splits"],
+        "serving_device_ms": timing["attention"]})
     # the mamba2 run's prefills: each launch's chunk count, its time,
     # plain time and bound at that count, averaged over the run
     st_ = [ssd["times"][ch] for ch in mamba["chunks"]]

@@ -13,29 +13,67 @@
 // kinds, chunk_alloc.alloc / free for chunk kinds); each pair must leave
 // identical mem/ctl words and offsets.
 //
-// What bounds it on the H100: latency, not bandwidth or arithmetic.  A
-// transaction touches a few kilobytes to a few hundred, but a chunk
-// kind's is a chain of dependent queue operations (dequeue with its
-// segment shrink, pool pop, bitmap claim, re-enqueue with segment grow)
-// whose order fixes every later word, so its time is the length of that
-// chain in dependent global-memory round trips; a page kind's lanes each
-// gather one queue value, independent of each other.
+// What bounds it on the H100: latency, not bandwidth or arithmetic, in
+// every phase but the runs.  A transaction touches a few kilobytes to a
+// few megabytes.  A chunk kind's alloc is a chain of queue operations
+// whose order fixes every later word (dequeue with its segment shrink,
+// pool pop, bitmap claim, re-enqueue with segment grow): those steps are
+// bound by their dependent global-memory round trips.  But most of a
+// large grant is runs whose steps depend on their index alone: a
+// dequeue run takes queued chunks whole, a whole-chunk run pops fresh
+// chunks from the pool and takes all their pages.  A run is bound by its
+// bytes (queue or pool ids, each chunk's free count and bitmap words,
+// its grants) through one SM, a tile of a block's threads at a time.
+// The lane passes (ranks, grants gathered) are bound by bytes too: n
+// lanes' sizes, mask and offsets.
 //
 // Design: one thread block per transaction.  The layout, kind and
 // family come in as a small struct of ints built once from the
 // ArenaLayout, so a transaction makes no host reads.  Work with no order
 // dependence runs block-wide: size class per lane (__clz), each lane's
-// per-class rank by block scan, free's bit clears (atomics commute, so
-// the result equals the reference's scatter-add), the ascending
-// revived-chunk list (a bitset compacted by scan), and the telemetry
-// counts.  The ctl block is staged in shared memory and written back
-// once.  Heap, bitmap and queue words stay in global memory.
+// per-class rank (rank_lanes: warps walk contiguous runs of lanes, 32
+// neighbours a step, a vote for the common one-class step, else ballots
+// per class; a block scan per class), free's bit clears (atomics
+// commute, so the result equals the reference's scatter-add), the
+// ascending revived-chunk list (a bitset compacted by scan), and the
+// telemetry counts.  The ctl block is staged in shared memory and
+// written back once.  Heap, bitmap and queue words stay in global
+// memory.
 //
-// Chunk kinds: thread 0 drives the serial chain, class-major, in exactly
-// the reference's order, through the family's one-value dequeue and
-// enqueue (arena_dev.cuh); the chain writes each grant to its rank's slot
-// of a rank -> offset table, and the lanes read theirs after it, so the
-// chain issues stores only.  Free's revived chunks re-enter their queues
+// Chunk kinds' alloc (chunk_grants), class-major in the reference's
+// order, in phases.  Thread 0 takes every step whose order matters
+// (chain_steps): dequeues that end a dequeue run, with the vl/va segment
+// shrink and pool push they cause; the partial last chunk, with its
+// enqueue and the segment it may pop; the exhausted break.  It records
+// each step's claim (rank, offset base, page width, taken bits of one
+// bitmap word) instead of writing grants.  The runs belong to the block:
+//   - A dequeue run (dequeue_run): the longest prefix of the class queue
+//     whose chunk ids rise strictly (no chunk twice), lie in [0, nc),
+//     have a free count >= 1 equal to their free bits below ppc, and
+//     whose free counts fit the lanes left.  Each of those steps takes
+//     its chunk whole and leaves it out of the queue, so the block
+//     writes their grants (ranks from a block scan of the free counts),
+//     bitmap words and free counts, and thread 0 applies the m dequeues'
+//     queue words (front, segments returned to the pool).  A retired
+//     admission's chunks come back to the queue in ascending id order,
+//     so the next admission takes them in one run.  A try needs
+//     kMinDequeueRun entries or more, and after each one thread 0
+//     dequeues the entry that ended it before the next.
+//   - A whole-chunk run: with the class queue empty, the pool not and a
+//     chunk's worth of lanes or more left, the next m = min(pool count,
+//     lanes left / ppc) steps pop pool slots (pool_front + k) mod nc and
+//     take every page: the block writes each chunk's bitmap words (its
+//     ppc bits set), free count 0, class, and its ppc grants, and
+//     pool_front advances by m.  Duplicate ids write identical words, as
+//     the serial steps would (each resets its chunk first); an id
+//     outside [0, nc) would read another chunk's free count (plain
+//     indexing clamps), so a run holding one is left to thread 0: that
+//     class goes on serially.
+// After the chain the block expands the serial steps' records into the
+// rank -> offset table, and each lane reads its grant.  Thread 0 adds
+// what the chain took (runs and their chunks, serial steps, short and
+// empty dequeue tries) to device counters, read and cleared by
+// alloc_txn_chain_stats.  Free's revived chunks re-enter their queues
 // through the family's bulk enqueue (ring slots; va directory grow; vl
 // chain grow), written by thread 0 in lane order.
 //
@@ -120,29 +158,89 @@ __device__ void tele_apply(const ArenaDesc& d, const int* s_old, int* s_ctl,
 // rank[i] = base[c] + the number of earlier lanes of class c, for the
 // lanes that cls_of(i) puts in a class c in [0, C), -1 for the others;
 // count[c] and base[c] (classes concatenated in class order) are written
-// by thread 0.  Each thread takes a contiguous run of lanes, so ranks
-// follow lane order.  The caller synchronises before reading count/base.
+// by thread 0.  Each warp takes a contiguous run of 32-lane groups and
+// walks it in order, 32 neighbouring lanes a step (coalesced loads,
+// kRankUnroll groups' loads in flight), so ranks follow lane order: a
+// pass counts each class's lanes per warp (lane c of the warp holds
+// class c's count; a step whose 32 lanes share one class, the common
+// case, costs one vote, another one ballot a class), one block scan a
+// class gives each warp its offsets, and a second pass ranks the lanes.
+// The caller synchronises before reading count/base.
+constexpr int kRankUnroll = 8;
+constexpr int kLaneUnroll = 4;  // alloc's grant gather: lanes a thread
+
 template <class ClassOf>
 __device__ __forceinline__ void rank_lanes(int n, int C, ClassOf cls_of,
                                            int* rank, int* count, int* base,
                                            int* s_warp) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int per = (n + nt - 1) / nt;
-  const int lo = min(n, tid * per), hi = min(n, lo + per);
-  for (int i = lo; i < hi; ++i) rank[i] = -1;
-  int start = 0;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, groups = (n + 31) >> 5;
+  const int per = (groups + nw - 1) / nw;
+  const int g0 = min(groups, wid * per), g1 = min(groups, g0 + per);
+  const unsigned below = (1u << lane) - 1u;
+  auto load = [&](int g, int* cls) {
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      const int i = (g + u) * 32 + lane;
+      cls[u] = (g + u < g1 && i < n) ? cls_of(i) : -1;
+    }
+  };
+  int mine = 0;  // lane c: this warp's lanes of class c so far
+  for (int g = g0; g < g1; g += kRankUnroll) {
+    int cls[kRankUnroll];
+    load(g, cls);
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      if (g + u >= g1) break;  // warp-uniform
+      const int c0 = __shfl_sync(0xffffffffu, cls[u], 0);
+      if (__all_sync(0xffffffffu, cls[u] == c0)) {  // one class: common
+        if (lane == c0) mine += 32;
+        continue;
+      }
+      for (int c = 0; c < C; ++c) {
+        const unsigned b = __ballot_sync(0xffffffffu, cls[u] == c);
+        if (lane == c) mine += __popc(b);
+      }
+    }
+  }
+  int start = 0, next = 0;  // lane c: the rank of class c's next lane
   for (int c = 0; c < C; ++c) {
-    int local = 0;
-    for (int i = lo; i < hi; ++i) local += cls_of(i) == c;
+    const int wc = __shfl_sync(0xffffffffu, mine, c);
     int total;
-    int r = start + block_excl_scan(local, &total, s_warp);
-    for (int i = lo; i < hi; ++i)
-      if (cls_of(i) == c) rank[i] = r++;
-    if (tid == 0) {
+    const int pre = block_excl_scan(lane == 0 ? wc : 0, &total, s_warp);
+    const int w0 = __shfl_sync(0xffffffffu, pre, 0);
+    if (lane == c) next = start + w0;
+    if (threadIdx.x == 0) {
       count[c] = total;
       base[c] = start;
     }
     start += total;
+  }
+  for (int g = g0; g < g1; g += kRankUnroll) {
+    int cls[kRankUnroll];
+    load(g, cls);
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      if (g + u >= g1) break;  // warp-uniform
+      const int i = (g + u) * 32 + lane;
+      const int c0 = __shfl_sync(0xffffffffu, cls[u], 0);
+      if (__all_sync(0xffffffffu, cls[u] == c0)) {  // one class: common
+        const int at = __shfl_sync(0xffffffffu, next, c0 < 0 ? 0 : c0);
+        if (i < n) rank[i] = c0 < 0 ? -1 : at + lane;
+        if (lane == c0) next += 32;
+        continue;
+      }
+      unsigned peers = 0u;
+      int add = 0;
+      for (int c = 0; c < C; ++c) {
+        const unsigned b = __ballot_sync(0xffffffffu, cls[u] == c);
+        if (cls[u] == c) peers = b;
+        if (lane == c) add = __popc(b);
+      }
+      const int at = __shfl_sync(0xffffffffu, next, cls[u] < 0 ? 0 : cls[u]);
+      if (i < n) rank[i] = cls[u] < 0 ? -1 : at + __popc(peers & below);
+      next += add;
+    }
   }
 }
 
@@ -280,74 +378,375 @@ __device__ __forceinline__ void enqueue_done(const ArenaDesc& d, Chain& ch,
 
 // ---- alloc ---------------------------------------------------------------
 
+// What the chunk chains of every alloc (single or sharded) since the last
+// reset did, summed over launches: thread 0 adds its launch's counts at
+// the end of chunk_grants, and alloc_txn_chain_stats reads and clears
+// them, so a caller sees the runs a transaction took without working
+// out the chain's rules again.
+enum ChainStat {
+  CS_CHAINS,          // class chains: a class with lanes in a chunk kind's alloc
+  CS_SERIAL_STEPS,    // thread 0's steps: dequeues and pool pops
+  CS_WHOLE_RUNS,      // whole-chunk runs the block took
+  CS_WHOLE_CHUNKS,    // the chunks they took
+  CS_DEQ_TRIES,       // dequeue runs tried
+  CS_DEQ_CHUNKS,      // the chunks they took
+  CS_DEQ_SHORT,       // tries that took fewer than kMinDequeueRun chunks
+  CS_DEQ_EMPTY,       // tries that took none
+  CS_SERIAL_CLASSES,  // chains left serial by a pool id outside [0, nc)
+  kChainStats
+};
+__device__ unsigned long long g_chain_stats[kChainStats];
+
 struct AllocShared {
   int ctl[MAX_CTL], old[MAX_CTL];
   int count[MAX_CLASSES], base[MAX_CLASSES], take[MAX_CLASSES], warp[32];
   int served[MAX_CLASSES], failed[MAX_CLASSES];
+  int cserved, run, nrec;  // the chunk chain's hand-off (chunk_grants)
+  int cut, qpages, edge[33];  // a dequeue run's tile (dequeue_run)
+  unsigned st[kChainStats];  // this launch's chain statistics
 };
 
+// A serial chain step's claim in one bitmap word, for the block to expand
+// into grants: ranks rank.. get base_off + b * pw for the set bits b of
+// take, ascending.
+struct StepRec {
+  int rank, base_off, pw;
+  unsigned take;
+};
+constexpr int kRecInts = sizeof(StepRec) / sizeof(int);
+// a dequeue run is tried over at least this many queue entries (fewer
+// stay serial); a guess, not a measured optimum
+constexpr int kMinDequeueRun = 16;
+
 // Scratch ints of one alloc transaction's body: the chunk kinds' rank ->
-// offset table, or the page-vl chain table (C, n / spc + 2).
+// offset table and step records (n of each: every record claims at
+// least one rank) and a dequeue run's vl chain (n / spc + 2), or the
+// page-vl chain table (C, n / spc + 2).
 __host__ __device__ inline size_t alloc_scratch_ints(const ArenaDesc& d,
                                                      int n) {
-  if (d.kind == KIND_CHUNK) return (size_t)n;
+  if (d.kind == KIND_CHUNK)
+    return (size_t)n * (1 + kRecInts) + (size_t)(n / d.spc + 2);
   if (d.family == FAM_VL)
     return (size_t)d.num_classes * (size_t)(n / d.spc + 2);
   return 0;
 }
 
-// Chunk kinds: thread 0's serial chain, class-major, in the reference's
-// order; grant: the rank -> granted offset table (n ints, -1 filled).
-__device__ __forceinline__ void chunk_grants(const ArenaDesc& d, int* mem,
-                                             AllocShared& sh, int* grant) {
+// The bits of bitmap word w below a chunk's ppc pages.
+__device__ __forceinline__ unsigned word_range(int ppc, int w) {
+  const int rem = ppc - w * 32;
+  return rem >= 32 ? 0xffffffffu : (rem <= 0 ? 0u : ((1u << rem) - 1u));
+}
+
+// Thread 0: class c's chain steps from sh.cserved lanes served on, in
+// the reference's order, each claim recorded in rec (the block writes
+// the grants), until the class is served or the pool is exhausted
+// (returns 0), or, unless `serial`, a run the block takes begins:
+// - the class queue empty, the pool not, ppc or more lanes left: a
+//   whole-chunk run of m = min(pool count, lanes left / ppc) pool chunks
+//   (returns m > 0);
+// - Q = min(queue count, lanes left) >= kMinDequeueRun, the queue's
+//   counters far from 2^31, and not `hold` (set after a dequeue run: the
+//   entry that ended it is dequeued here first, so every try makes
+//   progress): a dequeue run may take the next Q queue entries (returns
+//   -Q; for vl, chain[j] is the j-th segment from the head).
+// No step of a run is taken here.
+__device__ __forceinline__ int chain_steps(const ArenaDesc& d, int* mem,
+                                           AllocShared& sh, int c,
+                                           StepRec* rec, int cap,
+                                           bool serial, bool& hold,
+                                           int* chain) {
   Chain ch{d, mem, sh.ctl};
   unsigned* bitmap = reinterpret_cast<unsigned*>(mem + d.bitmap_off);
   int* free_count = mem + d.free_off;
   int* chunk_class = mem + d.class_off;
-  const int nc = d.num_chunks, bw = d.bw, C = d.num_classes;
-  for (int c = 0; c < C; ++c) {
-    const int cnt = sh.count[c], base = sh.base[c];
-    const int ppc = d.max_ppc >> c, pw = d.min_page_words << c;
-    int served = 0;
-    while (served < cnt) {
-      int chunk;
-      if (ch.count(c) > 0) {
-        chunk = ch.dequeue1(c);
+  const int nc = d.num_chunks, bw = d.bw, spc = d.spc;
+  const int cnt = sh.count[c], base = sh.base[c];
+  const int ppc = d.max_ppc >> c, pw = d.min_page_words << c;
+  int served = sh.cserved, nrec = sh.nrec, run = 0;
+  while (served < cnt) {
+    int chunk;
+    if (ch.count(c) > 0) {
+      const int q = min(ch.count(c), cnt - served), f0 = ch.front(c);
+      if (!serial && !hold && q >= kMinDequeueRun
+          && (long long)f0 + q <= 0x7fffffffLL) {
+        if (d.family == FAM_VL) {
+          const int hops = fdiv(f0 + q, spc) - fdiv(f0, spc);
+          int h = ch.head(c);
+          chain[0] = h;
+          for (int j = 1; j <= hops; ++j) {
+            h = h >= 0 ? heap_get(mem, seg_word(h, d.wpc, 0), d.total_words,
+                                  -1) : -1;
+            chain[j] = h;
+          }
+        }
+        run = -q;
+        break;
+      }
+      hold = false;
+      chunk = ch.dequeue1(c);
+    } else {
+      if (ch.pool_count() <= 0) break;  // exhausted
+      if (!serial && cnt - served >= ppc) {
+        run = min(ch.pool_count(), (cnt - served) / ppc);
+        break;
+      }
+      chunk = ch.pool_pop();
+      if (chunk >= 0 && chunk < nc) {
+        for (int w = 0; w < bw; ++w) bitmap[chunk * bw + w] = 0u;
+        free_count[chunk] = ppc;
+        chunk_class[chunk] = c;
+      }
+    }
+    ++sh.st[CS_SERIAL_STEPS];
+    const bool in_range = chunk >= 0 && chunk < nc;
+    const int row = clamp_chunk(chunk, nc);
+    const int f = free_count[row];
+    const int t = min(cnt - served, f);
+    int k = 0;
+    for (int w = 0; w < bw && k < t; ++w) {
+      unsigned freeb = ~bitmap[row * bw + w] & word_range(ppc, w);
+      unsigned take = 0u;
+      if (__popc(freeb) <= t - k) {
+        take = freeb;
       } else {
-        if (ch.pool_count() <= 0) break;  // exhausted
-        chunk = ch.pool_pop();
-        if (chunk >= 0 && chunk < nc) {
-          for (int w = 0; w < bw; ++w) bitmap[chunk * bw + w] = 0u;
-          free_count[chunk] = ppc;
-          chunk_class[chunk] = c;
-        }
-      }
-      const bool in_range = chunk >= 0 && chunk < nc;
-      const int row = clamp_chunk(chunk, nc);
-      const int f = free_count[row];
-      const int t = min(cnt - served, f);
-      int k = 0;
-      for (int w = 0; w < bw && k < t; ++w) {
-        const int lo_bit = w * 32;
-        const int rem = ppc - lo_bit;
-        unsigned range = rem >= 32 ? 0xffffffffu
-                         : (rem <= 0 ? 0u : ((1u << rem) - 1u));
-        unsigned freeb = ~bitmap[row * bw + w] & range;
-        unsigned take = 0u;
-        while (freeb && k < t) {
-          const int b = __ffs(freeb) - 1;
+        for (int j = k; j < t; ++j) {
+          take |= freeb & (0u - freeb);
           freeb &= freeb - 1u;
-          take |= 1u << b;
-          grant[base + served + k] = chunk * d.wpc + (lo_bit + b) * pw;
-          ++k;
         }
-        if (in_range && take) bitmap[chunk * bw + w] += take;
       }
-      if (in_range) free_count[chunk] -= k;
-      if (free_count[row] > 0) ch.enqueue1(c, chunk);
-      served += t;
+      if (!take) continue;
+      if (nrec < cap)
+        rec[nrec] = StepRec{base + served + k,
+                            add32(mul32(chunk, d.wpc), mul32(w * 32, pw)),
+                            pw, take};
+      ++nrec;
+      k += __popc(take);
+      if (in_range) bitmap[chunk * bw + w] += take;
+    }
+    if (in_range) free_count[chunk] -= k;
+    if (free_count[row] > 0) ch.enqueue1(c, chunk);
+    served += t;
+  }
+  sh.cserved = served;
+  sh.nrec = nrec;
+  return run;
+}
+
+// A dequeue run of class c, block-wide, over the next Q queue entries
+// (front f0 + k): its length m is the longest prefix whose chunk ids
+// rise strictly (so no chunk repeats), lie in [0, nc), each with a free
+// count f >= 1 equal to its free bits below ppc, and whose free counts
+// sum to at most the lanes left.  Each such serial step would dequeue
+// its chunk and take every free page, leaving it full and out of the
+// queue, and no step reads a word another writes: the block writes
+// every chunk's grants (its free bits ascending, at ranks from the
+// prefix sum of the free counts), bitmap words and free count 0, a tile
+// of nt entries at a time.  Thread 0 then applies the m dequeues' queue
+// words: front + m, and a va/vl segment returned to the pool each time
+// the front crosses one (vl: the head moves along the chain).  Returns
+// m; sh.qpages gets the lanes it served.
+__device__ __forceinline__ int dequeue_run(const ArenaDesc& d, int* mem,
+                                           AllocShared& sh, int c, int Q,
+                                           int* grant, const int* chain) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int wid = tid >> 5;
+  unsigned* bitmap = reinterpret_cast<unsigned*>(mem + d.bitmap_off);
+  int* free_count = mem + d.free_off;
+  const int nc = d.num_chunks, bw = d.bw, spc = d.spc, wpc = d.wpc;
+  const int ppc = d.max_ppc >> c, pw = d.min_page_words << c;
+  const int f0 = sh.ctl[c], rem = sh.count[c] - sh.cserved;
+  const int first = sh.base[c] + sh.cserved;
+  auto val_of = [&](int k) {  // the value dequeue1 would read at f0 + k
+    const int v = f0 + k;
+    if (d.family == FAM_RING)
+      return mem[d.queue_off + c * d.queue_cap + fmodi(v, d.queue_cap)];
+    int seg, off;
+    if (d.family == FAM_VA) {
+      seg = mem[d.queue_off + c * d.max_segs + fmodi(fdiv(v, spc),
+                                                     d.max_segs)];
+      off = fmodi(v, spc);
+    } else {
+      seg = chain[fdiv(v, spc) - fdiv(f0, spc)];
+      off = 1 + fmodi(v, spc);
+    }
+    return heap_get(mem, seg_word(seg, wpc, off), d.total_words, -1);
+  };
+  if (tid == 0) sh.edge[0] = -1;
+  int carry = 0, m = 0;
+  for (int t0 = 0; t0 < Q; t0 += nt) {
+    const int k = t0 + tid;
+    int id = -1, f = 0;
+    bool ok = k < Q;
+    if (ok) {
+      id = val_of(k);
+      ok = id >= 0 && id < nc;
+    }
+    if (ok) {
+      f = free_count[id];
+      int freeb = 0;
+      for (int w = 0; w < bw; ++w)
+        freeb += __popc(~bitmap[id * bw + w] & word_range(ppc, w));
+      ok = f >= 1 && freeb == f;
+    }
+    const int up = __shfl_up_sync(0xffffffffu, id, 1);
+    if (lane == 31) sh.edge[wid + 1] = id;
+    if (tid == 0) sh.cut = nt;
+    __syncthreads();
+    ok = ok && id > (lane ? up : sh.edge[wid]);
+    int total;
+    const int excl = block_excl_scan(ok ? f : 0, &total, sh.warp);
+    ok = ok && carry + excl + f <= rem;
+    if (k < Q && !ok) atomicMin(&sh.cut, tid);
+    __syncthreads();
+    const int cut = min(sh.cut, Q - t0);
+    if (tid < cut) {
+      int r = first + carry + excl;
+      for (int w = 0; w < bw; ++w) {
+        const unsigned old = bitmap[id * bw + w];
+        unsigned bits = ~old & word_range(ppc, w);
+        bitmap[id * bw + w] = old | bits;
+        while (bits) {
+          grant[r++] = id * wpc + (w * 32 + __ffs(bits) - 1) * pw;
+          bits &= bits - 1u;
+        }
+      }
+      free_count[id] = 0;
+    }
+    if (tid == cut - 1) sh.qpages = carry + excl + f;
+    if (tid == nt - 1) sh.edge[0] = id;
+    __syncthreads();
+    m = t0 + cut;
+    if (cut < nt) break;
+    carry = sh.qpages;
+  }
+  if (m == 0 && tid == 0) sh.qpages = 0;
+  __syncthreads();
+  if (tid == 0 && m > 0) {
+    Chain ch{d, mem, sh.ctl};
+    const int nfree = d.family == FAM_RING
+                          ? 0 : fdiv(f0 + m, spc) - fdiv(f0, spc);
+    for (int j = 0; j < nfree; ++j)
+      ch.pool_push(d.family == FAM_VA ? ch.dir(c, fdiv(f0, spc) + j)
+                                      : chain[j]);
+    if (d.family == FAM_VL && nfree > 0) ch.head(c) = chain[nfree];
+    ch.front(c) = f0 + m;
+  }
+  return m;
+}
+
+// Chunk kinds, block-wide, class-major in the reference's order.  Thread
+// 0 takes every step whose order matters (chain_steps): dequeues whose
+// chunks break a dequeue run, with their segment shrinks and pool
+// pushes; the partial last chunk, with its enqueue and segment pop; the
+// exhausted break.  The runs belong to the block.  A dequeue run
+// (dequeue_run) takes queued chunks whole.  A whole-chunk run pops m
+// chunks from the pool slots (pool_front + k) mod nc, so the block
+// writes each chunk's bitmap words (its ppc bits set), free count 0 and
+// class, and its ppc grants, then advances pool_front by m.  Duplicate
+// ids in it write identical words, as the serial steps would (each
+// resets its chunk first).  An id outside [0, nc) would read another
+// chunk's free count (plain indexing clamps), so a run holding one is
+// left to thread 0: that class goes on serially.  After a dequeue run
+// thread 0 takes one serial dequeue (the entry that ended it) before
+// the next is tried.  Last, the block expands the serial steps' records
+// and thread 0 adds the launch's chain statistics.
+// grant: the rank -> offset table (n ints, -1 filled); rec: n records;
+// chain: n / spc + 2 ints.
+__device__ __forceinline__ void chunk_grants(const ArenaDesc& d, int* mem,
+                                             AllocShared& sh, int* grant,
+                                             StepRec* rec, int* chain,
+                                             int n) {
+  const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
+  const int nc = d.num_chunks, bw = d.bw, wpc = d.wpc;
+  unsigned* bitmap = reinterpret_cast<unsigned*>(mem + d.bitmap_off);
+  int* free_count = mem + d.free_off;
+  int* chunk_class = mem + d.class_off;
+  if (tid == 0) {
+    sh.nrec = 0;
+    for (int k = 0; k < kChainStats; ++k) sh.st[k] = 0u;
+  }
+  for (int c = 0; c < C; ++c) {
+    if (sh.count[c] <= 0) continue;  // uniform: written before a barrier
+    const int ppc = d.max_ppc >> c, pw = d.min_page_words << c;
+    bool serial = false, hold = false;  // hold: thread 0's
+    if (tid == 0) {
+      sh.cserved = 0;
+      ++sh.st[CS_CHAINS];
+    }
+    for (;;) {
+      if (tid == 0)
+        sh.run = chain_steps(d, mem, sh, c, rec, n, serial, hold, chain);
+      __syncthreads();
+      const int code = sh.run;
+      if (code < 0) {  // a dequeue run
+        const int m = dequeue_run(d, mem, sh, c, -code, grant, chain);
+        if (tid == 0) {
+          sh.cserved += sh.qpages;
+          sh.served[c] += sh.qpages;  // in-range chunks: grants >= 0
+          hold = true;
+          ++sh.st[CS_DEQ_TRIES];
+          sh.st[CS_DEQ_CHUNKS] += m;
+          sh.st[CS_DEQ_SHORT] += m < kMinDequeueRun;
+          sh.st[CS_DEQ_EMPTY] += m == 0;
+        }
+        __syncthreads();
+        continue;
+      }
+      const int m = code, pf = sh.ctl[4 * C];
+      const int first = sh.base[c] + sh.cserved;
+      auto id_of = [&](int k) {
+        return mem[d.pool_off + fmodi(add32(pf, k), nc)];
+      };
+      int bad = 0;
+      for (int k = tid; k < m; k += nt) {
+        const int id = id_of(k);
+        bad |= id < 0 || id >= nc;
+      }
+      // also the barrier between the reads above and thread 0's writes
+      if (__syncthreads_or(bad)) {
+        serial = true;
+        if (tid == 0) ++sh.st[CS_SERIAL_CLASSES];
+        continue;
+      }
+      if (m == 0) break;
+      for (int k = tid; k < m; k += nt) {
+        const int id = id_of(k);
+        for (int w = 0; w < bw; ++w) bitmap[id * bw + w] = word_range(ppc, w);
+        free_count[id] = 0;
+        chunk_class[id] = c;
+      }
+      const int lg = __ffs(ppc) - 1;  // ppc is a power of two
+      for (int e = tid; e < m * ppc; e += nt)
+        grant[first + e] = id_of(e >> lg) * wpc + (e & (ppc - 1)) * pw;
+      __syncthreads();
+      if (tid == 0) {
+        sh.ctl[4 * C] = add32(pf, m);
+        sh.cserved += m * ppc;
+        sh.served[c] += m * ppc;  // in-range chunks: every grant >= 0
+        ++sh.st[CS_WHOLE_RUNS];
+        sh.st[CS_WHOLE_CHUNKS] += m;
+      }
     }
   }
+  __syncthreads();
+  const int R = min(sh.nrec, n);
+  for (int r = tid; r < R; r += nt) {
+    const StepRec s = rec[r];
+    unsigned bits = s.take;
+    int ok = 0;
+    for (int k = s.rank; bits; ++k) {
+      const int b = __ffs(bits) - 1;
+      bits &= bits - 1u;
+      const int g = add32(s.base_off, mul32(b, s.pw));
+      if (k >= 0 && k < n) grant[k] = g;
+      ok += g >= 0;
+    }
+    // the class of a page width: pw = min_page_words << c
+    atomicAdd(&sh.served[__ffs(s.pw / d.min_page_words) - 1], ok);
+  }
+  if (tid == 0)
+    for (int k = 0; k < kChainStats; ++k)
+      if (sh.st[k]) atomicAdd(&g_chain_stats[k], sh.st[k]);
 }
 
 // Page kinds: each class grants the rank prefix below its inventory
@@ -436,32 +835,58 @@ __device__ __forceinline__ void alloc_body(
   for (int i = tid; i < C; i += nt) sh.served[i] = sh.failed[i] = 0;
   if (d.kind == KIND_CHUNK)
     for (int i = tid; i < n; i += nt) scratch[i] = -1;
-  auto cls_of = [&](int i) {
-    if (!sel[i]) return -1;
+  auto cls_of = [&](int i) {  // both loads issued at once
+    const bool on = sel[i];
     const int c = size_class(d, sizes[i]);
-    return c < C ? c : -1;
+    return on && c < C ? c : -1;
   };
   rank_lanes(n, C, cls_of, out, sh.count, sh.base, sh.warp);
   __syncthreads();
 
   if (d.kind == KIND_CHUNK) {
-    if (tid == 0) chunk_grants(d, mem, sh, scratch);
+    chunk_grants(d, mem, sh, scratch, reinterpret_cast<StepRec*>(scratch + n),
+                 scratch + (size_t)n * (1 + kRecInts), n);
   } else {
     page_grants(d, mem, sizes, n, out, sh, scratch);
   }
   __syncthreads();
 
-  // each ranked lane's grant (a chunk kind's through the rank -> offset
-  // table), and the per-class served / failed lanes
-  for (int i = tid; i < n; i += nt) {
-    const int c = cls_of(i);
-    if (c < 0) continue;
-    if (d.kind == KIND_CHUNK) out[i] = scratch[out[i]];
-    if (out[i] >= 0) atomicAdd(&sh.served[c], 1);
-    else atomicAdd(&sh.failed[c], 1);
+  if (d.kind == KIND_CHUNK) {
+    // each ranked lane's grant through the rank -> offset table,
+    // kLaneUnroll lanes a thread at once (their loads in flight
+    // together); chunk_grants counted each class's grants >= 0
+    for (int i0 = 0; i0 < n; i0 += nt * kLaneUnroll) {
+      int r[kLaneUnroll];
+#pragma unroll
+      for (int u = 0; u < kLaneUnroll; ++u) {
+        const int i = i0 + u * nt + tid;
+        r[u] = i < n ? out[i] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kLaneUnroll; ++u)
+        if (r[u] >= 0) out[i0 + u * nt + tid] = scratch[r[u]];
+    }
+  } else {
+    // each ranked lane's value, and the per-class served / failed
+    // lanes, counted a warp at a time (one ballot a class and outcome)
+    for (int i0 = 0; i0 < n; i0 += nt) {
+      const int i = i0 + tid;
+      const int c = i < n ? cls_of(i) : -1;
+      const bool ok = c >= 0 && out[i] >= 0;
+      for (int k = 0; k < C; ++k) {
+        const unsigned s = __ballot_sync(0xffffffffu, c == k && ok);
+        const unsigned f = __ballot_sync(0xffffffffu, c == k && !ok);
+        if ((tid & 31) == 0) {
+          if (s) atomicAdd(&sh.served[k], __popc(s));
+          if (f) atomicAdd(&sh.failed[k], __popc(f));
+        }
+      }
+    }
   }
   __syncthreads();
   if (tid == 0) {
+    if (d.kind == KIND_CHUNK)
+      for (int c = 0; c < C; ++c) sh.failed[c] = sh.count[c] - sh.served[c];
     int served = 0;
     for (int c = 0; c < C; ++c) served += sh.served[c];
     int zero[MAX_CLASSES] = {0};
@@ -812,6 +1237,19 @@ extern "C" size_t sharded_alloc_txn_workspace_bytes(ArenaDesc d, int n,
 }
 
 // ---- host launchers (plain C interface, loaded with ctypes) -------------
+
+// The chain statistics summed since the last reset (kChainStats words,
+// in ChainStat order) into out; cleared after the read when reset is
+// non-zero.  Synchronous with the device: the caller's launches first.
+extern "C" int alloc_txn_chain_stats(unsigned long long* out, int reset) {
+  int err = (int)cudaMemcpyFromSymbol(out, g_chain_stats,
+                                      sizeof(g_chain_stats));
+  if (!err && reset) {
+    const unsigned long long zero[kChainStats] = {};
+    err = (int)cudaMemcpyToSymbol(g_chain_stats, zero, sizeof(zero));
+  }
+  return err;
+}
 
 static int launch_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;

@@ -7,27 +7,66 @@
 //
 // What it computes: for each sequence b and kv head h, the G = Hq/Hkv
 // query heads of that group attend over the tokens the page table maps,
-// with an online softmax in float32: scores (q . k) * D^-1/2, tokens at
-// or past seq_len and table holes (-1) masked, output acc / (l + 1e-30).
-// The table holds page ids, or arena word offsets when wpp > 0 (page =
-// floor(offset / wpp), so a -1 hole stays -1).
+// with an online softmax in float32 over the pages in table order:
+// scores (q . k) * D^-1/2, tokens at or past seq_len and table holes (-1)
+// masked, output acc / (l + 1e-30).  The table holds page ids, or arena
+// word offsets when wpp > 0 (page = floor(offset / wpp), so a -1 hole
+// stays -1).
 //
-// What bounds it on the H100: the bytes of K and V it reads (each
-// valid token's Hkv * D elements, twice) at 3.35 TB/s; the arithmetic
-// (4 * G * D flops per token per kv head) is far below the card's rate.
+// What bounds it on the H100: the bytes of K and V it reads (each valid
+// token's D elements of one kv head, twice) at 3.35 TB/s, a fraction of a
+// microsecond at decode sizes (8 sequences of up to 512 tokens: about
+// 1 MB); the arithmetic (4 * G * D flops per token per kv head) is far
+// below the card's rate.  In practice a call at these sizes is bound by
+// latency: three launches, each a few dependent round trips to memory.
 //
-// Design: one block per (b, kv head), looping over the sequence's pages
-// in table order, as the TPU grid's innermost dimension did.  Each page
-// is staged into shared memory as float32 (bf16 or f32 in), then the
-// block computes the G x page scores, one thread per query head updates
-// its running max and sum, and the block folds p V into the (G, D)
-// accumulator.  Pages past seq_len and holes are skipped: for them the
-// reference's update is the identity.  Simple and right first: no TMA,
-// no tensor cores, one page per step.
+// Exactness: every rounding step is the one the online softmax takes
+// page by page, as the plain version and the earlier one-block kernel
+// take it: a score is q . k summed over d in order from 0 by fused
+// multiply-adds, then scaled; a page's running max is the max of the one
+// before and its scores; p = exp(s - m) against that max; its sum and
+// p V are summed over the page's tokens in order; l and acc are rescaled
+// by exp(m_old - m_new) one page after another.  Another order moves the
+// result by float32 roundings, and at serving magnitudes exp() amplifies
+// a score's rounding enough to change served tokens (a design that
+// rescaled once per split of pages did).  So the pages are split across
+// blocks for the work that does not depend on the running max, and the
+// fold over pages, which does, is a short loop per output element.
+//
+// Design: three kernels in one launcher call, over a float32 workspace
+// the wrapper allocates (PaWs).  Split s of (b, kv head h) takes the
+// pages [s * pps, (s + 1) * pps) of the table, pps = 64 tokens' worth (4
+// pages of 16 tokens), so the split kernels' grid is B * Hkv *
+// ceil(P / pps) blocks (128 at the serving shapes, B 8, Hkv 2, P 32:
+// about one wave of the 132 SMs), needing no host read of seq_lens; a
+// split past its sequence exits at once.  A split block has 512 threads,
+// so its many short dependent chains (a score's 64 multiply-adds, a p V
+// sum's 16) overlap.  Every kernel loads its table entries beside
+// seq_len.
+//  1. paged_attention_kernel: a split's K rows and q by cp.async (16
+//     bytes a thread, neighbouring threads on neighbouring addresses; K
+//     chunk-major in shared memory, so a warp's 32 tokens read 32
+//     neighbouring 16-byte chunks), one thread per (query head, token)
+//     score; writes the scores, each page's max and the split's max per
+//     query head.
+//  2. paged_attention_values_kernel: a split's V rows by cp.async; each
+//     page's running max from the earlier splits' maxima and its own
+//     pages' (a max is exact in any order); p, its sum per page and p V
+//     per page, in order over the page's tokens, one thread per (page,
+//     head, d).
+//  3. paged_attention_merge_kernel: one block per (b, h), one thread per
+//     output element, folds the pages in table order (holes skipped),
+//     the page terms loaded PA_FOLD_BATCH pages at a time.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <stdint.h>
+
+#define PA_THREADS 512  // split kernels: many tasks in flight a block
+#define PA_SPLIT_TOKENS 64  // tokens a split's pages hold (at least one page)
+#define PA_FOLD_BATCH 16    // pages whose terms the merge loads at once
+#define PA_NEG (-1e30f)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -40,128 +79,417 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return q;
 }
 
-template <typename T>
-__global__ void paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int* __restrict__ table,
-    const int* __restrict__ seq_lens, float* __restrict__ out, int Hq,
-    int Hkv, int D, int page, int P, int NP, int wpp, float scale) {
-  extern __shared__ float sm[];
-  const int G = Hq / Hkv;
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  float* qs = sm;                 // G*D
-  float* ks = qs + G * D;         // page*D
-  float* vs = ks + page * D;      // page*D
-  float* sc = vs + page * D;      // G*page
-  float* acc = sc + G * page;     // G*D
-  float* m = acc + G * D;         // G
-  float* l = m + G;               // G
-  float* alpha = l + G;           // G
+__host__ __device__ inline int pa_pages_per_split(int page) {
+  return page >= PA_SPLIT_TOKENS ? 1 : PA_SPLIT_TOKENS / page;
+}
 
-  for (int i = tid; i < G * D; i += nt) {
-    qs[i] = to_f(q[((size_t)b * Hq + h * G) * D + i]);
-    acc[i] = 0.f;
+__host__ __device__ inline int pa_splits(int page, int P) {
+  const int pps = pa_pages_per_split(page);
+  return (P + pps - 1) / pps;
+}
+
+// bytes rounded up to 16, so every shared region starts 16-byte aligned
+__host__ __device__ inline size_t pa_align16(size_t b) {
+  return (b + 15) & ~(size_t)15;
+}
+
+// Shared memory of the split kernels.  Kernel 1: K rows (tokens x D of
+// T), q in float32 and as loaded (G x D), the scores (G x tokens), the
+// page ids.  Kernel 2: V rows, p (G x tokens), the running maxima and
+// the page maxima (G x pages each), the page ids, the earlier splits'
+// maxima (splits x G).
+__host__ __device__ inline size_t pa_smem_k1(int G, int D, int page,
+                                             size_t elem) {
+  const int pps = pa_pages_per_split(page), T = pps * page;
+  return pa_align16((size_t)T * D * elem) + pa_align16((size_t)G * D * 4)
+         + pa_align16((size_t)G * D * elem) + pa_align16((size_t)G * T * 4)
+         + pa_align16((size_t)pps * 4);
+}
+
+__host__ __device__ inline size_t pa_smem_k2(int G, int D, int page,
+                                             int P, size_t elem) {
+  const int pps = pa_pages_per_split(page), T = pps * page;
+  return pa_align16((size_t)T * D * elem) + pa_align16((size_t)G * T * 4)
+         + 2 * pa_align16((size_t)G * pps * 4) + pa_align16((size_t)pps * 4)
+         + pa_align16((size_t)pa_splits(page, P) * G * 4);
+}
+
+// The workspace, per (b, h) and page i < P: the page's scores (G x page),
+// and per query head its max, the sum of its p and its p V (D); per
+// (b, h) and split, the max of its pages' maxima per query head.
+struct PaWs {
+  float *sc, *pm, *ps, *pv, *sm;
+  __host__ __device__ PaWs(float* ws, int B, int Hkv, int G, int D,
+                           int page, int P) {
+    const size_t pages = (size_t)B * Hkv * P;
+    sc = ws;
+    pm = sc + pages * G * page;
+    ps = pm + pages * G;
+    pv = ps + pages * G;
+    sm = pv + pages * G * D;
   }
+};
+
+// One 16-byte chunk (VEC elements) of a row widened to float32; VEC 1:
+// one element (rows whose bytes are not a multiple of 16).
+template <typename T, int VEC>
+__device__ __forceinline__ void widen(const T* p, float* x) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) x[i] = to_f(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) x[i] = to_f(p[i]);
+  }
+}
+
+// One chunk of VEC elements into shared memory: a 16-byte cp.async, or
+// element by element.
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    __pipeline_memcpy_async(dst, src, 16);
+  } else {
+    for (int i = 0; i < VEC; ++i) dst[i] = src[i];
+  }
+}
+
+// A split block's place: (b, h) = blockIdx.x / Hkv, % Hkv, split
+// blockIdx.y from page p0, its live page slots (0: past the sequence)
+// and their page ids in pid (-1: a hole), the table entries loaded
+// beside seq_len.  The caller synchronises before reading pid.
+struct PaSplit {
+  int b, h, bh, p0, seq, live;
+};
+
+__device__ __forceinline__ PaSplit pa_split(const int* table,
+                                            const int* seq_lens, int Hkv,
+                                            int page, int P, int NP,
+                                            int wpp, int* pid) {
+  PaSplit sp;
+  sp.bh = blockIdx.x;
+  sp.b = sp.bh / Hkv;
+  sp.h = sp.bh % Hkv;
+  const int pps = pa_pages_per_split(page), tid = threadIdx.x;
+  sp.p0 = blockIdx.y * pps;
+  int raw = -1;
+  if (tid < pps && sp.p0 + tid < P)
+    raw = table[(size_t)sp.b * P + sp.p0 + tid];
+  sp.seq = seq_lens[sp.b];
+  int npages = sp.seq <= 0 ? 0 : (sp.seq + page - 1) / page;
+  if (npages > P) npages = P;
+  sp.live = sp.p0 < npages ? min(pps, npages - sp.p0) : 0;
+  if (sp.live && tid < pps) {
+    const int id = wpp > 0 ? floordiv(raw, wpp) : raw;
+    pid[tid] = (tid < sp.live && id >= 0 && id < NP) ? id : -1;
+  }
+  return sp;
+}
+
+// Kernel 1: a split's scores and page maxima.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ kp,
+    const int* __restrict__ table, const int* __restrict__ seq_lens,
+    float* __restrict__ ws, int B, int Hq, int Hkv, int D, int page, int P,
+    int NP, int wpp, float scale) {
+  extern __shared__ float4 pa_smem[];
+  const int G = Hq / Hkv, tid = threadIdx.x, nt = blockDim.x;
+  const int slots = pa_pages_per_split(page) * page;
+  char* base = reinterpret_cast<char*>(pa_smem);
+  T* ks = reinterpret_cast<T*>(base);
+  base += pa_align16((size_t)slots * D * sizeof(T));
+  float* qs = reinterpret_cast<float*>(base);
+  base += pa_align16((size_t)G * D * 4);
+  T* qraw = reinterpret_cast<T*>(base);
+  base += pa_align16((size_t)G * D * sizeof(T));
+  float* sc = reinterpret_cast<float*>(base);  // (G, slots)
+  base += pa_align16((size_t)G * slots * 4);
+  int* pid = reinterpret_cast<int*>(base);
+  const PaSplit sp = pa_split(table, seq_lens, Hkv, page, P, NP, wpp, pid);
+  if (!sp.live) return;
+  __syncthreads();
+
+  const int cpr = D / VEC;  // chunks a row
+  const T* qg = q + ((size_t)sp.b * Hq + sp.h * G) * D;
+  for (int e = tid; e < G * cpr; e += nt)
+    copy_chunk<T, VEC>(qraw + e * VEC, qg + e * VEC);
+  for (int e = tid; e < sp.live * page * cpr; e += nt) {
+    const int u = e / cpr, c = e - u * cpr;  // token slot, chunk
+    const int id = pid[u / page];
+    if (id >= 0)
+      copy_chunk<T, VEC>(ks + ((size_t)c * slots + u) * VEC,
+                         kp + ((size_t)(id * page + u % page) * Hkv + sp.h)
+                                  * D + c * VEC);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int i = tid; i < G * D; i += nt) qs[i] = to_f(qraw[i]);
+  __syncthreads();
+
+  // one thread per (query head, token of a page that is not a hole)
+  const PaWs w(ws, B, Hkv, G, D, page, P);
+  const size_t pg0 = (size_t)sp.bh * P + sp.p0;  // the split's first page
+  const int toks = sp.live * page;
+  for (int e = tid; e < G * toks; e += nt) {
+    const int g = e / toks, u = e - g * toks, i = u / page;
+    if (pid[i] < 0) continue;
+    const float* qr = qs + g * D;
+    float s = 0.f;
+    for (int c = 0; c < cpr; ++c) {
+      float x[VEC];
+      widen<T, VEC>(ks + ((size_t)c * slots + u) * VEC, x);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) s = fmaf(qr[c * VEC + j], x[j], s);
+    }
+    s *= scale;
+    sc[g * slots + u] = s;
+    w.sc[((pg0 + i) * G + g) * page + u - i * page] = s;
+  }
+  __syncthreads();
+  // each page's max over its tokens below seq_len (a hole's: PA_NEG),
+  // and the split's max of them, per query head
   for (int g = tid; g < G; g += nt) {
-    m[g] = -1e30f;
-    l[g] = 0.f;
+    float ms = PA_NEG;
+    for (int i = 0; i < sp.live; ++i) {
+      const int ntok = min(page, sp.seq - (sp.p0 + i) * page);
+      float m = PA_NEG;
+      if (pid[i] >= 0)
+        for (int t = 0; t < ntok; ++t)
+          m = fmaxf(m, sc[g * slots + i * page + t]);
+      w.pm[(pg0 + i) * G + g] = m;
+      ms = fmaxf(ms, m);
+    }
+    w.sm[((size_t)sp.bh * pa_splits(page, P) + blockIdx.y) * G + g] = ms;
+  }
+}
+
+// Kernel 2: a split's p, sum of p and p V per page, each page's p taken
+// against the running max of the pages up to it.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
+    const T* __restrict__ vp, const int* __restrict__ table,
+    const int* __restrict__ seq_lens, float* __restrict__ ws, int B, int Hq,
+    int Hkv, int D, int page, int P, int NP, int wpp) {
+  extern __shared__ float4 pa_smem[];
+  const int G = Hq / Hkv, tid = threadIdx.x, nt = blockDim.x;
+  const int pps = pa_pages_per_split(page), slots = pps * page;
+  char* base = reinterpret_cast<char*>(pa_smem);
+  T* vs = reinterpret_cast<T*>(base);
+  base += pa_align16((size_t)slots * D * sizeof(T));
+  float* pr = reinterpret_cast<float*>(base);  // (G, slots)
+  base += pa_align16((size_t)G * slots * 4);
+  float* mrun = reinterpret_cast<float*>(base);  // (G, pps)
+  base += pa_align16((size_t)G * pps * 4);
+  float* pmo = reinterpret_cast<float*>(base);  // (pps, G) page maxima
+  base += pa_align16((size_t)G * pps * 4);
+  int* pid = reinterpret_cast<int*>(base);
+  base += pa_align16((size_t)pps * 4);
+  float* smx = reinterpret_cast<float*>(base);  // earlier splits' maxima
+  const PaSplit sp = pa_split(table, seq_lens, Hkv, page, P, NP, wpp, pid);
+  if (!sp.live) return;
+  __syncthreads();
+
+  const int cpr = D / VEC;
+  for (int e = tid; e < sp.live * page * cpr; e += nt) {
+    const int u = e / cpr, c = e - u * cpr;
+    const int id = pid[u / page];
+    if (id >= 0)
+      copy_chunk<T, VEC>(vs + (size_t)u * D + c * VEC,
+                         vp + ((size_t)(id * page + u % page) * Hkv + sp.h)
+                                  * D + c * VEC);
+  }
+  __pipeline_commit();
+
+  // the running max at each of the split's pages: the max of the page
+  // maxima up to it (a hole's is PA_NEG), from the earlier splits' maxima
+  // and the split's own page maxima, all loaded together, then one
+  // thread per query head (a max is exact in any order)
+  const PaWs w(ws, B, Hkv, G, D, page, P);
+  const size_t pg0 = (size_t)sp.bh * P + sp.p0;
+  const int s = blockIdx.y;
+  const float* smb = w.sm + (size_t)sp.bh * pa_splits(page, P) * G;
+  for (int e = tid; e < s * G; e += nt) smx[e] = smb[e];
+  for (int e = tid; e < sp.live * G; e += nt) pmo[e] = w.pm[pg0 * G + e];
+  __syncthreads();
+  for (int g = tid; g < G; g += nt) {
+    float m = PA_NEG;
+    for (int j = 0; j < s; ++j) m = fmaxf(m, smx[j * G + g]);
+    for (int i = 0; i < sp.live; ++i) {
+      m = fmaxf(m, pmo[i * G + g]);
+      mrun[g * pps + i] = m;
+    }
+  }
+  __syncthreads();
+  // p of each token below seq_len of a page that is not a hole, else 0
+  const int toks = sp.live * page;
+  for (int e = tid; e < G * toks; e += nt) {
+    const int g = e / toks, u = e - g * toks, i = u / page;
+    const int t = u - i * page, ntok = min(page, sp.seq - (sp.p0 + i) * page);
+    float p = 0.f;
+    if (pid[i] >= 0 && t < ntok)
+      p = expf(w.sc[((pg0 + i) * G + g) * page + t] - mrun[g * pps + i]);
+    pr[g * slots + u] = p;
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // per page and query head: the sum of p over the page's slots in
+  // order, then p V over its tokens below seq_len in order
+  for (int e = tid; e < G * sp.live; e += nt) {
+    const int g = e / sp.live, i = e - g * sp.live;
+    if (pid[i] < 0) continue;
+    float psum = 0.f;
+    for (int t = 0; t < page; ++t) psum += pr[g * slots + i * page + t];
+    w.ps[(pg0 + i) * G + g] = psum;
+  }
+  for (int e = tid; e < sp.live * G * D; e += nt) {
+    const int i = e / (G * D), gd = e - i * G * D, g = gd / D, d = gd - g * D;
+    if (pid[i] < 0) continue;
+    const int ntok = min(page, sp.seq - (sp.p0 + i) * page);
+    const float* prow = pr + g * slots + i * page;
+    const T* vcol = vs + (size_t)i * page * D + d;
+    float sum = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < ntok; ++t) sum += prow[t] * to_f(vcol[(size_t)t * D]);
+    w.pv[((pg0 + i) * G + g) * D + d] = sum;
+  }
+}
+
+// Kernel 3: one block per (b, h), one thread per output element (the
+// block covers G * D up to 1024): the online softmax's fold over the
+// pages in table order, holes skipped, out = acc / (l + 1e-30).  The
+// table row's hole flags are staged in shared memory first; a batch's
+// page terms load together, whatever the flags say.
+__global__ void __launch_bounds__(1024) paged_attention_merge_kernel(
+    const int* __restrict__ table, const int* __restrict__ seq_lens,
+    float* __restrict__ ws, float* __restrict__ out, int B, int Hq, int Hkv,
+    int D, int page, int P, int NP, int wpp) {
+  extern __shared__ int pa_on[];  // P flags: the page is not a hole
+  const int G = Hq / Hkv, bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {  // beside seq_len
+    const int raw = table[(size_t)b * P + i];
+    const int id = wpp > 0 ? floordiv(raw, wpp) : raw;
+    pa_on[i] = id >= 0 && id < NP;
   }
   const int seq = seq_lens[b];
   int npages = seq <= 0 ? 0 : (seq + page - 1) / page;
   if (npages > P) npages = P;
   __syncthreads();
-
-  for (int i = 0; i < npages; ++i) {
-    const int raw = table[(size_t)b * P + i];
-    const int pid = wpp > 0 ? floordiv(raw, wpp) : raw;
-    if (pid < 0 || pid >= NP) continue;  // hole: the update is the identity
-    const size_t base = (size_t)pid * page * Hkv * D;
-    for (int e = tid; e < page * D; e += nt) {
-      const int t = e / D, d = e % D;
-      const size_t off = base + ((size_t)t * Hkv + h) * D + d;
-      ks[e] = to_f(kp[off]);
-      vs[e] = to_f(vp[off]);
-    }
-    __syncthreads();
-    const int ntok = min(page, seq - i * page);
-    for (int e = tid; e < G * page; e += nt) {
-      const int g = e / page, t = e % page;
-      float s = 0.f;
-      if (t < ntok) {
-        const float* qr = qs + g * D;
-        const float* kr = ks + t * D;
-        for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-        s *= scale;
-      }
-      sc[e] = s;
-    }
-    __syncthreads();
-    for (int g = tid; g < G; g += nt) {
-      float* row = sc + g * page;
-      const float m_old = m[g];
-      float m_new = m_old;
-      for (int t = 0; t < ntok; ++t) m_new = fmaxf(m_new, row[t]);
-      float psum = 0.f;
-      for (int t = 0; t < page; ++t) {
-        const float p = t < ntok ? expf(row[t] - m_new) : 0.f;
-        row[t] = p;
-        psum += p;
-      }
-      const float a = expf(m_old - m_new);
-      l[g] = a * l[g] + psum;
-      m[g] = m_new;
-      alpha[g] = a;
-    }
-    __syncthreads();
-    for (int e = tid; e < G * D; e += nt) {
-      const int g = e / D, d = e % D;
-      const float* prow = sc + g * page;
-      float sum = 0.f;
-      for (int t = 0; t < ntok; ++t) sum += prow[t] * vs[t * D + d];
-      acc[e] = alpha[g] * acc[e] + sum;
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < G * D; e += nt) {
+  const PaWs w(ws, B, Hkv, G, D, page, P);
+  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
     const int g = e / D;
-    out[((size_t)b * Hq + h * G) * D + e] = acc[e] / (l[g] + 1e-30f);
+    float m = PA_NEG, l = 0.f, acc = 0.f;
+    for (int i0 = 0; i0 < npages; i0 += PA_FOLD_BATCH) {
+      float pmv[PA_FOLD_BATCH], psv[PA_FOLD_BATCH], pvv[PA_FOLD_BATCH];
+#pragma unroll
+      for (int j = 0; j < PA_FOLD_BATCH; ++j) {
+        if (i0 + j >= npages) break;
+        const size_t pg = ((size_t)bh * P + i0 + j) * G + g;
+        pmv[j] = w.pm[pg];
+        psv[j] = w.ps[pg];
+        pvv[j] = w.pv[pg * D + (e - g * D)];
+      }
+#pragma unroll
+      for (int j = 0; j < PA_FOLD_BATCH; ++j) {
+        if (i0 + j >= npages) break;
+        if (!pa_on[i0 + j]) continue;  // a hole: the update is the identity
+        const float m_new = fmaxf(m, pmv[j]);
+        const float a = expf(m - m_new);
+        l = a * l + psv[j];
+        acc = a * acc + pvv[j];
+        m = m_new;
+      }
+    }
+    out[((size_t)b * Hq + h * G) * D + e] = acc / (l + 1e-30f);
   }
+}
+
+// the merge kernel's block: one thread per output element, up to 1024
+static inline int pa_merge_threads(int G, int D) {
+  const int t = (G * D + 31) / 32 * 32;
+  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
 }
 
 // ---- launch geometry (also used by the emulation harness) -------------
 
-extern "C" size_t paged_attention_smem_bytes(int G, int D, int page) {
-  return (size_t)(2 * G * D + 2 * page * D + G * page + 3 * G)
-         * sizeof(float);
+// (pages a split, splits) for a page size and table width
+extern "C" void paged_attention_geometry(int page, int P, int* pps,
+                                         int* splits) {
+  *pps = pa_pages_per_split(page);
+  *splits = pa_splits(page, P);
+}
+
+// floats of the workspace (PaWs)
+extern "C" size_t paged_attention_workspace_floats(int B, int Hq, int Hkv,
+                                                   int D, int page, int P) {
+  return (size_t)B * Hkv * (Hq / Hkv)
+         * ((size_t)P * (page + 2 + D) + pa_splits(page, P));
+}
+
+// dynamic shared memory of the split kernels (kernel 1, kernel 2)
+extern "C" size_t paged_attention_smem_bytes(int G, int D, int page, int P,
+                                             int elem, int kernel) {
+  return kernel == 1 ? pa_smem_k1(G, D, page, (size_t)elem)
+                     : pa_smem_k2(G, D, page, P, (size_t)elem);
 }
 
 // ---- host launchers (plain C interface, loaded with ctypes) -------------
 
-template <typename T>
+static int pa_smem_attr(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int VEC>
 static int launch(const void* q, const void* k, const void* v,
-                  const int* table, const int* seq_lens, float* out, int B,
-                  int Hq, int Hkv, int D, int page, int P, int NP, int wpp,
-                  float scale, cudaStream_t s) {
-  const size_t smem = paged_attention_smem_bytes(Hq / Hkv, D, page);
-  if (smem > 48 * 1024) {
-    int err = (int)cudaFuncSetAttribute(
-        (const void*)paged_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                  const int* table, const int* seq_lens, float* out,
+                  float* ws, int B, int Hq, int Hkv, int D, int page, int P,
+                  int NP, int wpp, float scale, cudaStream_t st) {
+  const int G = Hq / Hkv;
+  const auto k1 = paged_attention_kernel<T, VEC>;
+  const auto k2 = paged_attention_values_kernel<T, VEC>;
+  const size_t s1 = pa_smem_k1(G, D, page, sizeof(T));
+  const size_t s2 = pa_smem_k2(G, D, page, P, sizeof(T));
+  int err = pa_smem_attr((const void*)k1, s1);
+  if (!err) err = pa_smem_attr((const void*)k2, s2);
+  if (err) return err;
+  if (P > 0) {  // a table of no pages: every output is 0, from the merge
+    const dim3 grid(B * Hkv, pa_splits(page, P));
+    k1<<<grid, PA_THREADS, s1, st>>>((const T*)q, (const T*)k, table,
+                                      seq_lens, ws, B, Hq, Hkv, D, page, P,
+                                      NP, wpp, scale);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    k2<<<grid, PA_THREADS, s2, st>>>((const T*)v, table, seq_lens, ws, B,
+                                      Hq, Hkv, D, page, P, NP, wpp);
+    err = (int)cudaGetLastError();
     if (err) return err;
   }
-  paged_attention_kernel<T><<<B * Hkv, 128, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, table, seq_lens, out, Hq, Hkv,
-      D, page, P, NP, wpp, scale);
+  const size_t s3 = (size_t)P * sizeof(int);
+  err = pa_smem_attr((const void*)paged_attention_merge_kernel, s3);
+  if (err) return err;
+  paged_attention_merge_kernel<<<B * Hkv, pa_merge_threads(G, D), s3, st>>>(
+      table, seq_lens, ws, out, B, Hq, Hkv, D, page, P, NP, wpp);
   return (int)cudaGetLastError();
 }
 
 extern "C" int paged_attention_launch(
     int dtype_bf16, const void* q, const void* k, const void* v,
-    const int* table, const int* seq_lens, float* out, int B, int Hq,
-    int Hkv, int D, int page, int P, int NP, int wpp, float scale,
+    const int* table, const int* seq_lens, float* out, float* ws, int B,
+    int Hq, int Hkv, int D, int page, int P, int NP, int wpp, float scale,
     void* stream) {
-  auto fn = dtype_bf16 ? launch<__nv_bfloat16> : launch<float>;
-  return fn(q, k, v, table, seq_lens, out, B, Hq, Hkv, D, page, P, NP, wpp,
-            scale, (cudaStream_t)stream);
+  // 16-byte chunks when a row's bytes are a multiple of 16: every row of
+  // q, K and V then starts 16-byte aligned if the tensors do
+  const int elem = dtype_bf16 ? 2 : 4;
+  const bool vec = (D * elem) % 16 == 0
+                   && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  auto fn = dtype_bf16 ? (vec ? launch<__nv_bfloat16, 8>
+                              : launch<__nv_bfloat16, 1>)
+                       : (vec ? launch<float, 4> : launch<float, 1>);
+  return fn(q, k, v, table, seq_lens, out, ws, B, Hq, Hkv, D, page, P, NP,
+            wpp, scale, (cudaStream_t)stream);
 }

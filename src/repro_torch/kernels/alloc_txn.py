@@ -99,8 +99,33 @@ def _lib():
             fn.restype = Z
         lib.free_txn_workspace_bytes.argtypes = [ArenaDesc, I, I, Z]
         lib.free_txn_workspace_bytes.restype = Z
+        lib.alloc_txn_chain_stats.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), I]
+        lib.alloc_txn_chain_stats.restype = I
         lib._typed = True
     return lib
+
+
+# csrc/alloc_txn.cu's ChainStat, in order
+CHAIN_STATS = ("chains", "serial_steps", "whole_runs", "whole_chunks",
+               "dequeue_tries", "dequeue_chunks", "dequeue_short",
+               "dequeue_empty", "serial_classes")
+
+
+def chain_stats(reset: bool = False) -> dict:
+    """What the chunk chains of every ``alloc_txn`` and
+    ``sharded_alloc_txn`` launch since the last reset took, summed on the
+    card by the kernels themselves: class chains, thread 0's serial
+    steps, whole-chunk runs and their chunks, dequeue runs tried, their
+    chunks, and the tries that took fewer than 16 or no chunks, and
+    chains left serial by a pool id outside the heap.  Waits for the
+    card; ``reset`` clears the counts after reading them."""
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * len(CHAIN_STATS))()
+    err = _lib().alloc_txn_chain_stats(buf, int(reset))
+    if err:
+        raise RuntimeError(f"alloc_txn_chain_stats failed: CUDA error {err}")
+    return dict(zip(CHAIN_STATS, (int(v) for v in buf)))
 
 
 def _check(name, t, dtype, shape, dev):

@@ -6,6 +6,12 @@ float32 (the same dtype as ``q``); ``page_table`` (B, P) int32 page ids,
 or arena word offsets when ``wpp`` is set; ``seq_lens`` (B,) int32.
 Returns (B, Hq, D) float32.  The plain version is
 ``kernels/ref.paged_attention``; ``kernels/ops`` picks by device.
+
+One call launches three kernels (scores and page maxima, then p and p V
+per page, both over the table's pages split across blocks,
+:func:`geometry`; then the fold over pages in table order), through a
+float32 workspace from ``torch.empty``; it counts as one launch of
+``paged_attention``.
 """
 from __future__ import annotations
 
@@ -23,10 +29,24 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_launch.argtypes = [
-            I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P]
+            I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float,
+            P]
         lib.paged_attention_launch.restype = I
+        lib.paged_attention_workspace_floats.argtypes = [I] * 6
+        lib.paged_attention_workspace_floats.restype = ctypes.c_size_t
+        lib.paged_attention_geometry.argtypes = [I, I, P, P]
+        lib.paged_attention_geometry.restype = None
         lib._typed = True
     return lib
+
+
+def geometry(page: int, P: int):
+    """(pages a split, splits) of a table of ``P`` pages of ``page``
+    tokens: the split kernels' grid is B * Hkv * splits blocks."""
+    pps, splits = ctypes.c_int(), ctypes.c_int()
+    _lib().paged_attention_geometry(page, P, ctypes.byref(pps),
+                                    ctypes.byref(splits))
+    return pps.value, splits.value
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
@@ -62,11 +82,15 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
-    err = _lib().paged_attention_launch(
+    lib = _lib()
+    ws = torch.empty(lib.paged_attention_workspace_floats(B, Hq, Hkv, D,
+                                                          page, P),
+                     dtype=torch.float32, device=q.device)
+    err = lib.paged_attention_launch(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, D, page, P, NP, int(wpp or 0),
-        1.0 / D ** 0.5,
+        out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, D, page, P, NP,
+        int(wpp or 0), 1.0 / D ** 0.5,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")

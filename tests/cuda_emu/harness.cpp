@@ -37,6 +37,16 @@ extern "C" void emu_alloc_txn(ArenaDesc d, int* mem, int* ctl,
   });
 }
 
+// The alloc kernels' chain statistics (alloc_txn.cu's g_chain_stats, a
+// host array here), as alloc_txn_chain_stats reads them.
+extern "C" int emu_alloc_chain_stats(unsigned long long* out, int reset) {
+  for (int k = 0; k < kChainStats; ++k) {
+    out[k] = g_chain_stats[k];
+    if (reset) g_chain_stats[k] = 0;
+  }
+  return kChainStats;
+}
+
 extern "C" void emu_free_txn(ArenaDesc d, int* mem, int* ctl,
                              const int* offs, const int* sizes,
                              const uint8_t* mask, int n, size_t smem_limit) {
@@ -105,25 +115,56 @@ extern "C" void emu_defrag_txn(ArenaDesc d, int* mem, int* ctl,
   });
 }
 
-extern "C" void emu_paged_attention(int bf16, const void* q, const void* k,
-                                    const void* v, const int* table,
-                                    const int* seq_lens, float* out, int B,
-                                    int Hq, int Hkv, int D, int page, int P,
-                                    int NP, int wpp, float scale) {
-  const size_t smem = paged_attention_smem_bytes(Hq / Hkv, D, page);
-  if (bf16)
-    emu_launch(B * Hkv, 128, smem, [&] {
-      paged_attention_kernel<__nv_bfloat16>(
-          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-          (const __nv_bfloat16*)v, table, seq_lens, out, Hq, Hkv, D, page, P,
-          NP, wpp, scale);
-    });
-  else
-    emu_launch(B * Hkv, 128, smem, [&] {
-      paged_attention_kernel<float>((const float*)q, (const float*)k,
-                                    (const float*)v, table, seq_lens, out, Hq,
-                                    Hkv, D, page, P, NP, wpp, scale);
-    });
+// The two split kernels as (B * Hkv, splits) grids (the emulation runs a
+// 1-D grid of B * Hkv * splits blocks and splits each block's index),
+// then the merge kernel, through a workspace as the wrapper's.
+template <typename T, int VEC>
+static void emu_attention(const void* q, const void* k, const void* v,
+                          const int* table, const int* seq_lens, float* out,
+                          int B, int Hq, int Hkv, int D, int page, int P,
+                          int NP, int wpp, float scale) {
+  std::vector<float> ws(
+      paged_attention_workspace_floats(B, Hq, Hkv, D, page, P) + 1, NAN);
+  int pps, S;
+  paged_attention_geometry(page, P, &pps, &S);
+  const int G = Hq / Hkv;
+  auto split = [&](int kernel, auto body) {
+    emu_launch(B * Hkv * S, PA_THREADS,
+               paged_attention_smem_bytes(G, D, page, P, sizeof(T), kernel),
+               [&] {
+                 blockIdx.y = blockIdx.x % S;
+                 blockIdx.x /= S;
+                 body();
+               });
+  };
+  split(1, [&] {
+    paged_attention_kernel<T, VEC>((const T*)q, (const T*)k, table,
+                                   seq_lens, ws.data(), B, Hq, Hkv, D, page,
+                                   P, NP, wpp, scale);
+  });
+  split(2, [&] {
+    paged_attention_values_kernel<T, VEC>((const T*)v, table, seq_lens,
+                                          ws.data(), B, Hq, Hkv, D, page, P,
+                                          NP, wpp);
+  });
+  emu_launch(B * Hkv, pa_merge_threads(G, D), P * sizeof(int), [&] {
+    paged_attention_merge_kernel(table, seq_lens, ws.data(), out, B, Hq,
+                                 Hkv, D, page, P, NP, wpp);
+  });
+}
+
+// vec: 16-byte row chunks (the launcher's choice when a row's bytes are
+// a multiple of 16), else one element at a time
+extern "C" void emu_paged_attention(int bf16, int vec, const void* q,
+                                    const void* k, const void* v,
+                                    const int* table, const int* seq_lens,
+                                    float* out, int B, int Hq, int Hkv,
+                                    int D, int page, int P, int NP, int wpp,
+                                    float scale) {
+  auto fn = bf16 ? (vec ? emu_attention<__nv_bfloat16, 8>
+                        : emu_attention<__nv_bfloat16, 1>)
+                 : (vec ? emu_attention<float, 4> : emu_attention<float, 1>);
+  fn(q, k, v, table, seq_lens, out, B, Hq, Hkv, D, page, P, NP, wpp, scale);
 }
 
 extern "C" void emu_ssd_scan(int bf16, const void* x, const float* dt,

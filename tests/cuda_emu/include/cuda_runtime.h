@@ -1,5 +1,7 @@
 // Host stand-in for <cuda_runtime.h>: the kernel sources under
-// src/repro_torch/csrc need only the stream type outside their host
-// launchers, which the emulation strips.
+// src/repro_torch/csrc need only the stream type and the 16-byte vector
+// types outside their host launchers, which the emulation strips.
 #pragma once
 typedef void* cudaStream_t;
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };

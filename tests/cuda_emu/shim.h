@@ -42,13 +42,77 @@ inline void* emu_dyn_smem = nullptr;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 
-inline int __shfl_up_sync(unsigned, int v, int d) {
-  const int t = threadIdx.x, w = t / 32, lane = t % 32;
-  emu_shfl[t] = v;
+// A barrier that returns whether any thread's predicate was non-zero:
+// the block ORs into one word between two barriers, and thread 0 clears
+// it after a third, once every thread has read it.
+inline int emu_sync_or = 0;
+inline int __syncthreads_or(int p) {
+  if (p) __atomic_fetch_or(&emu_sync_or, 1, __ATOMIC_SEQ_CST);
+  __syncthreads();
+  const int r = __atomic_load_n(&emu_sync_or, __ATOMIC_SEQ_CST);
+  __syncthreads();
+  if (threadIdx.x == 0) emu_sync_or = 0;
+  __syncthreads();
+  return r;
+}
+
+// Every lane of the warp posts a word; the barrier after the reads lets
+// the next exchange reuse the slots.
+template <class V, class F>
+inline auto emu_warp_exchange(V v, F read) {
+  static_assert(sizeof(V) == sizeof(int));
+  const int t = threadIdx.x, w = t / 32;
+  std::memcpy(&emu_shfl[t], &v, sizeof(V));
   emu_warp_barriers[w]->arrive_and_wait();
-  const int r = lane >= d ? emu_shfl[t - d] : v;
+  auto r = read(w * 32, std::min(32, (int)blockDim.x - 32 * w));
   emu_warp_barriers[w]->arrive_and_wait();
   return r;
+}
+
+template <class V>
+inline V emu_lane_value(int slot) {
+  V v;
+  std::memcpy(&v, &emu_shfl[slot], sizeof(V));
+  return v;
+}
+
+template <class V>
+inline V __shfl_sync(unsigned, V v, int src) {
+  return emu_warp_exchange(v, [&](int w0, int nl) {
+    return emu_lane_value<V>(w0 + ((src % 32 + 32) % 32) % nl);
+  });
+}
+
+template <class V>
+inline V __shfl_xor_sync(unsigned, V v, int mask) {
+  return emu_warp_exchange(v, [&](int w0, int nl) {
+    const int src = (threadIdx.x % 32) ^ mask;
+    return src < nl ? emu_lane_value<V>(w0 + src) : v;
+  });
+}
+
+inline int __shfl_up_sync(unsigned, int v, int d) {
+  return emu_warp_exchange(v, [&](int w0, int) {
+    const int lane = threadIdx.x % 32;
+    return lane >= d ? emu_lane_value<int>(w0 + lane - d) : v;
+  });
+}
+
+inline unsigned __ballot_sync(unsigned, int p) {
+  return emu_warp_exchange(p ? 1 : 0, [](int w0, int nl) {
+    unsigned b = 0;
+    for (int j = 0; j < nl; ++j)
+      if (emu_lane_value<int>(w0 + j)) b |= 1u << j;
+    return b;
+  });
+}
+
+inline int __all_sync(unsigned, int p) {
+  return emu_warp_exchange(p ? 1 : 0, [](int w0, int nl) {
+    for (int j = 0; j < nl; ++j)
+      if (!emu_lane_value<int>(w0 + j)) return 0;
+    return 1;
+  });
 }
 
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
@@ -59,6 +123,18 @@ inline int atomicAdd(int* p, int v) {
 }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline int atomicMin(int* p, int v) {
+  int cur = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v < cur && !__atomic_compare_exchange_n(p, &cur, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return cur;
 }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);

@@ -332,6 +332,127 @@ def test_full_width_aux_transactions_match_plain_math(cuda, num_shards):
     assert ops.LAUNCHES[name.replace("alloc", "free")] == 1
 
 
+def _rotate_pool(o, st, front_slot):
+    """The same pool (ids in the same order) moved round its ring so
+    that its front sits at slot ``front_slot``."""
+    lay, nc = o.layout, o.cfg.num_chunks
+    r = lay.region("pool_store")
+    slots = st.mem[r.offset:r.offset + nc]
+    pf, pb = (int(st.ctl[lay.off_pool_front]), int(st.ctl[lay.off_pool_back]))
+    ids = slots[torch.arange(pf, pb, device=slots.device) % nc].clone()
+    shift = (front_slot - pf) % nc
+    slots[torch.arange(pf + shift, pb + shift, device=slots.device) % nc] = ids
+    st.ctl[lay.off_pool_front] = pf + shift
+    st.ctl[lay.off_pool_back] = pb + shift
+    return st
+
+
+@pytest.mark.parametrize("scenario", ("drain-and-wrap", "exhausted",
+                                      "requeued"))
+def test_full_width_chunk_runs_match_plain_math(cuda, scenario):
+    """A 298,656-lane grant (one mamba2-780m admission) whose chain first
+    drains a class queue of partially used chunks and then runs over
+    fresh pool chunks across the end of the pool's ring
+    (``drain-and-wrap``), runs out of pool halfway (``exhausted``, an
+    arena of 150,000 pages), or takes a retired admission's 18,666
+    chunks back from the class queue by dequeue runs (``requeued``):
+    offsets and words equal the plain math's on a second arena on the
+    card; the kernel's own count of what its chain took (one whole-chunk
+    run, or one dequeue run of every queued chunk) agrees."""
+    from repro_torch.core import transactions as T
+    from repro_torch.kernels import alloc_txn as AT
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    n = AUX_LANES
+    o, _, _ = make_kv_allocator(256 + 8 * n if scenario != "exhausted"
+                                else 150_000, device=cuda)
+    sk = o.init()
+    if scenario == "drain-and-wrap":
+        sk = _rotate_pool(o, sk, o.cfg.num_chunks - 1000)
+    sp = type(sk)(sk.mem.clone(), sk.ctl.clone())
+    base = (o.kind, o.family, sp.mem, sp.ctl)
+
+    def alloc(lanes):
+        sizes = torch.full((lanes,), 256, dtype=torch.int32, device=cuda)
+        mask = torch.ones(lanes, dtype=torch.bool, device=cuda)
+        _, offs = o.alloc(sk, sizes, mask)
+        want = T.alloc_math(o.cfg, *base, sizes, mask)[2]
+        assert torch.equal(offs, want)
+        assert torch.equal(sk.mem, sp.mem) and torch.equal(sk.ctl, sp.ctl)
+        return want
+
+    if scenario == "requeued":
+        got = alloc(n)
+        fo = got[torch.randperm(n, device=cuda)].contiguous()
+        sizes = torch.full_like(fo, 256)
+        mask = torch.ones_like(fo, dtype=torch.bool)
+        o.free(sk, fo, sizes, mask)
+        T.free_math(o.cfg, *base, fo, sizes, mask)
+        assert torch.equal(sk.mem, sp.mem) and torch.equal(sk.ctl, sp.ctl)
+        assert int(sk.ctl[o.layout.off_back] - sk.ctl[o.layout.off_front]) \
+            == n // 16
+    if scenario == "drain-and-wrap":
+        got = alloc(40)            # two full chunks and a partial one
+        fo = got[::3].contiguous()
+        sizes = torch.full_like(fo, 256)
+        mask = torch.ones_like(fo, dtype=torch.bool)
+        o.free(sk, fo, sizes, mask)
+        T.free_math(o.cfg, *base, fo, sizes, mask)
+        assert torch.equal(sk.mem, sp.mem) and torch.equal(sk.ctl, sp.ctl)
+    lay = o.layout
+    pf0 = int(sk.ctl[lay.off_pool_front])
+    ops.reset_launches()
+    AT.chain_stats(reset=True)
+    got = alloc(n)
+    took = AT.chain_stats()
+    assert ops.LAUNCHES["alloc_txn"] == 1
+    ran = int(sk.ctl[lay.off_pool_front]) - pf0
+    if scenario == "exhausted":
+        assert int(sk.ctl[lay.off_pool_back]) == pf0 + ran
+        assert 0 < int((got >= 0).sum()) < n
+        assert (took["whole_runs"], took["whole_chunks"]) == (1, ran)
+    elif scenario == "requeued":       # the queue served it all
+        assert ran == 0 and bool((got >= 0).all())
+        assert (took["dequeue_tries"], took["dequeue_chunks"],
+                took["serial_steps"]) == (1, n // 16, 0)
+    else:
+        assert ran > 1000 and bool((got >= 0).all())
+        assert took["whole_runs"] == 1
+        assert took["whole_chunks"] in (ran - 1, ran)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("wpp", (None, 64))
+def test_paged_attention_splits_at_serving_shapes(cuda, dtype, wpp):
+    """B 8 x P 32 of 16-token pages (8 splits of 4 pages a sequence and
+    kv head): lengths 0, 1, one split's exact multiple, P * page and
+    ragged ones, a hole inside a live split, a split of holes, holes
+    past the live range; atol 1e-5 of the plain version, one counted
+    launch, every output of a zero-length row 0."""
+    from repro_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(2)
+    B, Hq, Hkv, D, page, P, NP = 8, 14, 2, 64, 16, 32, 300
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D), np.float32))
+    k = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    table[4, 2] = -1            # inside a live split
+    table[3, 4:8] = -1          # a whole split of holes
+    table[5, 3:] = -1           # past the live range
+    if wpp:
+        table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
+    seq = np.array([0, 1, 64, 512, 100, 37, 300, 511], np.int32)
+    args = [x.to(dtype).to(cuda) for x in (q, k, v)] + [
+        torch.from_numpy(table).to(cuda), torch.from_numpy(seq).to(cuda)]
+    assert pa.geometry(page, P) == (4, 8)
+    ops.reset_launches()
+    got = ops.paged_attention(*args, wpp=wpp)
+    want = ref.paged_attention(*args, wpp=wpp)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == 1
+    assert float((got - want).abs().max()) <= 1e-5
+    assert not bool(got[0].any())
+
+
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("B,chunks,with_h0", [(1, 1, False), (1, 4, False),
                                               (1, 7, False), (2, 3, True)])

@@ -23,8 +23,8 @@ import torch
 from repro_torch.core import (VARIANTS, HeapConfig, Ouroboros, arena,
                               defrag, shards)
 from repro_torch.kernels import ref
-from repro_torch.kernels.alloc_txn import (TABLE_SMEM_LIMIT, ArenaDesc,
-                                           descriptor)
+from repro_torch.kernels.alloc_txn import (CHAIN_STATS, TABLE_SMEM_LIMIT,
+                                           ArenaDesc, descriptor)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EMU = ROOT / "tests" / "cuda_emu"
@@ -73,7 +73,7 @@ def emu(tmp_path_factory):
     so.emu_alloc_txn.argtypes = [ArenaDesc, P, P, P, P, I, P, Z]
     so.emu_free_txn.argtypes = [ArenaDesc, P, P, P, P, P, I, Z]
     so.emu_defrag_txn.argtypes = [ArenaDesc, P, P, P, P, P, I, I, Z]
-    so.emu_paged_attention.argtypes = [I, P, P, P, P, P, P] + [I] * 8 + [
+    so.emu_paged_attention.argtypes = [I, I, P, P, P, P, P, P] + [I] * 8 + [
         ctypes.c_float]
     so.emu_sharded_alloc_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
                                          I, I, P, Z]
@@ -94,6 +94,9 @@ def emu(tmp_path_factory):
     so.emu_ring_window.argtypes = [P] * 3 + [I] * 3 + [P]
     so.emu_chunk_txn_claim.argtypes = [P] + [I] * 3 + [P] * 3
     so.emu_bitmap_select.argtypes = [P, I, I, P]
+    so.emu_alloc_chain_stats.argtypes = [
+        ctypes.POINTER(ctypes.c_ulonglong), I]
+    so.emu_alloc_chain_stats.restype = I
     for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_defrag_txn,
               so.emu_paged_attention, so.emu_sharded_alloc_txn,
               so.emu_sharded_free_txn, so.emu_sharded_defrag_txn,
@@ -545,6 +548,393 @@ def test_variant_alloc_kernels_match_plain_math(emu, variant, case):
     assert failed > 0 or case != "exhausting"
 
 
+# ---- the chunk chain's whole-chunk runs ------------------------------------
+
+CHUNK_VARIANTS = ("chunk", "va_chunk", "vl_chunk")
+# heap, the lanes' main size and a second size: ppc = chunk / size
+RUN_CFGS = {
+    "ppc-16": (dict(total_bytes=48 * 4096, chunk_bytes=4096,
+                    min_page_bytes=256), 256, 512),
+    "ppc-32": (dict(total_bytes=24 * 8192, chunk_bytes=8192,
+                    min_page_bytes=256), 256, 1024),
+    "ppc-1": (dict(total_bytes=96 * 4096, chunk_bytes=4096,
+                   min_page_bytes=256), 4096, 2048),
+    # 64-B chunks: va segments of 16 queue slots, vl of 15, so runs
+    # cross segments
+    "ppc-4-short-segments": (dict(total_bytes=256 * 64, chunk_bytes=64,
+                                  min_page_bytes=16), 16, 32),
+}
+
+
+def _emu_alloc(emu, o, st, mem, ctl, sizes, mask, limit):
+    """One alloc through the plain math and through the emulated
+    ``alloc_txn`` on the copies ``mem``/``ctl``: offsets and words
+    equal.  Returns (state, offsets)."""
+    st, want = o.alloc(st, sizes, mask)
+    got = torch.empty(sizes.shape[0], dtype=torch.int32)
+    emu.emu_alloc_txn(descriptor(o.layout), _p(mem), _p(ctl), _p(sizes),
+                      _p(mask), sizes.shape[0], _p(got), limit)
+    assert torch.equal(got, want)
+    assert torch.equal(mem, st.mem), \
+        f"mem differs at {torch.nonzero(mem != st.mem)[:8, 0].tolist()}"
+    assert torch.equal(ctl, st.ctl), \
+        f"ctl differs at {torch.nonzero(ctl != st.ctl)[:8, 0].tolist()}"
+    return st, want
+
+
+def _emu_free(emu, o, st, mem, ctl, offs, sizes, limit):
+    mask = offs >= 0
+    st = o.free(st, offs, sizes, mask)
+    emu.emu_free_txn(descriptor(o.layout), _p(mem), _p(ctl), _p(offs),
+                     _p(sizes), _p(mask), offs.shape[0], limit)
+    assert torch.equal(mem, st.mem) and torch.equal(ctl, st.ctl)
+    return st
+
+
+def _run_lanes(rng, n, size, other, p_other=0.15, p_off=0.05):
+    """``n`` lanes, most of ``size`` bytes, some of ``other``, a few
+    masked off."""
+    sizes = np.where(rng.random(n) < p_other, other, size).astype(np.int32)
+    return (torch.from_numpy(sizes),
+            torch.from_numpy(rng.random(n) >= p_off))
+
+
+def _pool(o, st):
+    """(slots tensor view, front, back) of the arena's pool ring."""
+    lay = o.layout
+    r = lay.region("pool_store")
+    return (st.mem[r.offset:r.offset + o.cfg.num_chunks],
+            int(st.ctl[lay.off_pool_front]), int(st.ctl[lay.off_pool_back]))
+
+
+def _queue_count(o, st, c):
+    lay = o.layout
+    return int(st.ctl[lay.off_back + c]) - int(st.ctl[lay.off_front + c])
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("smem", "workspace"))
+@pytest.mark.parametrize("cfg", tuple(RUN_CFGS))
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_chunk_run_after_draining_the_class_queue(emu, variant, cfg, limit):
+    """A grant that first drains a class queue of partially used chunks
+    (thread 0's serial steps) and then runs over many fresh pool chunks
+    (the block's whole-chunk run), then a partial last chunk: offsets
+    and words equal the plain math's after every transaction, for ppc
+    16, 32 and 1, the lane tables in shared memory and in the
+    workspace."""
+    cfgkw, size, other = RUN_CFGS[cfg]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    c = int(np.log2(size // cfgkw["min_page_bytes"]))
+    ppc = cfgkw["chunk_bytes"] // size
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    rng = np.random.default_rng(ppc)
+    live = []
+    for n in (3 * ppc + ppc // 2 + 1, 2 * ppc + 1):
+        sizes, mask = _run_lanes(rng, n, size, other)
+        st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes, mask, limit)
+        live += [(a, b) for a, b in zip(offs.tolist(), sizes.tolist())
+                 if a >= 0]
+    drop = live[::3]          # revives full chunks into the class queues
+    fo = torch.tensor([a for a, _ in drop], dtype=torch.int32)
+    fs = torch.tensor([b for _, b in drop], dtype=torch.int32)
+    st = _emu_free(emu, o, st, mem, ctl, fo, fs, limit)
+    assert _queue_count(o, st, c) > 0
+    _, pf0, _ = _pool(o, st)
+    n = min(256, (o.cfg.num_chunks - 8) * ppc)
+    sizes, mask = _run_lanes(rng, n, size, other)
+    st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes, mask, limit)
+    _, pf1, _ = _pool(o, st)
+    assert pf1 - pf0 >= 4 and bool((offs[mask] >= 0).all())
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("smem", "workspace"))
+@pytest.mark.parametrize("cfg", tuple(RUN_CFGS))
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_dequeue_runs_match_plain_math(emu, variant, cfg, limit):
+    """Class queues of revived chunks taken by dequeue runs: whole chunks
+    freed in two batches (the later batch of lower ids, so the queue's
+    ids fall once: a run ends there, thread 0 dequeues the chunk that
+    ended it and the next run goes on), partly used chunks among them,
+    then grants longer than the queue (the pool run follows) and shorter
+    (a partial last chunk, re-enqueued): offsets and words equal the
+    plain math's after every transaction."""
+    cfgkw, size, other = RUN_CFGS[cfg]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    c = int(np.log2(size // cfgkw["min_page_bytes"]))
+    ppc = cfgkw["chunk_bytes"] // size
+    wpc = o.cfg.words_per_chunk
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    rng = np.random.default_rng(3 * ppc)
+    n = min(768, (o.cfg.num_chunks - 8) * ppc)   # 16-88 chunks
+    sizes = torch.full((n,), size, dtype=torch.int32)
+    st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes,
+                          torch.ones(n, dtype=torch.bool), limit)
+    chunks = sorted({x // wpc for x in offs.tolist()})
+    half = len(chunks) // 2
+    for batch in (chunks[half:], chunks[:half]):   # high ids, then low
+        keep = set(batch)
+        fo = torch.tensor([x for x in offs.tolist() if x // wpc in keep
+                           and (x // wpc != batch[0] or x % 3)],
+                          dtype=torch.int32)
+        fo = fo[torch.from_numpy(rng.permutation(fo.shape[0]))]
+        st = _emu_free(emu, o, st, mem, ctl, fo, torch.full_like(fo, size),
+                       limit)
+    assert _queue_count(o, st, c) >= len(chunks) - 1
+    for lanes in (n // 3 + 1, n):
+        sizes, mask = _run_lanes(rng, lanes, size, other, p_other=0.1)
+        st, got = _emu_alloc(emu, o, st, mem, ctl, sizes, mask, limit)
+        assert bool((got[mask] >= 0).any())
+
+
+def _queue_word(o, st, c, v):
+    """The arena word holding class ``c``'s queue entry at position
+    ``v`` (the ring slot, or the heap word through the va directory or
+    the vl chain from the head)."""
+    lay, cfg = o.layout, o.cfg
+    mem, wpc = st.mem, cfg.words_per_chunk
+    spc = cfg.slots_per_segment(lay.family)
+    if lay.family == "ring":
+        cap = lay.queue_capacity
+        return lay.region("queue_store").offset + c * cap + v % cap
+    front = int(st.ctl[lay.off_front + c])
+    if lay.family == "va":
+        seg = int(mem[lay.region("directory").offset + c * lay.max_segs
+                      + (v // spc) % lay.max_segs])
+        return seg * wpc + v % spc
+    seg = int(st.ctl[lay.off_head + c])
+    for _ in range(v // spc - front // spc):
+        seg = int(mem[seg * wpc])
+    return seg * wpc + 1 + v % spc
+
+
+@pytest.mark.parametrize("defect", ("repeat", "free-count-off"))
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_dequeue_run_stops_at_a_bad_entry(emu, variant, defect):
+    """A class queue that holds one chunk twice in a row (``repeat``), or
+    a chunk whose free count disagrees with its free bits
+    (``free-count-off``): a dequeue run ends before it (ids must rise,
+    and the count must match the bits), thread 0 dequeues it serially
+    (a repeat is full by then: it takes nothing and is not re-enqueued)
+    and the next run goes on."""
+    cfgkw, size, _ = RUN_CFGS["ppc-16"]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    wpc = o.cfg.words_per_chunk
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    n = 24 * 16
+    sizes = torch.full((n,), size, dtype=torch.int32)
+    st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes,
+                          torch.ones(n, dtype=torch.bool), TABLE_SMEM_LIMIT)
+    st = _emu_free(emu, o, st, mem, ctl, offs, sizes, TABLE_SMEM_LIMIT)
+    front = int(st.ctl[o.layout.off_front])
+    assert _queue_count(o, st, 0) >= 24
+    if defect == "repeat":
+        st.mem[_queue_word(o, st, 0, front + 4)] = \
+            st.mem[_queue_word(o, st, 0, front + 3)]
+    else:
+        chunk = int(st.mem[_queue_word(o, st, 0, front + 4)])
+        st.mem[o.layout.region("free_count").offset + chunk] = 9
+    mem.copy_(st.mem)
+    _, got = _emu_alloc(emu, o, st, mem, ctl, sizes,
+                        torch.ones(n, dtype=torch.bool), TABLE_SMEM_LIMIT)
+    if defect == "repeat":
+        assert bool((got >= 0).all())
+        assert len({x // wpc for x in got.tolist()}) == n // 16
+
+
+def _rotate_pool(o, st, front_slot):
+    """The same pool (ids in the same order) moved round its ring so
+    that its front sits at slot ``front_slot``."""
+    slots, pf, pb = _pool(o, st)
+    nc = o.cfg.num_chunks
+    ids = [int(slots[(pf + i) % nc]) for i in range(pb - pf)]
+    shift = (front_slot - pf) % nc
+    for i, x in enumerate(ids):
+        slots[(pf + shift + i) % nc] = x
+    lay = o.layout
+    st.ctl[lay.off_pool_front] = pf + shift
+    st.ctl[lay.off_pool_back] = pb + shift
+    return st
+
+
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_chunk_run_wraps_the_pool_ring(emu, variant):
+    """The pool's front 3 slots before the end of its ring: the run's
+    chunk k is slot (pool_front + k) mod num_chunks, across the wrap."""
+    cfgkw, size, other = RUN_CFGS["ppc-16"]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    st = _rotate_pool(o, o.init(), o.cfg.num_chunks - 3)
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    rng = np.random.default_rng(1)
+    sizes, mask = _run_lanes(rng, 200, size, other)
+    st, _ = _emu_alloc(emu, o, st, mem, ctl, sizes, mask, TABLE_SMEM_LIMIT)
+    _, pf, _ = _pool(o, st)
+    assert pf > o.cfg.num_chunks + 3
+
+
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_chunk_run_exhausts_the_pool(emu, variant):
+    """A run longer than the pool: it stops at the pool's last chunk,
+    the class's other lanes fail, and the next transaction finds the
+    pool empty at once."""
+    o = Ouroboros(HeapConfig(total_bytes=12 * 4096, chunk_bytes=4096,
+                             min_page_bytes=256), variant, device="cpu")
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    rng = np.random.default_rng(2)
+    failed = 0
+    for _ in range(2):
+        sizes, mask = _run_lanes(rng, 256, 256, 1024)
+        st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes, mask,
+                              TABLE_SMEM_LIMIT)
+        failed += int((mask & (offs < 0)).sum())
+        _, pf, pb = _pool(o, st)
+        assert pf == pb
+    assert failed > 256
+
+
+@pytest.mark.parametrize("bad", ("duplicate", "negative", "past-the-end",
+                                 "duplicate-and-negative"))
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_chunk_run_with_repeated_or_out_of_range_pool_ids(emu, variant, bad):
+    """Pool slots inside a whole-chunk run hold a repeated id (the block
+    runs it: the repeat rewrites identical words, as the serial steps'
+    reset does) or an id outside [0, num_chunks) (which reads the free
+    count of the last chunk, plain indexing clamps, so that class goes
+    on serially).  The last chunk is first bound to the 512-B class with
+    pages to spare: an out-of-range id then takes its free bits as
+    grants outside the heap (negative ones fail their lanes) and
+    re-enters the class queue.
+    Offsets and words (telemetry included) equal the plain math's."""
+    cfgkw, size, other = RUN_CFGS["ppc-16"]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    st = o.init()
+    slots, pf, pb = _pool(o, st)
+    nc = o.cfg.num_chunks
+    last = [i for i in range(pf, pb) if int(slots[i % nc]) == nc - 1][0]
+    slots[last % nc], slots[pf % nc] = slots[pf % nc].clone(), nc - 1
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    st, _ = _emu_alloc(emu, o, st, mem, ctl,
+                       torch.full((5,), 512, dtype=torch.int32),
+                       torch.ones(5, dtype=torch.bool), TABLE_SMEM_LIMIT)
+    slots, pf, _ = _pool(o, st)
+    if "duplicate" in bad:
+        slots[(pf + 2) % nc] = slots[(pf + 1) % nc]
+    if "negative" in bad:
+        slots[(pf + 5) % nc] = -1
+    if bad == "past-the-end":
+        slots[(pf + 4) % nc] = nc + 5
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    rng = np.random.default_rng(4)
+    sizes, mask = _run_lanes(rng, 192, size, other)
+    _, offs = _emu_alloc(emu, o, st, mem, ctl, sizes, mask, TABLE_SMEM_LIMIT)
+    # the out-of-range id's steps grant offsets outside the heap
+    outside = (offs[mask] < 0) | (offs[mask] >= o.cfg.total_words)
+    assert bool(outside.any()) == (bad != "duplicate")
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("smem", "workspace"))
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_sharded_chunk_runs_match_plain_replay(emu, variant, limit):
+    """The sharded body: every lane homed on shard 0, more whole chunks
+    than it holds, so runs happen on shard 0 and then on the shards the
+    overflow walk reaches: offsets and words equal the plain replay's."""
+    o = Ouroboros(HeapConfig(**SHARD_CFG), variant, device="cpu",
+                  num_shards=4)
+    slay = o.layout
+    d = descriptor(slay.shard)
+    S, Mw, Cw = o.num_shards, slay.mem_words, slay.ctl_words
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    rng = np.random.default_rng(6)
+    for n in (300, 200):
+        sizes, mask = _run_lanes(rng, n, 256, 512)
+        hint = np.zeros(n, np.int32)
+        home = shards.home_shards(n, S, hint)
+        st, want = o.alloc(st, sizes, mask, shard_hint=hint)
+        got = torch.empty(n, dtype=torch.int32)
+        emu.emu_sharded_alloc_txn(d, _p(mem), _p(ctl), S, Mw, Cw, _p(sizes),
+                                  _p(mask), _p(home), n, o.walk, _p(got),
+                                  limit)
+        assert torch.equal(got, want)
+        assert torch.equal(mem, st.mem) and torch.equal(ctl, st.ctl)
+    assert int((want // slay.shard_words >= 2).sum()) > 0
+
+
+def _chain_stats(emu):
+    """The emulated alloc kernels' chain statistics since the last call
+    (read and cleared), by ``CHAIN_STATS`` name."""
+    buf = (ctypes.c_ulonglong * len(CHAIN_STATS))()
+    assert emu.emu_alloc_chain_stats(buf, 1) == len(CHAIN_STATS)
+    return dict(zip(CHAIN_STATS, (int(v) for v in buf)))
+
+
+# what one class chain of 256-B lanes on the 48-chunk ppc-16 heap takes
+# (the rest of the statistics 0)
+CHAIN_CASES = {
+    # 5 whole chunks' lanes and 3: one run, then a partial pool chunk
+    "whole-run": dict(serial_steps=1, whole_runs=1, whole_chunks=5),
+    # 24 chunks freed whole, in ascending order, taken again: one try
+    "dequeue-run": dict(dequeue_tries=1, dequeue_chunks=24),
+    # queue entry 4's free count disagrees with its bits: a short try,
+    # that entry dequeued serially, a try over the other 19, and a
+    # partial pool chunk for the last 7 lanes
+    "bad-entry-4": dict(serial_steps=2, dequeue_tries=2, dequeue_chunks=23,
+                        dequeue_short=1),
+    # the same at the queue's front: the first try takes nothing
+    "bad-entry-0": dict(serial_steps=2, dequeue_tries=2, dequeue_chunks=23,
+                        dequeue_short=1, dequeue_empty=1),
+}
+
+
+@pytest.mark.parametrize("case", tuple(CHAIN_CASES) + ("out-of-range",))
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_chain_stats_count_what_the_chain_took(emu, variant, case):
+    """The kernel's own count of what an alloc's chunk chain took (runs,
+    their chunks, serial steps, short and empty dequeue tries, a class
+    left serial by a pool id outside the heap) equals what the plain
+    math's chain does on these inputs; offsets and words as the plain
+    math's."""
+    cfgkw, size, _ = RUN_CFGS["ppc-16"]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    st = o.init()
+    if case == "out-of-range":
+        slots, pf, _ = _pool(o, st)
+        slots[(pf + 2) % o.cfg.num_chunks] = -1
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    n = 5 * 16 + 3 if case in ("whole-run", "out-of-range") else 24 * 16
+    sizes = torch.full((n,), size, dtype=torch.int32)
+    mask = torch.ones(n, dtype=torch.bool)
+    if case.startswith(("dequeue", "bad")):
+        st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes, mask,
+                              TABLE_SMEM_LIMIT)
+        perm = torch.from_numpy(np.random.default_rng(5).permutation(n))
+        st = _emu_free(emu, o, st, mem, ctl, offs[perm], sizes,
+                       TABLE_SMEM_LIMIT)
+        assert _queue_count(o, st, 0) == 24
+        if case.startswith("bad"):
+            front = int(st.ctl[o.layout.off_front])
+            chunk = int(st.mem[_queue_word(o, st, 0,
+                                           front + int(case[-1]))])
+            st.mem[o.layout.region("free_count").offset + chunk] = 9
+            mem.copy_(st.mem)
+    _chain_stats(emu)
+    _emu_alloc(emu, o, st, mem, ctl, sizes, mask, TABLE_SMEM_LIMIT)
+    got = _chain_stats(emu)
+    if case == "out-of-range":
+        assert got["serial_classes"] == 1 and got["whole_runs"] == 0
+        assert got["serial_steps"] >= 6 and got["dequeue_tries"] == 0
+        return
+    want = dict.fromkeys(CHAIN_STATS, 0)
+    want.update(chains=1, **CHAIN_CASES[case])
+    assert got == want
+
+
 def _past_2_31(st, lay, past=3):
     """Every class queue's counters, and the pool's, moved so that the
     back lies ``past`` slots below 2^31 (counts kept)."""
@@ -664,10 +1054,61 @@ def test_paged_attention_kernel_matches_plain(emu, dtype, wpp):
     tt, st = torch.from_numpy(table), torch.from_numpy(seq)
     want = ref.paged_attention(q, k, v, tt, st, wpp=wpp)
     got = torch.empty((B, Hq, D), dtype=torch.float32)
-    emu.emu_paged_attention(int(dtype == torch.bfloat16), _p(q), _p(k),
+    emu.emu_paged_attention(int(dtype == torch.bfloat16), 1, _p(q), _p(k),
                             _p(v), _p(tt), _p(st), _p(got), B, Hq, Hkv, D,
                             page, P, NP, int(wpp or 0), 1.0 / D ** 0.5)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+# (B, Hq, Hkv, D, page, P, NP, seq_lens, holes as (row, first page, last
+# page + 1)); splits of 64 tokens: 4 pages of 16, 8 of 8
+SPLIT_CASES = {
+    # 4 splits (the last of one page); lengths 0, 1, a split's exact
+    # multiple, P * page, ragged; a hole inside a live split, a split
+    # of holes, holes past the live range
+    "qwen2-heads": (6, 14, 2, 64, 16, 13, 90,
+                    [0, 1, 64, 13 * 16, 100, 37],
+                    [(4, 2, 3), (3, 4, 8), (5, 5, 13), (2, 1, 2)]),
+    # rows of 24 bytes in bf16 (not 16-byte chunks): element copies
+    "narrow-rows": (3, 4, 1, 12, 8, 11, 40, [88, 9, 0],
+                    [(0, 3, 4), (1, 2, 11)]),
+    # a table of no pages: one split a sequence, every output 0
+    "no-pages": (2, 4, 2, 16, 16, 0, 4, [0, 5], []),
+}
+
+
+@pytest.mark.parametrize("case", tuple(SPLIT_CASES))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("wpp", (None, 64))
+def test_paged_attention_split_kernel_matches_plain(emu, case, dtype, wpp):
+    """The split kernels and the fold over pages: pages split across
+    blocks (a split past the sequence exits, a split of holes adds
+    nothing), ragged lengths, holes inside and past the live range, both
+    table modes and dtypes, 16-byte and element copies: atol 1e-5 of the
+    plain version on the same (widened) values."""
+    B, Hq, Hkv, D, page, P, NP, seq, holes = SPLIT_CASES[case]
+    rng = np.random.default_rng(P)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D), np.float32))
+    k = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    for row, lo, hi in holes:
+        table[row, lo:hi] = -1
+    if wpp:
+        table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
+    q, k, v = (x.to(dtype).contiguous() for x in (q, k, v))
+    tt = torch.from_numpy(table)
+    st = torch.tensor(seq, dtype=torch.int32)
+    want = ref.paged_attention(q, k, v, tt, st, wpp=wpp)
+    vec = (D * k.element_size()) % 16 == 0
+    assert vec == (case != "narrow-rows" or dtype == torch.float32)
+    got = torch.full((B, Hq, D), float("nan"), dtype=torch.float32)
+    emu.emu_paged_attention(int(dtype == torch.bfloat16), int(vec), _p(q),
+                            _p(k), _p(v), _p(tt), _p(st), _p(got), B, Hq,
+                            Hkv, D, page, P, NP, int(wpp or 0),
+                            1.0 / D ** 0.5)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    assert not bool(got[(st == 0) | (P == 0)].any())   # no token: 0
 
 
 def _ssd_inputs(rng, B, L, H, P, G, N, dtype, with_h0):
