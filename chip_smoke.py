@@ -8,7 +8,8 @@ Phases, each reporting on its own lines:
 
 1. the card (``nvidia-smi`` name and power limit); TF32 off;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, in parallel);
+   source, in parallel); their registers, and the tensor-core
+   instructions of ``ssd_scan``'s kernels;
 3. ``alloc_txn``/``free_txn`` against the plain allocator math on CPU
    copies of the same words: seeded alloc/free traces over mixed size
    classes on the serving engine's arena geometry sized for 65536 pages,
@@ -29,7 +30,9 @@ Phases, each reporting on its own lines:
    against CPU copies.  Then one admission's and one retirement's lanes
    of full-width mamba2-780m (298,656 pages of 256 B, lane tables in the
    device workspace) on the mamba2 engine's arena, single and 4-shard,
-   against the plain math run on a second arena on the card, and on the
+   against the plain math run on a second arena on the card (the
+   retirement's revived chunks enqueued in parallel, one enqueue a
+   block, by the free kernels' own count), and on the
    single arena the next admission's grant (the freed lanes' chunks in
    the class queue) against the plain math on CPU copies.  No
    piecewise kernel launches in this phase.  Then "phase 3 (piecewise)":
@@ -68,7 +71,8 @@ Phases, each reporting on its own lines:
    kernels' profiler device time; ``ssd_scan``
    against ``ssd_plain`` at mamba2-780m's heads (H 48, P 64, N 128, G 1,
    chunk 64) at 1, 4 and 7 chunks, bf16 and float32 (atol 1e-4 + rtol
-   1e-4), and its times at 1-7 chunks;
+   1e-4), and at 1-7 chunks its three kernels' profiler device time a
+   call and its time a call on CUDA events;
 5. serve full-width qwen2-0.5b (random weights from ``--seed``) in bf16:
    16 requests, prompts 16-448 tokens, 32 new tokens each, max_batch 8,
    max_seq 512.  The launch counters are zeroed just before and read just
@@ -104,8 +108,12 @@ Phases, each reporting on its own lines:
    to 0.  The same traffic on a second fresh engine (the checked run)
    must give the same tokens, and its first admission's grant and first
    retirement are replayed through the plain math on card copies of the
-   words they started from.  Each run prints what the alloc kernels'
-   chunk chains took, as the kernels count it (``chain_stats``);
+   words they started from, and every ``ssd_scan`` call of the checked
+   run (every layer of every admission) is held to ``ssd_plain`` on the
+   same tensors.  Each run prints what the alloc kernels'
+   chunk chains took, as the kernels count it (``chain_stats``), and
+   how the free kernels' enqueues wrote (``enqueue_stats``: the mamba2
+   run's retirements must all be parallel);
 6. kernel times from ``torch.profiler`` (allocator and defrag kernels
    replayed at the engine's recorded inputs; ``paged_attention`` also
    held to its plain version at the qwen2 run's own inputs, every 8th
@@ -113,8 +121,9 @@ Phases, each reporting on its own lines:
    65536-page arena with M = 128; the sharded kernels at the sharded
    pressure run's inputs and on the 4-shard 65536-page arena; the five
    piecewise kernels at phase 3 (piecewise)'s inputs; the six widened
-   kernels per variant at the figure cell of 1024 x 256 B), then one
-   JSON line of per-kernel
+   kernels per variant at the figure cell of 1024 x 256 B; the mamba2
+   rerun's ``ssd_scan`` and ``free_txn`` device time, each a sum over
+   its kernels), then one JSON line of per-kernel
    numbers, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -140,6 +149,27 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 
 def log(*a):
     print(*a, flush=True)
+
+
+def sass_count(build, name: str, opcode: str):
+    """{kernel: instructions of ``opcode``} in a kernel source's last
+    build (``cuobjdump -sass``), or "not measured" without the tool."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "not measured"
+    text = subprocess.run([tool, "-sass", str(build._target(name))],
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    out, fn = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = 0
+        elif fn and re.search(r"\b" + opcode + r"\b", ln):
+            out[fn] += 1
+    return out
 
 
 def card_line() -> str:
@@ -178,10 +208,13 @@ KERNEL_SYMBOLS = {"alloc_txn": "alloc_txn_kernel",
                   "defrag_txn": "defrag_txn_kernel",
                   "sharded_alloc_txn": "sharded_alloc_txn_kernel",
                   "sharded_free_txn": "sharded_free_txn_kernel",
+                  "free_lanes": "free_lanes_kernel",
                   "sharded_defrag_txn": "sharded_defrag_txn_kernel",
                   "paged_attention": "paged_attention_kernel",
                   "paged_attention_values": "paged_attention_values_kernel",
                   "paged_attention_merge": "paged_attention_merge_kernel",
+                  "ssd_chunk": "ssd_chunk_kernel",
+                  "ssd_pass": "ssd_pass_kernel",
                   "ssd_scan": "ssd_scan_kernel",
                   "ring_txn_pop": "ring_txn_pop_kernel",
                   "ring_txn_push": "ring_txn_push_kernel",
@@ -234,6 +267,20 @@ def chains(reset: bool = True) -> dict:
     the last reset (``kernels.alloc_txn.chain_stats``), then reset."""
     from repro_torch.kernels import alloc_txn as AT
     return AT.chain_stats(reset=reset)
+
+
+def enqueues(reset: bool = True) -> dict:
+    """The free kernels' own count of how their bulk enqueues wrote
+    (``kernels.alloc_txn.enqueue_stats``) since the last reset, then
+    reset."""
+    from repro_torch.kernels import alloc_txn as AT
+    return AT.enqueue_stats(reset=reset)
+
+
+def enqueue_text(e: dict) -> str:
+    return (f"{e['parallel_enqueues']} enqueue(s) written in parallel "
+            f"({e['parallel_values']} values), {e['serial_enqueues']} in "
+            f"lane order ({e['serial_values']} values)")
 
 
 def chain_text(c: dict) -> str:
@@ -911,6 +958,7 @@ def phase_variants(device, seed=0):
     errs = {k: {"words": 0, "max_abs": 0} for k in TXN_KERNELS}
     rng = np.random.default_rng(seed + 16)
     chains()
+    enqueues()
     ops.reset_launches()
     t_all = time.perf_counter()
 
@@ -977,7 +1025,8 @@ def phase_variants(device, seed=0):
     launches = {k: ops.LAUNCHES[k] for k in TXN_KERNELS}
     log(f"phase 3 (variants): launches of the traces and waves "
         f"{json.dumps(launches)} ({time.perf_counter() - t_all:.1f} s); "
-        f"the alloc kernels' chunk chains: {chain_text(chains())}")
+        f"the alloc kernels' chunk chains: {chain_text(chains())}; the free "
+        f"kernels' enqueues: {enqueue_text(enqueues())}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a widened kernel never launched: {launches}")
     return launches, errs
@@ -1002,6 +1051,7 @@ def phase_sweeps(device, errs):
     cfg = HeapConfig(**BENCH_HEAP)
     t_all = time.perf_counter()
     chains()
+    enqueues()
     ops.reset_launches()
     for v in VARIANTS:
         t0 = time.perf_counter()
@@ -1068,7 +1118,8 @@ def phase_sweeps(device, errs):
     launches = {k: ops.LAUNCHES[k] for k in TXN_KERNELS}
     log(f"phase 3 (variants): launches of the sweeps {json.dumps(launches)} "
         f"({time.perf_counter() - t_all:.1f} s); the alloc kernels' chunk "
-        f"chains: {chain_text(chains())}")
+        f"chains: {chain_text(chains())}; the free kernels' enqueues: "
+        f"{enqueue_text(enqueues())}")
     if not (launches["alloc_txn"] and launches["free_txn"]):
         raise AssertionError(f"the sweeps launched no transaction kernel: "
                              f"{launches}")
@@ -1670,6 +1721,7 @@ def phase_serve(device, seed):
         f"{eng.stats['arena_mem_words']} words")
 
     chains()
+    enqueues()
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
@@ -1677,6 +1729,7 @@ def phase_serve(device, seed):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     took = chains()
+    freed = enqueues()
     ticks = counting.decode_calls
 
     toks = sum(len(r.out_tokens) for r in done)
@@ -1686,7 +1739,8 @@ def phase_serve(device, seed):
         f"{wall:.2f} s: {toks / wall:.1f} tok/s (prefill included)")
     log(f"phase 5: stats {json.dumps(st)}")
     log(f"phase 5: launches {json.dumps(launches)}")
-    log(f"phase 5: the alloc kernels' chunk chains: {chain_text(took)}")
+    log(f"phase 5: the alloc kernels' chunk chains: {chain_text(took)}; "
+        f"the free kernels' enqueues: {enqueue_text(freed)}")
     if len(done) != 16 or any(len(r.out_tokens) != 32 or not r.done
                               for r in done):
         raise AssertionError("not every request finished with 32 tokens")
@@ -1787,6 +1841,7 @@ def phase_pressure(device, serve):
     torch.cuda.synchronize()
 
     chains()
+    enqueues()
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
@@ -1794,6 +1849,7 @@ def phase_pressure(device, serve):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     took = chains()
+    freed = enqueues()
     st = dict(eng.stats)
     toks = sum(len(r.out_tokens) for r in done)
     log(f"phase 5: under pressure ({PRESSURE}, co-tenant {bound} x "
@@ -1802,7 +1858,8 @@ def phase_pressure(device, serve):
     log(f"phase 5: under pressure: stats {json.dumps(st)}")
     log(f"phase 5: under pressure: launches {json.dumps(launches)}")
     log(f"phase 5: under pressure: the alloc kernels' chunk chains: "
-        f"{chain_text(took)}")
+        f"{chain_text(took)}; the free kernels' enqueues: "
+        f"{enqueue_text(freed)}")
     got = {r.uid: r.out_tokens for r in done}
     want = serve["tokens"]
     if sorted(got) != sorted(want):
@@ -2163,6 +2220,7 @@ def phase_sharded_serve(device, serve):
         torch.cuda.synchronize()
 
         chains()
+        enqueues()
         ops.reset_launches()
         t0 = time.perf_counter()
         done = eng.run_until_done()
@@ -2170,6 +2228,7 @@ def phase_sharded_serve(device, serve):
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
         took = chains()
+        freed = enqueues()
         st = dict(eng.stats)
         bins = [b - a for a, b in zip(bins0, walk_bins(eng.ouro,
                                                        eng.alloc_state.ctl))]
@@ -2183,7 +2242,8 @@ def phase_sharded_serve(device, serve):
         log(f"phase 5: sharded {name}: launches {json.dumps(launches)}; "
             f"lanes served per walk attempt in the run {bins}")
         log(f"phase 5: sharded {name}: the alloc kernels' chunk chains: "
-            f"{chain_text(took)}")
+            f"{chain_text(took)}; the free kernels' enqueues: "
+            f"{enqueue_text(freed)}")
         got = {r.uid: r.out_tokens for r in done}
         want = serve["tokens"]
         if sorted(got) != sorted(want):
@@ -2558,7 +2618,15 @@ def phase_aux_pairs(device, reps=3):
                                 ctl=granted[1])
         perm = torch.randperm(n, generator=torch.Generator().manual_seed(1))
         fo = offs[perm.to(device)].contiguous()
+        revived = revived_by(o, sk.mem, fo)
+        enqueues()
         o.free(sk, fo, sizes, mask)
+        freed = enqueues()
+        if freed != dict(parallel_enqueues=S, parallel_values=revived,
+                         serial_enqueues=0, serial_values=0):
+            raise AssertionError(f"{n}-lane free, {S} shard(s): the "
+                                 f"enqueue of {revived} revived chunks "
+                                 f"took {freed}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if S == 1:
@@ -2582,7 +2650,9 @@ def phase_aux_pairs(device, reps=3):
             return prof
 
         ka, kf = kernel_of(o, "alloc"), kernel_of(o, "free")
-        got = profiled(session, {ka: reps, kf: reps})
+        # the free: its two grid lane passes, then its block(s)
+        got = profiled(session, {ka: reps, kf: reps, "free_lanes": 2 * reps})
+        free_ms = got[kf][0] + 2 * got["free_lanes"][0]
         # bytes: lanes in and out, the ctl blocks, every changed word
         # read and written once
         ctl = 8 * lay.ctl_words * S
@@ -2593,18 +2663,23 @@ def phase_aux_pairs(device, reps=3):
         bound_f = (9 * n + ctl + 8 * chg_f) / HBM_BYTES_PER_S * 1e3
         res[S] = dict(alloc=dict(ms=got[ka][0], plain=plain_alloc,
                                  bound=bound_a),
-                      free=dict(ms=got[kf][0], plain=plain_free,
-                                bound=bound_f), err=err, plain_on=pdev)
+                      free=dict(ms=free_ms, plain=plain_free,
+                                bound=bound_f, enqueue=freed), err=err,
+                      plain_on=pdev)
         log(f"phase 3: {n} lanes ({S} shard(s), {o.cfg.num_chunks} chunks, "
             f"workspace {ws[0]} / {ws[1]} B): alloc and free, 0 differing "
             f"words and offsets; {ka} {got[ka][0]:.3f} ms, {kf} "
-            f"{got[kf][0]:.3f} ms (profiler device time, {got[ka][1]} / "
-            f"{got[kf][1]} of {reps} launches recorded); plain math on the "
+            f"{free_ms:.3f} ms (2 lane passes {got['free_lanes'][0]:.4f} ms "
+            f"each + its block(s) {got[kf][0]:.4f}; profiler device time, "
+            f"{got[ka][1]} / {got[kf][1]} of {reps} and "
+            f"{got['free_lanes'][1]} of {2 * reps} launches recorded); "
+            f"plain math on the "
             f"{'card' if S == 1 else 'CPU'} {plain_alloc:.0f} / "
             f"{plain_free:.0f} ms; bounds {1e3 * bound_a:.2f} / "
             f"{1e3 * bound_f:.2f} us; the alloc's chunk chain"
             f"{'s' if S > 1 else ''} (the kernel's count): "
-            f"{chain_text(took)}")
+            f"{chain_text(took)}; the free's enqueue{'s' if S > 1 else ''} "
+            f"(the kernel's count): {enqueue_text(freed)}")
         res[S]["chain"] = took
         if S == 1:
             res[S]["requeued"] = requeued_alloc(o, lay, sk, sizes, mask, err,
@@ -2612,6 +2687,18 @@ def phase_aux_pairs(device, reps=3):
         del sk, sp, granted
         torch.cuda.empty_cache()
     return res
+
+
+def revived_by(o, mem, offs) -> int:
+    """The chunks a free of ``offs`` (global offsets) revives on the
+    arena words ``mem``: touched by it and full (free count 0)."""
+    lay = shard_lay(o)
+    nc, wpc = lay.cfg.num_chunks, lay.cfg.words_per_chunk
+    off = lay.region("free_count").offset
+    fc = mem.reshape(o.num_shards, -1)[:, off:off + nc].reshape(-1)
+    g = offs[offs >= 0].long()
+    ws = lay.cfg.total_words
+    return int((fc[((g // ws) * nc + (g % ws) // wpc).unique()] == 0).sum())
 
 
 def requeued_alloc(o, lay, sk, sizes, mask, err, reps):
@@ -2721,6 +2808,39 @@ def ssd_bound_ms(x, b, chunks) -> tuple:
 
 
 SSD_ATOL = SSD_RTOL = 1e-4
+# one ssd_scan call's kernels, in launch order: C B^T beside the chunk
+# states, the pass over chunks (not launched for one chunk), the outputs
+SSD_KERNELS = ("ssd_chunk", "ssd_pass", "ssd_scan")
+
+
+def ssd_kernels(chunks: int) -> tuple:
+    return SSD_KERNELS if chunks > 1 else ("ssd_chunk", "ssd_scan")
+
+
+def ssd_device_ms(x, dt, a, b, c, chunks, reps=50):
+    """Device ms of one ``ssd_scan`` call from ``torch.profiler`` over
+    ``reps`` calls: the sum over the kernels it launches of each one's
+    mean over the launches the profiler recorded; each kernel's part (0
+    for one not launched); the fewest launches recorded of any."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    def session():
+        with DeviceProfile() as prof:
+            for _ in range(reps):
+                ssd.ssd_scan(x, dt, a, b, c, chunk=SSD_SHAPE["Q"])
+        return prof
+
+    got = profiled(session, {k: reps for k in ssd_kernels(chunks)})
+    parts = [got[k][0] if k in got else 0.0 for k in SSD_KERNELS]
+    return sum(parts), parts, min(n for _, n in got.values())
+
+
+def ssd_check(got, want, what):
+    """|got - want| <= atol + rtol |want| everywhere, and finite."""
+    excess = ((got - want).abs() - SSD_RTOL * want.abs()).max().item()
+    if not (excess <= SSD_ATOL) or not bool(got.isfinite().all()):
+        raise AssertionError(f"ssd_scan {what}: off its plain version")
+    return float((got - want).abs().max())
 
 
 def phase_ssd(device):
@@ -2740,14 +2860,8 @@ def phase_ssd(device):
             y, hf = ssd.ssd_scan(x, dt, a, b, c, chunk=Q)
             wy, wh = ssd.ssd_plain(x, dt, a, b, c, Q)
             torch.cuda.synchronize()
-            for got, want in ((y, wy), (hf, wh)):
-                excess = ((got - want).abs()
-                          - SSD_RTOL * want.abs()).max().item()
-                if not (excess <= SSD_ATOL) or not torch.isfinite(got).all():
-                    raise AssertionError(f"ssd_scan {dtype}, {chunks} "
-                                         f"chunks: off its plain version")
-            err = max(float((y - wy).abs().max()),
-                      float((hf - wh).abs().max()))
+            err = max(ssd_check(got, want, f"{dtype}, {chunks} chunks")
+                      for got, want in ((y, wy), (hf, wh)))
             max_err = max(max_err, err)
             log(f"phase 4: ssd_scan {str(dtype).split('.')[-1]}, {chunks} "
                 f"chunk(s) (L {chunks * Q}): max error {err:.3g} (atol "
@@ -2757,12 +2871,47 @@ def phase_ssd(device):
     for chunks in range(1, 8):
         x, dt, a, b, c = ssd_inputs(device, chunks)
         ms = time_ms(lambda: ssd.ssd_scan(x, dt, a, b, c, chunk=Q), 20)
+        dev, parts, rec = ssd_device_ms(x, dt, a, b, c, chunks)
         plain = time_ms(lambda: ssd.ssd_plain(x, dt, a, b, c, Q), 3, 1)
         bound, by = ssd_bound_ms(x, b, chunks)
-        times[chunks] = dict(ms=ms, plain=plain, bound=bound, by=by)
-        log(f"phase 4: ssd_scan bf16, B 1, {chunks} chunk(s): kernel "
-            f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.5f} ms ({by})")
+        times[chunks] = dict(ms=ms, device=dev, plain=plain, bound=bound,
+                             by=by)
+        log(f"phase 4: ssd_scan bf16, B 1, {chunks} chunk(s): kernels "
+            f"{dev:.5f} ms a call (profiler device time: "
+            + " + ".join(f"{k} {v:.5f}" for k, v in zip(SSD_KERNELS, parts))
+            + f", at least {rec} of 50 calls recorded), {ms:.5f} ms a call "
+            f"on CUDA events (wrapper inside), plain {plain:.3f} ms, bound "
+            f"{bound:.5f} ms ({by}): {100 * bound / dev:.1f}% of it")
     return dict(err=max_err, times=times)
+
+
+class ScanCheck:
+    """Inside the block, every ``ops.ssd_scan`` call (the model's prefill
+    layers) also runs ``ssd_plain`` on the same inputs and is held to it
+    (atol 1e-4 + rtol 1e-4); the kernel's outputs are returned."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.ssd_scan import ssd_plain
+        self.ops, self.fn = ops, ops.ssd_scan
+        self.calls, self.err, self.chunks = 0, 0.0, set()
+
+        def checked(x, dt, a, b, c, h0=None, *, chunk):
+            y, hf = self.fn(x, dt, a, b, c, h0, chunk=chunk)
+            wy, wh = ssd_plain(x, dt, a, b, c, chunk, h0)
+            what = f"at the serving inputs, call {self.calls}"
+            self.err = max(self.err, ssd_check(y, wy, what),
+                           ssd_check(hf, wh, what))
+            self.calls += 1
+            self.chunks.add(x.shape[1] // chunk)
+            return y, hf
+
+        ops.ssd_scan = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.ssd_scan = self.fn
+        return False
 
 
 class GrantLog:
@@ -2909,6 +3058,7 @@ def phase_mamba_serve(device, seed, lengths, grant):
         f"({eng.ouro.cfg.num_chunks} chunks)")
 
     chains()
+    enqueues()
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
@@ -2916,6 +3066,7 @@ def phase_mamba_serve(device, seed, lengths, grant):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     took = chains()
+    freed = enqueues()
     st = dict(eng.stats)
     toks = sum(len(r.out_tokens) for r in done)
     admissions = len(counting.prefill_lens)
@@ -2926,7 +3077,12 @@ def phase_mamba_serve(device, seed, lengths, grant):
     log(f"phase 5: {MAMBA}: stats {json.dumps(st)}")
     log(f"phase 5: {MAMBA}: launches {json.dumps(launches)}")
     log(f"phase 5: {MAMBA}: the alloc kernels' chunk chains: "
-        f"{chain_text(took)}")
+        f"{chain_text(took)}; the free kernels' enqueues: "
+        f"{enqueue_text(freed)}")
+    if freed["serial_enqueues"] or freed["parallel_enqueues"] != \
+            st["free_txns"]:
+        raise AssertionError(f"a 298,656-lane retirement's enqueue took "
+                             f"the lane-order loop: {freed}")
     host = {**counting.secs, "aux alloc": host["_alloc_aux"],
             "aux free": host["_free_aux"]}
     log(f"phase 5: {MAMBA}: host wall by call (s): " + ", ".join(
@@ -2967,12 +3123,23 @@ def phase_mamba_serve(device, seed, lengths, grant):
     # its first retirement is replayed through the plain math on a card
     # copy of the words it started from
     t0 = time.perf_counter()
-    eng_b, grants_b, _ = mamba_engine(model, params, prompts, True,
-                                          device)
+    eng_b, grants_b, counting_b = mamba_engine(model, params, prompts, True,
+                                               device)
     del params
-    done_b = eng_b.run_until_done()
+    with ScanCheck() as scans:
+        done_b = eng_b.run_until_done()
     torch.cuda.synchronize()
     wall_b = time.perf_counter() - t0
+    want_scans = cfg.num_layers * len(counting_b.prefill_lens)
+    if scans.calls != want_scans:
+        raise AssertionError(f"{scans.calls} scans held, not every layer "
+                             f"of every admission ({want_scans})")
+    log(f"phase 5: {MAMBA}: ssd_scan at the checked run's own inputs: "
+        f"{scans.calls} calls (every layer of its "
+        f"{len(counting_b.prefill_lens)} admissions, "
+        f"{sorted(scans.chunks)} chunks) against ssd_plain on the same "
+        f"tensors: max error {scans.err:.3g} (atol {SSD_ATOL} + rtol "
+        f"{SSD_RTOL})")
     tokens = {r.uid: list(r.out_tokens) for r in done}
     if {r.uid: list(r.out_tokens) for r in done_b} != tokens:
         raise AssertionError("the checked run's tokens differ from the "
@@ -3009,15 +3176,18 @@ def phase_mamba_serve(device, seed, lengths, grant):
     chunks = [-(-n // SSD_SHAPE["Q"]) for n in counting.prefill_lens]
     return dict(launches=launches, tok_s=toks / wall, wall=wall, stats=st,
                 chunks=chunks, errs=errs, engine=eng, prompts=prompts,
-                host=host)
+                host=host, scan_err=scans.err, scan_calls=scans.calls,
+                enqueue=freed)
 
 
 def phase_mamba_profile(mamba):
     """Where the mamba2 run's device time went: the same traffic again
     under the profiler (its wall is the profiler's, not the server's)."""
+    from repro_torch.kernels import ops
     eng = mamba.pop("engine")
     for p in mamba["prompts"]:
         eng.submit(p, max_new_tokens=32)
+    ops.reset_launches()
     with DeviceProfile() as prof:
         eng.run_until_done()
     busy = prof.busy_ms()
@@ -3027,6 +3197,32 @@ def phase_mamba_profile(mamba):
         f"{100 * (1 - busy / wall):.1f}%")
     for key, us, n in prof.rows[:8]:
         log(f"phase 6:   {us / 1e3:9.2f} ms  {n:6d}x  {key[:90]}")
+    # each kernel's mean over the launches the profiler kept, times the
+    # launches the rerun made (as for paged_attention): every scan
+    # launches ssd_chunk and ssd_scan, those of 2 chunks or more
+    # ssd_pass; every 298,656-lane free its two grid lane passes and
+    # free_txn_kernel
+    out = {}
+    scans, frees = ops.LAUNCHES["ssd_scan"], ops.LAUNCHES["free_txn"]
+    layers = scans // len(mamba["chunks"])
+    made = {"ssd_scan": {"ssd_chunk": scans, "ssd_scan": scans,
+                         "ssd_pass": layers * sum(ch > 1 for ch in
+                                                  mamba["chunks"])},
+            "free_txn": {"free_txn": frees, "free_lanes": 2 * frees}}
+    for name, parts in made.items():
+        got = {k: prof.kernel(KERNEL_SYMBOLS[k]) for k in parts}
+        recorded = ", ".join(f"{k} {got[k][1]} of {m}"
+                             for k, m in parts.items())
+        if all(got[k][1] for k, m in parts.items() if m):
+            out[name] = sum(got[k][0] * m for k, m in parts.items() if m)
+            log(f"phase 6: {MAMBA}: {name} in that rerun: {out[name]:.2f} ms "
+                f"of device time (each kernel's per-launch mean times its "
+                f"launches; launches recorded: {recorded})")
+        else:
+            out[name] = None
+            log(f"phase 6: {MAMBA}: {name} in that rerun: not measured (a "
+                f"kernel had no launch recorded: {recorded})")
+    return out
 
 
 def main(argv=None) -> int:
@@ -3064,6 +3260,8 @@ def main(argv=None) -> int:
     for name in sorted(secs):
         for ln in build.ptxas_report(name).splitlines():
             log(f"phase 2: {name}: {ln.strip()}")
+    log(f"phase 2: ssd_scan: tensor-core (HMMA) instructions by kernel "
+        f"(cuobjdump): {json.dumps(sass_count(build, 'ssd_scan', 'HMMA'))}")
 
     t0 = time.perf_counter()
     ops.reset_launches()
@@ -3104,7 +3302,7 @@ def main(argv=None) -> int:
     timing = phase_timing(device, serve, alloc_logs, pressure, waves)
     sh_timing = phase_sharded_timing(device, sh3, sharded_runs)
     del serve["engine"]
-    phase_mamba_profile(mamba)
+    mamba_dev = phase_mamba_profile(mamba)
     pw_timing = phase_piecewise_timing(pw_inputs)
     var_timing = phase_variants_timing(device)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
@@ -3119,7 +3317,7 @@ def main(argv=None) -> int:
         plain = ("plain_ms_298656_lanes" if aux_pairs[S]["plain_on"] != "cpu"
                  else "plain_cpu_ms_298656_lanes")
         geo = ({"chain_298656_lanes": aux_pairs[S]["chain"]}
-               if kind == "alloc" else {})
+               if kind == "alloc" else {"enqueue_298656_lanes": t["enqueue"]})
         if kind == "alloc" and "requeued" in aux_pairs[S]:
             r = aux_pairs[S]["requeued"]
             geo.update(ms_298656_lanes_requeued=r["ms"],
@@ -3173,6 +3371,9 @@ def main(argv=None) -> int:
             "plain_ms": mean(timing["p_times"][kind]),
             "bound_ms": mean(timing["bounds"][kind]), "bound_by": "bytes",
             "library_ms": None, **aux_fields(1, kind),
+            **({"serving_device_ms_" + MAMBA: mamba_dev["free_txn"],
+                "enqueue_" + MAMBA: mamba["enqueue"]} if kind == "free"
+               else {}),
             **variant_fields(name)})
     # phase 3 per wave, and the pressure run's plans and final words
     err = dict(defrag_err)
@@ -3255,20 +3456,29 @@ def main(argv=None) -> int:
     # plain time and bound at that count, averaged over the run
     st_ = [ssd["times"][ch] for ch in mamba["chunks"]]
     by = {t["by"] for t in st_}
+    err = max(ssd["err"], mamba["scan_err"])
     kernels.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:66",
         "launches": mamba["launches"]["ssd_scan"],
-        "max_abs_err": ssd["err"], "max_err": ssd["err"],
+        "max_abs_err": err, "max_err": err,
+        "serving_inputs_max_err": mamba["scan_err"],
+        # ms: CUDA events around the wrapper (its host work inside), as
+        # for every earlier slice; device_ms: its three kernels' profiler
+        # time
         "ms": mean([t["ms"] for t in st_]),
+        "device_ms": mean([t["device"] for t in st_]),
         "plain_ms": mean([t["plain"] for t in st_]),
         "bound_ms": mean([t["bound"] for t in st_]),
         "bound_by": by.pop() if len(by) == 1 else "operations",
         "library_ms": None,
         "ms_by_chunks": {ch: t["ms"] for ch, t in ssd["times"].items()},
+        "device_ms_by_chunks": {ch: t["device"]
+                                for ch, t in ssd["times"].items()},
         "bound_ms_by_chunks": {ch: t["bound"]
-                               for ch, t in ssd["times"].items()}})
+                               for ch, t in ssd["times"].items()},
+        "serving_device_ms": mamba_dev["ssd_scan"]})
     # phase 3 (piecewise): the traces' launches, their word errors and
     # the direct comparisons, the times at the traces' inputs
     for name, source, replaces in (

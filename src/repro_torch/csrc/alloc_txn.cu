@@ -75,21 +75,33 @@
 // empty dequeue tries) to device counters, read and cleared by
 // alloc_txn_chain_stats.  Free's revived chunks re-enter their queues
 // through the family's bulk enqueue (ring slots; va directory grow; vl
-// chain grow), written by thread 0 in lane order.
+// chain grow), their values written as a page kind's are (below): a
+// revived chunk's class outside [0, C) ranks where another chunk does,
+// so it is one more reason to write in lane order.  The free's bit
+// clears and counts are summed over runs of neighbouring lanes that hit
+// one word (a retirement's ascending offsets: 16 lanes a chunk) before
+// one atomic a run.  A chunk kind's free too wide for shared memory (its
+// lane tables in the workspace: a mamba2 retirement of 298,656 lanes)
+// runs those two lane passes first over the whole card, as two launches
+// (free_lanes_kernel), then its block(s) the rest: one block walking
+// 298,656 lanes twice took most of the free's time.
 //
 // Page kinds: alloc grants each class the rank prefix that fits its
 // inventory (rank < back - front); every granted lane gathers its value
 // on its own (ring: the store slot front + rank; va: through the
 // directory; vl: through a table of m + 1 chain hops per class, walked by
 // one thread per class), then thread 0 returns the consumed segments to
-// the pool class-major, segment-minor.  Free has thread 0 pop and enter
-// the new segments (va: directory slots; vl: terminated, then linked
-// j-major), then the lanes write their values at back + rank through the
-// grown directory or chain, in parallel, unless two lanes could write one
-// word (a ring class wider than its capacity, a counter crossing 2^31,
-// or two touched segments that are one chunk: pops from an exhausted
-// pool repeat chunks, a directory wraps max_segs): then thread 0 writes
-// them all in lane order, as the reference's scatter resolves them.
+// the pool class-major, segment-minor.  Free (both kinds) has thread 0
+// pop and enter the new segments (va: directory slots; vl: terminated,
+// then linked j-major), then the threads write the values at back + rank
+// through the grown directory or chain, in parallel, unless two values
+// could share a word (a ring class wider than its capacity, a counter
+// crossing 2^31, two touched segments that are one chunk or one outside
+// the heap: pops from an exhausted pool repeat chunks, a directory wraps
+// max_segs; a revived chunk's class outside [0, C)): then thread 0
+// writes them all in lane order, as the reference's scatter resolves
+// them, loading a few entries ahead of its stores.  Device counters
+// (free_txn_enqueue_stats) count the enqueues and values of each path.
 //
 // Lane tables (alloc's rank -> offset table or page-vl chain table, the
 // sharded alloc's local offsets and selection, free's chunk bitset,
@@ -280,26 +292,47 @@ __device__ __forceinline__ void grow_segments(const ArenaDesc& d, Chain& ch,
 
 // The lanes of one free transaction as one arena sees them: all of them
 // (a single arena), or those whose global offset shard s owns, at their
-// local offsets (a sharded arena).
+// local offsets (a sharded arena); with s = -1 those of every one of the
+// S shards (the grid's lane passes), each in its shard's slot.
 struct FreeLanes {
   const int* offs;
   const uint8_t* mask;
   int s, Ws;
   bool sharded;
+  int S;
+  __device__ int shard(int i) const { return fdiv(offs[i], Ws); }
   __device__ bool sel(int i) const {
     if (!mask[i]) return false;
-    return !sharded || (offs[i] >= 0 && fdiv(offs[i], Ws) == s);
+    if (!sharded) return true;
+    if (offs[i] < 0) return false;
+    return s >= 0 ? shard(i) == s : shard(i) < S;
+  }
+  __device__ int slot(int i) const {
+    return sharded && s < 0 ? shard(i) : 0;
   }
   __device__ int off(int i) const {
-    return sharded ? offs[i] - s * Ws : offs[i];
+    return sharded ? offs[i] - (s >= 0 ? s : shard(i)) * Ws : offs[i];
   }
 };
 
 struct FreeShared {
   int ctl[MAX_CTL], old[MAX_CTL];
   int count[MAX_CLASSES], base[MAX_CLASSES], warp[32], freed[MAX_CLASSES];
-  int nnew[MAX_CLASSES], rev, serial;
+  int nnew[MAX_CLASSES], rev, serial, bad_class;
 };
+
+// What the bulk enqueues of every free (single or sharded: one per
+// block) since the last reset did, summed over launches: thread 0 adds
+// its block's counts at the end of free_body, and free_txn_enqueue_stats
+// reads and clears them.
+enum FreeStat {
+  FS_PAR_ENQUEUES,  // enqueues whose values the block wrote in parallel
+  FS_PAR_VALUES,    // the values they wrote
+  FS_SER_ENQUEUES,  // enqueues thread 0 wrote in lane order
+  FS_SER_VALUES,    // the values it wrote
+  kFreeStats
+};
+__device__ unsigned long long g_free_stats[kFreeStats];
 
 // Write one enqueued value at slot back + r of class cm (back and tail
 // as staged before the transaction, in sh.old): the ring slot, or the
@@ -333,10 +366,15 @@ __device__ __forceinline__ void put_value(const ArenaDesc& d, int* mem,
   }
 }
 
+// thread 0's lane-order loop loads this many entries ahead of its stores
+// (a store to mem may alias the lane tables as far as the compiler
+// knows, so it would otherwise wait for each entry after the last store)
+constexpr int kPutBatch = 4;
+
 // The values of a bulk enqueue (after its grow): a chunk kind's R
-// revived chunks on thread 0 in lane order; a page kind's freed lanes in
-// parallel, or on thread 0 in lane order when two could share a word
-// (sh.serial).
+// revived chunks (class rev_cls[j] mod C, rank[j], value rev_id[j]) or a
+// page kind's freed lanes (ranked lanes only), written in parallel, or
+// on thread 0 in lane order when two could share a word (sh.serial).
 template <int FAM>
 __device__ __forceinline__ void put_values(const ArenaDesc& d, int* mem,
                                            const FreeShared& sh,
@@ -345,22 +383,40 @@ __device__ __forceinline__ void put_values(const ArenaDesc& d, int* mem,
                                            const int* rank, const int* rev_id,
                                            const int* rev_cls, int R) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
-  if (d.kind == KIND_CHUNK) {
-    if (tid == 0)
-      for (int j = 0; j < R; ++j)
-        put_value<FAM>(d, mem, sh, newc, m, fmodi(rev_cls[j], C), rank[j],
-                       rev_id[j]);
-    return;
-  }
-  auto put = [&](int j) {
-    if (rank[j] < 0) return;
-    const int c = size_class(d, sizes[j]);
-    put_value<FAM>(d, mem, sh, newc, m, c, rank[j] - sh.base[c], L.off(j));
+  const bool chunks = d.kind == KIND_CHUNK;
+  // entry j as (class, rank within it, value); class -1: nothing to write
+  auto entry = [&](int j, int& c, int& r, int& val) {
+    r = val = 0;
+    if (chunks) {
+      c = fmodi(rev_cls[j], C);
+      r = rank[j];
+      val = rev_id[j];
+    } else if (rank[j] < 0) {
+      c = -1;
+    } else {
+      c = size_class(d, sizes[j]);
+      r = rank[j] - sh.base[c];
+      val = L.off(j);
+    }
   };
   if (!sh.serial) {
-    for (int j = tid; j < R; j += nt) put(j);
+    for (int j = tid; j < R; j += nt) {
+      int c, r, val;
+      entry(j, c, r, val);
+      if (c >= 0) put_value<FAM>(d, mem, sh, newc, m, c, r, val);
+    }
   } else if (tid == 0) {
-    for (int j = 0; j < R; ++j) put(j);
+    for (int j0 = 0; j0 < R; j0 += kPutBatch) {
+      int c[kPutBatch], r[kPutBatch], val[kPutBatch];
+#pragma unroll
+      for (int u = 0; u < kPutBatch; ++u) {
+        c[u] = -1;
+        if (j0 + u < R) entry(j0 + u, c[u], r[u], val[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kPutBatch; ++u)
+        if (c[u] >= 0) put_value<FAM>(d, mem, sh, newc, m, c[u], r[u], val[u]);
+    }
   }
 }
 
@@ -963,13 +1019,14 @@ sharded_alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
 
 // ---- free ----------------------------------------------------------------
 
-// Page kinds, thread 0, after the grow: could two lanes' value writes hit
-// one word?  Yes when a ring class takes more values than its capacity
-// or its slots cross 2^31, or when two touched segments (a va
-// directory's slots from back's on; a vl tail and new segments) are one
-// chunk, or one lies outside the heap's chunks.  seen: a bitset of
-// ceil(nc / 32) zeroed words.
-__device__ __forceinline__ bool page_free_may_collide(
+// After the grow, thread 0: could two of the enqueue's values share a
+// word?  Yes when a ring class takes more values than its capacity or its
+// slots cross 2^31, or when two touched segments (a va directory's slots
+// from back's on; a vl tail and new segments) are one chunk, or one lies
+// outside the heap's chunks.  (A chunk kind's revived chunks are distinct
+// and ranked apart within a class; the caller adds the one other way,
+// a class outside [0, C).)  seen: a bitset of ceil(nc / 32) zeroed words.
+__device__ __forceinline__ bool enqueue_may_collide(
     const ArenaDesc& d, Chain& ch, const int* count, const int* nnew,
     const int* newc, int m, unsigned* seen) {
   const int nc = d.num_chunks, spc = d.spc;
@@ -998,51 +1055,115 @@ __device__ __forceinline__ bool page_free_may_collide(
   return false;
 }
 
-// A chunk kind's free up to its enqueue, block-wide: clear the freed
-// pages' bits and return them to the free counts, then list the chunks
-// it revived (full before, touched now) in ascending id order, each with
-// its class and its rank among the revived chunks of class cls mod C (a
-// class outside [0, C) ranks there without being counted, as the
-// reference's one-hot).  bitset: ceil(nc / 32) zeroed words.  Returns
-// the number of revived chunks.
+// The total of v over this lane's run of neighbouring lanes with the same
+// key (a sum, or with kOr a union), handed to the run's last lane: true
+// there when key >= 0, so that one atomic a run does what one a lane
+// did (the adds commute).  Every lane of the warp calls it.
+template <bool kOr>
+__device__ __forceinline__ bool warp_run_total(int key, unsigned& v) {
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(0xffffffffu, key, 1);
+  const unsigned heads = __ballot_sync(0xffffffffu, lane == 0 || prev != key);
+  const int start = 31 - __clz((int)(heads & (0xffffffffu >> (31 - lane))));
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = (unsigned)__shfl_up_sync(0xffffffffu, (int)v, o);
+    if (lane - o >= start) v = kOr ? (v | y) : (v + y);
+  }
+  return key >= 0 && (lane == 31 || ((heads >> (lane + 1)) & 1u));
+}
+
+// The lane passes of a chunk kind's free, a warp at a time over lanes
+// i0 + lane, i0 += stride (both multiples of 32): phase 0 marks in
+// bitset the touched chunks that were full (free counts before any
+// clear) and counts the freed lanes per class in freed; phase 1 clears
+// their bits (wrapping subtract) and returns their pages to the free
+// counts.  A lane's arena is mem + slot * Mw, its bitset bitset + slot *
+// ws_ints and its counts freed + slot * C, slot 0 but on the grid passes
+// of a sharded free.  Each atomic covers a run of neighbouring lanes on
+// one word (a retirement's ascending offsets: 16 lanes a chunk).
+template <int kPhase>
+__device__ __forceinline__ void free_lane_pass(const ArenaDesc& d, int* mem,
+                                               long long Mw, FreeLanes L,
+                                               const int* sizes, int n,
+                                               int i0, int stride, int* freed,
+                                               unsigned* bitset,
+                                               long long ws_ints) {
+  const int C = d.num_classes, nc = d.num_chunks, wpc = d.wpc;
+  const int nwords = (nc + 31) / 32, lane = threadIdx.x & 31;
+  for (; i0 < n; i0 += stride) {
+    const int i = i0 + lane;
+    int c = -1, off = 0, slot = 0;
+    if (i < n && L.sel(i)) {
+      const int k = size_class(d, sizes[i]);
+      const int o = L.off(i);
+      if (k < C && o >= 0) {
+        c = k;
+        off = o;
+        slot = L.slot(i);
+      }
+    }
+    const int chunk = c >= 0 ? fdiv(off, wpc) : 0;
+    if (kPhase == 0) {
+      int key = -1, word = -1;
+      unsigned one = c >= 0, bit = 0u;
+      if (c >= 0) {
+        key = slot * C + c;
+        if (chunk < nc && mem[slot * Mw + d.free_off + chunk] == 0) {
+          word = slot * nwords + (chunk >> 5);
+          bit = 1u << (chunk & 31);
+        }
+      }
+      if (warp_run_total<false>(key, one)) atomicAdd(&freed[key], (int)one);
+      if (warp_run_total<true>(word, bit))
+        atomicOr(&bitset[(word / nwords) * ws_ints + word % nwords], bit);
+    } else {
+      int key = -1, word = -1;
+      unsigned one = 0u, clear = 0u;
+      if (c >= 0 && chunk < nc) {
+        key = slot * nc + chunk;
+        one = 1u;
+        const int page = fdiv(fmodi(off, wpc), d.min_page_words << c);
+        if (page / 32 < d.bw) {
+          word = key * d.bw + page / 32;
+          clear = 0u - (1u << (page & 31));
+        }
+      }
+      if (warp_run_total<false>(key, one))
+        atomicAdd(&mem[(key / nc) * Mw + d.free_off + key % nc], (int)one);
+      if (warp_run_total<false>(word, clear)) {
+        const int per = nc * d.bw;
+        atomicAdd(reinterpret_cast<unsigned*>(
+                      &mem[(word / per) * Mw + d.bitmap_off + word % per]),
+                  clear);
+      }
+    }
+  }
+}
+
+// A chunk kind's free up to its enqueue, block-wide: the lane passes
+// (unless lanes_done: the grid's passes ran them, their bitset and
+// counts in the tables), then the chunks it revived (full before,
+// touched now) listed in ascending id order, each with its class and its
+// rank among the revived chunks of class cls mod C (a class outside
+// [0, C) ranks there without being counted, as the reference's one-hot:
+// sh.bad_class says whether one did).  bitset: ceil(nc / 32) words,
+// zeroed or marked; zeroed again on return.  Returns the number of
+// revived chunks.
 __device__ __forceinline__ int revive_chunks(const ArenaDesc& d, int* mem,
                                              FreeLanes L, const int* sizes,
                                              int n, FreeShared& sh,
                                              unsigned* bitset, int* rev_id,
-                                             int* rev_cls, int* rank) {
+                                             int* rev_cls, int* rank,
+                                             bool lanes_done) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
-  const int nc = d.num_chunks, wpc = d.wpc, nwords = (nc + 31) / 32;
-  unsigned* bitmap = reinterpret_cast<unsigned*>(mem + d.bitmap_off);
-  int* free_count = mem + d.free_off;
+  const int lane = tid & 31, nwords = (d.num_chunks + 31) / 32;
   const int* chunk_class = mem + d.class_off;
-
-  // phase A: which touched chunks were full (free counts before any
-  // clear), and the freed-lane telemetry
-  for (int i = tid; i < n; i += nt) {
-    const int c = size_class(d, sizes[i]);
-    if (!L.sel(i) || c >= C) continue;
-    const int off = L.off(i);
-    if (off < 0) continue;
-    atomicAdd(&sh.freed[c], 1);
-    const int chunk = fdiv(off, wpc);
-    if (chunk < nc && free_count[chunk] == 0)
-      atomicOr(&bitset[chunk >> 5], 1u << (chunk & 31));
-  }
-  __syncthreads();
-
-  // phase B: clear the bits (wrapping subtract) and return the pages
-  for (int i = tid; i < n; i += nt) {
-    const int c = size_class(d, sizes[i]);
-    if (!L.sel(i) || c >= C) continue;
-    const int off = L.off(i);
-    if (off < 0) continue;
-    const int chunk = fdiv(off, wpc);
-    if (chunk >= nc) continue;
-    const int pw = d.min_page_words << c;
-    const int page = fdiv(fmodi(off, wpc), pw);
-    atomicAdd(&free_count[chunk], 1);
-    if (page / 32 < d.bw)
-      atomicAdd(&bitmap[chunk * d.bw + page / 32], 0u - (1u << (page & 31)));
+  if (!lanes_done) {
+    free_lane_pass<0>(d, mem, 0, L, sizes, n, tid - lane, nt, sh.freed,
+                      bitset, 0);
+    __syncthreads();
+    free_lane_pass<1>(d, mem, 0, L, sizes, n, tid - lane, nt, nullptr,
+                      bitset, 0);
   }
 
   // revived chunks in ascending id order: compact the bitset by scan
@@ -1055,6 +1176,7 @@ __device__ __forceinline__ int revive_chunks(const ArenaDesc& d, int* mem,
     int pos = block_excl_scan(local, &total, sh.warp);
     for (int w = lo; w < hi; ++w) {
       unsigned bits = bitset[w];
+      bitset[w] = 0u;  // free again for the collision test's marks
       while (bits) {
         const int b = __ffs(bits) - 1;
         bits &= bits - 1u;
@@ -1072,6 +1194,8 @@ __device__ __forceinline__ int revive_chunks(const ArenaDesc& d, int* mem,
   // per-class ranks of the revived list
   const int per = (R + nt - 1) / nt;
   const int lo = min(R, tid * per), hi = min(R, lo + per);
+  int bad = 0;
+  for (int j = lo; j < hi; ++j) bad |= rev_cls[j] < 0 || rev_cls[j] >= C;
   for (int c = 0; c < C; ++c) {
     int local = 0;
     for (int j = lo; j < hi; ++j) local += (rev_cls[j] == c);
@@ -1083,32 +1207,42 @@ __device__ __forceinline__ int revive_chunks(const ArenaDesc& d, int* mem,
     }
     if (tid == 0) sh.count[c] = total;
   }
-  __syncthreads();
+  bad = __syncthreads_or(bad);
+  if (tid == 0) sh.bad_class = bad;
   return R;
 }
 
 // One free transaction on one arena (mem, ctl), block-wide.  tables:
-// free_txn_table_bytes of shared or global memory.
+// free_txn_table_bytes of shared or global memory.  lanes_done: a chunk
+// kind's lane passes already ran on the grid (free_lanes_kernel), their
+// counts and revived-chunk bitset in the tables.
 __device__ __forceinline__ void free_body(const ArenaDesc& d, int* mem,
                                           int* ctl, FreeLanes L,
                                           const int* sizes, int n,
-                                          FreeShared& sh, int* tables) {
+                                          FreeShared& sh, int* tables,
+                                          bool lanes_done) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
   const int nwords = (d.num_chunks + 31) / 32;
   const int m = n / d.spc + 1;
-  // tables: bitset (ceil(nc/32)) | rev ids (n) | rev class (n) |
-  //         rank (n) | new segment chunks (C * m)
-  unsigned* bitset = reinterpret_cast<unsigned*>(tables);
-  int* rev_id = tables + nwords;
+  // tables: freed lanes per class (C; the grid passes') | bitset
+  //         (ceil(nc/32)) | rev ids (n) | rev class (n) | rank (n) |
+  //         new segment chunks (C * m)
+  unsigned* bitset = reinterpret_cast<unsigned*>(tables + C);
+  int* rev_id = tables + C + nwords;
   int* rev_cls = rev_id + n;
   int* rank = rev_cls + n;
   int* newc = rank + n;
 
   for (int i = tid; i < d.ctl_words; i += nt)
     sh.ctl[i] = sh.old[i] = ctl[i];
-  for (int i = tid; i < C; i += nt) sh.freed[i] = sh.nnew[i] = 0;
-  for (int i = tid; i < nwords; i += nt) bitset[i] = 0u;
+  for (int i = tid; i < C; i += nt) {
+    sh.freed[i] = lanes_done ? tables[i] : 0;
+    sh.nnew[i] = 0;
+  }
+  if (!lanes_done)
+    for (int i = tid; i < nwords; i += nt) bitset[i] = 0u;
   for (int i = tid; i < C * m; i += nt) newc[i] = -1;
+  if (tid == 0) sh.bad_class = 0;
   __syncthreads();
 
   // R values to enqueue: a page kind's freed pages (lane j: its page,
@@ -1126,20 +1260,19 @@ __device__ __forceinline__ void free_body(const ArenaDesc& d, int* mem,
     R = n;
   } else {
     R = revive_chunks(d, mem, L, sizes, n, sh, bitset, rev_id, rev_cls,
-                      rank);
+                      rank, lanes_done);
   }
 
   // the family's bulk enqueue: thread 0 grows the queues, then the
-  // values are written in parallel unless two could share a word (a
-  // chunk kind's always may: pops from an exhausted pool repeat a chunk,
-  // a class outside [0, C) shares a rank), when thread 0 writes them in
-  // lane order, as the reference's scatter resolves them
+  // values are written in parallel unless two could share a word, when
+  // thread 0 writes them in lane order, as the reference's scatter
+  // resolves them
   if (tid == 0) {
     Chain ch{d, mem, sh.ctl};
     grow_segments(d, ch, sh.count, sh.nnew, newc, m);
-    sh.serial = d.kind == KIND_CHUNK
-                || page_free_may_collide(d, ch, sh.count, sh.nnew, newc, m,
-                                         bitset);
+    sh.serial = sh.bad_class
+                || enqueue_may_collide(d, ch, sh.count, sh.nnew, newc, m,
+                                       bitset);
   }
   __syncthreads();
   if (d.family == FAM_RING)
@@ -1158,6 +1291,15 @@ __device__ __forceinline__ void free_body(const ArenaDesc& d, int* mem,
     int zero[MAX_CLASSES] = {0};
     tele_apply(d, sh.old, sh.ctl, zero,
                d.kind == KIND_PAGE ? sh.count : sh.freed, zero, 0, 0);
+    unsigned long long values = R;
+    if (d.kind == KIND_PAGE) {
+      values = 0;
+      for (int c = 0; c < C; ++c) values += (unsigned)sh.count[c];
+    }
+    atomicAdd(&g_free_stats[sh.serial ? FS_SER_ENQUEUES : FS_PAR_ENQUEUES],
+              1ull);
+    atomicAdd(&g_free_stats[sh.serial ? FS_SER_VALUES : FS_PAR_VALUES],
+              values);
   }
   __syncthreads();
   for (int i = tid; i < d.ctl_words; i += nt) ctl[i] = sh.ctl[i];
@@ -1167,11 +1309,11 @@ template <bool kWs>
 __global__ void __launch_bounds__(1024)
 free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
                 const int* offs, const int* sizes,
-                const uint8_t* mask, int n, int* ws) {
+                const uint8_t* mask, int n, int* ws, int lanes_done) {
   __shared__ FreeShared sh;
   extern __shared__ int dyn[];
-  const FreeLanes L{offs, mask, 0, 0, false};
-  free_body(d, mem, ctl, L, sizes, n, sh, kWs ? ws : dyn);
+  const FreeLanes L{offs, mask, 0, 0, false, 1};
+  free_body(d, mem, ctl, L, sizes, n, sh, kWs ? ws : dyn, lanes_done);
 }
 
 // One block per shard: block s frees the lanes whose offsets it owns.
@@ -1182,14 +1324,51 @@ sharded_free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
                         int Mw, int Cw, const int* offs,
                         const int* sizes,
                         const uint8_t* mask, int n, int* ws,
-                        long long ws_ints) {
+                        long long ws_ints, int lanes_done) {
   __shared__ FreeShared sh;
   extern __shared__ int dyn[];
   const int s = blockIdx.x;
   int* m = mem + (long long)s * Mw;
   int* c = ctl + (long long)s * Cw;
-  const FreeLanes L{offs, mask, s, d.total_words, true};
-  free_body(d, m, c, L, sizes, n, sh, kWs ? ws + s * ws_ints : dyn);
+  const FreeLanes L{offs, mask, s, d.total_words, true, (int)gridDim.x};
+  free_body(d, m, c, L, sizes, n, sh, kWs ? ws + s * ws_ints : dyn,
+            lanes_done);
+}
+
+// A chunk kind's lane passes of a free whose tables are in the workspace
+// (a transaction too wide for a block's shared memory), spread over the
+// card before the transaction's block(s) run the rest: phase 0, then
+// phase 1 as a second launch (every chunk's "full before" is read
+// before any page returns).  The S shards' lanes at once (one arena:
+// S = 1, not sharded; mem rows of Mw words), each shard's counts and
+// bitset in its
+// table set (ws_ints ints each), zeroed by the launcher; a block sums its
+// counts in shared memory and adds them once.
+constexpr int kGridThreads = 256;
+constexpr int kGridMaxBlocks = 528;    // 4 blocks on each of 132 SMs
+constexpr int kGridCounts = 256;       // S * C counts a block can sum
+
+template <int kPhase>
+__global__ void __launch_bounds__(kGridThreads)
+free_lanes_kernel(ArenaDesc d, int* mem, long long Mw, const int* offs,
+                  const int* sizes, const uint8_t* mask, int n, int S,
+                  int sharded, int* ws, long long ws_ints) {
+  __shared__ int s_freed[kGridCounts];
+  const int tid = threadIdx.x, C = d.num_classes;
+  const FreeLanes L{offs, mask, -1, d.total_words, sharded != 0, S};
+  if (kPhase == 0) {
+    for (int k = tid; k < S * C; k += kGridThreads) s_freed[k] = 0;
+    __syncthreads();
+  }
+  free_lane_pass<kPhase>(d, mem, Mw, L, sizes, n,
+                         blockIdx.x * kGridThreads + tid - (tid & 31),
+                         gridDim.x * kGridThreads, s_freed,
+                         reinterpret_cast<unsigned*>(ws + C), ws_ints);
+  if (kPhase == 0) {
+    __syncthreads();
+    for (int k = tid; k < S * C; k += kGridThreads)
+      if (s_freed[k]) atomicAdd(&ws[(k / C) * ws_ints + k % C], s_freed[k]);
+  }
 }
 
 // ---- launch geometry (also used by the emulation harness) -------------
@@ -1207,8 +1386,18 @@ extern "C" size_t alloc_txn_table_bytes(ArenaDesc d, int n) {
 extern "C" size_t free_txn_table_bytes(ArenaDesc d, int n) {
   const int nwords = (d.num_chunks + 31) / 32;
   const int m = n / d.spc + 1;
-  return ((size_t)nwords + 3 * (size_t)n + (size_t)d.num_classes * m)
-         * sizeof(int);
+  return ((size_t)d.num_classes + nwords + 3 * (size_t)n
+          + (size_t)d.num_classes * m) * sizeof(int);
+}
+
+// Blocks of a free's grid lane passes (free_lanes_kernel), or 0 when its
+// block(s) run them: a chunk kind whose tables are in the workspace.
+extern "C" int free_txn_grid_blocks(ArenaDesc d, int n, int S, int ws) {
+  if (!ws || d.kind != KIND_CHUNK || n <= 0
+      || S * d.num_classes > kGridCounts)
+    return 0;
+  const int blocks = (n + kGridThreads - 1) / kGridThreads;
+  return blocks < kGridMaxBlocks ? blocks : kGridMaxBlocks;
 }
 
 extern "C" size_t sharded_alloc_txn_table_bytes(ArenaDesc d, int n) {
@@ -1251,6 +1440,18 @@ extern "C" int alloc_txn_chain_stats(unsigned long long* out, int reset) {
   return err;
 }
 
+// The free enqueue statistics summed since the last reset (kFreeStats
+// words, in FreeStat order), as alloc_txn_chain_stats.
+extern "C" int free_txn_enqueue_stats(unsigned long long* out, int reset) {
+  int err = (int)cudaMemcpyFromSymbol(out, g_free_stats,
+                                      sizeof(g_free_stats));
+  if (!err && reset) {
+    const unsigned long long zero[kFreeStats] = {};
+    err = (int)cudaMemcpyToSymbol(g_free_stats, zero, sizeof(zero));
+  }
+  return err;
+}
+
 static int launch_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
@@ -1269,6 +1470,30 @@ extern "C" int alloc_txn_launch(ArenaDesc d, int* mem, int* ctl,
   return (int)cudaGetLastError();
 }
 
+// A chunk kind's grid lane passes before the transaction's block(s),
+// when free_txn_grid_blocks says so: the S table sets' counts and bitset
+// zeroed, then the two passes.  Returns the number of grid blocks (0:
+// none) through *blocks.
+static int free_lanes_launch(ArenaDesc d, int* mem, long long Mw, int S,
+                             int sharded, const int* offs, const int* sizes,
+                             const uint8_t* mask, int n, int* ws,
+                             cudaStream_t stream, int* blocks) {
+  *blocks = free_txn_grid_blocks(d, n, S, ws != nullptr);
+  if (!*blocks) return 0;
+  const size_t table = free_txn_table_bytes(d, n);
+  const size_t head = (d.num_classes + (d.num_chunks + 31) / 32)
+                      * sizeof(int);
+  int err = (int)cudaMemset2DAsync(ws, table, 0, head, S, stream);
+  if (err) return err;
+  const long long ws_ints = (long long)(table / sizeof(int));
+  free_lanes_kernel<0><<<*blocks, kGridThreads, 0, stream>>>(
+      d, mem, Mw, offs, sizes, mask, n, S, sharded, ws, ws_ints);
+  if ((err = (int)cudaGetLastError())) return err;
+  free_lanes_kernel<1><<<*blocks, kGridThreads, 0, stream>>>(
+      d, mem, Mw, offs, sizes, mask, n, S, sharded, ws, ws_ints);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int free_txn_launch(ArenaDesc d, int* mem, int* ctl,
                                const int* offs, const int* sizes,
                                const uint8_t* mask, int n, int* ws,
@@ -1277,8 +1502,12 @@ extern "C" int free_txn_launch(ArenaDesc d, int* mem, int* ctl,
   const auto k = ws ? free_txn_kernel<true> : free_txn_kernel<false>;
   int err = launch_smem((const void*)k, smem);
   if (err) return err;
+  int grid;
+  err = free_lanes_launch(d, mem, 0, 1, 0, offs, sizes, mask, n, ws,
+                          (cudaStream_t)stream, &grid);
+  if (err) return err;
   k<<<1, block_threads(n), smem, (cudaStream_t)stream>>>(
-      d, mem, ctl, offs, sizes, mask, n, ws);
+      d, mem, ctl, offs, sizes, mask, n, ws, grid > 0);
   return (int)cudaGetLastError();
 }
 
@@ -1309,8 +1538,12 @@ extern "C" int sharded_free_txn_launch(ArenaDesc d, int* mem, int* ctl,
                     : sharded_free_txn_kernel<false>;
   int err = launch_smem((const void*)k, smem);
   if (err) return err;
+  int grid;
+  err = free_lanes_launch(d, mem, Mw, S, 1, offs, sizes, mask, n, ws,
+                          (cudaStream_t)stream, &grid);
+  if (err) return err;
   k<<<S, block_threads(n), smem, (cudaStream_t)stream>>>(
       d, mem, ctl, Mw, Cw, offs, sizes, mask, n, ws,
-      (long long)(table / sizeof(int)));
+      (long long)(table / sizeof(int)), grid > 0);
   return (int)cudaGetLastError();
 }

@@ -102,6 +102,9 @@ def _lib():
         lib.alloc_txn_chain_stats.argtypes = [
             ctypes.POINTER(ctypes.c_ulonglong), I]
         lib.alloc_txn_chain_stats.restype = I
+        lib.free_txn_enqueue_stats.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), I]
+        lib.free_txn_enqueue_stats.restype = I
         lib._typed = True
     return lib
 
@@ -126,6 +129,27 @@ def chain_stats(reset: bool = False) -> dict:
     if err:
         raise RuntimeError(f"alloc_txn_chain_stats failed: CUDA error {err}")
     return dict(zip(CHAIN_STATS, (int(v) for v in buf)))
+
+
+# csrc/alloc_txn.cu's FreeStat, in order
+FREE_STATS = ("parallel_enqueues", "parallel_values", "serial_enqueues",
+              "serial_values")
+
+
+def enqueue_stats(reset: bool = False) -> dict:
+    """What the bulk enqueues of every ``free_txn`` and
+    ``sharded_free_txn`` launch (one enqueue a block) since the last
+    reset did, counted on the card by the kernels themselves: enqueues
+    whose values the block wrote in parallel and the values they wrote,
+    enqueues thread 0 wrote in lane order (two values could share a
+    word) and their values.  Waits for the card; ``reset`` clears the
+    counts after reading them."""
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * len(FREE_STATS))()
+    err = _lib().free_txn_enqueue_stats(buf, int(reset))
+    if err:
+        raise RuntimeError(f"free_txn_enqueue_stats failed: CUDA error {err}")
+    return dict(zip(FREE_STATS, (int(v) for v in buf)))
 
 
 def _check(name, t, dtype, shape, dev):

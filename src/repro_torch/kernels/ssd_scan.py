@@ -8,8 +8,10 @@ group h // (H / G); ``h0`` (B, H, P, N) float32 or None.  Both return
 
 :func:`ssd_plain` is a PyTorch mirror of the reference's
 ``models/ssm.py::ssd_jnp`` (it pads L to a multiple of the chunk with
-dt = 0, which is inert); :func:`ssd_scan` launches the kernel, one block
-per (batch row, head), and takes L a multiple of the chunk.
+dt = 0, which is inert); :func:`ssd_scan` launches the kernels (C B^T
+per chunk and group beside the chunk states per chunk and head, the
+serial pass over chunks, the outputs per chunk and head) and takes L a
+multiple of the chunk.
 ``kernels/ops.ssd_scan`` picks between them by device.
 """
 from __future__ import annotations
@@ -77,16 +79,19 @@ def _lib():
     lib = build.load("ssd_scan")
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_launch.argtypes = [I, P, P, P, P, P, P, P, P] + [I] * 7 \
-            + [P]
+        lib.ssd_scan_launch.argtypes = [I] + [P] * 9 + [I] * 7 + [P]
         lib.ssd_scan_launch.restype = I
+        lib.ssd_scan_workspace_floats.argtypes = [I] * 7
+        lib.ssd_scan_workspace_floats.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
 
 def ssd_scan(x, dt, a, b, c, h0=None, *, chunk: int = 64):
-    """One launch of the CUDA kernel: the whole chunked scan of every
-    (batch row, head), the state carried in shared memory."""
+    """The whole chunked scan of every (batch row, head) on the card:
+    the kernels' three launches, in order on the current stream, with
+    their float32 scratch (C B^T, cumsums, chunk states) from
+    ``torch.empty``."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA ssd_scan kernel needs tensors on the "
                          f"card, got {x.device}")
@@ -120,13 +125,17 @@ def ssd_scan(x, dt, a, b, c, h0=None, *, chunk: int = 64):
                              f"{shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    lib = _lib()
     y = torch.empty((B, L, H, P), dtype=torch.float32, device=x.device)
     hf = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    err = _lib().ssd_scan_launch(
+    ws = torch.empty(max(1, lib.ssd_scan_workspace_floats(B, L, H, P, G, N,
+                                                          chunk)),
+                     dtype=torch.float32, device=x.device)
+    err = lib.ssd_scan_launch(
         int(x.dtype == torch.bfloat16), x.data_ptr(), dt.data_ptr(),
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(), hf.data_ptr(),
-        B, L, H, P, G, N, chunk,
+        ws.data_ptr(), B, L, H, P, G, N, chunk,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if err:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")

@@ -47,14 +47,47 @@ extern "C" int emu_alloc_chain_stats(unsigned long long* out, int reset) {
   return kChainStats;
 }
 
+// The free kernels' enqueue statistics (g_free_stats, a host array
+// here), as free_txn_enqueue_stats reads them.
+extern "C" int emu_free_enqueue_stats(unsigned long long* out, int reset) {
+  for (int k = 0; k < kFreeStats; ++k) {
+    out[k] = g_free_stats[k];
+    if (reset) g_free_stats[k] = 0;
+  }
+  return kFreeStats;
+}
+
+// A chunk kind's grid lane passes, as free_lanes_launch runs them when
+// free_txn_grid_blocks says so (the table sets' heads zeroed first).
+static int emu_free_lanes(ArenaDesc d, int* mem, long long Mw, int S,
+                          int sharded, const int* offs, const int* sizes,
+                          const uint8_t* mask, int n, int* ws) {
+  const int blocks = free_txn_grid_blocks(d, n, S, ws != nullptr);
+  if (!blocks) return 0;
+  const long long ints = (long long)(free_txn_table_bytes(d, n) / sizeof(int));
+  for (int s = 0; s < S; ++s)
+    std::fill(ws + s * ints,
+              ws + s * ints + d.num_classes + (d.num_chunks + 31) / 32, 0);
+  emu_launch(blocks, kGridThreads, 0, [&] {
+    free_lanes_kernel<0>(d, mem, Mw, offs, sizes, mask, n, S, sharded, ws,
+                         ints);
+  });
+  emu_launch(blocks, kGridThreads, 0, [&] {
+    free_lanes_kernel<1>(d, mem, Mw, offs, sizes, mask, n, S, sharded, ws,
+                         ints);
+  });
+  return blocks;
+}
+
 extern "C" void emu_free_txn(ArenaDesc d, int* mem, int* ctl,
                              const int* offs, const int* sizes,
                              const uint8_t* mask, int n, size_t smem_limit) {
   std::vector<int> buf;
   int* ws = emu_workspace(buf, free_txn_workspace_bytes(d, n, 1, smem_limit));
+  const int grid = emu_free_lanes(d, mem, 0, 1, 0, offs, sizes, mask, n, ws);
   emu_launch(1, block_threads(n), ws ? 0 : free_txn_table_bytes(d, n), [&] {
     (ws ? free_txn_kernel<true> : free_txn_kernel<false>)(
-        d, mem, ctl, offs, sizes, mask, n, ws);
+        d, mem, ctl, offs, sizes, mask, n, ws, grid > 0);
   });
 }
 
@@ -82,10 +115,11 @@ extern "C" void emu_sharded_free_txn(ArenaDesc d, int* mem, int* ctl, int S,
   std::vector<int> buf;
   const size_t table = free_txn_table_bytes(d, n);
   int* ws = emu_workspace(buf, free_txn_workspace_bytes(d, n, S, smem_limit));
+  const int grid = emu_free_lanes(d, mem, Mw, S, 1, offs, sizes, mask, n, ws);
   emu_launch(S, block_threads(n), ws ? 0 : table, [&] {
     (ws ? sharded_free_txn_kernel<true> : sharded_free_txn_kernel<false>)(
         d, mem, ctl, Mw, Cw, offs, sizes, mask, n, ws,
-        (long long)(table / sizeof(int)));
+        (long long)(table / sizeof(int)), grid > 0);
   });
 }
 
@@ -167,22 +201,52 @@ extern "C" void emu_paged_attention(int bf16, int vec, const void* q,
   fn(q, k, v, table, seq_lens, out, B, Hq, Hkv, D, page, P, NP, wpp, scale);
 }
 
+// The scan's three launches in order, through a workspace as the
+// wrapper's, on a card of `sms` SMs.
+template <typename T>
+static void emu_ssd(const void* x, const float* dt, const float* a,
+                    const void* b, const void* c, const float* h0, float* y,
+                    float* hf, int B, int L, int H, int P, int G, int N,
+                    int Q, int sms) {
+  const int nc = L / Q, bf16 = std::is_same<T, __nv_bfloat16>::value;
+  size_t o_cum, o_st, total;
+  ssd_workspace(B, L, H, P, G, N, Q, &o_cum, &o_st, &total);
+  std::vector<float> ws(total + 1, NAN);
+  float *cbT = ws.data(), *cum = cbT + o_cum, *st = cbT + o_st;
+  const int halves = ssd_state_halves(B, L, H, N, Q, sms);
+  emu_launch(ssd_chunk_blocks(B, L, H, G, Q, halves), SSD_THREADS,
+             ssd_scan_smem_bytes(1, bf16), [&] {
+               ssd_chunk_kernel<T>((const T*)x, dt, a, (const T*)b,
+                                   (const T*)c, h0, cbT, cum, st, hf, B, L,
+                                   H, P, G, N, Q, halves);
+             });
+  const long long elems = (long long)B * H * P * N;
+  if (nc == 1) {
+    // the state kernel wrote h_final
+  } else if ((P * N) % 4 == 0) {
+    emu_launch((int)((elems / 4 + SSD_THREADS - 1) / SSD_THREADS),
+               SSD_THREADS, 0, [&] {
+                 ssd_pass_kernel<4>(cum, h0, st, hf, B, nc, H, P * N, Q);
+               });
+  } else {
+    emu_launch((int)((elems + SSD_THREADS - 1) / SSD_THREADS), SSD_THREADS,
+               0, [&] {
+                 ssd_pass_kernel<1>(cum, h0, st, hf, B, nc, H, P * N, Q);
+               });
+  }
+  emu_launch(B * nc * H, SCAN_THREADS, ssd_scan_smem_bytes(3, bf16), [&] {
+    ssd_scan_kernel<T>((const T*)x, dt, (const T*)c, cbT, cum, st, h0, y, L,
+                       H, P, G, N, Q);
+  });
+}
+
 extern "C" void emu_ssd_scan(int bf16, const void* x, const float* dt,
                              const float* a, const void* b, const void* c,
                              const float* h0, float* y, float* hf, int B,
-                             int L, int H, int P, int G, int N, int Q) {
-  const size_t smem = ssd_scan_smem_bytes(P, N, Q);
-  if (bf16)
-    emu_launch(B * H, SSD_THREADS, smem, [&] {
-      ssd_scan_kernel<__nv_bfloat16>(
-          (const __nv_bfloat16*)x, dt, a, (const __nv_bfloat16*)b,
-          (const __nv_bfloat16*)c, h0, y, hf, L, H, P, G, N, Q);
-    });
-  else
-    emu_launch(B * H, SSD_THREADS, smem, [&] {
-      ssd_scan_kernel<float>((const float*)x, dt, a, (const float*)b,
-                             (const float*)c, h0, y, hf, L, H, P, G, N, Q);
-    });
+                             int L, int H, int P, int G, int N, int Q,
+                             int sms) {
+  (bf16 ? emu_ssd<__nv_bfloat16> : emu_ssd<float>)(
+      x, dt, a, b, c, h0, y, hf, B, L, H, P, G, N, Q, sms);
 }
 
 // The piecewise allocator's steps: one block per class for the ring

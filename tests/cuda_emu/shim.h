@@ -41,6 +41,8 @@ inline std::vector<int> emu_shfl;
 inline void* emu_dyn_smem = nullptr;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 
 // A barrier that returns whether any thread's predicate was non-zero:
 // the block ORs into one word between two barriers, and thread 0 clears
@@ -91,10 +93,11 @@ inline V __shfl_xor_sync(unsigned, V v, int mask) {
   });
 }
 
-inline int __shfl_up_sync(unsigned, int v, int d) {
+template <class V>
+inline V __shfl_up_sync(unsigned, V v, int d) {
   return emu_warp_exchange(v, [&](int w0, int) {
     const int lane = threadIdx.x % 32;
-    return lane >= d ? emu_lane_value<int>(w0 + lane - d) : v;
+    return lane >= d ? emu_lane_value<V>(w0 + lane - d) : v;
   });
 }
 

@@ -296,9 +296,11 @@ def test_full_width_aux_transactions_match_plain_math(cuda, num_shards):
     mamba2-780m (298,656 pages of 256 B) on the engine's arena for 8
     slots: the kernels, whose lane tables go to a device workspace,
     against the plain math on a second arena on the card, offsets and
-    words identical; one launch each."""
+    words identical; one wrapper call each; the retirement's revived
+    chunks written by the parallel enqueue (the kernel's own count)."""
     from repro_torch.core import shards
     from repro_torch.core import transactions as T
+    from repro_torch.kernels import alloc_txn as AT
     from repro_torch.paged.kv_cache import make_kv_allocator
     o, _, _ = make_kv_allocator(256 + 8 * AUX_LANES, device=cuda,
                                 num_shards=num_shards)
@@ -320,7 +322,18 @@ def test_full_width_aux_transactions_match_plain_math(cuda, num_shards):
     assert torch.equal(sk.mem, sp.mem) and torch.equal(sk.ctl, sp.ctl)
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(1))
     fo = want[perm.to(cuda)].contiguous()
+    # the chunks the retirement revives: touched by it and full
+    lay = o.layout if S == 1 else o.layout.shard
+    nc, wpc, ws = (lay.cfg.num_chunks, lay.cfg.words_per_chunk,
+                   lay.cfg.total_words)
+    off = lay.region("free_count").offset
+    fc = sk.mem.reshape(S, -1)[:, off:off + nc].reshape(-1)
+    g = fo.long()
+    revived = int((fc[((g // ws) * nc + (g % ws) // wpc).unique()] == 0)
+                  .sum())
+    AT.enqueue_stats(reset=True)
     o.free(sk, fo, sizes, mask)
+    freed = AT.enqueue_stats(reset=True)
     if S == 1:
         T.free_math(o.cfg, *base, fo, sizes, mask)
     else:
@@ -330,6 +343,11 @@ def test_full_width_aux_transactions_match_plain_math(cuda, num_shards):
     name = "alloc_txn" if S == 1 else "sharded_alloc_txn"
     assert ops.LAUNCHES[name] == 1
     assert ops.LAUNCHES[name.replace("alloc", "free")] == 1
+    # the revived chunks go back to their queue in parallel: one enqueue
+    # a block, none in lane order
+    assert revived > 18000
+    assert freed == dict(parallel_enqueues=S, parallel_values=revived,
+                         serial_enqueues=0, serial_values=0)
 
 
 def _rotate_pool(o, st, front_slot):
@@ -455,7 +473,8 @@ def test_paged_attention_splits_at_serving_shapes(cuda, dtype, wpp):
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("B,chunks,with_h0", [(1, 1, False), (1, 4, False),
-                                              (1, 7, False), (2, 3, True)])
+                                              (1, 7, False), (2, 3, True),
+                                              (2, 1, True)])
 def test_ssd_scan_kernel_matches_plain_at_full_width(cuda, dtype, B, chunks,
                                                      with_h0):
     """``ssd_scan`` at mamba2-780m's shapes (H 48, P 64, N 128, G 1,

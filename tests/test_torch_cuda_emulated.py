@@ -23,8 +23,9 @@ import torch
 from repro_torch.core import (VARIANTS, HeapConfig, Ouroboros, arena,
                               defrag, shards)
 from repro_torch.kernels import ref
-from repro_torch.kernels.alloc_txn import (CHAIN_STATS, TABLE_SMEM_LIMIT,
-                                           ArenaDesc, descriptor)
+from repro_torch.kernels.alloc_txn import (CHAIN_STATS, FREE_STATS,
+                                           TABLE_SMEM_LIMIT, ArenaDesc,
+                                           descriptor)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EMU = ROOT / "tests" / "cuda_emu"
@@ -83,7 +84,7 @@ def emu(tmp_path_factory):
                                           I, I, Z]
     so.defrag_txn_workspace_bytes.argtypes = [ArenaDesc, Z]
     so.defrag_txn_workspace_bytes.restype = Z
-    so.emu_ssd_scan.argtypes = [I] + [P] * 8 + [I] * 7
+    so.emu_ssd_scan.argtypes = [I] + [P] * 8 + [I] * 8
     for name in ("alloc_txn", "sharded_alloc_txn"):
         fn = getattr(so, f"{name}_workspace_bytes")
         fn.argtypes, fn.restype = [ArenaDesc, I, Z], Z
@@ -97,6 +98,9 @@ def emu(tmp_path_factory):
     so.emu_alloc_chain_stats.argtypes = [
         ctypes.POINTER(ctypes.c_ulonglong), I]
     so.emu_alloc_chain_stats.restype = I
+    so.emu_free_enqueue_stats.argtypes = [
+        ctypes.POINTER(ctypes.c_ulonglong), I]
+    so.emu_free_enqueue_stats.restype = I
     for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_defrag_txn,
               so.emu_paged_attention, so.emu_sharded_alloc_txn,
               so.emu_sharded_free_txn, so.emu_sharded_defrag_txn,
@@ -935,6 +939,175 @@ def test_chain_stats_count_what_the_chain_took(emu, variant, case):
     assert got == want
 
 
+def _free_stats(emu):
+    """The emulated free kernels' enqueue statistics since the last call
+    (read and cleared), by ``FREE_STATS`` name."""
+    buf = (ctypes.c_ulonglong * len(FREE_STATS))()
+    assert emu.emu_free_enqueue_stats(buf, 1) == len(FREE_STATS)
+    return dict(zip(FREE_STATS, (int(v) for v in buf)))
+
+
+def _revived(o, st, offs):
+    """The chunks a free of ``offs`` revives: full now, touched by it."""
+    fc = st.mem[o.layout.region("free_count").offset:][:o.cfg.num_chunks]
+    touched = torch.unique(offs[offs >= 0] // o.cfg.words_per_chunk)
+    return int((fc[touched.long()] == 0).sum())
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("smem", "workspace"))
+@pytest.mark.parametrize("cfg", ("ppc-16", "ppc-4-short-segments"))
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_chunk_free_enqueues_revived_chunks_in_parallel(emu, variant, cfg,
+                                                        limit):
+    """A retirement of whole chunks' lanes (ascending, then permuted, so
+    that runs of lanes share a chunk or none do), plus a few lanes of a
+    second class: the revived chunks cannot share a queue word, so the
+    block writes them in parallel (the kernel's own count says so, for
+    every revived chunk), and the words equal the plain math's; with
+    4-page chunks the enqueue grows va and vl queues by several
+    segments."""
+    cfgkw, size, other = RUN_CFGS[cfg]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    ppc = cfgkw["chunk_bytes"] // size
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    rng = np.random.default_rng(ppc)
+    for order in ("ascending", "permuted"):
+        n = 24 * ppc
+        sizes, mask = _run_lanes(rng, n, size, other, p_off=0.0)
+        st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes, mask, limit)
+        assert bool((offs >= 0).all())
+        if order == "permuted":
+            perm = torch.from_numpy(rng.permutation(n))
+            offs, sizes = offs[perm], sizes[perm]
+        want = _revived(o, st, offs)
+        assert want > 16
+        _free_stats(emu)
+        st = _emu_free(emu, o, st, mem, ctl, offs, sizes, limit)
+        assert _free_stats(emu) == dict(
+            parallel_enqueues=1, parallel_values=want, serial_enqueues=0,
+            serial_values=0), order
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("smem", "workspace"))
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_sharded_chunk_free_enqueues_in_parallel(emu, variant, limit):
+    """A sharded free of whole chunks' lanes spread over the 4 shards
+    (permuted, a few masked off or unowned): each shard's block writes
+    its revived chunks in parallel (one enqueue a shard, every revived
+    chunk counted), and the words equal the plain replay's; in the
+    workspace the lane passes run on the grid for all shards at once."""
+    o = Ouroboros(HeapConfig(**SHARD_CFG), variant, device="cpu",
+                  num_shards=4)
+    slay = o.layout
+    d = descriptor(slay.shard)
+    S, Mw, Cw = o.num_shards, slay.mem_words, slay.ctl_words
+    st = o.init()
+    rng = np.random.default_rng(9)
+    n = 4 * 6 * 16
+    sizes = torch.full((n,), 256, dtype=torch.int32)
+    st, offs = o.alloc(st, sizes, torch.ones(n, dtype=torch.bool))
+    assert bool((offs >= 0).all())
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    perm = torch.from_numpy(rng.permutation(n))
+    offs = offs[perm]
+    offs[::37] = -1                       # unowned: no shard's lane
+    mask = torch.from_numpy(rng.random(n) >= 0.05)
+    shard_of = offs // slay.shard_words
+    lay = slay.shard
+    fc = st.mem[:, lay.region("free_count").offset:][:, :lay.cfg.num_chunks]
+    hit = (offs >= 0) & mask
+    key = torch.unique(shard_of[hit] * lay.cfg.num_chunks
+                       + (offs[hit] % slay.shard_words)
+                       // lay.cfg.words_per_chunk)
+    want = int((fc.reshape(-1)[key] == 0).sum())
+    assert want > 16
+    st = o.free(st, offs, sizes, mask)
+    _free_stats(emu)
+    emu.emu_sharded_free_txn(d, _p(mem), _p(ctl), S, Mw, Cw, _p(offs),
+                             _p(sizes), _p(mask), n, limit)
+    assert torch.equal(mem, st.mem) and torch.equal(ctl, st.ctl)
+    assert _free_stats(emu) == dict(parallel_enqueues=S,
+                                    parallel_values=want,
+                                    serial_enqueues=0, serial_values=0)
+
+
+def _tail_segment(o, st, c):
+    """The chunk that holds class ``c``'s next queue slot (vl: the tail;
+    va: the directory's segment of ``back``)."""
+    lay = o.layout
+    if lay.family == "vl":
+        return int(st.ctl[lay.off_tail + c])
+    spc = o.cfg.slots_per_segment("va")
+    back = int(st.ctl[lay.off_back + c])
+    return int(st.mem[lay.region("directory").offset + c * lay.max_segs
+                      + (back // spc) % lay.max_segs])
+
+
+# each edge where two enqueued values could share a word, and the
+# variants it applies to; a chunk kind never revives more chunks than a
+# ring of chunk ids holds (its capacity is the chunk count), so the ring
+# edge is a page ring's
+FREE_EDGES = {
+    "class-outside": CHUNK_VARIANTS,
+    "pool-repeats-segment": ("va_chunk", "vl_chunk"),
+    "back-past-2^31": CHUNK_VARIANTS,
+    "ring-over-capacity": ("page",),
+}
+
+
+@pytest.mark.parametrize("variant,edge", [
+    (v, e) for e, vs in FREE_EDGES.items() for v in vs])
+def test_free_enqueue_takes_lane_order_at_each_edge(emu, variant, edge):
+    """Each way two enqueued values can share a word (a revived chunk
+    whose class lies outside [0, C); a grown segment repeating the tail
+    chunk, as pops from an exhausted pool do; a class's back counter
+    crossing 2^31; a page ring class freed past its capacity) sends the
+    enqueue to thread 0's lane-order loop (the kernel's own count says
+    so), and the words equal the plain math's, the reference's
+    last-write-wins scatter included."""
+    cfgkw, size, _ = RUN_CFGS["ppc-4-short-segments"]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    lay = o.layout
+    st = o.init()
+    if edge == "back-past-2^31":
+        st = _past_2_31(st, lay)
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    if edge == "ring-over-capacity":
+        # more freed pages of class 0 than its ring holds: offsets of
+        # class-0 pages, repeated
+        n = lay.queue_capacity + 24
+        sizes = torch.full((n,), size, dtype=torch.int32)
+        st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes[:64],
+                              torch.ones(64, dtype=torch.bool),
+                              TABLE_SMEM_LIMIT)
+        offs = offs[torch.arange(n) % 64]
+        values = n
+    else:
+        n = 24 * 4
+        sizes = torch.full((n,), size, dtype=torch.int32)
+        st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes,
+                              torch.ones(n, dtype=torch.bool),
+                              TABLE_SMEM_LIMIT)
+        values = _revived(o, st, offs)
+        if edge == "class-outside":
+            chunk = int(offs[5]) // o.cfg.words_per_chunk
+            st.mem[lay.region("chunk_class").offset + chunk] = \
+                lay.num_classes
+        elif edge == "pool-repeats-segment":
+            slots, pf, _ = _pool(o, st)
+            c = int(np.log2(size // cfgkw["min_page_bytes"]))
+            for j in range(4):
+                slots[(pf + j) % o.cfg.num_chunks] = _tail_segment(o, st, c)
+        mem.copy_(st.mem)
+    _free_stats(emu)
+    _emu_free(emu, o, st, mem, ctl, offs, sizes, TABLE_SMEM_LIMIT)
+    assert _free_stats(emu) == dict(parallel_enqueues=0, parallel_values=0,
+                                    serial_enqueues=1, serial_values=values)
+
+
 def _past_2_31(st, lay, past=3):
     """Every class queue's counters, and the pool's, moved so that the
     back lies ``past`` slots below 2^31 (counts kept)."""
@@ -1127,14 +1300,27 @@ def _ssd_inputs(rng, B, L, H, P, G, N, dtype, with_h0):
     return x, dt, a, b, c, h0
 
 
+H100_SMS = 132
+
+
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
-@pytest.mark.parametrize("B,L,H,P,G,N,Q,with_h0", [
-    (1, 128, 2, 64, 1, 128, 64, True),    # mamba2-780m's head shapes
-    (2, 48, 4, 16, 2, 32, 16, False),     # the smoke config, two groups
-    (1, 24, 3, 8, 3, 16, 8, True),        # G == H, tiles half empty
-], ids=("full-width-heads", "smoke-groups", "small"))
+@pytest.mark.parametrize("B,L,H,P,G,N,Q,with_h0,sms", [
+    (1, 128, 2, 64, 1, 128, 64, True, H100_SMS),  # mamba2-780m's heads
+    # the same on a card of one SM: each head's state in one block
+    (1, 128, 2, 64, 1, 128, 64, True, 1),
+    (2, 48, 4, 16, 2, 32, 16, False, H100_SMS),  # the smoke config, G 2
+    (1, 24, 3, 8, 3, 16, 8, True, H100_SMS),     # G == H, tiles half empty
+    (1, 16, 4, 16, 1, 32, 16, False, H100_SMS),  # one chunk, zero state
+    (2, 16, 4, 16, 2, 32, 16, True, H100_SMS),   # one chunk from h0
+    (1, 32, 4, 16, 2, 32, 16, True, H100_SMS),   # two chunks, G 2, h0
+    (2, 48, 2, 24, 1, 40, 16, True, H100_SMS),   # three chunks, N past a tile
+    (1, 60, 4, 12, 2, 20, 20, False, H100_SMS),  # Q and N off the 16 tiles
+    (1, 24, 2, 6, 1, 10, 12, True, H100_SMS),    # P, N off the 4-wide stores
+], ids=("full-width-heads", "full-width-heads-whole-blocks", "smoke-groups",
+        "small", "one-chunk", "one-chunk-h0", "two-chunks-h0",
+        "three-chunks-ragged-n", "ragged-q", "ragged-p"))
 def test_ssd_scan_kernel_matches_plain(emu, dtype, B, L, H, P, G, N, Q,
-                                       with_h0):
+                                       with_h0, sms):
     """The emulated ``ssd_scan`` against ``ssd_plain`` on the same
     values (bf16 inputs are widened to float32 by both): atol and rtol
     1e-4, the same float32 products summed in another order."""
@@ -1146,7 +1332,7 @@ def test_ssd_scan_kernel_matches_plain(emu, dtype, B, L, H, P, G, N, Q,
     hf = torch.empty((B, H, P, N), dtype=torch.float32)
     emu.emu_ssd_scan(int(dtype == torch.bfloat16), _p(x), _p(dt), _p(a),
                      _p(b), _p(c), None if h0 is None else _p(h0), _p(y),
-                     _p(hf), B, L, H, P, G, N, Q)
+                     _p(hf), B, L, H, P, G, N, Q, sms)
     np.testing.assert_allclose(y.numpy(), want_y.numpy(), atol=1e-4,
                                rtol=1e-4)
     np.testing.assert_allclose(hf.numpy(), want_h.numpy(), atol=1e-4,
