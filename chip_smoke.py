@@ -207,9 +207,13 @@ KERNEL_SYMBOLS = {"alloc_txn": "alloc_txn_kernel",
                   "free_txn": "free_txn_kernel",
                   "defrag_txn": "defrag_txn_kernel",
                   "sharded_alloc_txn": "sharded_alloc_txn_kernel",
+                  "sharded_alloc_count": "sharded_alloc_count_kernel",
+                  "sharded_alloc_place": "sharded_alloc_place_kernel",
+                  "sharded_alloc_attempt": "sharded_alloc_attempt_kernel",
                   "sharded_free_txn": "sharded_free_txn_kernel",
                   "free_lanes": "free_lanes_kernel",
                   "sharded_defrag_txn": "sharded_defrag_txn_kernel",
+                  "defrag_extract": "defrag_extract_kernel",
                   "paged_attention": "paged_attention_kernel",
                   "paged_attention_values": "paged_attention_values_kernel",
                   "paged_attention_merge": "paged_attention_merge_kernel",
@@ -223,14 +227,73 @@ KERNEL_SYMBOLS = {"alloc_txn": "alloc_txn_kernel",
                   "bitmap_select": "bitmap_select_kernel"}
 
 
+# the kernels of each kind of allocator call, and the names its wrappers
+# count a call under (``ops.LAUNCHES``)
+FAMILY = {"alloc": ("alloc_txn", "sharded_alloc_txn", "sharded_alloc_count",
+                    "sharded_alloc_place", "sharded_alloc_attempt"),
+          "free": ("free_txn", "sharded_free_txn", "free_lanes"),
+          "defrag": ("defrag_txn", "sharded_defrag_txn", "defrag_extract")}
+CALLS = {"alloc": ("alloc_txn", "sharded_alloc_txn"),
+         "free": ("free_txn", "sharded_free_txn"),
+         "defrag": ("defrag_txn", "sharded_defrag_txn")}
+
+
+def kernel_launches() -> dict:
+    """Every allocator and wave kernel's launches so far, counted on the
+    card by the launches themselves ({KERNEL_SYMBOLS key: launches})."""
+    from repro_torch.kernels import alloc_txn as AT
+    from repro_torch.kernels import defrag_txn as DT
+    return {**AT.launch_stats(), **DT.launch_stats()}
+
+
+def per_call(prof, kind: str):
+    """One kind of allocator call ("alloc", "free" or "defrag") in a
+    ``profiled`` session of ``DeviceProfile(counted=True)``: (mean
+    device ms a call: each kernel of the kind's family, its mean a
+    launch times the launches the card counted, summed over the kernels
+    and divided by the calls the wrappers counted (a dropped record does
+    not shrink the total); launches recorded; launches counted; calls;
+    each kernel's part as ``parts_text`` gives it; {kernel: launches a
+    call})."""
+    made = {k: prof.made[k] for k in FAMILY[kind] if prof.made.get(k)}
+    calls = sum(prof.calls[c] for c in CALLS[kind])
+    if not calls or not made:
+        raise AssertionError(f"no {kind} call in the session: calls "
+                             f"{prof.calls}, launches {prof.made}")
+    got = prof.got
+    ms = sum(got[k][0] * m for k, m in made.items()) / calls
+    return (ms, sum(got[k][1] for k in made), sum(made.values()), calls,
+            parts_text(got, made, calls),
+            {k: m // calls if m % calls == 0 else m / calls
+             for k, m in made.items()})
+
+
+def parts_text(got, made, calls) -> str:
+    """Each kernel of a call: its mean ms a launch, launches a call, and
+    the launches the profiler recorded of those made."""
+    return ", ".join(f"{k} {got[k][0]:.5f} ms x {m / calls:g} ({got[k][1]} "
+                     f"of {m} recorded)" for k, m in made.items() if m)
+
+
 class DeviceProfile:
     """``torch.profiler`` over a block of work: device time and launch
-    count of each kernel whose symbol contains a given name."""
+    count of each kernel whose symbol contains a given name.  With
+    ``counted``, also the launches of each allocator and wave kernel in
+    the block as the card counted them (``made``, from
+    ``kernel_launches``) and the calls the wrappers counted (``calls``,
+    from ``ops.LAUNCHES``)."""
+
+    def __init__(self, counted: bool = False):
+        self.counted = counted
 
     def __enter__(self):
         import torch
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
+        if self.counted:
+            from repro_torch.kernels import ops
+            self._made0 = kernel_launches()
+            self._calls0 = dict(ops.LAUNCHES)
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self._prof.__enter__()
         return self
@@ -239,6 +302,12 @@ class DeviceProfile:
         import torch
         torch.cuda.synchronize()
         self._prof.__exit__(*exc)
+        if self.counted:
+            from repro_torch.kernels import ops
+            self.made = {k: m - self._made0[k]
+                         for k, m in kernel_launches().items()}
+            self.calls = {k: m - self._calls0[k]
+                          for k, m in ops.LAUNCHES.items()}
         self.rows = []
         for evt in self._prof.key_averages():
             us = (getattr(evt, "self_device_time_total", None)
@@ -275,6 +344,36 @@ def enqueues(reset: bool = True) -> dict:
     reset."""
     from repro_torch.kernels import alloc_txn as AT
     return AT.enqueue_stats(reset=reset)
+
+
+def rebuilds(reset: bool = True) -> dict:
+    """The wave kernels' own count of how their queue rebuilds wrote
+    (``kernels.defrag_txn.rebuild_stats``) since the last reset, then
+    reset."""
+    from repro_torch.kernels import defrag_txn as DT
+    return DT.rebuild_stats(reset=reset)
+
+
+def rebuild_text(r: dict) -> str:
+    return (f"{r['parallel_rebuilds']} rebuild(s) whose queue values the "
+            f"block wrote in parallel ({r['parallel_values']} values), "
+            f"{r['serial_rebuilds']} in order on a dry pool "
+            f"({r['serial_values']} values)")
+
+
+def shard_steps(reset: bool = True) -> dict:
+    """The sharded alloc kernels' own count of their transactions and
+    steps (``kernels.alloc_txn.shard_stats``) since the last reset, then
+    reset."""
+    from repro_torch.kernels import alloc_txn as AT
+    return AT.shard_stats(reset=reset)
+
+
+def shard_text(c: dict) -> str:
+    return (f"{c['transactions']} transaction(s) ran {c['steps']} "
+            f"(attempt, shard) step(s) over {c['step_lanes']} lanes"
+            + (f", {c['rescans']} on per-step lists" if c["rescans"]
+               else ""))
 
 
 def enqueue_text(e: dict) -> str:
@@ -807,7 +906,7 @@ def phase_piecewise_timing(t, reps=50):
                     kern()
             return prof
 
-        (ms, seen), = profiled(session, {name: reps}).values()
+        (ms, seen), = profiled(session, {name: reps}).got.values()
         sessions = ops.LAUNCHES[name] // reps
         if ops.LAUNCHES[name] != sessions * reps or sessions < 1:
             raise AssertionError(f"{name}: {ops.LAUNCHES[name]} launches "
@@ -959,6 +1058,7 @@ def phase_variants(device, seed=0):
     rng = np.random.default_rng(seed + 16)
     chains()
     enqueues()
+    rebuilds()
     ops.reset_launches()
     t_all = time.perf_counter()
 
@@ -1026,7 +1126,8 @@ def phase_variants(device, seed=0):
     log(f"phase 3 (variants): launches of the traces and waves "
         f"{json.dumps(launches)} ({time.perf_counter() - t_all:.1f} s); "
         f"the alloc kernels' chunk chains: {chain_text(chains())}; the free "
-        f"kernels' enqueues: {enqueue_text(enqueues())}")
+        f"kernels' enqueues: {enqueue_text(enqueues())}; the waves' queue "
+        f"rebuilds: {rebuild_text(rebuilds())}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a widened kernel never launched: {launches}")
     return launches, errs
@@ -1165,24 +1266,25 @@ def wave_bound_ms(ouro_cpu, log_):
                            log_[-1][1], log_[-1][3])
 
 
-def time_from_copies(ouro, pre, fn, kernel, reps=20):
-    """Mean device ms per launch of ``kernel`` (``torch.profiler``) over
-    ``reps`` calls of ``fn(state)``, each on a fresh copy of the arena
-    words ``pre`` (the copies are other kernels)."""
+def time_from_copies(ouro, pre, fn, kind, reps=20):
+    """Mean device ms a call of ``fn(state)``, a ``kind`` of allocator
+    call, from ``torch.profiler`` over ``reps`` calls, each on a fresh
+    copy of the arena words ``pre`` (the copies are other kernels), its
+    kernels summed as ``per_call`` sums them."""
     from repro_torch.core.arena import Arena
     from repro_torch.core.shards import ShardedArena
     st = (Arena if ouro.num_shards == 1 else ShardedArena)(
         *(t.clone() for t in pre))
 
     def session():
-        with DeviceProfile() as prof:
+        with DeviceProfile(counted=True) as prof:
             for _ in range(reps):
                 st.mem.copy_(pre[0])
                 st.ctl.copy_(pre[1])
                 fn(st)
         return prof
 
-    return profiled(session, {kernel: reps})[kernel][0]
+    return per_call(profiled(session), kind)[0]
 
 
 def phase_variants_timing(device, lanes=1024, size=256, reps=20):
@@ -1212,11 +1314,11 @@ def phase_variants_timing(device, lanes=1024, size=256, reps=20):
             st, offs = od.alloc(st, sizes, mask)
             ms = {"alloc": time_from_copies(
                       od, words, lambda s: od.alloc(s, sizes, mask),
-                      pre + "alloc_txn", reps),
+                      "alloc", reps),
                   "free": time_from_copies(
                       od, (st.mem.clone(), st.ctl.clone()),
-                      lambda s: od.free(s, offs, sizes, mask),
-                      pre + "free_txn", reps)}
+                      lambda s: od.free(s, offs, sizes, mask), "free",
+                      reps)}
             log_, _ = cell_log(oc, lanes, size)
             p = time_plain_txns(od, log_)
             b = txn_bound_ms(oc, log_)
@@ -1235,7 +1337,7 @@ def phase_variants_timing(device, lanes=1024, size=256, reps=20):
                         st = od.free(st, *args)
                 wave = {"pre": (st.mem.clone(), st.ctl.clone()),
                         "plan": [x.to(device) for x in log_[start][1:4]]}
-                ms, _, _, plain = time_defrag_waves(od, [wave], reps=reps)
+                ms, _, _, plain, _ = time_defrag_waves(od, [wave], reps=reps)
                 out[v][f"{pre}defrag_txn"] = dict(
                     ms=ms, plain=plain, bound=wave_bound_ms(oc, log_))
         log(f"phase 6: {v} at the {lanes} x {size}-B cell of the paper's "
@@ -1310,7 +1412,7 @@ def attn_device_ms(q, k, v, table, seq, wpp, reps=50):
                 pa_kernel.paged_attention(q, k, v, table, seq, wpp=wpp)
         return prof
 
-    got = profiled(session, {k: reps for k in ATTN_KERNELS})
+    got = profiled(session, {k: reps for k in ATTN_KERNELS}).got
     parts = [got[k][0] for k in ATTN_KERNELS]
     return sum(parts), parts, min(n for _, n in got.values())
 
@@ -1505,33 +1607,37 @@ def replay_plain(ouro, log_):
     return st, (bad["words"], bad["max_abs"]), bounds
 
 
-def profiled(session, made, tries=3):
-    """Device time of the kernels in ``made`` ({kernel: launches made})
-    from ``session()``, which runs the work under a ``DeviceProfile``
-    and returns it: {kernel: (mean ms per launch, launches recorded)}.
-    The profiler can drop a launch's record (and has dropped a whole
-    session's), never add one: a session that records no launch of some
-    kernel is run again, up to ``tries`` sessions."""
+def profiled(session, made=None, tries=6):
+    """Run ``session()`` (work under a ``DeviceProfile``, which it
+    returns) until the profiler recorded a launch of every kernel that
+    ran, up to ``tries`` sessions: the kernels of ``made`` ({kernel:
+    launches made}), or, when None, every kernel whose launches the card
+    counted (``DeviceProfile(counted=True)``).  The profiler can drop a
+    launch's record (and has dropped a whole session's), never add one.
+    Returns the profile with ``got`` {kernel: (mean ms a launch,
+    launches recorded)} and ``made`` {kernel: launches}."""
     for _ in range(tries):
         prof = session()
-        got = {k: prof.kernel(KERNEL_SYMBOLS[k]) for k in made}
-        over = {k: n for k, (_, n) in got.items() if n > made[k]}
+        want = {k: m for k, m in (prof.made if made is None
+                                  else made).items() if m}
+        got = {k: prof.kernel(KERNEL_SYMBOLS[k]) for k in want}
+        over = {k: n for k, (_, n) in got.items() if n > want[k]}
         if over:
             raise AssertionError(f"profiler saw more launches than were "
-                                 f"made: {over} of {made}")
+                                 f"made: {over} of {want}")
         if all(n for _, n in got.values()):
-            return got
+            prof.got, prof.made = got, want
+            return prof
     raise AssertionError(f"profiler recorded no launch of "
                          f"{[k for k, (_, n) in got.items() if not n]} in "
-                         f"{tries} sessions ({made} made in each)")
+                         f"{tries} sessions ({want} made in the last)")
 
 
 def replay_kernels(ouro, log_, start=0):
     """Replay recorded transactions on a fresh arena on the card, inputs
     staged first, the records before ``start`` outside the profiler.
-    Returns {kind: (mean device ms per launch as ``torch.profiler``
-    reports it, launches it reported, launches made)} of the profiled
-    records, waves of both kinds under "defrag"."""
+    Returns {kind: ``per_call``'s tuple} of the profiled records, waves
+    of both kinds under "defrag"."""
     dev = ouro.device
     staged = [(rec[0], [x.to(dev) for x in rec[1:4]], hint_kw(rec, dev))
               for rec in log_]
@@ -1548,18 +1654,14 @@ def replay_kernels(ouro, log_, start=0):
     def session():
         st = ouro.init()
         run(st, staged[:start])
-        with DeviceProfile() as prof:
+        with DeviceProfile(counted=True) as prof:
             run(st, staged[start:])
         return prof
 
-    made = {}
-    for kind in ("alloc", "free", "defrag"):
-        want = sum((k in WAVES if kind == "defrag" else k == kind)
-                   for k, _, _ in staged[start:])
-        if want:
-            made[kind] = (kernel_of(ouro, kind), want)
-    got = profiled(session, dict(made.values()))
-    return {kind: (*got[name], want) for kind, (name, want) in made.items()}
+    prof = profiled(session)
+    kinds = {"defrag" if kind in WAVES else kind
+             for kind, _, _ in staged[start:]}
+    return {kind: per_call(prof, kind) for kind in kinds}
 
 
 def time_plain_txns(ouro, log_, start=0):
@@ -1842,6 +1944,7 @@ def phase_pressure(device, serve):
 
     chains()
     enqueues()
+    rebuilds()
     ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run_until_done()
@@ -1850,6 +1953,7 @@ def phase_pressure(device, serve):
     launches = dict(ops.LAUNCHES)
     took = chains()
     freed = enqueues()
+    rebuilt = rebuilds()
     st = dict(eng.stats)
     toks = sum(len(r.out_tokens) for r in done)
     log(f"phase 5: under pressure ({PRESSURE}, co-tenant {bound} x "
@@ -1859,7 +1963,12 @@ def phase_pressure(device, serve):
     log(f"phase 5: under pressure: launches {json.dumps(launches)}")
     log(f"phase 5: under pressure: the alloc kernels' chunk chains: "
         f"{chain_text(took)}; the free kernels' enqueues: "
-        f"{enqueue_text(freed)}")
+        f"{enqueue_text(freed)}; the waves' queue rebuilds: "
+        f"{rebuild_text(rebuilt)}")
+    if (rebuilt["parallel_rebuilds"] + rebuilt["serial_rebuilds"]
+            != launches["defrag_txn"]):
+        raise AssertionError(f"under pressure: the wave kernels counted "
+                             f"{rebuilt} for {launches['defrag_txn']} waves")
     got = {r.uid: r.out_tokens for r in done}
     want = serve["tokens"]
     if sorted(got) != sorted(want):
@@ -1906,11 +2015,13 @@ def phase_pressure(device, serve):
 
 
 def time_defrag_waves(ouro, waves, reps=5):
-    """The wave kernel (``defrag_txn``, or ``sharded_defrag_txn`` for a
-    sharded arena) on recorded pre-wave arenas: (mean device ms per
-    launch from ``torch.profiler``, launches it reported, launches made,
-    mean ms of the plain math on the card's tensors by CUDA events).
-    Each launch starts from a copy of the pre-wave words."""
+    """The wave (``defrag_txn``, or ``sharded_defrag_txn`` for a sharded
+    arena: its extract and rebuild kernels) on recorded pre-wave arenas:
+    (mean device ms a wave from ``torch.profiler``, summed over its
+    kernels as ``per_call`` sums them, launches it recorded, launches the
+    card counted, mean ms of the plain math on the card's tensors by CUDA
+    events, each kernel's part as ``parts_text`` gives it).  Each wave
+    starts from a copy of the pre-wave words."""
     import torch
     from repro_torch.core import defrag
     from repro_torch.core.shards import ShardedArena
@@ -1920,7 +2031,7 @@ def time_defrag_waves(ouro, waves, reps=5):
     st = (Arena if S == 1 else ShardedArena)(mem, ctl)
 
     def session():
-        with DeviceProfile() as prof:
+        with DeviceProfile(counted=True) as prof:
             for w in waves:
                 for _ in range(reps):
                     mem.copy_(w["pre"][0])
@@ -1928,9 +2039,7 @@ def time_defrag_waves(ouro, waves, reps=5):
                     migrate(ouro, st, *w["plan"])
         return prof
 
-    name = kernel_of(ouro, "defrag")
-    made = reps * len(waves)
-    ms, n = profiled(session, {name: made})[name]
+    ms, n, made, _, text, _ = per_call(profiled(session), "defrag")
     plain = []
     for w in waves:
         mem.copy_(w["pre"][0])
@@ -1946,7 +2055,7 @@ def time_defrag_waves(ouro, waves, reps=5):
         b.record()
         torch.cuda.synchronize()
         plain.append(a.elapsed_time(b))
-    return ms, n, made, sum(plain) / len(plain)
+    return ms, n, made, sum(plain) / len(plain), text
 
 
 # ---------------------------------------------------------------------------
@@ -2078,7 +2187,9 @@ def phase_sharded(device, seed=0):
             live_w = shards.shard_live_words(cfg, S, "chunk", "vl", sk.mem,
                                              sk.ctl).tolist()
             before = sp.mem.clone()
+            rebuilds()
             migrate(ouro, sk, *plan_k)
+            rebuilt = rebuilds()
             defrag.sharded_migrate_math(cfg, S, "chunk", "vl", sp.mem,
                                         sp.ctl, *plan_p)
             check("defrag", f"sharded {kind} wave {rnd}", sk, sp)
@@ -2087,7 +2198,7 @@ def phase_sharded(device, seed=0):
                                                  sp.mem, sp.ctl).tolist()
             log(f"phase 3: sharded {kind} wave {rnd}: {moves} moves, plan "
                 f"identical, 0 differing words; live words per shard "
-                f"{live_w} -> {live_after}")
+                f"{live_w} -> {live_after}; {rebuild_text(rebuilt)}")
             waves.append(dict(kind=kind, moves=moves, pre=pre, plan=plan_k,
                               bound=defrag_bound_ms(
                                   shard_lay(ouro), before.cpu(),
@@ -2143,12 +2254,14 @@ def phase_sharded(device, seed=0):
         for a, b in zip(plan_k, plan_c):
             merge_err(errs["defrag"], word_err(a, b))
         before = sc.mem.clone()
+        rebuilds()
         migrate(big, sk, *plan_k)
+        rebuilt = rebuilds()
         migrate(big_cpu, sc, *plan_c)
         check("defrag", f"sharded {kind} wave, 65536 pages", sk, sc)
         moves = int((plan_c[0] >= 0).sum())
         log(f"phase 3: sharded {kind} wave, 65536 pages: {moves} moves, "
-            f"plan identical, 0 differing words")
+            f"plan identical, 0 differing words; {rebuild_text(rebuilt)}")
         if not moves:
             raise AssertionError(f"the 65536-page {kind} wave moved nothing")
         big_waves.append(dict(kind=kind, moves=moves, pre=pre, plan=plan_k,
@@ -2221,6 +2334,8 @@ def phase_sharded_serve(device, serve):
 
         chains()
         enqueues()
+        rebuilds()
+        shard_steps()
         ops.reset_launches()
         t0 = time.perf_counter()
         done = eng.run_until_done()
@@ -2229,6 +2344,8 @@ def phase_sharded_serve(device, serve):
         launches = dict(ops.LAUNCHES)
         took = chains()
         freed = enqueues()
+        rebuilt = rebuilds()
+        steps = shard_steps()
         st = dict(eng.stats)
         bins = [b - a for a, b in zip(bins0, walk_bins(eng.ouro,
                                                        eng.alloc_state.ctl))]
@@ -2243,7 +2360,15 @@ def phase_sharded_serve(device, serve):
             f"lanes served per walk attempt in the run {bins}")
         log(f"phase 5: sharded {name}: the alloc kernels' chunk chains: "
             f"{chain_text(took)}; the free kernels' enqueues: "
-            f"{enqueue_text(freed)}")
+            f"{enqueue_text(freed)}; the sharded alloc's steps: "
+            f"{shard_text(steps)}; the waves' queue rebuilds: "
+            f"{rebuild_text(rebuilt)}")
+        if steps["transactions"] != launches["sharded_alloc_txn"] or (
+                rebuilt["parallel_rebuilds"] + rebuilt["serial_rebuilds"]
+                != SHARDS * launches["sharded_defrag_txn"]):
+            raise AssertionError(f"sharded {name}: the kernels counted "
+                                 f"{steps} and {rebuilt} for launches "
+                                 f"{launches}")
         got = {r.uid: r.out_tokens for r in done}
         want = serve["tokens"]
         if sorted(got) != sorted(want):
@@ -2309,7 +2434,7 @@ def phase_timing(device, serve, alloc_logs, pressure, waves):
     p_times = time_plain_txns(dev_ouro, serve["log"])
     bounds = txn_bound_ms(cpu_ouro, serve["log"])
     for kind in ("alloc", "free"):
-        ms, n, want = k_times[kind]
+        ms, n, want = k_times[kind][:3]
         log(f"phase 6: {kind}_txn at the engine's inputs: kernel "
             f"{1e3 * ms:.2f} us (profiler device time, {n} of {want} "
             f"launches recorded), plain math on the card "
@@ -2337,7 +2462,7 @@ def phase_timing(device, serve, alloc_logs, pressure, waves):
         f"{1e3 * dk['plain']:.1f} us, bound {1e6 * dk['bound']:.3f} ns")
     for n_pages, ws in sorted(waves.items()):
         ouro, _, _ = make_kv_allocator(n_pages, device=device)
-        ms, n, made, plain = time_defrag_waves(ouro, ws)
+        ms, n, made, plain, _ = time_defrag_waves(ouro, ws)
         bound = sum(w["bound"] for w in ws) / len(ws)
         log(f"phase 6: defrag_txn, phase-3 arena of {n_pages} pages "
             f"({ouro.cfg.num_chunks} chunks, M {ws[0]['plan'][0].shape[0]}): "
@@ -2439,24 +2564,38 @@ def phase_sharded_timing(device, sh3, runs):
     bounds = txn_bound_ms(cpu_ouro, pr["log"], pr["start"])
     bounds["defrag"] = pr["bounds"]
     for kind in ("alloc", "free", "defrag"):
-        ms, n, want = k_times[kind]
+        ms, n, want = k_times[kind][:3]
         res[kind] = dict(ms=ms, plain=sum(p_times[kind]) / len(p_times[kind]),
                          bound=sum(bounds[kind]) / len(bounds[kind]))
+        calls = k_times[kind][3]
+        res[kind]["run_ms"] = ms * calls
         log(f"phase 6: {kernel_of(pr['ouro'], kind)} at the pressure "
-            f"engine's inputs: kernel {1e3 * ms:.2f} us (profiler device "
-            f"time, {n} of {want} launches recorded), plain math on the card "
+            f"engine's inputs: kernel {1e3 * ms:.2f} us a call (profiler "
+            f"device time summed over a call's kernels, {n} of {want} "
+            f"launches recorded), {ms * calls:.3f} ms over the run's {calls} "
+            f"calls; plain math on the card "
             f"{1e3 * res[kind]['plain']:.1f} us, bound "
             f"{1e6 * res[kind]['bound']:.3f} ns")
     rb = runs["rebalance"]
     t = replay_kernels(rb["ouro"], rb["log"], rb["start"])
     res["rebalance_waves"] = dict(ms=t["defrag"][0],
-                                  bound=sum(rb["bounds"]) / len(rb["bounds"]))
+                                  bound=sum(rb["bounds"]) / len(rb["bounds"]),
+                                  run_ms=t["defrag"][0] * t["defrag"][3])
+    res["rebalance_alloc"] = dict(ms=t["alloc"][0],
+                                  run_ms=t["alloc"][0] * t["alloc"][3])
     log(f"phase 6: sharded_defrag_txn at the rebalance engine's waves: "
-        f"kernel {1e3 * t['defrag'][0]:.2f} us ({t['defrag'][1]} of "
-        f"{t['defrag'][2]} launches recorded), bound "
+        f"kernel {1e3 * t['defrag'][0]:.2f} us a wave ({t['defrag'][1]} of "
+        f"{t['defrag'][2]} launches recorded), "
+        f"{res['rebalance_waves']['run_ms']:.3f} ms over the run's "
+        f"{t['defrag'][3]} waves, bound "
         f"{1e6 * res['rebalance_waves']['bound']:.3f} ns")
+    log(f"phase 6: sharded_alloc_txn at the rebalance engine's inputs: "
+        f"kernel {1e3 * t['alloc'][0]:.2f} us a call ({t['alloc'][1]} of "
+        f"{t['alloc'][2]} launches recorded), "
+        f"{res['rebalance_alloc']['run_ms']:.3f} ms over the run's "
+        f"{t['alloc'][3]} calls")
     small, _, _ = make_kv_allocator(256, device=device, num_shards=SHARDS)
-    ms, n, made, plain = time_defrag_waves(small, sh3["waves"])
+    ms, n, made, plain, _ = time_defrag_waves(small, sh3["waves"])
     log(f"phase 6: sharded_defrag_txn, phase-3 waves on the 256-page "
         f"4-shard arena: kernel {1e3 * ms:.1f} us per wave ({n} of {made} "
         f"launches recorded), plain on the card {1e3 * plain:.1f} us")
@@ -2471,16 +2610,18 @@ def phase_sharded_timing(device, sh3, runs):
                                 plain=sum(p[kind]) / len(p[kind]),
                                 bound=sum(b[kind]) / len(b[kind]))
         log(f"phase 6: {kernel_of(big, kind)}, 65536 pages, 4096 lanes: "
-            f"kernel {1e3 * t[kind][0]:.1f} us ({t[kind][1]} of "
+            f"kernel {1e3 * t[kind][0]:.1f} us a call ({t[kind][4]}; "
+            f"{t[kind][1]} of "
             f"{t[kind][2]} launches recorded), plain on the card "
             f"{1e3 * res[kind][65536]['plain']:.1f} us, bound "
             f"{1e6 * res[kind][65536]['bound']:.2f} ns")
-    ms, n, made, plain = time_defrag_waves(big, sh3["big_waves"])
+    ms, n, made, plain, parts = time_defrag_waves(big, sh3["big_waves"])
     bound = sum(w["bound"] for w in sh3["big_waves"]) / len(sh3["big_waves"])
     res["defrag"][65536] = dict(ms=ms, plain=plain, bound=bound)
     log(f"phase 6: sharded_defrag_txn, 65536 pages ({SHARDS} x "
         f"{big.shard_cfg.num_chunks} chunks, M {big._moves(None)}): kernel "
-        f"{1e3 * ms:.1f} us per wave ({n} of {made} launches recorded), "
+        f"{1e3 * ms:.1f} us per wave ({parts}; {n} of "
+        f"{made} launches recorded), "
         f"plain on the card {1e3 * plain:.1f} us, bound {1e6 * bound:.2f} ns")
     return res
 
@@ -2555,7 +2696,7 @@ def aux_geometry():
     return aux, 256 + 8 * aux
 
 
-def phase_aux_pairs(device, reps=3):
+def phase_aux_pairs(device, reps=10):
     """One admission's and one retirement's lanes of full-width
     mamba2-780m (298,656 256-B pages) on the engine's arena, single and
     4-shard: the kernels (lane tables in the device workspace) against
@@ -2594,8 +2735,10 @@ def phase_aux_pairs(device, reps=3):
         psz, pmask = sizes.to(pdev), mask.to(pdev)
         base = (o.kind, o.family, sp.mem, sp.ctl)
         chains()
+        shard_steps()
         _, offs = o.alloc(sk, sizes, mask)
         took = chains()
+        steps = shard_steps()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if S == 1:
@@ -2641,7 +2784,7 @@ def phase_aux_pairs(device, reps=3):
                                  f"{err['words']} differing words")
 
         def session():
-            with DeviceProfile() as prof:
+            with DeviceProfile(counted=True) as prof:
                 for _ in range(reps):
                     sk.mem.copy_(fresh[0])
                     sk.ctl.copy_(fresh[1])
@@ -2649,10 +2792,12 @@ def phase_aux_pairs(device, reps=3):
                     o.free(sk, fo, sizes, mask)
             return prof
 
-        ka, kf = kernel_of(o, "alloc"), kernel_of(o, "free")
-        # the free: its two grid lane passes, then its block(s)
-        got = profiled(session, {ka: reps, kf: reps, "free_lanes": 2 * reps})
-        free_ms = got[kf][0] + 2 * got["free_lanes"][0]
+        # each call's kernels as the card counted them: the alloc's one
+        # block or its partition and attempt launches; the free's two
+        # grid lane passes, then its block(s)
+        prof = profiled(session)
+        pa, pf = per_call(prof, "alloc"), per_call(prof, "free")
+        alloc_ms, free_ms = pa[0], pf[0]
         # bytes: lanes in and out, the ctl blocks, every changed word
         # read and written once
         ctl = 8 * lay.ctl_words * S
@@ -2661,19 +2806,22 @@ def phase_aux_pairs(device, reps=3):
         bound_a = (9 * n + (4 * n if S > 1 else 0) + ctl + 8 * chg_a) \
             / HBM_BYTES_PER_S * 1e3
         bound_f = (9 * n + ctl + 8 * chg_f) / HBM_BYTES_PER_S * 1e3
-        res[S] = dict(alloc=dict(ms=got[ka][0], plain=plain_alloc,
-                                 bound=bound_a),
+        res[S] = dict(alloc=dict(ms=alloc_ms, plain=plain_alloc,
+                                 bound=bound_a, steps=steps,
+                                 launches=pa[5]),
                       free=dict(ms=free_ms, plain=plain_free,
                                 bound=bound_f, enqueue=freed), err=err,
                       plain_on=pdev)
+        pre = "sharded_" if S > 1 else ""
         log(f"phase 3: {n} lanes ({S} shard(s), {o.cfg.num_chunks} chunks, "
             f"workspace {ws[0]} / {ws[1]} B): alloc and free, 0 differing "
-            f"words and offsets; {ka} {got[ka][0]:.3f} ms, {kf} "
-            f"{free_ms:.3f} ms (2 lane passes {got['free_lanes'][0]:.4f} ms "
-            f"each + its block(s) {got[kf][0]:.4f}; profiler device time, "
-            f"{got[ka][1]} / {got[kf][1]} of {reps} and "
-            f"{got['free_lanes'][1]} of {2 * reps} launches recorded); "
-            f"plain math on the "
+            f"words and offsets; {pre}alloc_txn {alloc_ms:.3f} ms a call "
+            f"({pa[4]}), {pre}free_txn {free_ms:.3f} ms a call ({pf[4]}; "
+            f"profiler device time; launches as the card counted them); "
+            + (f"the alloc's steps (the kernel's count): {shard_text(steps)} "
+               f"of {(o.walk + 1) * S} in {sum(pa[5].values()):g} "
+               f"launch(es); " if S > 1 else "")
+            + f"plain math on the "
             f"{'card' if S == 1 else 'CPU'} {plain_alloc:.0f} / "
             f"{plain_free:.0f} ms; bounds {1e3 * bound_a:.2f} / "
             f"{1e3 * bound_f:.2f} us; the alloc's chunk chain"
@@ -2734,7 +2882,7 @@ def requeued_alloc(o, lay, sk, sizes, mask, err, reps):
     del cm, cc
 
     def session():
-        with DeviceProfile() as prof:
+        with DeviceProfile(counted=True) as prof:
             for _ in range(reps):
                 sk.mem.copy_(freed[0])
                 sk.ctl.copy_(freed[1])
@@ -2742,7 +2890,7 @@ def requeued_alloc(o, lay, sk, sizes, mask, err, reps):
         return prof
 
     ka = kernel_of(o, "alloc")
-    ms, rec = profiled(session, {ka: reps})[ka]
+    ms, rec = per_call(profiled(session), "alloc")[:2]
     bound = (9 * n + 8 * lay.ctl_words + 8 * chg) / HBM_BYTES_PER_S * 1e3
     log(f"phase 3: {n} lanes, the next admission ({queued} chunks of the "
         f"freed lanes in the class queue): 0 differing words and offsets; "
@@ -2830,7 +2978,7 @@ def ssd_device_ms(x, dt, a, b, c, chunks, reps=50):
                 ssd.ssd_scan(x, dt, a, b, c, chunk=SSD_SHAPE["Q"])
         return prof
 
-    got = profiled(session, {k: reps for k in ssd_kernels(chunks)})
+    got = profiled(session, {k: reps for k in ssd_kernels(chunks)}).got
     parts = [got[k][0] if k in got else 0.0 for k in SSD_KERNELS]
     return sum(parts), parts, min(n for _, n in got.values())
 
@@ -3188,7 +3336,7 @@ def phase_mamba_profile(mamba):
     for p in mamba["prompts"]:
         eng.submit(p, max_new_tokens=32)
     ops.reset_launches()
-    with DeviceProfile() as prof:
+    with DeviceProfile(counted=True) as prof:
         eng.run_until_done()
     busy = prof.busy_ms()
     wall = 1e3 * mamba["wall"]
@@ -3200,15 +3348,15 @@ def phase_mamba_profile(mamba):
     # each kernel's mean over the launches the profiler kept, times the
     # launches the rerun made (as for paged_attention): every scan
     # launches ssd_chunk and ssd_scan, those of 2 chunks or more
-    # ssd_pass; every 298,656-lane free its two grid lane passes and
-    # free_txn_kernel
+    # ssd_pass; the frees' kernels as the card counted their launches
     out = {}
-    scans, frees = ops.LAUNCHES["ssd_scan"], ops.LAUNCHES["free_txn"]
+    scans = ops.LAUNCHES["ssd_scan"]
     layers = scans // len(mamba["chunks"])
     made = {"ssd_scan": {"ssd_chunk": scans, "ssd_scan": scans,
                          "ssd_pass": layers * sum(ch > 1 for ch in
                                                   mamba["chunks"])},
-            "free_txn": {"free_txn": frees, "free_lanes": 2 * frees}}
+            "free_txn": {k: prof.made[k] for k in FAMILY["free"]
+                         if prof.made[k]}}
     for name, parts in made.items():
         got = {k: prof.kernel(KERNEL_SYMBOLS[k]) for k in parts}
         recorded = ", ".join(f"{k} {got[k][1]} of {m}"
@@ -3316,7 +3464,9 @@ def main(argv=None) -> int:
         t = aux_pairs[S][kind]
         plain = ("plain_ms_298656_lanes" if aux_pairs[S]["plain_on"] != "cpu"
                  else "plain_cpu_ms_298656_lanes")
-        geo = ({"chain_298656_lanes": aux_pairs[S]["chain"]}
+        geo = ({"chain_298656_lanes": aux_pairs[S]["chain"],
+                "steps_298656_lanes": t["steps"],
+                "launches_298656_lanes": t["launches"]}
                if kind == "alloc" else {"enqueue_298656_lanes": t["enqueue"]})
         if kind == "alloc" and "requeued" in aux_pairs[S]:
             r = aux_pairs[S]["requeued"]
@@ -3430,6 +3580,11 @@ def main(argv=None) -> int:
             "plain_ms_65536_pages": t[65536]["plain"],
             "bound_ms_65536_pages": t[65536]["bound"],
             **(aux_fields(SHARDS, kind) if kind != "defrag" else {}),
+            **({"serving_device_ms_by_run": {
+                "under pressure": t["run_ms"],
+                "rebalance": sh_timing["rebalance_" + (
+                    "waves" if kind == "defrag" else "alloc")]["run_ms"]}}
+               if kind != "free" else {}),
             **variant_fields(name)})
     kernels.append({
         "name": "paged_attention", "route": "cuda",

@@ -17,21 +17,45 @@ checkout is "this".  Each tree builds its own kernels into its own
    ``paged_attention*`` or ``ssd_*`` kernels' mean over the launches
    recorded in 50 calls, summed); then the largest difference between
    the two trees' scan outputs (y and h_final) at each chunk count.
-2. The two trees' ``alloc_txn.cu`` on the same words: ``free_txn`` of
-   one mamba2-780m retirement (298,656 pages of 256 B) on the serving
-   engine's arena, granted by this tree's ``alloc_txn``, then
-   ``alloc_txn`` of the next admission (the freed chunks in the class
-   queue), then ``sharded_free_txn`` of the same retirement on the
-   4-shard arena; both libraries are loaded in one process and launched
+2. The two trees' ``alloc_txn.cu`` on the same words: ``alloc_txn`` of
+   one mamba2-780m admission (298,656 pages of 256 B) on the serving
+   engine's fresh arena, ``free_txn`` of its retirement (granted by
+   this tree's ``alloc_txn``), ``alloc_txn`` of the next admission (the
+   freed chunks in the class queue), then ``sharded_free_txn`` of the
+   same retirement on the 4-shard arena; both libraries are loaded in one process and launched
    in turns (other, this, this, other per round) from a copy of the
    words, each launch timed by CUDA events (every kernel a call
    launches inside); both must leave identical words and offsets.
-3. Each tree's ``free_txn_kernel`` instances: registers from the build's
+3. The two trees' sharded kernels on the same words, launched in turns
+   as in 2 (every kernel a call launches inside the timed span):
+   ``sharded_alloc_txn`` of one 298,656-lane admission on the mamba2
+   engine's fresh 4-shard arena and of a 4096-lane transaction of mixed
+   sizes on the 4-shard arena for 65536 pages (after a short trace), both
+   with hashed homes; ``sharded_defrag_txn``: a rebalance wave on the
+   engine's 4-shard arena for 256 pages (every page homed on shard 0,
+   two of three freed) and a compaction and a rebalance wave on the
+   4-shard arena for 65536 pages (4 x 1,033 chunks) after the reference
+   defrag test's churn.  Each line gives both trees' times and the
+   largest difference between the words and offsets they leave, which
+   must be 0.
+4. This tree's ``sharded_alloc_txn`` on its two paths at inputs shaped
+   like a serving engine's (16 and 32 lanes of 256 B on the 4-shard
+   arena for 256 pages, every lane of one home, on a fresh arena and
+   with the home shard full; 32 lanes homed on every shard in turn):
+   the warp-sized block this tree picks for 32 lanes or fewer, and the
+   grid path (partition and attempt launches) of a build with
+   ``-DSHARDED_GRID_LANES=0``, in turns on the same words as in 2 (CUDA
+   events, largest word difference, which must be 0), and each path's
+   profiler device time a call (each kernel's mean a launch times the
+   launches the kernels counted on the card, over the calls).
+5. Each tree's ``free_txn_kernel`` instances: registers from the build's
    ``ptxas -v`` report and SASS instructions from ``cuobjdump``.
-4. Each tree's full-width mamba2-780m (random weights from seed 0, bf16)
-   serving ``chip_smoke.py`` phase 5's traffic, each in its own process:
-   a digest of every request's tokens, and whether the two trees'
-   tokens are the same.
+6. Each tree's full-width mamba2-780m and qwen2-0.5b (random weights
+   from seed 0, bf16) serving ``chip_smoke.py`` phase 5's traffic, each
+   tree in its own process, qwen2 as phase 5 serves it: unpressured,
+   under pressure, and on 4 shards with rebalance waves and under
+   pressure: a digest of every request's tokens per run, and whether
+   the two trees' tokens are the same in every run.
 
 Exits non-zero without a card.  Prints the card's name and power limit.
 """
@@ -97,23 +121,53 @@ def scan_worker(label: str, out_path: str) -> dict:
     return out
 
 
-def tokens_worker() -> dict:
-    """This process's mamba2-780m engine on phase 5's traffic: the
-    tokens' digest and count."""
+def digest(done) -> dict:
+    """The digest and count of every request's tokens, in uid order."""
     import hashlib
+    toks = [[int(t) for t in r.out_tokens]
+            for r in sorted(done, key=lambda r: r.uid)]
+    return dict(digest=hashlib.sha256(json.dumps(toks).encode()).hexdigest(),
+                tokens=sum(len(t) for t in toks))
+
+
+def tokens_worker() -> dict:
+    """This process's mamba2-780m engine on phase 5's traffic, then
+    qwen2-0.5b's engine on it as phase 5 serves it (unpressured, under
+    pressure with the co-tenant, on 4 shards with rebalance waves and
+    under pressure with both co-tenants): each run's tokens' digest and
+    count."""
+    import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServingEngine
     qwen = get_arch("qwen2-0.5b")
-    lengths = [len(p) for p in cs.make_requests(qwen, 0, 16, 16, 448)]
+    requests = cs.make_requests(qwen, 0, 16, 16, 448)
     cfg = get_arch(cs.MAMBA)
     model = build_model(cfg)
     params = model.init(0, device="cuda")
-    prompts = cs.prompts_of_lengths(cfg, 0, lengths)
+    prompts = cs.prompts_of_lengths(cfg, 0, [len(p) for p in requests])
     eng, _, _ = cs.mamba_engine(model, params, prompts, False, "cuda")
-    done = sorted(eng.run_until_done(), key=lambda r: r.uid)
-    toks = [[int(t) for t in r.out_tokens] for r in done]
-    return dict(digest=hashlib.sha256(json.dumps(toks).encode()).hexdigest(),
-                tokens=sum(len(t) for t in toks))
+    out = {cs.MAMBA: digest(eng.run_until_done())}
+    del eng, model, params
+    torch.cuda.empty_cache()
+    model = build_model(qwen)
+    params = model.init(0, device="cuda")
+    runs = ((("qwen2-0.5b", {}, False, False),
+             ("qwen2-0.5b under pressure", cs.PRESSURE, True, False))
+            + tuple((f"qwen2-0.5b sharded {name}", kw, pressured, pressured)
+                    for name, kw, pressured, _ in cs.SHARDED_RUNS))
+    for name, kw, cotenant, holder in runs:
+        eng = ServingEngine(model, params, max_batch=8, max_seq=512,
+                            kv_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16, device="cuda", **kw)
+        if cotenant:
+            cs.cotenant(eng)
+        if holder:
+            cs.holder(eng)
+        for p in requests:
+            eng.submit(p, max_new_tokens=32)
+        out[name] = digest(eng.run_until_done())
+    return out
 
 
 def run_tokens(trees) -> dict:
@@ -127,7 +181,8 @@ def run_tokens(trees) -> dict:
             raise RuntimeError(f"{label} tokens worker failed:\n"
                                f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
         out[label] = json.loads(r.stdout.splitlines()[-1])
-    out["same"] = out["this"]["digest"] == out["other"]["digest"]
+    out["same"] = all(out["this"][k]["digest"] == out["other"][k]["digest"]
+                      for k in out["this"])
     return out
 
 
@@ -174,18 +229,18 @@ def run_workers(trees, tmp) -> tuple:
     return rows, diff
 
 
-def other_alloc_lib(other: str) -> str:
-    """Build the other tree's ``alloc_txn.cu`` with its own build module;
-    returns the library's path."""
+def other_lib(other: str, name: str = "alloc_txn") -> str:
+    """Build one of the other tree's kernel sources with its own build
+    module; returns the library's path."""
     code = ("from repro_torch.kernels import build; "
-            "build.build_all(['alloc_txn']); "
-            "print(build._target('alloc_txn'))")
+            f"build.build_all([{name!r}]); "
+            f"print(build._target({name!r}))")
     r = subprocess.run([sys.executable, "-c", code], cwd=other,
                        env=dict(os.environ,
                                 PYTHONPATH=os.path.join(other, "src")),
                        capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
-        raise RuntimeError(f"other tree's alloc_txn build failed:\n"
+        raise RuntimeError(f"other tree's {name} build failed:\n"
                            f"{r.stderr[-4000:]}")
     return r.stdout.strip().splitlines()[-1]
 
@@ -195,7 +250,7 @@ def in_turns(libs, rounds, words, launch):
     mem and ctl), in turns (other, this, this, other per round, after a
     round that warms both up), timed by CUDA events; both trees must
     leave identical words and outputs.  Returns each tree's sorted ms and
-    median."""
+    median, and the largest difference between what the two left."""
     import torch
     mem, ctl = words[2], words[3]
     times = {"this": [], "other": []}
@@ -213,26 +268,31 @@ def in_turns(libs, rounds, words, launch):
                 times[label].append(a.elapsed_time(b))
             if label not in left:
                 left[label] = (mem.clone(), ctl.clone(), out)
-    if not all(torch.equal(x, y) for x, y in zip(left["this"],
-                                                  left["other"])):
-        raise AssertionError("the two trees' kernels left different words")
-    return {label: dict(ms=sorted(t), median_ms=sorted(t)[len(t) // 2])
-            for label, t in times.items()}
+    diff = max((int((x.long() - y.long()).abs().max()) if x.numel() else 0)
+               for x, y in zip(left["this"], left["other"]))
+    if diff:
+        raise AssertionError(f"the two trees' kernels left different words "
+                             f"(largest difference {diff})")
+    out = {label: dict(ms=sorted(t), median_ms=sorted(t)[len(t) // 2])
+           for label, t in times.items()}
+    out["max_word_diff"] = diff
+    return out
 
 
 def run_aux(other_so: str, rounds: int) -> dict:
-    """Both trees' ``free_txn`` of one mamba2-780m retirement (298,656
-    pages of 256 B, granted by this tree's ``alloc_txn`` on a fresh
-    arena), then both trees' ``alloc_txn`` of the next admission (the
-    freed chunks in the class queue), then both trees'
-    ``sharded_free_txn`` of the retirement on the 4-shard arena, each on
-    copies of the same words."""
+    """Both trees' ``alloc_txn`` of one mamba2-780m admission (298,656
+    pages of 256 B) on a fresh arena, both trees' ``free_txn`` of its
+    retirement (granted by this tree's ``alloc_txn``), then both trees'
+    ``alloc_txn`` of the next admission (the freed chunks in the class
+    queue), then both trees' ``sharded_free_txn`` of the retirement on
+    the 4-shard arena, each on copies of the same words."""
     import torch
     from repro_torch.kernels import alloc_txn as AT
     from repro_torch.paged.kv_cache import make_kv_allocator
     n, n_pages = cs.aux_geometry()
     o, _, _ = make_kv_allocator(n_pages, device="cuda")
     st = o.init()
+    fresh = (st.mem.clone(), st.ctl.clone())
     sizes = torch.full((n,), 256, dtype=torch.int32, device="cuda")
     mask = torch.ones(n, dtype=torch.bool, device="cuda")
     _, offs = o.alloc(st, sizes, mask)
@@ -277,11 +337,13 @@ def run_aux(other_so: str, rounds: int) -> dict:
             raise RuntimeError(f"alloc_txn: CUDA error {err}")
         return out
 
-    out = {"free_txn, the retirement": in_turns(
+    out = {"alloc_txn, the first admission": in_turns(
+               libs, rounds, fresh + (st.mem, st.ctl), alloc),
+           "free_txn, the retirement": in_turns(
                libs, rounds, granted + (st.mem, st.ctl), free),
            "alloc_txn, the next admission": in_turns(
                libs, rounds, freed + (st.mem, st.ctl), alloc)}
-    del st, granted, freed
+    del st, fresh, granted, freed
 
     # the same retirement on the 4-shard arena
     S = cs.SHARDS
@@ -310,6 +372,283 @@ def run_aux(other_so: str, rounds: int) -> dict:
 
     out["sharded_free_txn, the retirement on 4 shards"] = in_turns(
         libs, rounds, granted + (st.mem, st.ctl), sharded_free)
+    return out
+
+
+def smem_limit(tree: str) -> int:
+    """A tree's lane-table limit (its wrappers' ``TABLE_SMEM_LIMIT``),
+    read from its source: the two trees' kernels may keep different
+    static shared memory beside their tables."""
+    text = open(os.path.join(tree, "src", "repro_torch", "kernels",
+                             "alloc_txn.py")).read()
+    return int(eval(re.search(r"^TABLE_SMEM_LIMIT = (.+)$", text,
+                              re.M).group(1), {}))
+
+
+def run_sharded(trees, sos, rounds: int) -> dict:
+    """Both trees' ``sharded_alloc_txn`` and ``sharded_defrag_txn`` on
+    copies of the same words, in turns (section 3), each through its own
+    launcher signature: a launcher that takes the lane-table limit and a
+    wave workspace counted over the shards are this slice's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import shards
+    from repro_torch.kernels import alloc_txn as AT
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    S = cs.SHARDS
+    P, I, Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    alibs = {label: ctypes.CDLL(sos[label]["alloc_txn"]) for label in sos}
+    dlibs = {label: ctypes.CDLL(sos[label]["defrag_txn"]) for label in sos}
+    limit = {}
+    for label in sos:
+        a, d = alibs[label], dlibs[label]
+        limit[a._name] = limit[d._name] = smem_limit(trees[label])
+        new = hasattr(a, "sharded_alloc_txn_grid")
+        a.sharded_alloc_txn_workspace_bytes.argtypes = [AT.ArenaDesc, I, Z]
+        a.sharded_alloc_txn_workspace_bytes.restype = Z
+        a.sharded_alloc_txn_launch.argtypes = (
+            [AT.ArenaDesc, P, P, I, I, I, P, P, P, I, I, P, P]
+            + ([Z] if new else []) + [P])
+        a.sharded_alloc_txn_launch.restype = I
+        a._new = new
+        new = hasattr(d, "defrag_txn_rebuild_stats")
+        d.defrag_txn_workspace_bytes.argtypes = (
+            [AT.ArenaDesc] + ([I] if new else []) + [Z])
+        d.defrag_txn_workspace_bytes.restype = Z
+        d.sharded_defrag_txn_launch.argtypes = [AT.ArenaDesc, P, P, I, I, I,
+                                                P, P, P, I, P, P]
+        d.sharded_defrag_txn_launch.restype = I
+        d._new = new
+    out = {}
+
+    def alloc_case(what, o, st, sizes, mask):
+        lay = o.layout.shard
+        desc = AT.descriptor(lay)
+        n = sizes.shape[0]
+        home = shards.home_shards(n, S, None, device="cuda")
+        stream = AT._stream(st.mem.device)
+
+        def launch(lib):
+            lim = limit[lib._name]
+            ws = AT.workspace(lib.sharded_alloc_txn_workspace_bytes(
+                desc, n, lim), "cuda")
+            offs = torch.empty(n, dtype=torch.int32, device="cuda")
+            err = lib.sharded_alloc_txn_launch(
+                desc, st.mem.data_ptr(), st.ctl.data_ptr(), S, lay.mem_words,
+                lay.ctl_words, sizes.data_ptr(), mask.data_ptr(),
+                home.data_ptr(), n, o.walk, offs.data_ptr(), AT._ptr(ws),
+                *([lim] if lib._new else []), stream)
+            if err:
+                raise RuntimeError(f"sharded_alloc_txn: CUDA error {err}")
+            return offs
+
+        words = (st.mem.clone(), st.ctl.clone(), st.mem, st.ctl)
+        out[what] = in_turns(alibs, rounds, words, launch)
+
+    def wave_case(what, o, st, kind):
+        lay = o.layout.shard
+        desc = AT.descriptor(lay)
+        src, dst, sizes = cs.plan_of(o, st, kind, o._moves(None))
+        M = src.shape[0]
+        stream = AT._stream(st.mem.device)
+
+        def launch(lib):
+            lim = limit[lib._name]
+            ws = AT.workspace(lib.defrag_txn_workspace_bytes(
+                desc, *([S] if lib._new else []), lim), "cuda")
+            err = lib.sharded_defrag_txn_launch(
+                desc, st.mem.data_ptr(), st.ctl.data_ptr(), S, lay.mem_words,
+                lay.ctl_words, src.data_ptr(), dst.data_ptr(),
+                sizes.data_ptr(), M, AT._ptr(ws), stream)
+            if err:
+                raise RuntimeError(f"sharded_defrag_txn: CUDA error {err}")
+            return st.ctl[:0]
+
+        words = (st.mem.clone(), st.ctl.clone(), st.mem, st.ctl)
+        out[what] = dict(moves=int((src >= 0).sum()),
+                         **in_turns(dlibs, rounds, words, launch))
+
+    # the mamba2 admission on the fresh 4-shard engine arena
+    n, n_pages = cs.aux_geometry()
+    o, _, _ = make_kv_allocator(n_pages, device="cuda", num_shards=S)
+    st = o.init()
+    alloc_case(f"sharded_alloc_txn, {n} lanes of 256 B", o, st,
+               torch.full((n,), 256, dtype=torch.int32, device="cuda"),
+               torch.ones(n, dtype=torch.bool, device="cuda"))
+    del o, st
+    torch.cuda.empty_cache()
+    # 4096 lanes of mixed sizes after a short trace, 65536 pages
+    rng = np.random.default_rng(3)
+    o, _, _ = make_kv_allocator(65536, device="cuda", num_shards=S)
+    st = o.init()
+    trace = [op for op in cs.alloc_trace(rng, 4, 4096) if op[0] == "alloc"]
+    for op in trace[:-1]:
+        o.alloc(st, torch.from_numpy(op[1]).cuda(),
+                torch.from_numpy(op[2]).cuda())
+    alloc_case("sharded_alloc_txn, 4096 lanes of mixed sizes", o, st,
+               torch.from_numpy(trace[-1][1]).cuda(),
+               torch.from_numpy(trace[-1][2]).cuda())
+    # both waves on the churned 65536-page arena
+    st = cs.churn(o, o.init(), rng, 4096, 256, until_full=True)
+    for kind in cs.WAVES:
+        wave_case(f"sharded_defrag_txn, {kind} wave, {S} x "
+                  f"{o.shard_cfg.num_chunks} chunks", o, st, kind)
+    # a rebalance wave on the engine's 256-page arena: pages homed on
+    # shard 0, two of three freed
+    o, _, _ = make_kv_allocator(256, device="cuda", num_shards=S)
+    st, live = o.init(), []
+    sizes = torch.full((16,), 256, dtype=torch.int32, device="cuda")
+    home0 = torch.zeros(16, dtype=torch.int32, device="cuda")
+    for _ in range(6):
+        _, offs = o.alloc(st, sizes, torch.ones(16, dtype=torch.bool,
+                                                device="cuda"),
+                          shard_hint=home0)
+        live += [x for x in offs.tolist() if x >= 0]
+    drop = [x for i, x in enumerate(live) if i % 3]
+    for i in range(0, len(drop), 16):
+        fo = torch.full((16,), -1, dtype=torch.int32)
+        fo[:len(drop[i:i + 16])] = torch.tensor(drop[i:i + 16],
+                                               dtype=torch.int32)
+        fo = fo.cuda()
+        o.free(st, fo, sizes, fo >= 0)
+    wave_case(f"sharded_defrag_txn, rebalance wave, {S} x "
+              f"{o.shard_cfg.num_chunks} chunks (the engine's arena)", o, st,
+              "rebalance")
+    return out
+
+
+def variant_lib(define: str) -> str:
+    """This tree's ``alloc_txn.cu`` built with ``-D<define>`` beside its
+    own build; returns the library's path."""
+    from repro_torch.kernels import build
+    so = build.build_dir() / f"liballoc_txn-{define.replace('=', '')}.so"
+    r = subprocess.run([build.nvcc(), *build.FLAGS, f"-D{define}", "-o",
+                        str(so), str(build.csrc_dir() / "alloc_txn.cu")],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"alloc_txn.cu with -D{define} failed to "
+                           f"build:\n{r.stderr[-4000:]}")
+    return str(so)
+
+
+def counted_ms(lib, call, reps, tries=3):
+    """Profiler device time of one ``call()`` of a sharded alloc through
+    ``lib``: each kernel's mean a launch times the launches the kernels
+    counted on the card (``alloc_txn_launch_stats``), summed, over
+    ``reps`` calls; a session in which the profiler recorded no launch
+    of a kernel that ran is run again, up to ``tries`` sessions.
+    Returns (ms, {kernel: [mean ms a launch, recorded, counted]})."""
+    import torch
+    from repro_torch.kernels import alloc_txn as AT
+    names = AT.LAUNCH_STATS
+
+    def counts():
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * len(names))()
+        if lib.alloc_txn_launch_stats(buf, 0):
+            raise RuntimeError("alloc_txn_launch_stats failed")
+        return dict(zip(names, (int(v) for v in buf)))
+
+    call()
+    for _ in range(tries):
+        before = counts()
+        with cs.DeviceProfile() as prof:
+            for _ in range(reps):
+                call()
+        made = {k: m - before[k] for k, m in counts().items()
+                if m > before[k]}
+        got = {k: prof.kernel(f"{k}_kernel") for k in made}
+        if all(n for _, n in got.values()):
+            return (sum(got[k][0] * m for k, m in made.items()) / reps,
+                    {k: [got[k][0], got[k][1], m] for k, m in made.items()})
+    raise RuntimeError(f"the profiler recorded no launch of a kernel in "
+                       f"{tries} sessions: {got} of {made}")
+
+
+def run_warp_grid(rounds: int, reps: int = 50) -> dict:
+    """Section 4: this tree's ``sharded_alloc_txn`` on the warp-sized
+    block and on the grid path at engine-shaped inputs, in turns on the
+    same words, and each path's counted device time a call."""
+    import torch
+    from repro_torch.kernels import alloc_txn as AT
+    from repro_torch.kernels import build
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    S = cs.SHARDS
+    build.build_all(["alloc_txn"])
+    libs = {"this": ctypes.CDLL(str(build._target("alloc_txn"))),
+            "other": ctypes.CDLL(variant_lib("SHARDED_GRID_LANES=0"))}
+    P, I, Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    for lib in libs.values():
+        lib.sharded_alloc_txn_workspace_bytes.argtypes = [AT.ArenaDesc, I, Z]
+        lib.sharded_alloc_txn_workspace_bytes.restype = Z
+        lib.sharded_alloc_txn_grid.argtypes = [AT.ArenaDesc, I, Z]
+        lib.sharded_alloc_txn_grid.restype = I
+        lib.sharded_alloc_txn_launch.argtypes = [
+            AT.ArenaDesc, P, P, I, I, I, P, P, P, I, I, P, P, Z, P]
+        lib.sharded_alloc_txn_launch.restype = I
+        lib.alloc_txn_launch_stats.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), I]
+        lib.alloc_txn_launch_stats.restype = I
+    o, _, _ = make_kv_allocator(256, device="cuda", num_shards=S)
+    lay = o.layout.shard
+    desc = AT.descriptor(lay)
+    lim = AT.TABLE_SMEM_LIMIT
+    stream = AT._stream(torch.device("cuda"))
+    fresh = o.init()
+    full = o.init()     # shard 0 filled with 16-lane grants homed on it
+    sz16 = torch.full((16,), 256, dtype=torch.int32, device="cuda")
+    on16 = torch.ones(16, dtype=torch.bool, device="cuda")
+    for _ in range(64):
+        _, offs = o.alloc(full, sz16, on16, shard_hint=torch.zeros(
+            16, dtype=torch.int32, device="cuda"))
+        if bool((offs < 0).any()):
+            break
+    else:
+        raise AssertionError("shard 0 never filled")
+    cases = [(16, "one home, fresh arena", fresh, False),
+             (16, "one home, its shard full", full, False),
+             (32, "one home, its shard full", full, False),
+             (32, "homes on every shard in turn, fresh arena", fresh, True)]
+    out = {}
+    for n, what, st, spread in cases:
+        sizes = torch.full((n,), 256, dtype=torch.int32, device="cuda")
+        mask = torch.ones(n, dtype=torch.bool, device="cuda")
+        home = torch.arange(n, dtype=torch.int32, device="cuda") % S
+        if not spread:
+            home.zero_()
+        mem, ctl = st.mem.clone(), st.ctl.clone()
+
+        def launch(lib):
+            ws = AT.workspace(lib.sharded_alloc_txn_workspace_bytes(
+                desc, n, lim), "cuda")
+            offs = torch.empty(n, dtype=torch.int32, device="cuda")
+            err = lib.sharded_alloc_txn_launch(
+                desc, mem.data_ptr(), ctl.data_ptr(), S, lay.mem_words,
+                lay.ctl_words, sizes.data_ptr(), mask.data_ptr(),
+                home.data_ptr(), n, o.walk, offs.data_ptr(), AT._ptr(ws),
+                lim, stream)
+            if err:
+                raise RuntimeError(f"sharded_alloc_txn: CUDA error {err}")
+            return offs
+
+        paths = {label: ("grid" if lib.sharded_alloc_txn_grid(desc, n, lim)
+                         else "warp") for label, lib in libs.items()}
+        if paths != {"this": "warp", "other": "grid"}:
+            raise AssertionError(f"{n} lanes took the paths {paths}")
+        t = in_turns(libs, rounds, (st.mem, st.ctl, mem, ctl), launch)
+        line = {"warp": t["this"], "grid": t["other"],
+                "max_word_diff": t["max_word_diff"]}
+        for label, path in paths.items():
+
+            def call(lib=libs[label]):
+                mem.copy_(st.mem)
+                ctl.copy_(st.ctl)
+                launch(lib)
+
+            ms, parts = counted_ms(libs[label], call, reps)
+            line[f"{path}_device_ms"] = ms
+            line[f"{path}_kernels"] = parts
+        out[f"{n} lanes, {what}"] = line
     return out
 
 
@@ -374,16 +713,26 @@ def main(argv=None) -> int:
             print(f"{what} {json.dumps(line)}", flush=True)
     print(f"ssd_scan, the largest difference between the trees' outputs "
           f"(y, h_final) by chunks {json.dumps(diff)}", flush=True)
-    other_so = other_alloc_lib(trees["other"])
+    other_so = other_lib(trees["other"])
     for what, t in run_aux(other_so, args.rounds).items():
         print(f"{what} at 298656 lanes, CUDA events a launch "
               f"{json.dumps(t)}", flush=True)
     from repro_torch.kernels import build
+    sos = {"this": {k: str(build._target(k))
+                    for k in ("alloc_txn", "defrag_txn")},
+           "other": {"alloc_txn": other_so,
+                     "defrag_txn": other_lib(trees["other"], "defrag_txn")}}
+    build.build_all(["defrag_txn"])
+    for what, t in run_sharded(trees, sos, args.rounds).items():
+        print(f"{what}, CUDA events a call {json.dumps(t)}", flush=True)
+    for what, t in run_warp_grid(args.rounds).items():
+        print(f"sharded_alloc_txn, warp-sized block against the grid path, "
+              f"{what} {json.dumps(t)}", flush=True)
     for label, so in (("this", str(build._target("alloc_txn"))),
                       ("other", other_so)):
         print(f"free_txn_kernel {label} "
               f"{json.dumps(free_kernel_profile(so))}", flush=True)
-    print(f"{cs.MAMBA} tokens on phase 5's traffic "
+    print(f"tokens on phase 5's traffic, every run "
           f"{json.dumps(run_tokens(trees))}", flush=True)
     print(cs.card_line())
     return 0

@@ -14,8 +14,8 @@
 // identical mem/ctl words and offsets.
 //
 // What bounds it on the H100: latency, not bandwidth or arithmetic, in
-// every phase but the runs.  A transaction touches a few kilobytes to a
-// few megabytes.  A chunk kind's alloc is a chain of queue operations
+// every phase but the runs and a wide sharded alloc's partition.  A
+// transaction touches a few kilobytes to a few megabytes.  A chunk kind's alloc is a chain of queue operations
 // whose order fixes every later word (dequeue with its segment shrink,
 // pool pop, bitmap claim, re-enqueue with segment grow): those steps are
 // bound by their dependent global-memory round trips.  But most of a
@@ -39,6 +39,10 @@
 // telemetry counts.  The ctl block is staged in shared memory and
 // written back once.  Heap, bitmap and queue words stay in global
 // memory.
+//
+// An alloc whose arena can grant no lane (each class with lanes has an
+// empty queue; a chunk kind's pool is empty too) changes no word but
+// its failed counts, and skips the grants.
 //
 // Chunk kinds' alloc (chunk_grants), class-major in the reference's
 // order, in phases.  Thread 0 takes every step whose order matters
@@ -104,7 +108,7 @@
 // (free_txn_enqueue_stats) count the enqueues and values of each path.
 //
 // Lane tables (alloc's rank -> offset table or page-vl chain table, the
-// sharded alloc's local offsets and selection, free's chunk bitset,
+// sharded alloc's bucket lists and local offsets, free's chunk bitset,
 // ranks, revived-chunk lists and new segments) live in dynamic shared
 // memory when they fit, else in a device workspace the wrapper allocates
 // with torch.empty: the kernels take one pointer, `ws`, and use shared
@@ -117,17 +121,24 @@
 // Sharded arenas (mem (S, Mw), ctl (S, Cw); global offset = s * Ws +
 // local).  The alloc is a schedule, attempt-major then shard-minor: at
 // step (a, s) shard s serves the still-unserved lanes whose
-// (home + a) % S == s.  Within one attempt the shards' lane sets are
-// disjoint and their slabs independent, but attempt a + 1 on shard s
-// depends on attempt a on shard s - 1, so sharded_alloc_txn is one
-// block that runs the (a, s) steps in order, each through the same
-// transaction body as alloc_txn (alloc_body) on shard s's rows, its ctl
-// block restaged in shared memory, and the served lanes' telemetry in
-// walk bin min(a, d.walk_bins - 1).  A step that selects no lane
-// changes no word (it serves nothing and its telemetry deltas are 0),
-// so it is skipped.  A free lane belongs to the one shard that owns its
-// offset, so sharded_free_txn runs one block per shard, all
-// independent, each through free_txn's body (free_body) on its slab.
+// (home + a) % S == s, each step through the same transaction body as
+// alloc_txn (alloc_body) on shard s's rows, its ctl block restaged in
+// shared memory, and the served lanes' telemetry in walk bin
+// min(a, d.walk_bins - 1).  The lanes are partitioned once by home into
+// S bucket lists in lane order (a stable counting sort), and step (a, s)
+// touches only bucket (s - a) mod S's unserved lanes, through a
+// lane-index map, compacting the failed ones for the next attempt; a
+// step whose bucket is empty changes no word and is skipped from the
+// bucket's count.  Within one attempt the shards' lane sets are
+// disjoint and their slabs independent, and attempt a + 1 on shard s
+// depends only on attempt a on shard s - 1: a transaction wider than a
+// warp is partitioned over the card, then runs an attempt a launch of S
+// blocks, block s taking step (a, s), the kernel boundary ordering the
+// attempts; a narrower one (a serving engine's: one bucket) runs the
+// partition and every step in turn in one warp.  A free
+// lane belongs to the one shard that owns its offset, so
+// sharded_free_txn runs one block per shard, all independent, each
+// through free_txn's body (free_body) on its slab.
 //
 // Semantics kept from the reference, deliberately: pool pops do not
 // check the inventory; integer division and modulo floor; counters and
@@ -165,96 +176,8 @@ __device__ void tele_apply(const ArenaDesc& d, const int* s_old, int* s_ctl,
   t[t0 + 4 * C + 3 + walk_bin] += (unsigned)d_walk;
 }
 
-// ---- lane ranks -----------------------------------------------------------
-
-// rank[i] = base[c] + the number of earlier lanes of class c, for the
-// lanes that cls_of(i) puts in a class c in [0, C), -1 for the others;
-// count[c] and base[c] (classes concatenated in class order) are written
-// by thread 0.  Each warp takes a contiguous run of 32-lane groups and
-// walks it in order, 32 neighbouring lanes a step (coalesced loads,
-// kRankUnroll groups' loads in flight), so ranks follow lane order: a
-// pass counts each class's lanes per warp (lane c of the warp holds
-// class c's count; a step whose 32 lanes share one class, the common
-// case, costs one vote, another one ballot a class), one block scan a
-// class gives each warp its offsets, and a second pass ranks the lanes.
-// The caller synchronises before reading count/base.
-constexpr int kRankUnroll = 8;
-constexpr int kLaneUnroll = 4;  // alloc's grant gather: lanes a thread
-
-template <class ClassOf>
-__device__ __forceinline__ void rank_lanes(int n, int C, ClassOf cls_of,
-                                           int* rank, int* count, int* base,
-                                           int* s_warp) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5, groups = (n + 31) >> 5;
-  const int per = (groups + nw - 1) / nw;
-  const int g0 = min(groups, wid * per), g1 = min(groups, g0 + per);
-  const unsigned below = (1u << lane) - 1u;
-  auto load = [&](int g, int* cls) {
-#pragma unroll
-    for (int u = 0; u < kRankUnroll; ++u) {
-      const int i = (g + u) * 32 + lane;
-      cls[u] = (g + u < g1 && i < n) ? cls_of(i) : -1;
-    }
-  };
-  int mine = 0;  // lane c: this warp's lanes of class c so far
-  for (int g = g0; g < g1; g += kRankUnroll) {
-    int cls[kRankUnroll];
-    load(g, cls);
-#pragma unroll
-    for (int u = 0; u < kRankUnroll; ++u) {
-      if (g + u >= g1) break;  // warp-uniform
-      const int c0 = __shfl_sync(0xffffffffu, cls[u], 0);
-      if (__all_sync(0xffffffffu, cls[u] == c0)) {  // one class: common
-        if (lane == c0) mine += 32;
-        continue;
-      }
-      for (int c = 0; c < C; ++c) {
-        const unsigned b = __ballot_sync(0xffffffffu, cls[u] == c);
-        if (lane == c) mine += __popc(b);
-      }
-    }
-  }
-  int start = 0, next = 0;  // lane c: the rank of class c's next lane
-  for (int c = 0; c < C; ++c) {
-    const int wc = __shfl_sync(0xffffffffu, mine, c);
-    int total;
-    const int pre = block_excl_scan(lane == 0 ? wc : 0, &total, s_warp);
-    const int w0 = __shfl_sync(0xffffffffu, pre, 0);
-    if (lane == c) next = start + w0;
-    if (threadIdx.x == 0) {
-      count[c] = total;
-      base[c] = start;
-    }
-    start += total;
-  }
-  for (int g = g0; g < g1; g += kRankUnroll) {
-    int cls[kRankUnroll];
-    load(g, cls);
-#pragma unroll
-    for (int u = 0; u < kRankUnroll; ++u) {
-      if (g + u >= g1) break;  // warp-uniform
-      const int i = (g + u) * 32 + lane;
-      const int c0 = __shfl_sync(0xffffffffu, cls[u], 0);
-      if (__all_sync(0xffffffffu, cls[u] == c0)) {  // one class: common
-        const int at = __shfl_sync(0xffffffffu, next, c0 < 0 ? 0 : c0);
-        if (i < n) rank[i] = c0 < 0 ? -1 : at + lane;
-        if (lane == c0) next += 32;
-        continue;
-      }
-      unsigned peers = 0u;
-      int add = 0;
-      for (int c = 0; c < C; ++c) {
-        const unsigned b = __ballot_sync(0xffffffffu, cls[u] == c);
-        if (cls[u] == c) peers = b;
-        if (lane == c) add = __popc(b);
-      }
-      const int at = __shfl_sync(0xffffffffu, next, cls[u] < 0 ? 0 : cls[u]);
-      if (i < n) rank[i] = cls[u] < 0 ? -1 : at + __popc(peers & below);
-      next += add;
-    }
-  }
-}
+// alloc's grant gather: lanes a thread whose loads are in flight at once
+constexpr int kLaneUnroll = 4;
 
 // ---- queue grow and the value write of a bulk enqueue -----------------------
 
@@ -319,6 +242,7 @@ struct FreeShared {
   int ctl[MAX_CTL], old[MAX_CTL];
   int count[MAX_CLASSES], base[MAX_CLASSES], warp[32], freed[MAX_CLASSES];
   int nnew[MAX_CLASSES], rev, serial, bad_class;
+  int tab[kClassTab];  // rank_lanes' class scan
 };
 
 // What the bulk enqueues of every free (single or sharded: one per
@@ -333,6 +257,21 @@ enum FreeStat {
   kFreeStats
 };
 __device__ unsigned long long g_free_stats[kFreeStats];
+
+// Each kernel's launches since the last reset (count_launch), read and
+// cleared by alloc_txn_launch_stats: a call's kernels as they ran.
+enum TxnLaunch {
+  LS_ALLOC_TXN,
+  LS_FREE_TXN,
+  LS_FREE_LANES,
+  LS_SHARDED_ALLOC_TXN,
+  LS_SHARDED_ALLOC_COUNT,
+  LS_SHARDED_ALLOC_PLACE,
+  LS_SHARDED_ALLOC_ATTEMPT,
+  LS_SHARDED_FREE_TXN,
+  kTxnLaunches
+};
+__device__ unsigned long long g_txn_launches[kTxnLaunches];
 
 // Write one enqueued value at slot back + r of class cm (back and tail
 // as staged before the transaction, in sh.old): the ring slot, or the
@@ -458,8 +397,10 @@ struct AllocShared {
   int count[MAX_CLASSES], base[MAX_CLASSES], take[MAX_CLASSES], warp[32];
   int served[MAX_CLASSES], failed[MAX_CLASSES];
   int cserved, run, nrec;  // the chunk chain's hand-off (chunk_grants)
+  int none;                // alloc_body: no lane can be granted
   int cut, qpages, edge[33];  // a dequeue run's tile (dequeue_run)
   unsigned st[kChainStats];  // this launch's chain statistics
+  int tab[kClassTab];  // rank_lanes' class scan
 };
 
 // A serial chain step's claim in one bitmap word, for the block to expand
@@ -810,10 +751,10 @@ __device__ __forceinline__ void chunk_grants(const ArenaDesc& d, int* mem,
 // into its value here) gathers its value on its own; thread 0 then
 // returns the consumed segments to the pool and advances the counters.
 // chain: the page-vl chain table (C, m + 1).
+template <class Lanes>
 __device__ __forceinline__ void page_grants(const ArenaDesc& d, int* mem,
-                                            const int* sizes, int n,
-                                            int* out, AllocShared& sh,
-                                            int* chain) {
+                                            Lanes L, int n, int* out,
+                                            AllocShared& sh, int* chain) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
   const int spc = d.spc, wpc = d.wpc, W = d.total_words;
   const int m = n / spc + 1;
@@ -833,7 +774,7 @@ __device__ __forceinline__ void page_grants(const ArenaDesc& d, int* mem,
   __syncthreads();
   for (int i = tid; i < n; i += nt) {
     if (out[i] < 0) continue;
-    const int c = size_class(d, sizes[i]);
+    const int c = size_class(d, L.size(i));
     const int r = out[i] - sh.base[c];
     if (r >= sh.take[c]) {
       out[i] = -1;
@@ -876,14 +817,32 @@ __device__ __forceinline__ void page_grants(const ArenaDesc& d, int* mem,
   }
 }
 
-// One alloc transaction on one arena (mem, ctl) for the lanes with
-// sel[i] != 0, block-wide; out[i] receives the local word offset, -1 for
-// a failed or unselected lane.  scratch: alloc_scratch_ints(d, n) ints of
-// shared or global memory.  Served lanes count in walk bin walk_bin.
+// The lanes a transaction body serves: lane k's size in bytes and
+// whether it is selected.  alloc_txn's instance reads the caller's
+// arrays; a sharded step's reads the compacted list of its lanes (every
+// one selected, in lane order, so the body's ranks are the reference's).
+struct MaskLanes {
+  const int* sizes;
+  const uint8_t* mask;
+  __device__ int size(int k) const { return sizes[k]; }
+  __device__ bool on(int k) const { return mask[k] != 0; }
+};
+
+struct ListLanes {
+  const int* sz;
+  __device__ int size(int k) const { return sz[k]; }
+  __device__ bool on(int) const { return true; }
+};
+
+// One alloc transaction on one arena (mem, ctl) for the selected lanes
+// of L, block-wide; out[k] receives lane k's local word offset, -1 for a
+// failed or unselected lane.  scratch: alloc_scratch_ints(d, n) ints of
+// shared or global memory.  Served lanes count in walk bin walk_bin, and
+// sh.served[c] holds the lanes of class c served.
+template <class Lanes>
 __device__ __forceinline__ void alloc_body(
-    const ArenaDesc& d, int* mem, int* ctl, const int* sizes,
-    const uint8_t* sel, int n, int* out, int walk_bin, AllocShared& sh,
-    int* scratch) {
+    const ArenaDesc& d, int* mem, int* ctl, Lanes L, int n, int* out,
+    int walk_bin, AllocShared& sh, int* scratch) {
   const int tid = threadIdx.x, nt = blockDim.x, C = d.num_classes;
   __syncthreads();
   for (int i = tid; i < d.ctl_words; i += nt)
@@ -892,22 +851,48 @@ __device__ __forceinline__ void alloc_body(
   if (d.kind == KIND_CHUNK)
     for (int i = tid; i < n; i += nt) scratch[i] = -1;
   auto cls_of = [&](int i) {  // both loads issued at once
-    const bool on = sel[i];
-    const int c = size_class(d, sizes[i]);
+    const bool on = L.on(i);
+    const int c = size_class(d, L.size(i));
     return on && c < C ? c : -1;
   };
-  rank_lanes(n, C, cls_of, out, sh.count, sh.base, sh.warp);
-  __syncthreads();
-
-  if (d.kind == KIND_CHUNK) {
-    chunk_grants(d, mem, sh, scratch, reinterpret_cast<StepRec*>(scratch + n),
-                 scratch + (size_t)n * (1 + kRecInts), n);
-  } else {
-    page_grants(d, mem, sizes, n, out, sh, scratch);
+  rank_lanes(n, C, cls_of, [&](int i, int, int r) { out[i] = r; }, sh.count,
+             sh.base, sh.tab);
+  // An arena that can grant no lane (every class with lanes has an
+  // empty queue and, for a chunk kind, the pool is empty too: the chain
+  // of each such class ends before its first step) changes no word but
+  // its failed counts: the grants are skipped.  A sharded alloc's steps
+  // on an exhausted shard under pressure take this path.
+  if (tid == 0) {
+    Chain ch{d, mem, sh.ctl};
+    bool none = d.kind != KIND_CHUNK || ch.pool_count() <= 0;
+    for (int c = 0; c < C && none; ++c)
+      none = sh.count[c] == 0 || ch.count(c) <= 0;
+    sh.none = none;
   }
   __syncthreads();
 
-  if (d.kind == KIND_CHUNK) {
+  if (sh.none) {
+    for (int i = tid; i < n; i += nt) out[i] = -1;
+    if (tid == 0) {
+      int chains = 0;  // chunk_grants counts each class with lanes
+      for (int c = 0; c < C; ++c) {
+        sh.failed[c] = sh.count[c];
+        chains += sh.count[c] > 0;
+      }
+      if (d.kind == KIND_CHUNK && chains)
+        atomicAdd(&g_chain_stats[CS_CHAINS], (unsigned long long)chains);
+    }
+  } else if (d.kind == KIND_CHUNK) {
+    chunk_grants(d, mem, sh, scratch, reinterpret_cast<StepRec*>(scratch + n),
+                 scratch + (size_t)n * (1 + kRecInts), n);
+  } else {
+    page_grants(d, mem, L, n, out, sh, scratch);
+  }
+  __syncthreads();
+
+  if (sh.none) {
+    // every lane failed (counted above)
+  } else if (d.kind == KIND_CHUNK) {
     // each ranked lane's grant through the rank -> offset table,
     // kLaneUnroll lanes a thread at once (their loads in flight
     // together); chunk_grants counted each class's grants >= 0
@@ -964,58 +949,380 @@ alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
                  int n, int* out, int* ws) {
   __shared__ AllocShared sh;
   extern __shared__ int dyn[];  // the lane tables, unless ws holds them
-  alloc_body(d, mem, ctl, sizes, mask, n, out, 0, sh, kWs ? ws : dyn);
+  count_launch(g_txn_launches, LS_ALLOC_TXN);
+  alloc_body(d, mem, ctl, MaskLanes{sizes, mask}, n, out, 0, sh,
+             kWs ? ws : dyn);
 }
 
-// The (walk + 1, S) overflow-walk schedule in one block.  mem/ctl are
-// (S, Mw) / (S, Cw) row-major; out receives GLOBAL offsets.
-// tables: scratch (alloc_scratch_ints) | local offsets (n ints) |
-//         selection (n bytes)
-__device__ __forceinline__ void sharded_alloc_schedule(
-    const ArenaDesc& d, int* mem, int* ctl, int S, int Mw, int Cw,
-    const int* sizes, const uint8_t* mask, const int* home, int n, int walk,
-    int* out, AllocShared& sh, int& s_nsel, int* tables) {
-  int* scratch = tables;
-  int* local = scratch + alloc_scratch_ints(d, n);
-  uint8_t* sel = reinterpret_cast<uint8_t*>(local + n);
+// ---- sharded alloc ----------------------------------------------------------
+//
+// Step (a, s) of the overflow walk serves on shard s the still-unserved
+// selected lanes whose (home + a) mod S is s.  A home h that does not
+// wrap at 32 bits within the walk (h <= INT_MAX - walk) puts its lane in
+// bucket b = h mod S, served at step (a, (b + a) mod S): each bucket
+// visits one shard an attempt.  So the lanes are partitioned once, by a
+// stable counting sort over the S buckets (key S: a selected lane whose
+// home wraps), into bucket lists in lane order (lane index and size),
+// bucket b at base[b]; step (a, s) runs the body over bucket (s - a) mod
+// S's list only, writes each lane's global offset or -1, and compacts
+// the failed lanes, in order, to the list's front for the next attempt.
+// A bucket's empty steps are skipped from its count.  A wrapping home,
+// or more shards than a ballot's lanes hold keys (S > kMaxShards), sends
+// the whole transaction to per-step lists, each found by a pass over all
+// n lanes (run_steps), which rank one key and so take any S.
+//
+// A transaction of at most a warp's lanes runs in one warp-sized block
+// (sharded_alloc_txn_kernel: the partition, then every step in turn).
+// A wider one partitions over the card (sharded_alloc_count_kernel,
+// sharded_alloc_place_kernel: tiles of kPartLanes lanes, each placing
+// its lanes after the earlier tiles' of the same bucket), then runs an
+// attempt a launch of S blocks (sharded_alloc_attempt_kernel), block s
+// taking step (a, s): within an attempt the shards' lane sets are
+// disjoint and their slabs independent, and the kernel boundary orders
+// (a, s - 1) before (a + 1, s), so no block waits for another.
+
+constexpr int kMaxShards = 31;       // bucket lists: S buckets + the
+                                     // wrapping key <= 32
+constexpr int kKeys = kMaxShards + 1;  // a table's stride in keys
+
+// What every sharded alloc since the last reset did, summed over
+// launches by thread 0 of the block concerned: read and cleared by
+// alloc_txn_shard_stats.
+enum ShardStat {
+  SS_TXNS,        // sharded alloc transactions
+  SS_STEPS,       // (attempt, shard) steps that ran the body
+  SS_STEP_LANES,  // the lanes those steps took
+  SS_RESCANS,     // transactions on per-step lists (a home wraps, or
+                  // S > kMaxShards)
+  kShardStats
+};
+__device__ unsigned long long g_shard_stats[kShardStats];
+
+struct ShardLists {
+  int* idx;    // lane indices, bucket-major (n)
+  int* sz;     // their sizes (n)
+  int* local;  // the body's rank, then local offset, of each entry (n)
+};
+
+// A lane's partition key: its bucket, S when its home wraps within the
+// walk, -1 when unselected (both loads issued at once).
+__device__ __forceinline__ int lane_key(int i, int S, int walk,
+                                        const uint8_t* mask,
+                                        const int* home) {
+  const bool on = mask[i];
+  const int h = home[i];
+  return on ? (h > 0x7fffffff - walk ? S : fmodi(h, S)) : -1;
+}
+
+// Step (a, s), block-wide, over the m entries at the front of a list
+// (idx, sz, local): the transaction body on shard s's rows, each lane's
+// GLOBAL offset (s * Ws + local) or -1 into out, and the failed entries
+// compacted, in order, to the front for the next attempt (a tile of nt
+// at a time, after a scan; a step that served all or none writes in one
+// pass).  Returns their number.
+__device__ __forceinline__ int serve_step(
+    const ArenaDesc& d, int* mem, int* ctl, int Mw, int Cw, int a, int s,
+    int* out, int* idx, int* sz, int* local, int m, AllocShared& sh,
+    int* scratch) {
   const int tid = threadIdx.x, nt = blockDim.x, Ws = d.total_words;
-  for (int i = tid; i < n; i += nt) out[i] = -1;
-  for (int a = 0; a <= walk; ++a) {
-    for (int s = 0; s < S; ++s) {
-      __syncthreads();
-      if (tid == 0) s_nsel = 0;
-      __syncthreads();
-      int mine = 0;
-      for (int i = tid; i < n; i += nt) {
-        sel[i] = mask[i] && fmodi(home[i] + a, S) == s && out[i] < 0;
-        mine += sel[i];
+  if (tid == 0) {
+    atomicAdd(&g_shard_stats[SS_STEPS], 1ull);
+    atomicAdd(&g_shard_stats[SS_STEP_LANES], (unsigned long long)m);
+  }
+  alloc_body(d, mem + (long long)s * Mw, ctl + (long long)s * Cw,
+             ListLanes{sz}, m, local, min(a, d.walk_bins - 1), sh, scratch);
+  __syncthreads();
+  int fails = m;  // every served lane has a grant >= 0 (alloc_body)
+  for (int c = 0; c < d.num_classes; ++c) fails -= sh.served[c];
+  if (fails == 0 || fails == m) {
+    for (int k = tid; k < m; k += nt) {
+      const int g = local[k];
+      out[idx[k]] = g >= 0 ? s * Ws + g : -1;
+    }
+    return fails;
+  }
+  int carry = 0;
+  for (int t0 = 0; t0 < m; t0 += nt) {
+    const int k = t0 + tid;
+    int i = 0, z = 0, g = 0;
+    if (k < m) {
+      i = idx[k];
+      z = sz[k];
+      g = local[k];
+      out[i] = g >= 0 ? s * Ws + g : -1;
+    }
+    const bool fail = k < m && g < 0;
+    int total;
+    const int r = carry + block_excl_scan(fail, &total, sh.warp);
+    if (fail) {
+      idx[r] = i;
+      sz[r] = z;
+    }
+    carry += total;
+  }
+  return carry;
+}
+
+// The scratch of bucket b's step among the buckets' slices in the
+// workspace: the slices of the buckets before it, sized by their counts
+// at the partition (base differences).
+__device__ __forceinline__ size_t bucket_scratch_off(const ArenaDesc& d,
+                                                     const int* base, int b) {
+  size_t off = 0;
+  for (int k = 0; k < b; ++k)
+    off += alloc_scratch_ints(d, base[k + 1] - base[k]);
+  return off;
+}
+
+// The steps (a, s), a in [a0, a1] and s in [s0, s1], in order,
+// block-wide.  Each runs over its bucket's list (cnt[b] unserved
+// entries at base[b]; its failures compacted back and counted in
+// cnt[b]) or, when a home wraps, over a list found by a pass over all n
+// lanes (selected, unserved, (home + a) mod S == s in 32-bit wrapping
+// arithmetic, as the reference computes it) at the lists' front, out
+// already -1.  scratch: every step's, or with `slices` bucket b's at
+// bucket_scratch_off.  One call site of the body, so a kernel carries
+// one copy of it.
+__device__ void run_steps(const ArenaDesc& d, int* mem, int* ctl, int S,
+                          int Mw, int Cw, const int* sizes,
+                          const uint8_t* mask, const int* home, int n,
+                          int* out, ShardLists L, AllocShared& sh,
+                          int* scratch, bool slices, int* cnt,
+                          const int* base, bool wraps, int a0, int a1,
+                          int s0, int s1) {
+  for (int a = a0; a <= a1; ++a) {
+    for (int s = s0; s <= s1; ++s) {
+      const int b = fmodi(s - a, S);
+      int m, at = 0;
+      size_t off = 0;
+      if (wraps) {
+        __syncthreads();
+        auto key = [&](int i) {
+          return mask[i] && fmodi(add32(home[i], a), S) == s && out[i] < 0
+                     ? 0 : -1;
+        };
+        rank_lanes(n, 1, key, [&](int i, int c, int r) {
+          if (c == 0) {
+            L.idx[r] = i;
+            L.sz[r] = sizes[i];
+          }
+        }, sh.count, sh.base, sh.tab);
+        __syncthreads();
+        m = sh.count[0];
+      } else {
+        m = cnt[b];
+        at = base[b];
+        if (slices) off = bucket_scratch_off(d, base, b);
       }
-      if (mine) atomicAdd(&s_nsel, mine);
+      if (m == 0) continue;  // uniform: written before a barrier
+      const int f = serve_step(d, mem, ctl, Mw, Cw, a, s, out, L.idx + at,
+                               L.sz + at, L.local + at, m, sh,
+                               scratch + off);
+      if (!wraps && threadIdx.x == 0) cnt[b] = f;
       __syncthreads();
-      if (s_nsel == 0) continue;  // uniform: read after the barrier
-      alloc_body(d, mem + (long long)s * Mw, ctl + (long long)s * Cw, sizes,
-                 sel, n, local, min(a, d.walk_bins - 1), sh, scratch);
-      __syncthreads();
-      for (int i = tid; i < n; i += nt)
-        if (sel[i] && local[i] >= 0) out[i] = s * Ws + local[i];
     }
   }
 }
 
-template <bool kWs>
-__global__ void __launch_bounds__(1024)
+// A transaction of at most a warp's lanes (n <= 32) in one block of 32
+// threads, its tables in dynamic shared memory: the partition, a lane a
+// thread (a ballot a key gives each lane its rank among its bucket's),
+// then every step in turn.  mem/ctl are (S, Mw) / (S, Cw) row-major; out
+// receives GLOBAL offsets.
+// tables: idx (n) | sz (n) | local (n) | scratch (alloc_scratch_ints)
+__global__ void __launch_bounds__(32)
 sharded_alloc_txn_kernel(ArenaDesc d, int* mem, int* ctl,
                          int S, int Mw, int Cw,
                          const int* sizes,
                          const uint8_t* mask,
                          const int* home, int n, int walk,
-                         int* out, int* ws) {
+                         int* out) {
   __shared__ AllocShared sh;
-  __shared__ int s_nsel;
-  extern __shared__ int dyn[];  // the lane tables, unless ws holds them
-  sharded_alloc_schedule(d, mem, ctl, S, Mw, Cw, sizes, mask, home, n,
-                         walk, out, sh, s_nsel, kWs ? ws : dyn);
+  __shared__ int s_cnt[kKeys], s_base[kKeys];
+  extern __shared__ int dyn[];  // the lane tables
+  const ShardLists L{dyn, dyn + n, dyn + 2 * n};
+  const int i = threadIdx.x;
+  const bool many = S > kMaxShards;  // uniform: no bucket lists
+  count_launch(g_txn_launches, LS_SHARDED_ALLOC_TXN);
+  int key = -1, z = 0;
+  if (i < n) {  // the three loads issued at once
+    key = lane_key(i, S, walk, mask, home);
+    z = sizes[i];
+  }
+  int start = 0, rank = 0;
+  for (int k = 0; !many && k <= S; ++k) {  // bucket-major, lane order
+    const unsigned b = __ballot_sync(0xffffffffu, key == k);
+    if (key == k) rank = start + __popc(b & ((1u << i) - 1u));
+    if (i == 0) {
+      s_cnt[k] = __popc(b);
+      s_base[k] = start;
+    }
+    start += __popc(b);
+  }
+  const bool wraps = many || __ballot_sync(0xffffffffu, key == S) != 0u;
+  if (i < n) {
+    if (key < 0 || wraps) {
+      out[i] = -1;
+    } else {
+      L.idx[rank] = i;
+      L.sz[rank] = z;
+    }
+  }
+  if (i == 0) {
+    atomicAdd(&g_shard_stats[SS_TXNS], 1ull);
+    if (wraps) atomicAdd(&g_shard_stats[SS_RESCANS], 1ull);
+  }
+  __syncthreads();
+  run_steps(d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, out, L, sh,
+            dyn + 3 * n, false, s_cnt, s_base, wraps, 0, walk, 0, S - 1);
 }
+
+// The partition of a wide transaction, over tiles of kPartLanes lanes.
+// lists: cnt (kKeys) | base (kKeys) | wraps (1) | each tile's key
+//        counts (tiles x kKeys) | idx (n) | sz (n)
+constexpr int kPartThreads = 1024;
+constexpr int kPartLanes = 2048;
+
+__host__ __device__ inline int part_tiles(int n) {
+  const int t = (n + kPartLanes - 1) / kPartLanes;
+  return t > 0 ? t : 1;
+}
+
+struct GridLists {
+  int *cnt, *base, *wraps, *tiles;
+  ShardLists L;
+  __device__ GridLists(int* lists, int n, int* local)
+      : cnt(lists), base(lists + kKeys), wraps(lists + 2 * kKeys),
+        tiles(lists + 2 * kKeys + 1),
+        L{tiles + (size_t)part_tiles(n) * kKeys,
+          tiles + (size_t)part_tiles(n) * kKeys + n, local} {}
+};
+
+// Pass 1: each tile's count of each key (a ballot a key and 32 lanes).
+__global__ void __launch_bounds__(kPartThreads)
+sharded_alloc_count_kernel(int n, int S, int walk, const uint8_t* mask,
+                           const int* home, int* lists) {
+  __shared__ int s_cnt[kKeys];
+  const int tid = threadIdx.x, t0 = blockIdx.x * kPartLanes;
+  const int len = min(kPartLanes, n - t0);
+  GridLists G(lists, n, nullptr);
+  count_launch(g_txn_launches, LS_SHARDED_ALLOC_COUNT);
+  if (tid < kKeys) s_cnt[tid] = 0;
+  __syncthreads();
+  for (int i0 = 0; i0 < len; i0 += kPartThreads) {  // uniform trips
+    const int i = i0 + tid;
+    const int k = i < len ? lane_key(t0 + i, S, walk, mask, home) : -1;
+    for (int c = 0; c <= S; ++c) {
+      const unsigned bits = __ballot_sync(0xffffffffu, k == c);
+      if ((tid & 31) == 0 && bits) atomicAdd(&s_cnt[c], __popc(bits));
+    }
+  }
+  __syncthreads();
+  if (tid <= S) G.tiles[(size_t)blockIdx.x * kKeys + tid] = s_cnt[tid];
+}
+
+// Pass 2: each tile places its lanes: key k's entries of this tile go
+// after every entry of the keys below k and those of key k in earlier
+// tiles, in lane order within the tile (rank_lanes); unselected lanes'
+// out are -1.  Block 0 records every bucket's count and place and
+// whether a home wraps; with one, no list is written.
+__global__ void __launch_bounds__(kPartThreads)
+sharded_alloc_place_kernel(int n, int S, int walk, const int* sizes,
+                           const uint8_t* mask, const int* home, int* out,
+                           int* lists) {
+  __shared__ int s_tab[kClassTab];
+  __shared__ int s_cnt[kKeys], s_base[kKeys], s_tot[kKeys], s_before[kKeys];
+  const int tid = threadIdx.x, lane = tid & 31, tile = blockIdx.x;
+  const int t0 = tile * kPartLanes, len = min(kPartLanes, n - t0);
+  GridLists G(lists, n, nullptr);
+  count_launch(g_txn_launches, LS_SHARDED_ALLOC_PLACE);
+  if (tid < kKeys) s_tot[tid] = s_before[tid] = 0;
+  __syncthreads();
+  for (int t = tid >> 5; t < part_tiles(n); t += kPartThreads / 32)
+    if (lane <= S) {
+      const int v = G.tiles[(size_t)t * kKeys + lane];
+      atomicAdd(&s_tot[lane], v);
+      if (t < tile) atomicAdd(&s_before[lane], v);
+    }
+  __syncthreads();
+  if (tid < 32) {  // key k's first place: the keys below it, then its
+                   // entries in earlier tiles
+    const int v = lane <= S ? s_tot[lane] : 0;
+    int x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane <= S) {
+      if (tile == 0) {
+        G.cnt[lane] = v;
+        G.base[lane] = x - v;
+      }
+      s_before[lane] += x - v;
+    }
+  }
+  __syncthreads();
+  const bool wraps = s_tot[S] != 0;
+  if (tile == 0 && tid == 0) {
+    *G.wraps = wraps;
+    atomicAdd(&g_shard_stats[SS_TXNS], 1ull);
+    if (wraps) atomicAdd(&g_shard_stats[SS_RESCANS], 1ull);
+  }
+  rank_lanes(len, S + 1,
+             [&](int i) { return lane_key(t0 + i, S, walk, mask, home); },
+             [&](int i, int b, int r) {
+               if (b < 0) {
+                 out[t0 + i] = -1;
+               } else if (!wraps) {
+                 const int at = s_before[b] + r - s_base[b];
+                 G.L.idx[at] = t0 + i;
+                 G.L.sz[at] = sizes[t0 + i];
+               }
+             }, s_cnt, s_base, s_tab);
+}
+
+// One attempt of a wide transaction, one block per shard: block s takes
+// step (a, s) over the lists the partition left (and the failures that
+// earlier attempts compacted).  A transaction whose homes wrap runs
+// every step on block 0 at attempt 0, and nothing after; so does one of
+// S > kMaxShards, for which no partition ran (the launcher's one launch
+// of one block).
+// body (dynamic shared memory, one block's, for any bucket; or ws):
+//      local (n) | scratch, bucket b's slice at bucket_scratch_off in ws
+template <bool kWs>
+__global__ void __launch_bounds__(1024)
+sharded_alloc_attempt_kernel(ArenaDesc d, int* mem, int* ctl,
+                             int S, int Mw, int Cw,
+                             const int* sizes, const uint8_t* mask,
+                             const int* home, int n, int walk, int a,
+                             int* out, int* lists, int* ws) {
+  __shared__ AllocShared sh;
+  extern __shared__ int dyn[];
+  const int s = blockIdx.x;
+  const bool many = S > kMaxShards;
+  int* body = kWs ? ws : dyn;
+  GridLists G(lists, n, body);
+  count_launch(g_txn_launches, LS_SHARDED_ALLOC_ATTEMPT);
+  if (many || *G.wraps) {  // uniform
+    if (a != 0 || s != 0) return;
+    if (many && threadIdx.x == 0) {
+      atomicAdd(&g_shard_stats[SS_TXNS], 1ull);
+      atomicAdd(&g_shard_stats[SS_RESCANS], 1ull);
+    }
+    for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = -1;
+    run_steps(d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, out, G.L, sh,
+              body + n, false, G.cnt, G.base, true, 0, walk, 0, S - 1);
+    return;
+  }
+  run_steps(d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, out, G.L, sh,
+            body + n, kWs, G.cnt, G.base, false, a, a, s, s);
+}
+
+static_assert(sizeof(AllocShared) + 2 * kKeys * sizeof(int)
+                  <= kStaticSmemBytes,
+              "alloc kernels' static shared memory");
+static_assert(sizeof(FreeShared) <= kStaticSmemBytes,
+              "free kernels' static shared memory");
 
 // ---- free ----------------------------------------------------------------
 
@@ -1255,7 +1562,8 @@ __device__ __forceinline__ void free_body(const ArenaDesc& d, int* mem,
       const int c = size_class(d, sizes[i]);
       return (c < C && L.off(i) >= 0) ? c : -1;
     };
-    rank_lanes(n, C, cls_of, rank, sh.count, sh.base, sh.warp);
+    rank_lanes(n, C, cls_of, [&](int i, int, int r) { rank[i] = r; },
+               sh.count, sh.base, sh.tab);
     __syncthreads();
     R = n;
   } else {
@@ -1313,6 +1621,7 @@ free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   __shared__ FreeShared sh;
   extern __shared__ int dyn[];
   const FreeLanes L{offs, mask, 0, 0, false, 1};
+  count_launch(g_txn_launches, LS_FREE_TXN);
   free_body(d, mem, ctl, L, sizes, n, sh, kWs ? ws : dyn, lanes_done);
 }
 
@@ -1331,6 +1640,7 @@ sharded_free_txn_kernel(ArenaDesc d, int* mem, int* ctl,
   int* m = mem + (long long)s * Mw;
   int* c = ctl + (long long)s * Cw;
   const FreeLanes L{offs, mask, s, d.total_words, true, (int)gridDim.x};
+  count_launch(g_txn_launches, LS_SHARDED_FREE_TXN);
   free_body(d, m, c, L, sizes, n, sh, kWs ? ws + s * ws_ints : dyn,
             lanes_done);
 }
@@ -1356,6 +1666,7 @@ free_lanes_kernel(ArenaDesc d, int* mem, long long Mw, const int* offs,
   __shared__ int s_freed[kGridCounts];
   const int tid = threadIdx.x, C = d.num_classes;
   const FreeLanes L{offs, mask, -1, d.total_words, sharded != 0, S};
+  count_launch(g_txn_launches, LS_FREE_LANES);
   if (kPhase == 0) {
     for (int k = tid; k < S * C; k += kGridThreads) s_freed[k] = 0;
     __syncthreads();
@@ -1400,10 +1711,51 @@ extern "C" int free_txn_grid_blocks(ArenaDesc d, int n, int S, int ws) {
   return blocks < kGridMaxBlocks ? blocks : kGridMaxBlocks;
 }
 
+// A sharded alloc runs in one warp-sized block (sharded_alloc_txn_kernel,
+// the steps in turn) when its lanes fit one warp and its tables fit in
+// shared memory, else as the partition's two launches over the card and
+// an attempt a launch of S blocks (returns 1).  A serving engine's
+// transaction (16-32 lanes, all of one slot's home: one bucket) runs one
+// body either way, and the wide form adds walk + 2 launches that do
+// little; a wider transaction, its homes hashed over every bucket, runs
+// S bodies side by side instead of in turn.  32 is the warp kernel's
+// capacity.  A build may define SHARDED_GRID_LANES=0 to send every
+// transaction to the grid path, so that the two can be timed on the
+// same words (compare_trees.py).
+#ifndef SHARDED_GRID_LANES
+#define SHARDED_GRID_LANES 32
+#endif
+constexpr int kShardedGridLanes = SHARDED_GRID_LANES;
+static_assert(kShardedGridLanes <= 32, "the warp kernel's lanes");
+
+// one block's tables: the lists (idx, sz, local) and the body's scratch
 extern "C" size_t sharded_alloc_txn_table_bytes(ArenaDesc d, int n) {
-  size_t b = (alloc_scratch_ints(d, n) + (size_t)n) * sizeof(int)
-             + (size_t)n;
-  return (b + 3) & ~(size_t)3;
+  return (3 * (size_t)n + alloc_scratch_ints(d, n)) * sizeof(int);
+}
+
+extern "C" int sharded_alloc_txn_grid(ArenaDesc d, int n, size_t smem_limit) {
+  return n > kShardedGridLanes
+         || sharded_alloc_txn_table_bytes(d, n) > smem_limit;
+}
+
+// The attempt launches' tables: the lists that carry from one launch to
+// the next (always in the workspace), and a block's body tables (local
+// and scratch: in its shared memory when one bucket of all n lanes fits
+// there, else every bucket's slice in the workspace after the lists;
+// the slices of counts summing to n take at most alloc_scratch_ints(d,
+// n) + kMaxShards * alloc_scratch_ints(d, 0)).
+static size_t sharded_lists_ints(int n) {
+  return 2 * (size_t)kKeys + 1 + (size_t)part_tiles(n) * kKeys
+         + 2 * (size_t)n;
+}
+
+static size_t sharded_body_bytes(ArenaDesc d, int n) {
+  return ((size_t)n + alloc_scratch_ints(d, n)) * sizeof(int);
+}
+
+static size_t sharded_body_ws_ints(ArenaDesc d, int n) {
+  return (size_t)n + alloc_scratch_ints(d, n)
+         + (size_t)kMaxShards * alloc_scratch_ints(d, 0);
 }
 
 static size_t workspace_bytes(size_t table, size_t smem_limit, int blocks) {
@@ -1422,34 +1774,46 @@ extern "C" size_t free_txn_workspace_bytes(ArenaDesc d, int n, int blocks,
 
 extern "C" size_t sharded_alloc_txn_workspace_bytes(ArenaDesc d, int n,
                                                     size_t smem_limit) {
-  return workspace_bytes(sharded_alloc_txn_table_bytes(d, n), smem_limit, 1);
+  if (!sharded_alloc_txn_grid(d, n, smem_limit)) return 0;
+  size_t ints = sharded_lists_ints(n);
+  if (sharded_body_bytes(d, n) > smem_limit) ints += sharded_body_ws_ints(d, n);
+  return ints * sizeof(int);
 }
 
 // ---- host launchers (plain C interface, loaded with ctypes) -------------
 
-// The chain statistics summed since the last reset (kChainStats words,
-// in ChainStat order) into out; cleared after the read when reset is
-// non-zero.  Synchronous with the device: the caller's launches first.
-extern "C" int alloc_txn_chain_stats(unsigned long long* out, int reset) {
-  int err = (int)cudaMemcpyFromSymbol(out, g_chain_stats,
-                                      sizeof(g_chain_stats));
+// A device counter array's words (summed since the last reset) into
+// out; cleared after the read when reset is non-zero.  Synchronous with
+// the device: the caller's launches first.
+template <size_t N>
+static int read_stats(unsigned long long (&sym)[N], unsigned long long* out,
+                      int reset) {
+  int err = (int)cudaMemcpyFromSymbol(out, sym, sizeof(sym));
   if (!err && reset) {
-    const unsigned long long zero[kChainStats] = {};
-    err = (int)cudaMemcpyToSymbol(g_chain_stats, zero, sizeof(zero));
+    const unsigned long long zero[N] = {};
+    err = (int)cudaMemcpyToSymbol(sym, zero, sizeof(zero));
   }
   return err;
 }
 
-// The free enqueue statistics summed since the last reset (kFreeStats
-// words, in FreeStat order), as alloc_txn_chain_stats.
+// The chain statistics (kChainStats words, in ChainStat order).
+extern "C" int alloc_txn_chain_stats(unsigned long long* out, int reset) {
+  return read_stats(g_chain_stats, out, reset);
+}
+
+// The sharded alloc statistics (kShardStats words, in ShardStat order).
+extern "C" int alloc_txn_shard_stats(unsigned long long* out, int reset) {
+  return read_stats(g_shard_stats, out, reset);
+}
+
+// The free enqueue statistics (kFreeStats words, in FreeStat order).
 extern "C" int free_txn_enqueue_stats(unsigned long long* out, int reset) {
-  int err = (int)cudaMemcpyFromSymbol(out, g_free_stats,
-                                      sizeof(g_free_stats));
-  if (!err && reset) {
-    const unsigned long long zero[kFreeStats] = {};
-    err = (int)cudaMemcpyToSymbol(g_free_stats, zero, sizeof(zero));
-  }
-  return err;
+  return read_stats(g_free_stats, out, reset);
+}
+
+// Each kernel's launches (kTxnLaunches words, in TxnLaunch order).
+extern "C" int alloc_txn_launch_stats(unsigned long long* out, int reset) {
+  return read_stats(g_txn_launches, out, reset);
 }
 
 static int launch_smem(const void* fn, size_t bytes) {
@@ -1511,20 +1875,51 @@ extern "C" int free_txn_launch(ArenaDesc d, int* mem, int* ctl,
   return (int)cudaGetLastError();
 }
 
+// ws: sharded_alloc_txn_workspace_bytes(d, n, smem_limit) bytes (null
+// for 0).  Past kMaxShards shards no partition runs: one attempt launch
+// of one block takes every step on per-step lists.
 extern "C" int sharded_alloc_txn_launch(ArenaDesc d, int* mem, int* ctl,
                                         int S, int Mw, int Cw,
                                         const int* sizes,
                                         const uint8_t* mask,
                                         const int* home, int n, int walk,
-                                        int* out, int* ws, void* stream) {
-  const size_t smem = ws ? 0 : sharded_alloc_txn_table_bytes(d, n);
-  const auto k = ws ? sharded_alloc_txn_kernel<true>
-                    : sharded_alloc_txn_kernel<false>;
+                                        int* out, int* ws, size_t smem_limit,
+                                        void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!sharded_alloc_txn_grid(d, n, smem_limit)) {  // n <= 32
+    const size_t smem = sharded_alloc_txn_table_bytes(d, n);
+    int err = launch_smem((const void*)sharded_alloc_txn_kernel, smem);
+    if (err) return err;
+    sharded_alloc_txn_kernel<<<1, 32, smem, st>>>(d, mem, ctl, S, Mw, Cw,
+                                                   sizes, mask, home, n,
+                                                   walk, out);
+    return (int)cudaGetLastError();
+  }
+  const bool body_ws = sharded_body_bytes(d, n) > smem_limit;
+  const size_t smem = body_ws ? 0 : sharded_body_bytes(d, n);
+  const auto k = body_ws ? sharded_alloc_attempt_kernel<true>
+                         : sharded_alloc_attempt_kernel<false>;
   int err = launch_smem((const void*)k, smem);
   if (err) return err;
-  k<<<1, block_threads(n), smem, (cudaStream_t)stream>>>(
-      d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, walk, out, ws);
-  return (int)cudaGetLastError();
+  int* body = body_ws ? ws + sharded_lists_ints(n) : nullptr;
+  if (S > kMaxShards) {
+    k<<<1, block_threads(n), smem, st>>>(d, mem, ctl, S, Mw, Cw, sizes, mask,
+                                         home, n, walk, 0, out, ws, body);
+    return (int)cudaGetLastError();
+  }
+  const int tiles = part_tiles(n);
+  sharded_alloc_count_kernel<<<tiles, kPartThreads, 0, st>>>(n, S, walk, mask,
+                                                             home, ws);
+  if ((err = (int)cudaGetLastError())) return err;
+  sharded_alloc_place_kernel<<<tiles, kPartThreads, 0, st>>>(
+      n, S, walk, sizes, mask, home, out, ws);
+  if ((err = (int)cudaGetLastError())) return err;
+  for (int a = 0; a <= walk; ++a) {
+    k<<<S, block_threads(n), smem, st>>>(d, mem, ctl, S, Mw, Cw, sizes, mask,
+                                         home, n, walk, a, out, ws, body);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  return 0;
 }
 
 extern "C" int sharded_free_txn_launch(ArenaDesc d, int* mem, int* ctl,

@@ -5,8 +5,10 @@
 // wrapping counter arithmetic, gathers that read a fill value and
 // scatters that drop out of range after an index in [-n, 0) wraps to
 // i + n), the size-class map, a block's thread count for n lanes, a
-// block-wide exclusive scan, and the serial queue operations one thread
-// drives with the ctl block staged in shared memory.
+// block-wide exclusive scan, class-major ranks of lanes or chunks
+// (rank_lanes), the serial queue operations one thread drives with the
+// ctl block staged in shared memory, and the kernels' own launch counts
+// (count_launch).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +47,20 @@ enum { FAM_RING = 0, FAM_VA = 1, FAM_VL = 2 };
 
 #define MAX_CTL 256
 #define MAX_CLASSES 32
+
+// A transaction or wave kernel's static shared memory stays under this;
+// its dynamic lane or chunk tables take at most the rest of the 232,448
+// bytes a block may use (the wrappers' TABLE_SMEM_LIMIT).
+constexpr int kStaticSmemBytes = 8192;
+
+// A launch counts itself: its first thread (block 0, thread 0) adds one
+// to its kernel's slot of the source file's launch counters, which the
+// file's *_launch_stats reads, so a measurement takes the launches that
+// ran from the card rather than working them out.
+__device__ __forceinline__ void count_launch(unsigned long long* slots,
+                                             int k) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&slots[k], 1ull);
+}
 
 __device__ __forceinline__ int fdiv(int a, int b) {
   int q = a / b;
@@ -139,6 +155,133 @@ __device__ int block_excl_scan(int v, int* total, int* s_warp) {
   *total = s_warp[nw - 1];
   __syncthreads();
   return before + x - v;
+}
+
+// ---- class-major ranks ------------------------------------------------------
+
+// Shared ints of block_class_scan's table: a (warp, class) count each,
+// padded against bank conflicts, and the C class totals.
+constexpr int kClassTab = 32 * 33 + 32;
+
+// The class-major offsets of per-warp class counts, for all C <= 32
+// classes at once: lane c (c < C) of each warp holds in `mine` its warp's
+// count of class c, and gets back the rank of that warp's first lane of
+// class c (the block's lanes of every class below c, then class c's
+// lanes in earlier warps).  count[c] and base[c] (classes concatenated in
+// class order) are written by warp 0.  Two barriers for every class
+// together, where a block scan a class takes three each; a third frees
+// s_tab (kClassTab ints) for the next call.
+__device__ int block_class_scan(int mine, int C, int* count, int* base,
+                                int* s_tab) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int* tot = s_tab + 32 * 33;
+  if (lane < C) s_tab[wid * 33 + lane] = mine;
+  __syncthreads();
+  for (int c = wid; c < C; c += nw) {  // warp c: class c over the warps
+    const int v = lane < nw ? s_tab[lane * 33 + c] : 0;
+    int x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane < nw) s_tab[lane * 33 + c] = x - v;
+    if (lane == 31) tot[c] = x;
+  }
+  __syncthreads();
+  const int t = lane < C ? tot[lane] : 0;
+  int x = t;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (wid == 0 && lane < C) {
+    count[lane] = t;
+    base[lane] = x - t;
+  }
+  const int r = lane < C ? x - t + s_tab[wid * 33 + lane] : 0;
+  __syncthreads();
+  return r;
+}
+
+// Class-major ranks of n lanes (or chunks): lane i of class c = cls_of(i)
+// in [0, C) (C <= 32) gets rank base[c] + the number of earlier lanes of
+// class c, and put(i, c, rank) is called for every i < n (c = -1, rank
+// -1 for a lane of no class).  count[c] and base[c] are written by warp
+// 0 before the second pass (a barrier orders them for its puts).  Each
+// warp takes a contiguous run of 32-lane groups and walks it in order,
+// 32 neighbouring lanes a step (coalesced loads, kRankUnroll groups'
+// loads in flight), so ranks follow lane order: a pass counts each
+// class's lanes per warp (lane c of the warp holds class c's count; a
+// step whose 32 lanes share one class, the common case, costs one vote,
+// another one ballot a class), block_class_scan gives each warp its
+// offsets, and a second pass ranks the lanes.  The caller synchronises
+// before reading count/base outside the puts.
+constexpr int kRankUnroll = 8;
+
+template <class ClassOf, class Put>
+__device__ __forceinline__ void rank_lanes(int n, int C, ClassOf cls_of,
+                                           Put put, int* count, int* base,
+                                           int* s_tab) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, groups = (n + 31) >> 5;
+  const int per = (groups + nw - 1) / nw;
+  const int g0 = min(groups, wid * per), g1 = min(groups, g0 + per);
+  const unsigned below = (1u << lane) - 1u;
+  auto load = [&](int g, int* cls) {
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      const int i = (g + u) * 32 + lane;
+      cls[u] = (g + u < g1 && i < n) ? cls_of(i) : -1;
+    }
+  };
+  int mine = 0;  // lane c: this warp's lanes of class c so far
+  for (int g = g0; g < g1; g += kRankUnroll) {
+    int cls[kRankUnroll];
+    load(g, cls);
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      if (g + u >= g1) break;  // warp-uniform
+      const int c0 = __shfl_sync(0xffffffffu, cls[u], 0);
+      if (__all_sync(0xffffffffu, cls[u] == c0)) {  // one class: common
+        if (lane == c0) mine += 32;
+        continue;
+      }
+      for (int c = 0; c < C; ++c) {
+        const unsigned b = __ballot_sync(0xffffffffu, cls[u] == c);
+        if (lane == c) mine += __popc(b);
+      }
+    }
+  }
+  // lane c: the rank of class c's next lane in this warp
+  int next = block_class_scan(mine, C, count, base, s_tab);
+  for (int g = g0; g < g1; g += kRankUnroll) {
+    int cls[kRankUnroll];
+    load(g, cls);
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      if (g + u >= g1) break;  // warp-uniform
+      const int i = (g + u) * 32 + lane;
+      const int c0 = __shfl_sync(0xffffffffu, cls[u], 0);
+      if (__all_sync(0xffffffffu, cls[u] == c0)) {  // one class: common
+        const int at = __shfl_sync(0xffffffffu, next, c0 < 0 ? 0 : c0);
+        if (i < n) put(i, c0, c0 < 0 ? -1 : at + lane);
+        if (lane == c0) next += 32;
+        continue;
+      }
+      unsigned peers = 0u;
+      int add = 0;
+      for (int c = 0; c < C; ++c) {
+        const unsigned b = __ballot_sync(0xffffffffu, cls[u] == c);
+        if (cls[u] == c) peers = b;
+        if (lane == c) add = __popc(b);
+      }
+      const int at = __shfl_sync(0xffffffffu, next, cls[u] < 0 ? 0 : cls[u]);
+      if (i < n)
+        put(i, cls[u], cls[u] < 0 ? -1 : at + __popc(peers & below));
+      next += add;
+    }
+  }
 }
 
 // ---- serial queue operations (one thread, ctl staged in shared) ---------

@@ -38,8 +38,9 @@ FAMILIES = {"ring": 0, "va": 1, "vl": 2}  # FAM_*
 MAX_CTL = 256
 MAX_CLASSES = 32
 # dynamic shared memory for lane tables: a block may use 232,448 bytes
-# on the H100, of which the kernels' static shared structs take under 3 KB
-TABLE_SMEM_LIMIT = 232448 - 4096
+# on the H100, of which the kernels' static shared structs take under
+# 8 KB (csrc/arena_dev.cuh kStaticSmemBytes)
+TABLE_SMEM_LIMIT = 232448 - 8192
 
 
 class ArenaDesc(ctypes.Structure):
@@ -88,7 +89,7 @@ def _lib():
         lib.free_txn_launch.argtypes = [ArenaDesc, P, P, P, P, P, I, P, P]
         lib.free_txn_launch.restype = I
         lib.sharded_alloc_txn_launch.argtypes = [ArenaDesc, P, P, I, I, I,
-                                                 P, P, P, I, I, P, P, P]
+                                                 P, P, P, I, I, P, P, Z, P]
         lib.sharded_alloc_txn_launch.restype = I
         lib.sharded_free_txn_launch.argtypes = [ArenaDesc, P, P, I, I, I,
                                                 P, P, P, I, P, P]
@@ -99,12 +100,12 @@ def _lib():
             fn.restype = Z
         lib.free_txn_workspace_bytes.argtypes = [ArenaDesc, I, I, Z]
         lib.free_txn_workspace_bytes.restype = Z
-        lib.alloc_txn_chain_stats.argtypes = [
-            ctypes.POINTER(ctypes.c_ulonglong), I]
-        lib.alloc_txn_chain_stats.restype = I
-        lib.free_txn_enqueue_stats.argtypes = [
-            ctypes.POINTER(ctypes.c_ulonglong), I]
-        lib.free_txn_enqueue_stats.restype = I
+        lib.sharded_alloc_txn_grid.argtypes = [ArenaDesc, I, Z]
+        lib.sharded_alloc_txn_grid.restype = I
+        for fn in (lib.alloc_txn_chain_stats, lib.free_txn_enqueue_stats,
+                   lib.alloc_txn_shard_stats, lib.alloc_txn_launch_stats):
+            fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), I]
+            fn.restype = I
         lib._typed = True
     return lib
 
@@ -115,6 +116,17 @@ CHAIN_STATS = ("chains", "serial_steps", "whole_runs", "whole_chunks",
                "dequeue_empty", "serial_classes")
 
 
+def read_stats(fn, names, reset: bool) -> dict:
+    """A kernel library's device counters ``fn`` reads, by ``names``,
+    after waiting for the card; ``reset`` clears them after the read."""
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * len(names))()
+    err = fn(buf, int(reset))
+    if err:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+    return dict(zip(names, (int(v) for v in buf)))
+
+
 def chain_stats(reset: bool = False) -> dict:
     """What the chunk chains of every ``alloc_txn`` and
     ``sharded_alloc_txn`` launch since the last reset took, summed on the
@@ -123,12 +135,22 @@ def chain_stats(reset: bool = False) -> dict:
     chunks, and the tries that took fewer than 16 or no chunks, and
     chains left serial by a pool id outside the heap.  Waits for the
     card; ``reset`` clears the counts after reading them."""
-    torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * len(CHAIN_STATS))()
-    err = _lib().alloc_txn_chain_stats(buf, int(reset))
-    if err:
-        raise RuntimeError(f"alloc_txn_chain_stats failed: CUDA error {err}")
-    return dict(zip(CHAIN_STATS, (int(v) for v in buf)))
+    return read_stats(_lib().alloc_txn_chain_stats, CHAIN_STATS, reset)
+
+
+# csrc/alloc_txn.cu's ShardStat, in order
+SHARD_STATS = ("transactions", "steps", "step_lanes", "rescans")
+
+
+def shard_stats(reset: bool = False) -> dict:
+    """What every ``sharded_alloc_txn`` since the last reset did, counted
+    on the card by the kernels themselves: transactions, the (attempt,
+    shard) steps that ran the transaction body (a step whose bucket holds
+    no unserved lane is skipped) and the lanes they took, and the
+    transactions that found each step's lanes by a pass over all lanes (a
+    home within the walk of 2^31 wraps).  Waits for the card; ``reset``
+    clears the counts after reading them."""
+    return read_stats(_lib().alloc_txn_shard_stats, SHARD_STATS, reset)
 
 
 # csrc/alloc_txn.cu's FreeStat, in order
@@ -144,12 +166,23 @@ def enqueue_stats(reset: bool = False) -> dict:
     enqueues thread 0 wrote in lane order (two values could share a
     word) and their values.  Waits for the card; ``reset`` clears the
     counts after reading them."""
-    torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * len(FREE_STATS))()
-    err = _lib().free_txn_enqueue_stats(buf, int(reset))
-    if err:
-        raise RuntimeError(f"free_txn_enqueue_stats failed: CUDA error {err}")
-    return dict(zip(FREE_STATS, (int(v) for v in buf)))
+    return read_stats(_lib().free_txn_enqueue_stats, FREE_STATS, reset)
+
+
+# csrc/alloc_txn.cu's TxnLaunch, in order: each kernel's symbol without
+# its ``_kernel`` suffix
+LAUNCH_STATS = ("alloc_txn", "free_txn", "free_lanes", "sharded_alloc_txn",
+                "sharded_alloc_count", "sharded_alloc_place",
+                "sharded_alloc_attempt", "sharded_free_txn")
+
+
+def launch_stats(reset: bool = False) -> dict:
+    """Each transaction kernel's launches since the last reset, counted
+    on the card by the launches themselves (a call may launch several
+    kernels: a sharded alloc's partition and attempts, a wide free's
+    lane passes).  Waits for the card; ``reset`` clears the counts after
+    reading them."""
+    return read_stats(_lib().alloc_txn_launch_stats, LAUNCH_STATS, reset)
 
 
 def _check(name, t, dtype, shape, dev):
@@ -242,7 +275,14 @@ def arena_free_txn(cfg, kind, family, mem, ctl, offsets_words, sizes_bytes,
 def sharded_arena_alloc_txn(cfg, num_shards, kind, family, mem, ctl,
                             sizes_bytes, mask, home, walk):
     """One sharded alloc transaction (the (walk+1, S) overflow-walk
-    schedule) in one launch; returns GLOBAL offsets (n,) int32."""
+    schedule), for any number of shards; returns GLOBAL offsets (n,)
+    int32.  It launches one warp-sized block that runs every step (at
+    most 32 lanes whose tables fit in shared memory), or the partition's
+    ``sharded_alloc_count_kernel`` and ``sharded_alloc_place_kernel``
+    over the card and then ``walk + 1`` launches of
+    ``sharded_alloc_attempt_kernel`` (an attempt each, a block per
+    shard); past 31 shards, one attempt launch of one block.
+    :func:`launch_stats` counts what ran."""
     n = sizes_bytes.shape[0]
     lay, desc, dev = _prepare(cfg, kind, family, mem, ctl, num_shards)
     _check("sizes_bytes", sizes_bytes, torch.int32, (n,), dev)
@@ -259,7 +299,8 @@ def sharded_arena_alloc_txn(cfg, num_shards, kind, family, mem, ctl,
     err = lib.sharded_alloc_txn_launch(
         desc, mem.data_ptr(), ctl.data_ptr(), num_shards, lay.mem_words,
         lay.ctl_words, sizes_bytes.data_ptr(), mask.data_ptr(),
-        home.data_ptr(), n, walk, out.data_ptr(), _ptr(ws), _stream(dev))
+        home.data_ptr(), n, walk, out.data_ptr(), _ptr(ws), TABLE_SMEM_LIMIT,
+        _stream(dev))
     if err:
         raise RuntimeError(f"sharded_alloc_txn launch failed: CUDA error "
                            f"{err}")

@@ -47,6 +47,31 @@ extern "C" int emu_alloc_chain_stats(unsigned long long* out, int reset) {
   return kChainStats;
 }
 
+// The sharded alloc kernels' statistics (g_shard_stats, a host array
+// here), as alloc_txn_shard_stats reads them.
+extern "C" int emu_alloc_shard_stats(unsigned long long* out, int reset) {
+  for (int k = 0; k < kShardStats; ++k) {
+    out[k] = g_shard_stats[k];
+    if (reset) g_shard_stats[k] = 0;
+  }
+  return kShardStats;
+}
+
+// Each allocator and wave kernel's launches (g_txn_launches, then
+// g_wave_launches: host arrays here), as alloc_txn_launch_stats and
+// defrag_txn_launch_stats read them.
+extern "C" int emu_launch_stats(unsigned long long* out, int reset) {
+  for (int k = 0; k < kTxnLaunches; ++k) {
+    out[k] = g_txn_launches[k];
+    if (reset) g_txn_launches[k] = 0;
+  }
+  for (int k = 0; k < kWaveLaunches; ++k) {
+    out[kTxnLaunches + k] = g_wave_launches[k];
+    if (reset) g_wave_launches[k] = 0;
+  }
+  return kTxnLaunches + kWaveLaunches;
+}
+
 // The free kernels' enqueue statistics (g_free_stats, a host array
 // here), as free_txn_enqueue_stats reads them.
 extern "C" int emu_free_enqueue_stats(unsigned long long* out, int reset) {
@@ -91,6 +116,11 @@ extern "C" void emu_free_txn(ArenaDesc d, int* mem, int* ctl,
   });
 }
 
+// One warp-sized block for every step, or the partition's two grids and
+// an attempt a launch of S blocks (past kMaxShards shards, one attempt
+// launch of one block), as sharded_alloc_txn_launch picks them (a grid's
+// blocks run one after another here, which the kernels allow: within a
+// launch they share no words).
 extern "C" void emu_sharded_alloc_txn(ArenaDesc d, int* mem, int* ctl, int S,
                                       int Mw, int Cw, const int* sizes,
                                       const uint8_t* mask, const int* home,
@@ -99,11 +129,35 @@ extern "C" void emu_sharded_alloc_txn(ArenaDesc d, int* mem, int* ctl, int S,
   std::vector<int> buf;
   int* ws = emu_workspace(
       buf, sharded_alloc_txn_workspace_bytes(d, n, smem_limit));
-  emu_launch(1, block_threads(n),
-             ws ? 0 : sharded_alloc_txn_table_bytes(d, n), [&] {
-    (ws ? sharded_alloc_txn_kernel<true> : sharded_alloc_txn_kernel<false>)(
-        d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, walk, out, ws);
+  if (!sharded_alloc_txn_grid(d, n, smem_limit)) {
+    emu_launch(1, 32, sharded_alloc_txn_table_bytes(d, n), [&] {
+      sharded_alloc_txn_kernel(d, mem, ctl, S, Mw, Cw, sizes, mask, home, n,
+                               walk, out);
+    });
+    return;
+  }
+  const bool body_ws = sharded_body_bytes(d, n) > smem_limit;
+  int* body = body_ws ? ws + sharded_lists_ints(n) : nullptr;
+  auto attempt = [&](int blocks, int a) {
+    emu_launch(blocks, block_threads(n),
+               body_ws ? 0 : sharded_body_bytes(d, n), [&] {
+      (body_ws ? sharded_alloc_attempt_kernel<true>
+               : sharded_alloc_attempt_kernel<false>)(
+          d, mem, ctl, S, Mw, Cw, sizes, mask, home, n, walk, a, out, ws,
+          body);
+    });
+  };
+  if (S > kMaxShards) {
+    attempt(1, 0);
+    return;
+  }
+  emu_launch(part_tiles(n), kPartThreads, 0, [&] {
+    sharded_alloc_count_kernel(n, S, walk, mask, home, ws);
   });
+  emu_launch(part_tiles(n), kPartThreads, 0, [&] {
+    sharded_alloc_place_kernel(n, S, walk, sizes, mask, home, out, ws);
+  });
+  for (int a = 0; a <= walk; ++a) attempt(S, a);
 }
 
 // One block per shard; the emulation runs a grid's blocks one after
@@ -123,17 +177,33 @@ extern "C" void emu_sharded_free_txn(ArenaDesc d, int* mem, int* ctl, int S,
   });
 }
 
+// The extract kernel's grid over the lanes, then the rebuild: one block
+// per shard (run one after another here, which the kernel allows: each
+// block touches only its shard's rows and its own tables).
+static void emu_extract(ArenaDesc d, int* mem, int S, long long Mw,
+                        const int* src, const int* dst, const int* sizes,
+                        int M) {
+  const int blocks = defrag_extract_blocks(M);
+  if (!blocks) return;
+  emu_launch(blocks, kExtractThreads, 0, [&] {
+    defrag_extract_kernel(d, mem, S, Mw, src, dst, sizes, M);
+  });
+}
+
 extern "C" void emu_sharded_defrag_txn(ArenaDesc d, int* mem, int* ctl, int S,
                                        int Mw, int Cw, const int* src,
                                        const int* dst, const int* sizes,
                                        int M, int threads,
                                        size_t smem_limit) {
   std::vector<int> buf;
-  int* ws = emu_workspace(buf, defrag_txn_workspace_bytes(d, smem_limit));
-  emu_launch(1, threads, ws ? 0 : defrag_txn_table_bytes(d), [&] {
+  const size_t table = defrag_txn_table_bytes(d);
+  int* ws = emu_workspace(buf, defrag_txn_workspace_bytes(d, S, smem_limit));
+  emu_extract(d, mem, S, Mw, src, dst, sizes, M);
+  emu_launch(S, threads, ws ? 0 : table, [&] {
     (ws ? sharded_defrag_txn_kernel<true>
-        : sharded_defrag_txn_kernel<false>)(d, mem, ctl, S, Mw, Cw, src,
-                                            dst, sizes, M, ws);
+        : sharded_defrag_txn_kernel<false>)(
+        d, mem, ctl, Mw, Cw, src, dst, sizes, M, ws,
+        (long long)(table / sizeof(int)));
   });
 }
 
@@ -142,11 +212,22 @@ extern "C" void emu_defrag_txn(ArenaDesc d, int* mem, int* ctl,
                                const int* sizes, int M, int threads,
                                size_t smem_limit) {
   std::vector<int> buf;
-  int* ws = emu_workspace(buf, defrag_txn_workspace_bytes(d, smem_limit));
+  int* ws = emu_workspace(buf, defrag_txn_workspace_bytes(d, 1, smem_limit));
+  emu_extract(d, mem, 1, 0, src, dst, sizes, M);
   emu_launch(1, threads, ws ? 0 : defrag_txn_table_bytes(d), [&] {
     (ws ? defrag_txn_kernel<true> : defrag_txn_kernel<false>)(
         d, mem, ctl, src, dst, sizes, M, ws);
   });
+}
+
+// The wave kernels' rebuild statistics (defrag_txn.cu's g_wave_stats, a
+// host array here), as defrag_txn_rebuild_stats reads them.
+extern "C" int emu_defrag_rebuild_stats(unsigned long long* out, int reset) {
+  for (int k = 0; k < kWaveStats; ++k) {
+    out[k] = g_wave_stats[k];
+    if (reset) g_wave_stats[k] = 0;
+  }
+  return kWaveStats;
 }
 
 // The two split kernels as (B * Hkv, splits) grids (the emulation runs a

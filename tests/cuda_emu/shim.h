@@ -139,6 +139,14 @@ inline int atomicMin(int* p, int v) {
   }
   return cur;
 }
+inline int atomicMax(int* p, int v) {
+  int cur = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v > cur && !__atomic_compare_exchange_n(p, &cur, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return cur;
+}
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }

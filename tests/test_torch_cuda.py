@@ -174,14 +174,20 @@ SHARD_CFG = dict(total_bytes=4 * 12 * 4096, chunk_bytes=4096,
     (None, "hashed", 16, 30),
     (None, "pinned-array", 16, 40),   # every home on shard 0: exhausts it
     (1, "mixed", 32, 30),             # a bounded walk
+    (None, "pinned-array", 64, 24),   # attempt launches, shards run dry
     (None, "hashed", 4096, 6),        # 4096 lanes: every shard runs dry
-], ids=("hashed", "exhausting-walk", "walk-1", "4096-lanes"))
+], ids=("hashed", "exhausting-walk", "walk-1", "64-lanes-attempts",
+        "4096-lanes"))
 def test_sharded_alloc_kernels_match_plain_replay_word_for_word(
         cuda, walk, hinting, n, n_ops):
     """Sharded alloc/free traces on the card and on the CPU: one
-    ``sharded_alloc_txn`` / ``sharded_free_txn`` launch per transaction,
-    offsets and words identical to the plain replay after every one,
-    lanes served at walk attempts > 0."""
+    ``sharded_alloc_txn`` / ``sharded_free_txn`` call per transaction
+    (one block for 32 lanes or fewer; above, the partition over the card
+    and an attempt a launch of 4 blocks, as the kernels counted their
+    launches), offsets and words identical to the plain replay after
+    every one, lanes served at walk attempts > 0; the kernels count every
+    transaction, none on per-step lists."""
+    from repro_torch.kernels import alloc_txn as AT
     kw = dict(num_shards=4, overflow_walk=walk)
     o_gpu = Ouroboros(HeapConfig(**SHARD_CFG), "vl_chunk", device=cuda, **kw)
     o_cpu = Ouroboros(HeapConfig(**SHARD_CFG), "vl_chunk", device="cpu",
@@ -190,6 +196,8 @@ def test_sharded_alloc_kernels_match_plain_replay_word_for_word(
     rng = np.random.default_rng(5)
     live = []
     ops.reset_launches()
+    AT.shard_stats(reset=True)
+    AT.launch_stats(reset=True)
     n_alloc = n_free = 0
     for step in range(n_ops):
         if live and step % 4 == 3:
@@ -233,6 +241,17 @@ def test_sharded_alloc_kernels_match_plain_replay_word_for_word(
         assert torch.equal(sg.ctl.cpu(), sc.ctl), step
     assert ops.LAUNCHES["sharded_alloc_txn"] == n_alloc
     assert ops.LAUNCHES["sharded_free_txn"] == n_free
+    steps = AT.shard_stats(reset=True)
+    assert steps["transactions"] == n_alloc and steps["rescans"] == 0
+    ran = AT.launch_stats(reset=True)
+    grid = n > 32
+    assert ran == dict(
+        alloc_txn=0, free_txn=0, free_lanes=0,
+        sharded_alloc_txn=0 if grid else n_alloc,
+        sharded_alloc_count=n_alloc if grid else 0,
+        sharded_alloc_place=n_alloc if grid else 0,
+        sharded_alloc_attempt=n_alloc * (o_gpu.walk + 1) if grid else 0,
+        sharded_free_txn=n_free), ran
     lay = o_cpu.layout.shard
     bins = sc.ctl[:, lay.off_t_walk:lay.off_t_walk + 4].sum(0)
     fails = sc.ctl[:, lay.off_t_fail:lay.off_t_fail + lay.num_classes]
@@ -240,6 +259,40 @@ def test_sharded_alloc_kernels_match_plain_replay_word_for_word(
         assert int(bins[1:].sum()) > 0     # lanes served by neighbours
     if n == 4096:
         assert int(fails.sum()) > 0        # every shard ran dry
+
+
+@pytest.mark.parametrize("n", (16, 64))
+def test_sharded_alloc_past_31_shards_matches_plain_replay(cuda, n):
+    """33 shards of 6 chunks, walk 2: every transaction takes per-step
+    lists (the warp-sized block, or one attempt launch of one block, as
+    the kernels counted them), offsets and words identical to the plain
+    replay after each of 8 allocs that exhaust shards."""
+    from repro_torch.kernels import alloc_txn as AT
+    S = 33
+    cfg = HeapConfig(total_bytes=S * 6 * 4096, chunk_bytes=4096,
+                     min_page_bytes=256)
+    kw = dict(num_shards=S, overflow_walk=2)
+    o_gpu = Ouroboros(cfg, "vl_chunk", device=cuda, **kw)
+    o_cpu = Ouroboros(cfg, "vl_chunk", device="cpu", **kw)
+    sg, sc = o_gpu.init(), o_cpu.init()
+    rng = np.random.default_rng(8)
+    AT.shard_stats(reset=True)
+    AT.launch_stats(reset=True)
+    for step in range(8):
+        hint = rng.integers(0, 3, n).astype(np.int32)
+        sizes = torch.from_numpy(rng.choice([256, 1024, 4096], n)
+                                 .astype(np.int32))
+        mask = torch.from_numpy(rng.random(n) < 0.9)
+        sc, oc = o_cpu.alloc(sc, sizes, mask, shard_hint=hint)
+        sg, og = o_gpu.alloc(sg, sizes.to(cuda), mask.to(cuda),
+                             shard_hint=torch.from_numpy(hint).to(cuda))
+        assert torch.equal(og.cpu(), oc), step
+        assert torch.equal(sg.mem.cpu(), sc.mem), step
+        assert torch.equal(sg.ctl.cpu(), sc.ctl), step
+    assert AT.shard_stats(reset=True)["rescans"] == 8
+    ran = {k: v for k, v in AT.launch_stats(reset=True).items() if v}
+    assert ran == ({"sharded_alloc_attempt": 8} if n > 32
+                   else {"sharded_alloc_txn": 8}), ran
 
 
 @pytest.mark.parametrize("chunk_bytes,page,max_moves,rounds", [
@@ -250,7 +303,10 @@ def test_sharded_defrag_kernel_matches_plain_math_word_for_word(
         cuda, chunk_bytes, page, max_moves, rounds):
     """The same churned sharded arena on the card and on the CPU: a
     sharded compaction wave, then a cross-shard rebalance wave, one
-    ``sharded_defrag_txn`` launch each, plans and words identical."""
+    ``sharded_defrag_txn`` call each (the extract grid, then 4 rebuild
+    blocks), plans and words identical; 8 rebuilds, each on the path the
+    kernel counts (parallel unless the pool runs dry)."""
+    from repro_torch.kernels import defrag_txn as DT
     cfg = HeapConfig(total_bytes=4 * 12 * chunk_bytes,
                      chunk_bytes=chunk_bytes, min_page_bytes=page)
     outs = []
@@ -274,8 +330,12 @@ def test_sharded_defrag_kernel_matches_plain_math_word_for_word(
             fo = fo.to(dev)
             st = o.free(st, fo, sizes, fo >= 0)
         ops.reset_launches()
+        if dev != "cpu":
+            DT.rebuild_stats(reset=True)
         st, f1 = o.defrag(st, max_moves=max_moves)
         st, f2 = o.rebalance(st, max_moves=max_moves)
+        if dev != "cpu":
+            rebuilt = DT.rebuild_stats(reset=True)
         outs.append((st, f1, f2, dict(ops.LAUNCHES)))
     (sg, g1, g2, lg), (sc, c1, c2, _) = outs
     for a, b in zip(g1 + g2, c1 + c2):
@@ -285,6 +345,8 @@ def test_sharded_defrag_kernel_matches_plain_math_word_for_word(
     assert torch.equal(sg.ctl.cpu(), sc.ctl)
     assert int((c1.src >= 0).sum()) > 0 and int((c2.src >= 0).sum()) > 0
     assert lg["sharded_defrag_txn"] == 2 and lg["defrag_txn"] == 0
+    assert rebuilt["parallel_rebuilds"] + rebuilt["serial_rebuilds"] == 8
+    assert rebuilt["parallel_values"] + rebuilt["serial_values"] > 0
 
 
 AUX_LANES = 298656   # mamba2-780m's aux pages per slot (one admission)
@@ -310,7 +372,9 @@ def test_full_width_aux_transactions_match_plain_math(cuda, num_shards):
     mask = torch.ones(n, dtype=torch.bool, device=cuda)
     base = (o.kind, o.family, sp.mem, sp.ctl)
     ops.reset_launches()
+    AT.shard_stats(reset=True)
     _, offs = o.alloc(sk, sizes, mask)
+    steps = AT.shard_stats(reset=True)
     if S == 1:
         want = T.alloc_math(o.cfg, *base, sizes, mask)[2]
     else:
@@ -342,6 +406,9 @@ def test_full_width_aux_transactions_match_plain_math(cuda, num_shards):
     assert torch.equal(sk.mem, sp.mem) and torch.equal(sk.ctl, sp.ctl)
     name = "alloc_txn" if S == 1 else "sharded_alloc_txn"
     assert ops.LAUNCHES[name] == 1
+    if S > 1:   # every bucket served on its home shard: S steps, no walk
+        assert steps == dict(transactions=1, steps=S, step_lanes=n,
+                             rescans=0)
     assert ops.LAUNCHES[name.replace("alloc", "free")] == 1
     # the revived chunks go back to their queue in parallel: one enqueue
     # a block, none in lane order
@@ -516,7 +583,7 @@ def test_defrag_wave_on_the_mamba2_arena_matches_plain_math(cuda):
     from repro_torch.paged.kv_cache import make_kv_allocator
     o, _, _ = make_kv_allocator(256 + 8 * AUX_LANES, device=cuda)
     d = AT.descriptor(o.layout)
-    assert DT._lib().defrag_txn_workspace_bytes(d, AT.TABLE_SMEM_LIMIT) > 0
+    assert DT._lib().defrag_txn_workspace_bytes(d, 1, AT.TABLE_SMEM_LIMIT) > 0
     st = o.init()
     n = AUX_LANES
     sizes = torch.full((n,), 256, dtype=torch.int32, device=cuda)

@@ -22,10 +22,17 @@ import torch
 
 from repro_torch.core import (VARIANTS, HeapConfig, Ouroboros, arena,
                               defrag, shards)
+from repro_torch.core import transactions as T
 from repro_torch.kernels import ref
+from repro_torch.kernels import alloc_txn as AT
+from repro_torch.kernels import defrag_txn as DT
 from repro_torch.kernels.alloc_txn import (CHAIN_STATS, FREE_STATS,
-                                           TABLE_SMEM_LIMIT, ArenaDesc,
-                                           descriptor)
+                                           SHARD_STATS, TABLE_SMEM_LIMIT,
+                                           ArenaDesc, descriptor)
+from repro_torch.kernels.defrag_txn import REBUILD_STATS
+
+# every allocator and wave kernel's launch count, in the harness's order
+LAUNCHES = AT.LAUNCH_STATS + DT.LAUNCH_STATS
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EMU = ROOT / "tests" / "cuda_emu"
@@ -82,8 +89,10 @@ def emu(tmp_path_factory):
                                         I, Z]
     so.emu_sharded_defrag_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
                                           I, I, Z]
-    so.defrag_txn_workspace_bytes.argtypes = [ArenaDesc, Z]
+    so.defrag_txn_workspace_bytes.argtypes = [ArenaDesc, I, Z]
     so.defrag_txn_workspace_bytes.restype = Z
+    so.sharded_alloc_txn_grid.argtypes = [ArenaDesc, I, Z]
+    so.sharded_alloc_txn_grid.restype = I
     so.emu_ssd_scan.argtypes = [I] + [P] * 8 + [I] * 8
     for name in ("alloc_txn", "sharded_alloc_txn"):
         fn = getattr(so, f"{name}_workspace_bytes")
@@ -101,6 +110,11 @@ def emu(tmp_path_factory):
     so.emu_free_enqueue_stats.argtypes = [
         ctypes.POINTER(ctypes.c_ulonglong), I]
     so.emu_free_enqueue_stats.restype = I
+    for name in ("emu_alloc_shard_stats", "emu_defrag_rebuild_stats",
+                 "emu_launch_stats"):
+        fn = getattr(so, name)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), I]
+        fn.restype = I
     for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_defrag_txn,
               so.emu_paged_attention, so.emu_sharded_alloc_txn,
               so.emu_sharded_free_txn, so.emu_sharded_defrag_txn,
@@ -313,12 +327,220 @@ def test_sharded_alloc_kernels_match_plain_replay(emu, walk, hinting, n,
     assert int(bins[1:].sum()) > 0, bins
 
 
+def _stats(fn, names) -> dict:
+    """An emulated kernel family's device counters, read and cleared."""
+    buf = (ctypes.c_ulonglong * len(names))()
+    assert fn(buf, 1) == len(names)
+    return dict(zip(names, (int(v) for v in buf)))
+
+
+def _filled(cfg, S, full):
+    """A fresh S-shard ``vl_chunk`` arena whose shards in ``full`` are
+    filled with 256-B pages until a lane fails (homes pinned, no walk)."""
+    fill = Ouroboros(cfg, "vl_chunk", device="cpu", num_shards=S,
+                     overflow_walk=0)
+    st = fill.init()
+    sizes = torch.full((16,), 256, dtype=torch.int32)
+    for s in full:
+        while True:
+            st, offs = fill.alloc(st, sizes, torch.ones(16, dtype=torch.bool),
+                                  shard_hint=np.full(16, s, np.int32))
+            if bool((offs < 0).any()):
+                break
+    return st
+
+
+def _emu_sharded_alloc(emu, o, st, sizes, mask, home, limit):
+    """One sharded alloc through the emulated kernel on copies of the
+    words and through ``sharded_alloc_math``: offsets, mem and ctl equal.
+    Returns (the plain ctl after it, the kernels' shard statistics, the
+    launches that ran: {kernel: count}, those of none left out)."""
+    slay = o.layout
+    d = descriptor(slay.shard)
+    S, n = o.num_shards, sizes.shape[0]
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    _stats(emu.emu_alloc_shard_stats, SHARD_STATS)
+    _stats(emu.emu_launch_stats, LAUNCHES)
+    got = torch.empty(n, dtype=torch.int32)
+    emu.emu_sharded_alloc_txn(d, _p(mem), _p(ctl), S, slay.mem_words,
+                              slay.ctl_words, _p(sizes), _p(mask), _p(home),
+                              n, o.walk, _p(got), limit)
+    stats = _stats(emu.emu_alloc_shard_stats, SHARD_STATS)
+    ran = {k: v for k, v in _stats(emu.emu_launch_stats, LAUNCHES).items()
+           if v}
+    wm, wc = st.mem.clone(), st.ctl.clone()
+    _, _, want = T.sharded_alloc_math(o.cfg, S, o.kind, o.family, wm, wc,
+                                      sizes, mask, home, o.walk)
+    assert torch.equal(got, want), \
+        f"offsets differ at {torch.nonzero(got != want)[:8, 0].tolist()}"
+    assert torch.equal(mem, wm), \
+        f"mem differs at {torch.nonzero(mem != wm)[:8].tolist()}"
+    assert torch.equal(ctl, wc), \
+        f"ctl differs at {torch.nonzero(ctl != wc)[:8].tolist()}"
+    return wc, stats, ran
+
+
+def _sharded_launches(grid, attempts):
+    """The launches a sharded alloc's kernels count: the warp-sized
+    block, or the partition's two grids and ``attempts`` attempt
+    launches."""
+    if not grid:
+        return {"sharded_alloc_txn": 1}
+    return {"sharded_alloc_count": 1, "sharded_alloc_place": 1,
+            "sharded_alloc_attempt": attempts}
+
+
+def _walk_bins(o, before, after):
+    lay = o.layout.shard
+    sl = slice(lay.off_t_walk, lay.off_t_walk + o.walk + 1)
+    return (after[:, sl].sum(0) - before[:, sl].sum(0)).tolist()
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("one-block", "attempt-grid-workspace"))
+def test_sharded_alloc_serves_every_bucket_at_attempts_0_to_3(emu, limit):
+    """Shards 0-2 full, 32 lanes homed on shards 0-3 in turn: bucket b
+    is served at attempt 3 - b on shard 3, so every bucket and every
+    attempt serves 8 lanes.  Words and offsets equal the plain math; the
+    kernel ran 10 steps over 80 lanes (4 + 3 + 2 + 1 non-empty buckets,
+    each step over its bucket's unserved lanes only), not 16 over all."""
+    cfg = HeapConfig(**SHARD_CFG)
+    o = Ouroboros(cfg, "vl_chunk", device="cpu", num_shards=4)
+    d = descriptor(o.layout.shard)
+    assert emu.sharded_alloc_txn_grid(d, 32, limit) == (limit == SPILL)
+    st = _filled(cfg, 4, (0, 1, 2))
+    home = torch.arange(32, dtype=torch.int32) % 4
+    ctl, stats, ran = _emu_sharded_alloc(
+        emu, o, st, torch.full((32,), 256, dtype=torch.int32),
+        torch.ones(32, dtype=torch.bool), home, limit)
+    assert _walk_bins(o, st.ctl, ctl) == [8, 8, 8, 8]
+    assert stats == dict(transactions=1, steps=10, step_lanes=80,
+                         rescans=0)
+    assert ran == _sharded_launches(limit == SPILL, 4)
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("one-block", "attempt-grid-workspace"))
+def test_sharded_alloc_skips_empty_buckets_past_an_exhausted_shard(emu,
+                                                                   limit):
+    """Homes on shards 0 and 2 only (buckets 1 and 3 empty), shard 2
+    exhausted: bucket 0 is served at attempt 0, bucket 2 (15 selected
+    lanes) fails there and is served at attempt 1 on shard 3.  Three
+    steps run (46 lanes); the 13 others select no lane and are skipped
+    from the bucket counts."""
+    cfg = HeapConfig(**SHARD_CFG)
+    o = Ouroboros(cfg, "vl_chunk", device="cpu", num_shards=4)
+    st = _filled(cfg, 4, (2,))
+    home = torch.tensor([0, 2] * 16, dtype=torch.int32)
+    mask = torch.ones(32, dtype=torch.bool)
+    mask[5] = False
+    ctl, stats, _ = _emu_sharded_alloc(
+        emu, o, st, torch.full((32,), 256, dtype=torch.int32), mask, home,
+        limit)
+    assert _walk_bins(o, st.ctl, ctl) == [16, 15, 0, 0]
+    assert stats == dict(transactions=1, steps=3, step_lanes=46, rescans=0)
+
+
+@pytest.mark.parametrize("hinting,n", [("pinned", 1100), ("hashed", 1100),
+                                       ("hashed", 4500)])
+def test_sharded_alloc_attempt_grid(emu, hinting, n):
+    """Wide transactions take the partition's grids (1100 lanes: one
+    tile; 4500: three, each placing its lanes after the earlier tiles')
+    and the attempt launches of 4 blocks with each block's tables in its
+    shared memory, the lists in the workspace; mixed sizes on the 4 x
+    12-chunk arena exhaust shards, so steps serve some lanes and compact
+    the rest (pinned: one bucket of 1100 lanes, more than a block's
+    threads, compacted in two tiles)."""
+    cfg = HeapConfig(**SHARD_CFG)
+    o = Ouroboros(cfg, "vl_chunk", device="cpu", num_shards=4)
+    d = descriptor(o.layout.shard)
+    assert emu.sharded_alloc_txn_grid(d, n, TABLE_SMEM_LIMIT) == 1
+    # the lists only: cnt, base (32 keys each), wraps, each partition
+    # tile's key counts (2048 lanes a tile), idx, sz
+    tiles = -(-n // 2048)
+    assert emu.sharded_alloc_txn_workspace_bytes(d, n, TABLE_SMEM_LIMIT) \
+        == 4 * (2 * 32 + 1 + 32 * tiles + 2 * n)
+    rng = np.random.default_rng(21)
+    sizes = torch.from_numpy(rng.choice([256, 512, 1024, 4096, 8192], n,
+                                        p=[.6, .15, .1, .1, .05])
+                             .astype(np.int32))
+    home = (torch.zeros(n, dtype=torch.int32) if hinting == "pinned"
+            else shards.home_shards(n, 4, None))
+    st = o.init()
+    ctl, stats, ran = _emu_sharded_alloc(emu, o, st, sizes,
+                                         torch.ones(n, dtype=torch.bool),
+                                         home, TABLE_SMEM_LIMIT)
+    bins = _walk_bins(o, st.ctl, ctl)
+    assert bins[0] > 0 and sum(bins) < n     # served some, failed some
+    assert stats["transactions"] == 1 and stats["rescans"] == 0
+    assert ran == _sharded_launches(True, 4)
+
+
+INT_MAX = 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("one-block", "attempt-grid-workspace"))
+@pytest.mark.parametrize("top,rescans", [(INT_MAX, 1), (INT_MAX - 2, 0)],
+                         ids=("wrapping", "at-the-edge"))
+def test_sharded_alloc_homes_near_2_31(emu, top, rescans, limit):
+    """3 shards, walk 2, shard 1 full.  A home of 2^31 - 1 wraps at
+    attempt 1 as (home + a) % S does in int32: the lane visits shards 1,
+    1, 2 (not 1, 2, 0), so the transaction takes per-step lists found by
+    passes over all lanes.  A home of 2^31 - 3 reaches 2^31 - 1 at the
+    last attempt without wrapping: bucket lists."""
+    cfg = HeapConfig(**SHARD_CFG)
+    o = Ouroboros(cfg, "vl_chunk", device="cpu", num_shards=3)
+    assert o.walk == 2
+    st = _filled(cfg, 3, (1,))
+    home = torch.tensor([top, 0, 1, 2] * 6, dtype=torch.int32)
+    _, stats, _ = _emu_sharded_alloc(
+        emu, o, st, torch.full((24,), 256, dtype=torch.int32),
+        torch.ones(24, dtype=torch.bool), home, limit)
+    assert stats["rescans"] == rescans and stats["transactions"] == 1
+
+
+@pytest.mark.parametrize("n,limit", [(24, TABLE_SMEM_LIMIT), (24, SPILL),
+                                     (100, TABLE_SMEM_LIMIT)],
+                         ids=("one-block", "attempt-workspace",
+                              "100-lanes"))
+@pytest.mark.parametrize("S", (31, 32, 33))
+def test_sharded_alloc_past_31_shards(emu, S, n, limit):
+    """More shards than the bucket lists' 31 (S buckets and the wrapping
+    key in one 32-lane ballot): the transaction takes per-step lists,
+    which rank one key, so any S is served.  6 chunks a shard, walk 2,
+    shards 0 and 1 full, homes 0, 1, 2 and hashed ones in turn: lanes
+    are served at attempts 0-2 (100 lanes overflow shard 2 and fail).  The warp-sized
+    block, or one attempt launch of one block (no partition runs).  At
+    31 shards the bucket lists still hold every key."""
+    cfg = HeapConfig(total_bytes=S * 6 * 4096, chunk_bytes=4096,
+                     min_page_bytes=256)
+    o = Ouroboros(cfg, "vl_chunk", device="cpu", num_shards=S,
+                  overflow_walk=2)
+    d = descriptor(o.layout.shard)
+    grid = bool(emu.sharded_alloc_txn_grid(d, n, limit))
+    assert grid == (n > 32 or limit == SPILL)
+    st = _filled(cfg, S, (0, 1))
+    home = torch.arange(n, dtype=torch.int32) % 3
+    home[3::4] = shards.home_shards(n, S, None)[3::4]
+    ctl, stats, ran = _emu_sharded_alloc(
+        emu, o, st, torch.full((n,), 256, dtype=torch.int32),
+        torch.ones(n, dtype=torch.bool), home, limit)
+    bins = _walk_bins(o, st.ctl, ctl)
+    assert bins[1] > 0 and bins[2] > 0
+    assert stats["transactions"] == 1 and stats["rescans"] == int(S > 31)
+    assert ran == (_sharded_launches(grid, 3) if S <= 31
+                   else {"sharded_alloc_attempt": 1} if grid
+                   else {"sharded_alloc_txn": 1})
+
+
 def _emu_sharded_wave(emu, o, st, src, dst, sizes, threads=256,
                       limit=TABLE_SMEM_LIMIT):
     slay = o.layout
     mem, ctl = st.mem.clone(), st.ctl.clone()
     d = descriptor(slay.shard)
-    assert (emu.defrag_txn_workspace_bytes(d, limit) > 0) == (limit == SPILL)
+    assert (emu.defrag_txn_workspace_bytes(d, o.num_shards, limit) > 0) \
+        == (limit == SPILL)
     emu.emu_sharded_defrag_txn(d, _p(mem), _p(ctl),
                                o.num_shards, slay.mem_words, slay.ctl_words,
                                _p(src), _p(dst), _p(sizes), src.shape[0],
@@ -404,7 +626,8 @@ def _emu_wave(emu, o, st, src, dst, sizes, threads, limit=TABLE_SMEM_LIMIT):
     device workspace when ``limit`` is lowered)."""
     mem, ctl = st.mem.clone(), st.ctl.clone()
     d = descriptor(o.layout)
-    assert (emu.defrag_txn_workspace_bytes(d, limit) > 0) == (limit == SPILL)
+    assert (emu.defrag_txn_workspace_bytes(d, 1, limit) > 0) \
+        == (limit == SPILL)
     emu.emu_defrag_txn(d, _p(mem), _p(ctl), _p(src),
                        _p(dst), _p(sizes), src.shape[0], threads, limit)
     defrag.migrate_math(o.cfg, o.kind, o.family, st.mem, st.ctl, src, dst,
@@ -507,6 +730,103 @@ def test_defrag_kernel_claims_unbound_destination_chunks(emu):
     sizes = torch.tensor([64, 64, 64, 64, 64, 1 << 13], dtype=torch.int32)
     _emu_wave(emu, o, st, src, dst, sizes, 64)
     assert int(meta.chunk_class[a]) == 0 and int(meta.chunk_class[b]) == 0
+
+
+def test_defrag_kernel_last_lane_claims_an_unbound_chunk(emu):
+    """Lanes of two size classes land in one unbound chunk: the claim
+    binds it to the class of the last such lane, as the reference's
+    scatter resolves repeated indices (chunk a: class 1 then class 0;
+    chunk b: class 0 then class 1)."""
+    cfg = HeapConfig(total_bytes=1 << 15, chunk_bytes=1 << 11,
+                     min_page_bytes=64)
+    o = Ouroboros(cfg, "vl_chunk", device="cpu")
+    st, kept = _churn(o, o.init(), np.random.default_rng(9), 16, 64, False)
+    _, ctx, meta = arena.unpack(o.layout, st)
+    pool = defrag._pool_members(cfg, ctx.pool) & (meta.chunk_class < 0)
+    a, b = torch.nonzero(pool)[-2:, 0].tolist()
+    wpc = cfg.words_per_chunk
+    src = torch.tensor(kept[:4], dtype=torch.int32)
+    dst = torch.tensor([a * wpc, a * wpc + 64, b * wpc + 16, b * wpc + 128],
+                       dtype=torch.int32)
+    sizes = torch.tensor([128, 64, 64, 128], dtype=torch.int32)
+    _emu_wave(emu, o, st, src, dst, sizes, 64)
+    assert int(meta.chunk_class[a]) == 0 and int(meta.chunk_class[b]) == 1
+
+
+# (variant, total bytes, stranded chunks, max moves) of a wave on 64-B
+# chunks whose rebuild pops exactly the rebuilt pool (gap 0: the values
+# are written in parallel) or one more (gap 1: a NULL segment, written
+# in order), as the plain wave's pool counters show
+WAVE_EDGES = {"vl-gap-0": ("vl_chunk", 1 << 12, 2, 1, 0),
+              "vl-gap-1": ("vl_chunk", 1 << 12, 16, 1, 1),
+              "va-gap-0": ("va_chunk", 1 << 12, 2, 1, 0),
+              "va-gap-1": ("va_chunk", 1 << 12, 18, 1, 1)}
+
+
+@pytest.mark.parametrize("case", tuple(WAVE_EDGES))
+def test_wave_rebuild_writes_in_parallel_while_the_pool_holds_its_pops(
+        emu, case):
+    """The rebuild's serial edge: a virtualized queue's values go in
+    parallel exactly when the rebuilt pool holds every pop the rebuild
+    takes, by the wave kernel's own counts, and the words equal
+    ``migrate_math``'s either way."""
+    variant, total, k, moves, gap = WAVE_EDGES[case]
+    o = Ouroboros(HeapConfig(total_bytes=total, chunk_bytes=64,
+                             min_page_bytes=16), variant, device="cpu")
+    st = _strand(o, k)
+    plan = defrag.plan_math(o.cfg, o.kind, o.family, st.mem, st.ctl,
+                            max_moves=moves)
+    _stats(emu.emu_defrag_rebuild_stats, REBUILD_STATS)
+    _emu_wave(emu, o, st, *plan, 128)
+    got = _stats(emu.emu_defrag_rebuild_stats, REBUILD_STATS)
+    _, ctx, _ = arena.unpack(o.layout, st)
+    assert int(ctx.pool.front[0]) - int(ctx.pool.back[0]) == gap
+    assert got["parallel_rebuilds"] == (gap == 0)
+    assert got["serial_rebuilds"] == (gap > 0)
+
+
+@pytest.mark.parametrize("limit", (TABLE_SMEM_LIMIT, SPILL),
+                         ids=("shared", "workspace"))
+def test_wave_rebuild_paths_single_and_sharded(emu, limit):
+    """A truncated wave on the churned 30-chunk KV arena and a truncated
+    sharded compaction wave on 4 x 12 chunks (two of three pages freed)
+    rebuild from pools that hold their pops: every rebuild (one an arena)
+    writes its live chunks' values in parallel; the dry pool of 64-B
+    chunks (40 stranded chunks, one move) takes the lane-order path."""
+    o = Ouroboros(HeapConfig(total_bytes=30 * 4096, chunk_bytes=4096,
+                             min_page_bytes=256), "vl_chunk", device="cpu")
+    st, _ = _churn(o, o.init(), np.random.default_rng(11), 16, 256, True)
+    _stats(emu.emu_defrag_rebuild_stats, REBUILD_STATS)
+    _emu_wave(emu, o, st, *defrag.plan_math(o.cfg, o.kind, o.family,
+                                            st.mem, st.ctl, max_moves=4),
+              256, limit)
+    so = Ouroboros(HeapConfig(**SHARD_CFG), "vl_chunk", device="cpu",
+                   num_shards=4)
+    ss, live = so.init(), []
+    sizes = torch.full((16,), 256, dtype=torch.int32)
+    for _ in range(12):
+        ss, offs = so.alloc(ss, sizes, torch.ones(16, dtype=torch.bool),
+                            shard_hint=np.zeros(16, np.int32))
+        live += [x for x in offs.tolist() if x >= 0]
+    drop = [x for i, x in enumerate(live) if i % 3]
+    for i in range(0, len(drop), 16):
+        fo = torch.full((16,), -1, dtype=torch.int32)
+        fo[:len(drop[i:i + 16])] = torch.tensor(drop[i:i + 16],
+                                               dtype=torch.int32)
+        ss = so.free(ss, fo, sizes, fo >= 0)
+    _emu_sharded_wave(emu, so, ss, *defrag.sharded_plan_math(
+        so.cfg, 4, so.kind, so.family, ss.mem, ss.ctl, max_moves=8),
+        limit=limit)
+    got = _stats(emu.emu_defrag_rebuild_stats, REBUILD_STATS)
+    assert got["parallel_rebuilds"] == 1 + 4 and got["serial_rebuilds"] == 0
+    assert got["parallel_values"] > 0
+    d = Ouroboros(HeapConfig(total_bytes=1 << 12, chunk_bytes=64,
+                             min_page_bytes=16), "vl_chunk", device="cpu")
+    sd = _strand(d, 40)
+    _emu_wave(emu, d, sd, *defrag.plan_math(d.cfg, d.kind, d.family, sd.mem,
+                                            sd.ctl, max_moves=1), 128)
+    got = _stats(emu.emu_defrag_rebuild_stats, REBUILD_STATS)
+    assert got["serial_rebuilds"] == 1 and got["parallel_rebuilds"] == 0
 
 
 # ---- the other five variants: page kinds, ring and va families -------------
@@ -937,6 +1257,35 @@ def test_chain_stats_count_what_the_chain_took(emu, variant, case):
     want = dict.fromkeys(CHAIN_STATS, 0)
     want.update(chains=1, **CHAIN_CASES[case])
     assert got == want
+
+
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS)
+def test_alloc_on_an_exhausted_arena_changes_only_its_failed_counts(
+        emu, variant):
+    """An alloc that no class can serve (each class with lanes has an
+    empty queue and the pool is empty) skips the grants: its words and
+    offsets equal the plain math's (only the failed counts move), and the
+    kernel counts each class's chain, as the chain that ends before its
+    first step would, and nothing else."""
+    cfgkw, size, _ = RUN_CFGS["ppc-16"]
+    o = Ouroboros(HeapConfig(**cfgkw), variant, device="cpu")
+    st = o.init()
+    mem, ctl = st.mem.clone(), st.ctl.clone()
+    fill = torch.full((64,), size, dtype=torch.int32)
+    while True:
+        st, offs = _emu_alloc(emu, o, st, mem, ctl, fill,
+                              torch.ones(64, dtype=torch.bool),
+                              TABLE_SMEM_LIMIT)
+        if bool((offs < 0).any()):
+            break
+    sizes = torch.tensor([size, 2 * size] * 8, dtype=torch.int32)
+    _chain_stats(emu)
+    st, offs = _emu_alloc(emu, o, st, mem, ctl, sizes,
+                          torch.ones(16, dtype=torch.bool), TABLE_SMEM_LIMIT)
+    assert bool((offs < 0).all())
+    want = dict.fromkeys(CHAIN_STATS, 0)
+    want["chains"] = 2
+    assert _chain_stats(emu) == want
 
 
 def _free_stats(emu):
