@@ -45,8 +45,11 @@ Phases, each reporting on its own lines:
    chunk variant; the ``vl_chunk`` traces also through the fused
    ``alloc_txn``/``free_txn`` (the same words outside the telemetry);
    every piecewise counter above 0 (and 0 in every serving run of phase
-   5); then the ring steps and ``ring_window`` (m 4096) at the ring page
-   variant's counters and past 2^31, and ``bitmap_select`` /
+   5), and the ring pop and push launches by path (one warp, one block,
+   a block per class) as their kernels counted them, which must sum to
+   the wrappers' counts; then the ring steps and ``ring_window`` (m 4096)
+   at the ring page variant's counters and past 2^31, and
+   ``bitmap_select`` /
    ``bitmap_select_indices`` on the chunk variant's whole bitmap
    (k 4096), against their plain versions on the card.  Then "phase 3
    (variants)": all six variants through the fused ``alloc_txn``,
@@ -120,8 +123,12 @@ Phases, each reporting on its own lines:
    call of a rerun of its traffic; defrag also at the
    65536-page arena with M = 128; the sharded kernels at the sharded
    pressure run's inputs and on the 4-shard 65536-page arena; the five
-   piecewise kernels at phase 3 (piecewise)'s inputs; the six widened
-   kernels per variant at the figure cell of 1024 x 256 B; the mamba2
+   piecewise kernels at phase 3 (piecewise)'s inputs, and the ring pop
+   and push also at one lane of a class ring and of the pool, 16 lanes,
+   init's pool pop and init's widest push (``ring_widths``), each held
+   to its plain version and timed on the path its kernels counted; the
+   six widened kernels per variant at the figure cell of 1024 x 256 B;
+   the mamba2
    rerun's ``ssd_scan`` and ``free_txn`` device time, each a sum over
    its kernels), then one JSON line of per-kernel
    numbers, then the card line, then the result line
@@ -220,8 +227,10 @@ KERNEL_SYMBOLS = {"alloc_txn": "alloc_txn_kernel",
                   "ssd_chunk": "ssd_chunk_kernel",
                   "ssd_pass": "ssd_pass_kernel",
                   "ssd_scan": "ssd_scan_kernel",
-                  "ring_txn_pop": "ring_txn_pop_kernel",
-                  "ring_txn_push": "ring_txn_push_kernel",
+                  **{k: f"{k}_kernel" for k in (
+                      "ring_txn_pop_warp", "ring_txn_pop_block",
+                      "ring_txn_pop_class", "ring_txn_push_warp",
+                      "ring_txn_push_block", "ring_txn_push_class")},
                   "chunk_txn_claim": "chunk_txn_claim_kernel",
                   "ring_window": "ring_window_kernel",
                   "bitmap_select": "bitmap_select_kernel"}
@@ -665,6 +674,7 @@ def phase_piecewise(device, seed=0):
     import torch
     from repro_torch.core import arena, chunk_alloc, groups, page_alloc
     from repro_torch.core.heap import size_to_class_device
+    from repro_torch.kernels import alloc_txn as AT
     from repro_torch.kernels import ops, ref
     from repro_torch.paged.kv_cache import make_kv_allocator
 
@@ -675,6 +685,7 @@ def phase_piecewise(device, seed=0):
     trace_err = {"words": 0, "max_abs": 0}
     inputs = {}
     ops.reset_launches()
+    AT.ring_launch_stats(reset=True)
     t_all = time.perf_counter()
     for kind, family in PIECEWISE_VARIANTS:
         mod = page_alloc if kind == "page" else chunk_alloc
@@ -770,6 +781,14 @@ def phase_piecewise(device, seed=0):
     if min(launches[k] for k in PIECEWISE) == 0:
         raise AssertionError(f"a piecewise kernel never launched: "
                              f"{launches}")
+    paths = AT.ring_launch_stats()
+    log(f"phase 3 (piecewise): the traces' ring launches by path, as the "
+        f"kernels counted them {json.dumps(paths)}")
+    for k in ("ring_txn_pop", "ring_txn_push"):
+        if sum(m for p, m in paths.items() if p.startswith(k)) \
+                != launches[k]:
+            raise AssertionError(f"{k}: the kernels counted {paths}, the "
+                                 f"wrapper {launches[k]} launches")
     for k in PIECEWISE:
         merge_err(errs[k], (trace_err["words"], trace_err["max_abs"]))
 
@@ -836,50 +855,171 @@ def phase_piecewise(device, seed=0):
         f"chunk_txn_claim takes 0-1e6: 0 differing words")
     timing = dict(store=q.store, front=q.front, back=q.back, cls=cls,
                   valid=valid, counts=counts, fo=fo, fcls=fcls,
-                  fvalid=fvalid, words=words, row=row, ppc=ppc)
-    return launches, timing, errs
+                  fvalid=fvalid, words=words, row=row, ppc=ppc,
+                  pool=views.ctx.pool,
+                  init_lanes=cfg.data_chunks_per_class
+                  * cfg.pages_per_chunk(0), page_words=cfg.page_words(0),
+                  share=cfg.data_chunks_per_class)
+    return launches, paths, timing, errs
 
 
-def piecewise_bytes(t, granted):
-    """The bytes each piecewise kernel must move at phase 6's inputs
-    (each input word it needs read once, each output written once):
-    the pop reads the granted slots only, the push writes its members'
-    slots, the window reads the counted slots."""
+def ring_bytes(kind, n, C, moved):
+    """The bytes a ring pop or push of ``n`` lanes over ``C`` classes
+    must move (each input word it needs read once, each output written
+    once): the lanes' classes and flags, the counters, then for a pop
+    the ``moved`` granted slots read, the values and new fronts written,
+    for a push the ``moved`` members' values read and slots written and
+    the new backs."""
+    if kind == "ring_txn_pop":
+        return 5 * n + 8 * C + 4 * moved + 4 * n + 4 * C
+    return 5 * n + 4 * C + 8 * moved + 4 * C
+
+
+def piecewise_bytes(t):
+    """The bytes each other piecewise kernel must move at phase 6's
+    inputs (each input word it needs read once, each output written
+    once): the window reads the counted slots."""
     import torch
     C = t["front"].shape[0]
-    n, nf = t["cls"].shape[0], t["fcls"].shape[0]
-    pushed = int(t["fvalid"].sum())
     read = int(torch.clamp(t["counts"], max=4096).sum())
     bw = t["row"].shape[0]
     W = t["words"].shape[0]
-    return {"ring_txn_pop": 5 * n + 8 * C + 4 * granted + 4 * n + 4 * C,
-            "ring_txn_push": 5 * nf + 4 * C + 8 * pushed + 4 * C,
-            "chunk_txn_claim": 4 * bw + 128 * bw + 4 * bw + 4,
+    return {"chunk_txn_claim": 4 * bw + 128 * bw + 4 * bw + 4,
             "ring_window": 8 * C + 4 * read + 4 * C * 4096,
             "bitmap_select": 4 * W + 128 * W}
 
 
-def phase_piecewise_timing(t, reps=50):
+def ring_widths(t):
+    """The ring pop and push inputs phase 6 times, by width: one lane of
+    a class ring (C = 5; the first member lane of phase 3 (piecewise)'s
+    inputs) and of the chunk variant's pool (C = 1, the pool's
+    semantics: the chunk drain's steps), the first 16 lanes and all
+    4096 of those inputs; for the pop also init's pool pop of one
+    class's share of chunks, for the push init's widest step (every
+    page of one class's share, class 0, onto empty rings).  Each pop
+    entry is (the wrapper's arguments, ``limit``), each push entry the
+    wrapper's arguments."""
+    import torch
+    dev = t["store"].device
+    C = t["front"].shape[0]
+    pool = t["pool"]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    j = int(torch.nonzero(t["valid"])[0, 0])
+    jf = int(torch.nonzero(t["fvalid"])[0, 0])
+    ring = (t["store"], t["front"], t["back"])
+    n0 = t["init_lanes"]
+    pop = {"1 lane": (ring + (t["cls"][j:j + 1], t["valid"][j:j + 1]),
+                      True),
+           "1 lane, pool": ((pool.store, pool.front, pool.back, zero, one),
+                            False),
+           "16 lanes": (ring + (t["cls"][:16], t["valid"][:16]), True),
+           "4096 lanes": (ring + (t["cls"], t["valid"]), True),
+           f"{t['share']} lanes, pool, init": (
+               (pool.store, pool.front, pool.back,
+                torch.zeros(t["share"], dtype=torch.int32, device=dev),
+                torch.ones(t["share"], dtype=torch.bool, device=dev)),
+               False)}
+    push = {"1 lane": (t["store"], t["back"], t["fcls"][jf:jf + 1],
+                       t["fo"][jf:jf + 1], t["fvalid"][jf:jf + 1]),
+            "1 lane, pool": (pool.store, pool.back, zero,
+                             pool.store[0, :1].contiguous(), one),
+            "16 lanes": (t["store"], t["back"], t["fcls"][:16],
+                         t["fo"][:16], t["fvalid"][:16]),
+            "4096 lanes": (t["store"], t["back"], t["fcls"], t["fo"],
+                           t["fvalid"]),
+            f"{n0} lanes, init": (
+                t["store"], torch.zeros(C, dtype=torch.int32, device=dev),
+                torch.zeros(n0, dtype=torch.int32, device=dev),
+                torch.arange(n0, dtype=torch.int32, device=dev)
+                * t["page_words"],
+                torch.ones(n0, dtype=torch.bool, device=dev))}
+    return pop, push
+
+
+def time_ring(kind, args, limit, errs, reps=50):
+    """One ring pop or push (``kind``) at one width: held to its plain
+    version on the same tensors of the card (a push on copies of the
+    store), then its profiler device time a call over ``reps`` launches
+    on the path the kernels counted (all on one path), the plain
+    version's time (CUDA events), and the byte bound."""
+    from repro_torch.kernels import alloc_txn as AT
+    from repro_torch.kernels import ops, ref
+    if kind == "ring_txn_pop":
+        def kern():
+            return ops.ring_txn_pop(*args, limit=limit)
+
+        def plain():
+            return ref.ring_txn_pop_ref(*args, limit)
+        want = plain()
+        moved = int((want[0] >= 0).sum())
+    else:
+        store = args[0].clone()
+
+        def kern():
+            return ops.ring_txn_push(store, *args[1:])
+
+        def plain():
+            return ref.ring_txn_push_ref(store, *args[1:])
+        want = ref.ring_txn_push_ref(args[0].clone(), *args[1:])
+        cls, valid = args[2], args[4]
+        moved = int((valid & (cls >= 0) & (cls < args[0].shape[0])).sum())
+    got = (kern() if kind == "ring_txn_pop"
+           else ops.ring_txn_push(args[0].clone(), *args[1:]))
+    for g, w in zip(got, want):
+        e = word_err(g, w)
+        merge_err(errs[kind], e)
+        if e[0]:
+            raise AssertionError(f"{kind}: {e[0]} words differ from the "
+                                 f"plain version")
+
+    def session():  # the launches by path, as the kernels counted them
+        AT.ring_launch_stats(reset=True)
+        with DeviceProfile() as prof:
+            for _ in range(reps):
+                kern()
+        prof.made = {k: m for k, m in AT.ring_launch_stats().items() if m}
+        return prof
+
+    prof = profiled(session)
+    if len(prof.made) != 1 or sum(prof.made.values()) != reps:
+        raise AssertionError(f"{kind}: launches {prof.made} for {reps}")
+    (path, m), = prof.made.items()
+    ms, seen = prof.got[path]
+    n, C = args[3 if kind == "ring_txn_pop" else 2].shape[0], args[0].shape[0]
+    nbytes = ring_bytes(kind, n, C, moved)
+    return dict(ms=ms, plain=time_ms(plain, 10), seen=seen, counted=m,
+                path=path[len(kind) + 1:], bytes=nbytes,
+                bound=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_piecewise_timing(t, errs, reps=50):
     """The five piecewise kernels' device times from ``torch.profiler``
     at phase 3 (piecewise)'s inputs (``reps`` launches in one session;
     the launch counters must count exactly those), the plain versions'
     times on the same tensors of the card (CUDA events; they read back,
     so they sync), and the byte bounds.  The push writes a copy of the
-    store."""
+    store.  The ring pop and push also at each width of ``ring_widths``
+    (``time_ring``: each held to its plain version, errors into
+    ``errs``), under ``"by_width"``."""
     import torch
     from repro_torch.kernels import ops, ref
-    store = t["store"].clone()
+    pop_w, push_w = ring_widths(t)
+    out = {}
+    for kind, widths in (("ring_txn_pop", pop_w), ("ring_txn_push", push_w)):
+        by = {}
+        for label, spec in widths.items():
+            args, limit = spec if kind == "ring_txn_pop" else (spec, None)
+            r = by[label] = time_ring(kind, args, limit, errs, reps)
+            log(f"phase 6: {kind} at {label} ({r['path']} path): kernel "
+                f"{1e3 * r['ms']:.2f} us (profiler device time, {r['seen']} "
+                f"of {r['counted']} counted launches recorded), plain "
+                f"version on the card {1e3 * r['plain']:.1f} us, bound "
+                f"{1e6 * r['bound']:.2f} ns ({r['bytes']} bytes)")
+        out[kind] = dict(ms=by["4096 lanes"]["ms"],
+                         plain=by["4096 lanes"]["plain"],
+                         bound=by["4096 lanes"]["bound"], by_width=by)
     calls = {
-        "ring_txn_pop": (
-            lambda: ops.ring_txn_pop(t["store"], t["front"], t["back"],
-                                     t["cls"], t["valid"], limit=True),
-            lambda: ref.ring_txn_pop_ref(t["store"], t["front"], t["back"],
-                                         t["cls"], t["valid"], True)),
-        "ring_txn_push": (
-            lambda: ops.ring_txn_push(store, t["back"], t["fcls"], t["fo"],
-                                      t["fvalid"]),
-            lambda: ref.ring_txn_push_ref(store, t["back"], t["fcls"],
-                                          t["fo"], t["fvalid"])),
         "chunk_txn_claim": (
             lambda: ops.chunk_txn_claim(t["row"], t["ppc"], ppc=t["ppc"]),
             lambda: ref.chunk_txn_claim_ref(t["row"], t["ppc"], t["ppc"])),
@@ -892,9 +1032,7 @@ def phase_piecewise_timing(t, reps=50):
             lambda: ops.bitmap_select(t["words"], 4096),
             lambda: ref.bitmap_select_ref(t["words"], 4096)),
     }
-    granted = int((calls["ring_txn_pop"][0]()[0] >= 0).sum())
-    nbytes = piecewise_bytes(t, granted)
-    out = {}
+    nbytes = piecewise_bytes(t)
     for name, (kern, plain) in calls.items():
         kern()
         torch.cuda.synchronize()
@@ -3421,7 +3559,7 @@ def main(argv=None) -> int:
     log(f"phase 3: {time.perf_counter() - t0:.1f} s; no piecewise step "
         f"launched")
     t0 = time.perf_counter()
-    pw_launches, pw_inputs, pw_errs = phase_piecewise(device,
+    pw_launches, pw_paths, pw_inputs, pw_errs = phase_piecewise(device,
                                                       seed=args.seed)
     log(f"phase 3 (piecewise): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3451,7 +3589,7 @@ def main(argv=None) -> int:
     sh_timing = phase_sharded_timing(device, sh3, sharded_runs)
     del serve["engine"]
     mamba_dev = phase_mamba_profile(mamba)
-    pw_timing = phase_piecewise_timing(pw_inputs)
+    pw_timing = phase_piecewise_timing(pw_inputs, pw_errs)
     var_timing = phase_variants_timing(device)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
@@ -3644,6 +3782,7 @@ def main(argv=None) -> int:
             ("bitmap_select", "bitmap_txn.cu",
              "kernels/bitmap_select.py:40")):
         t = pw_timing[name]
+        by = t.get("by_width")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
@@ -3653,7 +3792,16 @@ def main(argv=None) -> int:
             "max_err": pw_errs[name]["max_abs"],
             "differing_words": pw_errs[name]["words"],
             "ms": t["ms"], "plain_ms": t["plain"], "bound_ms": t["bound"],
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": "bytes", "library_ms": None,
+            **({"launches_by_path": {p[len(name) + 1:]: m
+                                     for p, m in pw_paths.items()
+                                     if p.startswith(name)},
+                **{key: {w: r[k] for w, r in by.items()}
+                   for key, k in (("ms_by_width", "ms"),
+                                  ("plain_ms_by_width", "plain"),
+                                  ("bound_ms_by_width", "bound"),
+                                  ("path_by_width", "path"))}}
+               if by else {})})
     p_toks = sum(len(t) for t in serve["tokens"].values())
     log(f"phase 6: total {time.perf_counter() - t_start:.1f} s; serving "
         f"{serve['tok_s']:.1f} tok/s; under pressure "

@@ -56,8 +56,20 @@ checkout is "this".  Each tree builds its own kernels into its own
    under pressure, and on 4 shards with rebalance waves and under
    pressure: a digest of every request's tokens per run, and whether
    the two trees' tokens are the same in every run.
+7. The two trees' ``ring_txn.cu`` on the same words: ``ring_txn_pop``
+   and ``ring_txn_push`` at each width ``chip_smoke.py`` phase 6 times
+   them (``ring_widths``: one lane of a class ring and of the pool, 16
+   and 4096 lanes, init's widest push) on the ring page variant's class
+   rings after a 4096-lane alloc and free on the serving engine's
+   geometry for 65536 pages, launched in turns as in 2 (a push from a
+   copy of the store); each line gives both trees' CUDA event times, the
+   profiler device time a call of each in four sessions in turns (every
+   kernel whose name holds the step's, summed), this tree's path as its
+   kernels counted it, and the largest difference between the words the
+   two trees leave, which must be 0.
 
-Exits non-zero without a card.  Prints the card's name and power limit.
+``--sections`` runs a subset (for example ``--sections 7``).  Exits
+non-zero without a card.  Prints the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -652,6 +664,115 @@ def run_warp_grid(rounds: int, reps: int = 50) -> dict:
     return out
 
 
+def ring_inputs(seed: int = 15) -> dict:
+    """``chip_smoke.ring_widths``' inputs, made with this tree's package:
+    the ring page variant's class rings (C = 5) after one 4096-lane
+    alloc of phase 3's size mix and a free of its grants in a shuffled
+    lane order, and the chunk variant's pool, on the serving engine's
+    geometry for 65536 pages."""
+    import numpy as np
+    import torch
+    from repro_torch.core import page_alloc
+    from repro_torch.core.heap import size_to_class_device
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    cfg = make_kv_allocator(65536, device="cuda")[0].cfg
+    C = cfg.num_classes
+    _, ring = cs.piecewise_arena(cfg, "page", "ring", "cuda", True)
+    _, chunk = cs.piecewise_arena(cfg, "chunk", "vl", "cuda", True)
+    rng = np.random.default_rng(seed)
+    _, sizes, mask = cs.alloc_trace(rng, 1, 4096)[0]
+    sizes = torch.from_numpy(sizes).cuda()
+    mask = torch.from_numpy(mask).cuda()
+    cls = size_to_class_device(cfg, sizes)
+    _, offs = page_alloc.alloc(cfg, "ring", ring, sizes, mask,
+                               piecewise=True)
+    perm = torch.from_numpy(rng.permutation(4096)).cuda()
+    fo, fs = offs[perm].contiguous(), sizes[perm].contiguous()
+    fcls = size_to_class_device(cfg, fs)
+    return dict(store=ring.q.store, front=ring.q.front, back=ring.q.back,
+                cls=cls, valid=mask & (cls < C), fo=fo, fcls=fcls,
+                fvalid=(fo >= 0) & (fcls < C), pool=chunk.ctx.pool,
+                init_lanes=cfg.data_chunks_per_class
+                * cfg.pages_per_chunk(0), page_words=cfg.page_words(0),
+                share=cfg.data_chunks_per_class)
+
+
+def ring_launcher(kind, spec, stream):
+    """(``launch(lib)``: ``kind`` through a tree's library at one
+    ``ring_widths`` entry, returning what it wrote; the words it starts
+    from; the words it writes in place), for ``in_turns``."""
+    import torch
+    if kind == "ring_txn_pop":
+        (store, front, back, cls, valid), limit = spec
+        C, cap = store.shape
+        n = cls.shape[0]
+        vals = torch.empty(n, dtype=torch.int32, device="cuda")
+        nf = torch.empty(C, dtype=torch.int32, device="cuda")
+
+        def launch(lib):
+            err = lib.ring_txn_pop_launch(
+                store.data_ptr(), front.data_ptr(), back.data_ptr(),
+                cls.data_ptr(), valid.data_ptr(), n, C, cap, int(limit),
+                vals.data_ptr(), nf.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"ring_txn_pop: CUDA error {err}")
+            return torch.cat([vals, nf])
+        return launch, store, store.clone()   # the pop writes no store
+    store, back, cls, vals, valid = spec
+    C, cap = store.shape
+    n = cls.shape[0]
+    work = store.clone()
+    nb = torch.empty(C, dtype=torch.int32, device="cuda")
+
+    def launch(lib):
+        err = lib.ring_txn_push_launch(
+            work.data_ptr(), back.data_ptr(), cls.data_ptr(),
+            vals.data_ptr(), valid.data_ptr(), n, C, cap, nb.data_ptr(),
+            stream)
+        if err:
+            raise RuntimeError(f"ring_txn_push: CUDA error {err}")
+        return nb.clone()
+    return launch, store, work
+
+
+def run_ring(other: str, rounds: int, reps: int = 50) -> dict:
+    """Section 7: both trees' ring pop and push at each width of
+    ``chip_smoke.ring_widths``, in turns on the same words."""
+    import torch
+    from repro_torch.kernels import alloc_txn as AT
+    libs = {"this": AT.ring_lib(),
+            "other": ctypes.CDLL(other_lib(other, "ring_txn"))}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    libs["other"].ring_txn_pop_launch.argtypes = [P] * 5 + [I] * 4 + [P] * 3
+    libs["other"].ring_txn_push_launch.argtypes = [P] * 5 + [I] * 3 + [P] * 2
+    libs["other"].ring_txn_pop_launch.restype = I
+    libs["other"].ring_txn_push_launch.restype = I
+    stream = AT._stream(torch.device("cuda"))
+    empty = torch.empty(0, dtype=torch.int32, device="cuda")
+    out = {}
+    for kind, widths in zip(("ring_txn_pop", "ring_txn_push"),
+                            cs.ring_widths(ring_inputs())):
+        for label, spec in widths.items():
+            launch, start, work = ring_launcher(kind, spec, stream)
+            t = in_turns(libs, rounds, (start, empty, work, empty), launch)
+            line = {"this": t["this"], "other": t["other"],
+                    "max_word_diff": t["max_word_diff"]}
+            AT.ring_launch_stats(reset=True)
+            for tree in ("other", "this", "this", "other"):
+                ms, parts = device_ms(lambda: launch(libs[tree]), reps, tree,
+                                      kind)
+                line.setdefault(f"{tree}_device_ms", []).append(ms)
+                line[f"{tree}_kernels"] = parts
+            ran = [k for k, v in AT.ring_launch_stats(reset=True).items()
+                   if v]
+            if len(ran) != 1:
+                raise AssertionError(f"{kind} at {label}: this tree ran the "
+                                     f"paths {ran}")
+            line["this_path"] = ran[0][len(kind) + 1:]
+            out[f"{kind} at {label}"] = line
+    return out
+
+
 def free_kernel_profile(so: str) -> dict:
     """Registers (``ptxas -v``, from the build's log) and SASS
     instructions (``cuobjdump``) of each ``free_txn_kernel`` instance."""
@@ -689,6 +810,8 @@ def main(argv=None) -> int:
     ap.add_argument("--worker")
     ap.add_argument("--tokens-worker", action="store_true")
     ap.add_argument("--out")
+    ap.add_argument("--sections", default="1,2,3,4,5,6,7",
+                    help="comma-separated section numbers to run")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -705,35 +828,50 @@ def main(argv=None) -> int:
         ap.error("--other is required")
     sys.path.insert(0, os.path.join(ROOT, "src"))   # this tree's package
     trees = {"this": ROOT, "other": os.path.abspath(args.other)}
-    with tempfile.TemporaryDirectory() as tmp:
-        rows, diff = run_workers(trees, tmp)
-    for what in ("attention", "ssd_scan"):
-        for row in rows:
-            line = {"tree": row["tree"], what: row[what]}
-            print(f"{what} {json.dumps(line)}", flush=True)
-    print(f"ssd_scan, the largest difference between the trees' outputs "
-          f"(y, h_final) by chunks {json.dumps(diff)}", flush=True)
-    other_so = other_lib(trees["other"])
-    for what, t in run_aux(other_so, args.rounds).items():
-        print(f"{what} at 298656 lanes, CUDA events a launch "
-              f"{json.dumps(t)}", flush=True)
+    sections = {int(x) for x in args.sections.split(",")}
+    if 1 in sections:
+        with tempfile.TemporaryDirectory() as tmp:
+            rows, diff = run_workers(trees, tmp)
+        for what in ("attention", "ssd_scan"):
+            for row in rows:
+                line = {"tree": row["tree"], what: row[what]}
+                print(f"{what} {json.dumps(line)}", flush=True)
+        print(f"ssd_scan, the largest difference between the trees' "
+              f"outputs (y, h_final) by chunks {json.dumps(diff)}",
+              flush=True)
     from repro_torch.kernels import build
-    sos = {"this": {k: str(build._target(k))
-                    for k in ("alloc_txn", "defrag_txn")},
-           "other": {"alloc_txn": other_so,
-                     "defrag_txn": other_lib(trees["other"], "defrag_txn")}}
-    build.build_all(["defrag_txn"])
-    for what, t in run_sharded(trees, sos, args.rounds).items():
-        print(f"{what}, CUDA events a call {json.dumps(t)}", flush=True)
-    for what, t in run_warp_grid(args.rounds).items():
-        print(f"sharded_alloc_txn, warp-sized block against the grid path, "
-              f"{what} {json.dumps(t)}", flush=True)
-    for label, so in (("this", str(build._target("alloc_txn"))),
-                      ("other", other_so)):
-        print(f"free_txn_kernel {label} "
-              f"{json.dumps(free_kernel_profile(so))}", flush=True)
-    print(f"tokens on phase 5's traffic, every run "
-          f"{json.dumps(run_tokens(trees))}", flush=True)
+    if sections & {2, 3, 5}:
+        other_so = other_lib(trees["other"])
+        build.build_all(["alloc_txn"])
+    if 2 in sections:
+        for what, t in run_aux(other_so, args.rounds).items():
+            print(f"{what} at 298656 lanes, CUDA events a launch "
+                  f"{json.dumps(t)}", flush=True)
+    if 3 in sections:
+        sos = {"this": {k: str(build._target(k))
+                        for k in ("alloc_txn", "defrag_txn")},
+               "other": {"alloc_txn": other_so,
+                         "defrag_txn": other_lib(trees["other"],
+                                                 "defrag_txn")}}
+        build.build_all(["defrag_txn"])
+        for what, t in run_sharded(trees, sos, args.rounds).items():
+            print(f"{what}, CUDA events a call {json.dumps(t)}", flush=True)
+    if 4 in sections:
+        for what, t in run_warp_grid(args.rounds).items():
+            print(f"sharded_alloc_txn, warp-sized block against the grid "
+                  f"path, {what} {json.dumps(t)}", flush=True)
+    if 5 in sections:
+        for label, so in (("this", str(build._target("alloc_txn"))),
+                          ("other", other_so)):
+            print(f"free_txn_kernel {label} "
+                  f"{json.dumps(free_kernel_profile(so))}", flush=True)
+    if 6 in sections:
+        print(f"tokens on phase 5's traffic, every run "
+              f"{json.dumps(run_tokens(trees))}", flush=True)
+    if 7 in sections:
+        for what, t in run_ring(trees["other"], args.rounds).items():
+            print(f"{what}, CUDA events and device time a call "
+                  f"{json.dumps(t)}", flush=True)
     print(cs.card_line())
     return 0
 

@@ -349,8 +349,29 @@ def ring_lib():
         for fn in (lib.ring_txn_pop_launch, lib.ring_txn_push_launch,
                    lib.ring_window_launch):
             fn.restype = I
+        lib.ring_txn_launch_stats.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), I]
+        lib.ring_txn_launch_stats.restype = I
         lib._typed = True
     return lib
+
+
+# csrc/ring_txn.cu's RingLaunch, in order: each pop and push kernel's
+# symbol without its ``_kernel`` suffix (its path: one warp, one block
+# ranking every class, one block per class)
+RING_LAUNCH_STATS = ("ring_txn_pop_warp", "ring_txn_pop_block",
+                     "ring_txn_pop_class", "ring_txn_push_warp",
+                     "ring_txn_push_block", "ring_txn_push_class")
+
+
+def ring_launch_stats(reset: bool = False) -> dict:
+    """Each ring pop and push kernel's launches since the last reset, by
+    path, counted on the card by the launches themselves: a warp for 32
+    lanes or fewer, a block ranking every class above that, a block per
+    class past 32 classes.  Waits for the card; ``reset`` clears the
+    counts after reading them."""
+    return read_stats(ring_lib().ring_txn_launch_stats, RING_LAUNCH_STATS,
+                      reset)
 
 
 def bitmap_lib():
@@ -398,8 +419,10 @@ def _ring_lanes(name, store, counters, cls, valid, extra=()):
 
 def ring_txn_pop(store, front, back, cls, valid, *, limit: bool):
     """Bulk pop of the class rings (``ref.ring_txn_pop_ref``) in one
-    launch of C blocks.  Returns ``(vals (n,), new front (C,))``.  A
-    transaction of 0 lanes launches nothing."""
+    launch: one warp for 32 lanes or fewer, else one block that ranks
+    every class at once (a block per class past 32 classes; see
+    :func:`ring_launch_stats`).  Returns ``(vals (n,), new front
+    (C,))``.  A transaction of 0 lanes launches nothing."""
     C, cap, n, dev = _ring_lanes("ring_txn_pop", store,
                                  (("front", front), ("back", back)), cls,
                                  valid)
@@ -417,8 +440,8 @@ def ring_txn_pop(store, front, back, cls, valid, *, limit: bool):
 
 def ring_txn_push(store, back, cls, vals, valid):
     """Bulk push (``ref.ring_txn_push_ref``), in place on ``store``, in
-    one launch of C blocks.  Returns ``(store, new back (C,))``.  A
-    transaction of 0 lanes launches nothing."""
+    one launch on the pop's paths.  Returns ``(store, new back (C,))``.
+    A transaction of 0 lanes launches nothing."""
     C, cap, n, dev = _ring_lanes("ring_txn_push", store, (("back", back),),
                                  cls, valid, (("vals", vals),))
     if n == 0:

@@ -330,27 +330,81 @@ extern "C" void emu_ssd_scan(int bf16, const void* x, const float* dt,
       x, dt, a, b, c, h0, y, hf, B, L, H, P, G, N, Q, sms);
 }
 
-// The piecewise allocator's steps: one block per class for the ring
-// pop and push, a (tiles of m, C) grid for the window (the emulation
-// runs a 1-D grid of tiles x C blocks and splits each block's index),
-// one block for the bitmap kernels.
+// The piecewise allocator's steps: the ring pop and push on the path
+// ring_path picks, as their launchers do (one warp; one block ranking
+// every class, the instance of its ring_unroll batch; or one block per
+// class), a (tiles of m, C) grid for the window (the emulation runs a
+// 1-D grid of tiles x C blocks and splits each block's index), one block
+// for the bitmap kernels.
 extern "C" void emu_ring_txn_pop(const int* store, const int* front,
                                  const int* back, const int* cls,
                                  const uint8_t* valid, int n, int C, int cap,
                                  int limit, int* vals, int* new_front) {
-  emu_launch(C, block_threads(n), 0, [&] {
-    ring_txn_pop_kernel(store, front, back, cls, valid, n, C, cap, limit,
-                        vals, new_front);
-  });
+  switch (ring_path(n, C)) {
+    case RING_WARP:
+      emu_launch(1, 32, 0, [&] {
+        ring_txn_pop_warp_kernel(store, front, back, cls, valid, n, C, cap,
+                                 limit, vals, new_front);
+      });
+      break;
+    case RING_BLOCK:
+      emu_launch(1, ring_block_threads(n, C), 0, [&] {
+        const int u = ring_unroll(n, C);
+        (u == 1   ? ring_txn_pop_block_kernel<1>
+         : u == 2 ? ring_txn_pop_block_kernel<2>
+         : u == 4 ? ring_txn_pop_block_kernel<4>
+         : u == 8 ? ring_txn_pop_block_kernel<8>
+                  : ring_txn_pop_block_kernel<16>)(
+            store, front, back, cls, valid, n, C, cap, limit, vals,
+            new_front);
+      });
+      break;
+    default:
+      emu_launch(C, block_threads(n), 0, [&] {
+        ring_txn_pop_class_kernel(store, front, back, cls, valid, n, C, cap,
+                                  limit, vals, new_front);
+      });
+  }
 }
 
 extern "C" void emu_ring_txn_push(int* store, const int* back,
                                   const int* cls, const int* vals,
                                   const uint8_t* valid, int n, int C, int cap,
                                   int* new_back) {
-  emu_launch(C, block_threads(n), 0, [&] {
-    ring_txn_push_kernel(store, back, cls, vals, valid, n, cap, new_back);
-  });
+  switch (ring_path(n, C)) {
+    case RING_WARP:
+      emu_launch(1, 32, 0, [&] {
+        ring_txn_push_warp_kernel(store, back, cls, vals, valid, n, C, cap,
+                                  new_back);
+      });
+      break;
+    case RING_BLOCK:
+      emu_launch(1, ring_block_threads(n, C), 0, [&] {
+        const int u = ring_unroll(n, C);
+        (u == 1   ? ring_txn_push_block_kernel<1>
+         : u == 2 ? ring_txn_push_block_kernel<2>
+         : u == 4 ? ring_txn_push_block_kernel<4>
+         : u == 8 ? ring_txn_push_block_kernel<8>
+                  : ring_txn_push_block_kernel<16>)(
+            store, back, cls, vals, valid, n, C, cap, new_back);
+      });
+      break;
+    default:
+      emu_launch(C, block_threads(n), 0, [&] {
+        ring_txn_push_class_kernel(store, back, cls, vals, valid, n, cap,
+                                   new_back);
+      });
+  }
+}
+
+// The ring pop and push launches by path (g_ring_launches, a host array
+// here), as ring_txn_launch_stats reads them.
+extern "C" int emu_ring_launch_stats(unsigned long long* out, int reset) {
+  for (int k = 0; k < kRingLaunches; ++k) {
+    out[k] = g_ring_launches[k];
+    if (reset) g_ring_launches[k] = 0;
+  }
+  return kRingLaunches;
 }
 
 extern "C" void emu_ring_window(const int* store, const int* front,

@@ -110,6 +110,21 @@ inline unsigned __ballot_sync(unsigned, int p) {
   });
 }
 
+// a barrier of the warp's lanes, which also orders their memory
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+}
+
+// the lanes of the warp whose value equals this lane's
+inline unsigned __match_any_sync(unsigned, int v) {
+  return emu_warp_exchange(v, [v](int w0, int nl) {
+    unsigned b = 0;
+    for (int j = 0; j < nl; ++j)
+      if (emu_lane_value<int>(w0 + j) == v) b |= 1u << j;
+    return b;
+  });
+}
+
 inline int __all_sync(unsigned, int p) {
   return emu_warp_exchange(p ? 1 : 0, [](int w0, int nl) {
     for (int j = 0; j < nl; ++j)

@@ -610,28 +610,48 @@ PIECEWISE = ("ring_txn_pop", "ring_txn_push", "chunk_txn_claim",
              "ring_window", "bitmap_select")
 
 
-@pytest.mark.parametrize("n,C,cap,base", [
-    (16, 3, 48, 0), (4096, 5, 10944, -2 ** 31 + 7),
-    (4096, 5, 1000, 2 ** 31 - 300)],
-    ids=("16-lanes", "4096-lanes-wrapped", "4096-lanes-crossing"))
-def test_ring_kernels_match_plain_on_the_card(cuda, n, C, cap, base):
+@pytest.mark.parametrize("n,C,cap,base,one", [
+    (16, 3, 48, 0, None), (4096, 5, 10944, -2 ** 31 + 7, None),
+    (4096, 5, 1000, 2 ** 31 - 300, None), (1, 5, 48, -2 ** 31 + 7, 4),
+    (1, 1, 64, 2 ** 31 - 2, 0), (32, 32, 40, 2 ** 31 - 50, None),
+    (33, 5, 48, -2 ** 31 + 3, None), (33, 32, 40, 0, None),
+    (40, 33, 40, 2 ** 31 - 60, None), (1100, 3, 512, -2 ** 31 + 100, None),
+    (6000, 5, 2000, 2 ** 31 - 1000, None),
+    (10944, 5, 10944, 2 ** 31 - 5000, 0),
+    (20000, 5, 5000, -2 ** 31 + 11, None)],
+    ids=("16-lanes", "4096-lanes-wrapped", "4096-lanes-crossing",
+         "1-lane-wrapped", "1-lane-pool-crossing", "32-lanes-32-classes",
+         "33-lanes-wrapped", "33-lanes-32-classes",
+         "40-lanes-33-classes-crossing", "1100-lanes-wrapped",
+         "6000-lanes-crossing", "10944-lanes-one-class",
+         "20000-lanes-wrapped"))
+def test_ring_kernels_match_plain_on_the_card(cuda, n, C, cap, base, one):
     """``ring_txn_pop`` (both grants), ``ring_txn_push`` and
     ``ring_window`` against their plain versions on the same tensors of
     the card: multi-tile ranks, counters past 2^31, masked lanes and
-    lanes of an out-of-range class; one launch each."""
+    lanes of an out-of-range class (or every lane of class ``one``); one
+    launch each, the pop and push on the path their launchers pick for
+    n lanes of C classes (one warp, one block, a block per class), as
+    the kernels counted it."""
+    from repro_torch.kernels import alloc_txn as AT
     rng = np.random.default_rng(n + cap)
     store = torch.from_numpy(rng.integers(0, 10 ** 6, (C, cap))
                              .astype(np.int32)).to(cuda)
     front = base + rng.integers(0, 3 * cap, C)
-    back = front + rng.integers(0, cap + 1, C)
+    back = front + rng.integers(0 if one is None else 1, cap + 1, C)
     front, back = (torch.from_numpy(x.astype(np.int32)).to(cuda)
                    for x in (front, back))
-    cls = torch.from_numpy(rng.integers(-1, C + 1, n).astype(np.int32)
-                           ).to(cuda)
-    valid = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+    if one is None:
+        cls = torch.from_numpy(rng.integers(-1, C + 1, n).astype(np.int32)
+                               ).to(cuda)
+        valid = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+    else:
+        cls = torch.full((n,), one, dtype=torch.int32, device=cuda)
+        valid = torch.ones(n, dtype=torch.bool, device=cuda)
     vals = torch.from_numpy(rng.integers(0, 10 ** 6, n).astype(np.int32)
                             ).to(cuda)
     ops.reset_launches()
+    AT.ring_launch_stats(reset=True)
     for limit in (True, False):
         got = ops.ring_txn_pop(store, front, back, cls, valid, limit=limit)
         want = ref.ring_txn_pop_ref(store, front, back, cls, valid, limit)
@@ -647,6 +667,10 @@ def test_ring_kernels_match_plain_on_the_card(cuda, n, C, cap, base):
     torch.cuda.synchronize()
     assert {k: ops.LAUNCHES[k] for k in PIECEWISE[:2] + ("ring_window",)} \
         == {"ring_txn_pop": 2, "ring_txn_push": 1, "ring_window": 1}
+    path = "class" if C > 32 else "warp" if n <= 32 else "block"
+    ran = {k: v for k, v in AT.ring_launch_stats().items() if v}
+    assert ran == {f"ring_txn_pop_{path}": 2, f"ring_txn_push_{path}": 1}, \
+        ran
 
 
 @pytest.mark.parametrize("bw,ppc,W", [(1, 16, 32), (4, 128, 4128),

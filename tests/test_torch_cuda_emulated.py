@@ -111,7 +111,7 @@ def emu(tmp_path_factory):
         ctypes.POINTER(ctypes.c_ulonglong), I]
     so.emu_free_enqueue_stats.restype = I
     for name in ("emu_alloc_shard_stats", "emu_defrag_rebuild_stats",
-                 "emu_launch_stats"):
+                 "emu_launch_stats", "emu_ring_launch_stats"):
         fn = getattr(so, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), I]
         fn.restype = I
@@ -1698,48 +1698,96 @@ def _i32(a):
     return torch.from_numpy(np.asarray(a, dtype=np.int64).astype(np.int32))
 
 
-# counters past 2^31 (wrapped negative), and just below it (ranks carry
-# them across), for ring rows of every size the allocator uses
-RING_CASES = [(16, 3, 48, 0), (4096, 5, 1024, -2 ** 31 + 7),
-              (4096, 5, 1000, 2 ** 31 - 300)]
-RING_IDS = ("16-lanes", "4096-lanes-wrapped", "4096-lanes-crossing")
+# (lanes, classes, ring capacity, counter base, the one class of every
+# lane or None for random ones): counters past 2^31 (wrapped negative),
+# and just below it (ranks carry them across), for ring rows of every
+# size the allocator uses, on each path the launchers pick: one warp for
+# 32 lanes or fewer (the chunk drain's 1-lane pops of a class ring and of
+# the pool, C = 1), one block ranking every class above that (33 lanes,
+# and 1100, 4096, 6000 and init's one-class push of 684 chunks x 16
+# pages, 10,944 lanes, for its batches of 2, 4, 8 and 16 groups a warp
+# in one pass; 20,000 lanes in two), one block per class past 32
+# classes.  Random lanes mix classes, masked lanes and the
+# classes -1 and C within a tile of 32.
+RING_CASES = [(16, 3, 48, 0, None), (4096, 5, 1024, -2 ** 31 + 7, None),
+              (4096, 5, 1000, 2 ** 31 - 300, None),
+              (1, 5, 48, -2 ** 31 + 7, 4), (1, 1, 64, 2 ** 31 - 2, 0),
+              (32, 32, 40, 2 ** 31 - 50, None), (33, 5, 48, -2 ** 31 + 3,
+                                                 None),
+              (33, 32, 40, 0, None), (40, 33, 40, 2 ** 31 - 60, None),
+              (1100, 3, 512, -2 ** 31 + 100, None),
+              (6000, 5, 2000, 2 ** 31 - 1000, None),
+              (10944, 5, 10944, 2 ** 31 - 5000, 0),
+              (20000, 5, 5000, -2 ** 31 + 11, None)]
+RING_IDS = ("16-lanes", "4096-lanes-wrapped", "4096-lanes-crossing",
+            "1-lane-wrapped", "1-lane-pool-crossing", "32-lanes-32-classes",
+            "33-lanes-wrapped", "33-lanes-32-classes",
+            "40-lanes-33-classes-crossing", "1100-lanes-wrapped",
+            "6000-lanes-crossing", "10944-lanes-one-class",
+            "20000-lanes-wrapped")
 
 
-def _ring_inputs(n, C, cap, base, seed):
+def _ring_path(n, C):
+    """The kernel path the launchers pick (csrc/ring_txn.cu, ring_path)."""
+    return "class" if C > 32 else "warp" if n <= 32 else "block"
+
+
+def _ring_inputs(n, C, cap, base, seed, one=None):
     rng = np.random.default_rng(seed)
     store = _i32(rng.integers(0, 10 ** 6, (C, cap)))
     front = base + rng.integers(0, 3 * cap, C)
-    back = front + rng.integers(0, cap + 1, C)
-    # lanes of the classes -1 and C lie outside [0, C)
-    cls = _i32(rng.integers(-1, C + 1, n))
-    valid = _bool(rng.random(n) < 0.8)
+    if one is None:
+        back = front + rng.integers(0, cap + 1, C)
+        # lanes of the classes -1 and C lie outside [0, C)
+        cls = _i32(rng.integers(-1, C + 1, n))
+        valid = _bool(rng.random(n) < 0.8)
+    else:
+        back = front + rng.integers(1, cap + 1, C)
+        cls = _i32(np.full(n, one))
+        valid = _bool(np.ones(n, bool))
     return store, _i32(front), _i32(back), cls, valid
 
 
+def _ring_ran(emu, n, C, kind):
+    """The ring launches since the last read, which must be one of
+    ``kind`` ("pop" or "push") on the path the launchers pick."""
+    ran = {k: v for k, v in _stats(emu.emu_ring_launch_stats,
+                                   AT.RING_LAUNCH_STATS).items() if v}
+    assert ran == {f"ring_txn_{kind}_{_ring_path(n, C)}": 1}, ran
+
+
 @pytest.mark.parametrize("limit", (True, False), ids=("limit", "pool"))
-@pytest.mark.parametrize("n,C,cap,base", RING_CASES, ids=RING_IDS)
-def test_ring_txn_pop_kernel_matches_plain(emu, n, C, cap, base, limit):
-    """The emulated ``ring_txn_pop`` (one block per class, ranks by a
-    block scan carried over tiles of 1024 lanes) gives the plain
-    version's values and fronts: masked lanes and lanes of an
-    out-of-range class read −1, ``limit`` grants the inventory's rank
-    prefix."""
-    store, front, back, cls, valid = _ring_inputs(n, C, cap, base, n + C)
+@pytest.mark.parametrize("n,C,cap,base,one", RING_CASES, ids=RING_IDS)
+def test_ring_txn_pop_kernel_matches_plain(emu, n, C, cap, base, one,
+                                           limit):
+    """The emulated ``ring_txn_pop`` on the path its launcher picks (one
+    warp, one block ranking every class by ``rank_lanes``, or one block
+    per class), as its own launch count says, gives the plain version's
+    values and fronts: masked lanes and lanes of an out-of-range class
+    read −1, ``limit`` grants the inventory's rank prefix."""
+    store, front, back, cls, valid = _ring_inputs(n, C, cap, base, n + C,
+                                                  one)
     want_v, want_f = ref.ring_txn_pop_ref(store, front, back, cls, valid,
                                           limit)
     vals = torch.full((n,), 12345, dtype=torch.int32)
     nf = torch.empty(C, dtype=torch.int32)
+    _stats(emu.emu_ring_launch_stats, AT.RING_LAUNCH_STATS)
     emu.emu_ring_txn_pop(_p(store), _p(front), _p(back), _p(cls), _p(valid),
                          n, C, cap, int(limit), _p(vals), _p(nf))
+    _ring_ran(emu, n, C, "pop")
     assert torch.equal(vals, want_v) and torch.equal(nf, want_f)
-    assert int((want_v >= 0).sum()) > 0 and int((want_v < 0).sum()) > 0
+    assert int((want_v >= 0).sum()) > 0
+    if one is None:
+        assert int((want_v < 0).sum()) > 0
 
 
-@pytest.mark.parametrize("n,C,cap,base", RING_CASES, ids=RING_IDS)
-def test_ring_txn_push_kernel_matches_plain(emu, n, C, cap, base):
-    """The emulated ``ring_txn_push`` writes the plain version's store
-    in place (only its members' slots) and its backs."""
-    store, _, back, cls, valid = _ring_inputs(n, C, cap, base, 2 * n + C)
+@pytest.mark.parametrize("n,C,cap,base,one", RING_CASES, ids=RING_IDS)
+def test_ring_txn_push_kernel_matches_plain(emu, n, C, cap, base, one):
+    """The emulated ``ring_txn_push`` on the path its launcher picks
+    writes the plain version's store in place (only its members' slots)
+    and its backs."""
+    store, _, back, cls, valid = _ring_inputs(n, C, cap, base, 2 * n + C,
+                                              one)
     counts = torch.bincount(cls[valid & (cls >= 0) & (cls < C)].long(),
                             minlength=C)
     assert int(counts.max()) <= cap
@@ -1748,8 +1796,10 @@ def test_ring_txn_push_kernel_matches_plain(emu, n, C, cap, base):
                                            valid)
     got_s = store.clone()
     nb = torch.empty(C, dtype=torch.int32)
+    _stats(emu.emu_ring_launch_stats, AT.RING_LAUNCH_STATS)
     emu.emu_ring_txn_push(_p(got_s), _p(back), _p(cls), _p(vals), _p(valid),
                           n, C, cap, _p(nb))
+    _ring_ran(emu, n, C, "push")
     assert torch.equal(got_s, want_s) and torch.equal(nb, want_b)
     assert not torch.equal(got_s, store)
 
