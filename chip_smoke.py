@@ -130,9 +130,23 @@ Phases, each reporting on its own lines:
    six widened kernels per variant at the figure cell of 1024 x 256 B;
    the mamba2
    rerun's ``ssd_scan`` and ``free_txn`` device time, each a sum over
-   its kernels), then one JSON line of per-kernel
-   numbers, then the card line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   its kernels);
+7. the fused decode mega-step (``ServingEngine(mega_step=True)``):
+   ``launches_per_tick`` of full-width qwen2-0.5b (single arena and 4
+   shards: one grow plus one ``paged_attention`` a layer, 25) and
+   mamba2-780m (0) at max_batch 2 and 8, the allocator's part as its
+   kernels counted it; then phase 5's traffic through the mega-step in
+   four runs (qwen2-0.5b; under phase 5's pressure; 4 shards under the
+   sharded pressure; mamba2-780m), each with phase 5's host-loop
+   tokens, ``allocs == frees``, no page held after draining, failed
+   ticks, defrag waves and evictions in the pressured runs, and its
+   launches equal to the engine's counts; then profiled reruns of the
+   qwen2 and mamba2 runs with every step's synchronizing calls counted
+   (one, the flags' read, a steady tick), their device idle share beside
+   the host loop's (phases 5-6), and tok/s of both loops.  Each phase
+   prints its seconds.  Then one JSON line of per-kernel numbers (each
+   kernel's launches in the mega-step runs too), then the card line,
+   then the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises: the script exits non-zero and prints no result line.
 It exits non-zero at once when no CUDA device is present or when the
@@ -2644,7 +2658,7 @@ def phase_timing(device, serve, alloc_logs, pressure, waves):
             f"{recorded} of {calls})")
     attention_in_serving(eng, serve)
     return dict(k_times=k_times, p_times=p_times, bounds=bounds, defrag=dk,
-                attention=attn)
+                attention=attn, busy=busy)
 
 
 def attention_in_serving(eng, serve, every=8, atol=1e-5):
@@ -3462,6 +3476,7 @@ def phase_mamba_serve(device, seed, lengths, grant):
     chunks = [-(-n // SSD_SHAPE["Q"]) for n in counting.prefill_lens]
     return dict(launches=launches, tok_s=toks / wall, wall=wall, stats=st,
                 chunks=chunks, errs=errs, engine=eng, prompts=prompts,
+                tokens=tokens,
                 host=host, scan_err=scans.err, scan_calls=scans.calls,
                 enqueue=freed)
 
@@ -3508,6 +3523,219 @@ def phase_mamba_profile(mamba):
             out[name] = None
             log(f"phase 6: {MAMBA}: {name} in that rerun: not measured (a "
                 f"kernel had no launch recorded: {recorded})")
+    out["busy"] = busy
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the fused decode mega-step
+# ---------------------------------------------------------------------------
+
+# (run, model, engine settings, co-tenants: 0 none, 1 the 2048-B one, 2
+# also the 128-page holder, counters that must fire)
+MEGA_RUNS = (
+    ("qwen2-0.5b", "qwen2", {}, 0, ()),
+    ("qwen2-0.5b under pressure", "qwen2", PRESSURE, 1,
+     ("alloc_failures", "defrag_waves", "evictions")),
+    ("qwen2-0.5b sharded under pressure", "qwen2", SHARDED_RUNS[1][1], 2,
+     ("alloc_failures", "defrag_waves", "evictions")),
+    (MAMBA, "mamba", {}, 0, ()),
+)
+
+
+def mega_engine(device, model, params, max_batch=8, **kw):
+    import torch
+    from repro_torch.serve.engine import ServingEngine
+    return ServingEngine(model, params, max_batch=max_batch, max_seq=512,
+                         kv_dtype=torch.bfloat16,
+                         compute_dtype=torch.bfloat16, device=device,
+                         mega_step=True, max_new_cap=32, **kw)
+
+
+def mega_launches(device, models):
+    """``launches_per_tick`` of full-width qwen2-0.5b (single arena and 4
+    shards) and mamba2-780m at max_batch 2 and 8, each beside the
+    allocator launches its kernels counted in that probe tick."""
+    from repro_torch.kernels import ops
+    out = {}
+    for name, key, kw in (("qwen2-0.5b", "qwen2", {}),
+                          ("qwen2-0.5b, 4 shards", "qwen2",
+                           {"num_shards": SHARDS}),
+                          (MAMBA, "mamba", {})):
+        per = []
+        for mb in (2, 8):
+            eng = mega_engine(device, *models[key], max_batch=mb, **kw)
+            made0 = kernel_launches()
+            calls0 = dict(ops.LAUNCHES)
+            n = eng.launches_per_tick()
+            made = {k: m - made0[k] for k, m in kernel_launches().items()
+                    if m - made0[k]}
+            calls = {k: m - calls0[k] for k, m in ops.LAUNCHES.items()
+                     if m - calls0[k]}
+            L = eng.cfg.num_layers
+            want = 0 if eng.caches.kv is None else 1 + L
+            grow = "alloc_txn" if eng.num_shards == 1 else "sharded_alloc_txn"
+            want_made = {} if not want else {grow: 1}
+            want_calls = {} if not want else {grow: 1, "paged_attention": L}
+            if n != want or made != want_made or calls != want_calls:
+                raise AssertionError(
+                    f"{name}, max_batch {mb}: launches_per_tick {n} (want "
+                    f"{want}), wrappers counted {calls}, kernels {made}")
+            per.append(n)
+            del eng
+        log(f"phase 7: {name}: launches_per_tick {per[0]} at max_batch 2, "
+            f"{per[1]} at 8 (the allocator's part as its kernels counted "
+            f"it)")
+        out[name] = per[1]
+    return out
+
+
+def steady_syncs(eng):
+    """Serve ``eng``'s queue to the end, each step under
+    ``set_sync_debug_mode("warn")``: ({synchronizing calls: steady steps}
+    (nothing admitted, retired, failed or defragmented), the same of
+    the other steps, finished requests)."""
+    import warnings
+    import torch
+    steady, other, done = {}, {}, []
+    prev = torch.cuda.get_sync_debug_mode()
+    keys = ("alloc_failures", "defrag_waves")
+    try:
+        while eng.waiting or any(r is not None for r in eng.slot_req):
+            slots = [id(r) for r in eng.slot_req]
+            counts = [eng.stats[k] for k in keys]
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                fin = eng.step()
+                torch.cuda.set_sync_debug_mode(prev)
+            n = sum("synchroniz" in str(w.message) for w in caught)
+            quiet = (not fin and slots == [id(r) for r in eng.slot_req]
+                     and counts == [eng.stats[k] for k in keys])
+            tally = steady if quiet else other
+            tally[n] = tally.get(n, 0) + 1
+            done.extend(fin)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    return steady, other, done
+
+
+def phase_mega(device, models, serve, mamba, host_busy):
+    """Phase 5's traffic through ``ServingEngine(mega_step=True)``: four
+    runs (qwen2-0.5b, under pressure, sharded under pressure, mamba2-780m),
+    each with the host loop's tokens, ``allocs == frees``, no page held
+    after draining, the must-fire counters above 0, and its launches
+    equal to the engine's counts (one grow a tick, one
+    ``paged_attention`` a layer a tick).  Then profiled reruns of the
+    qwen2 and mamba2 runs, each step's synchronizing calls counted: one
+    a steady tick."""
+    import torch
+    from repro_torch.kernels import ops
+    out = {"launches_per_tick": mega_launches(device, models)}
+    want_toks = {"qwen2": serve["tokens"], "mamba": mamba["tokens"]}
+    prompts = {"qwen2": serve["prompts"], "mamba": mamba["prompts"]}
+    runs = {}
+    for name, key, kw, tenants, must in MEGA_RUNS:
+        eng = mega_engine(device, *models[key], **kw)
+        counting = CountingModel(eng.model)
+        eng.model = counting
+        held = ((cotenant(eng),) + ((holder(eng),) if tenants > 1 else ())
+                if tenants else ())
+        for p in prompts[key]:
+            eng.submit(p, max_new_tokens=32)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        st = dict(eng.stats)
+        toks = sum(len(r.out_tokens) for r in done)
+        log(f"phase 7: mega {name} ({kw}"
+            + (f", co-tenants {held}" if held else "")
+            + f"): served {len(done)} requests, {toks} tokens, "
+            f"{st['steps']} steps, {counting.decode_calls} ticks in "
+            f"{wall:.2f} s: {toks / wall:.1f} tok/s")
+        log(f"phase 7: mega {name}: stats {json.dumps(st)}")
+        log(f"phase 7: mega {name}: launches {json.dumps(launches)}")
+        got = {r.uid: list(r.out_tokens) for r in done}
+        if got != want_toks[key]:
+            bad = sorted(u for u in set(got) | set(want_toks[key])
+                         if got.get(u) != want_toks[key].get(u))
+            raise AssertionError(f"mega {name}: tokens of uids {bad} differ "
+                                 f"from phase 5's host loop")
+        zero = [k for k in must if not st[k] > 0]
+        if zero:
+            raise AssertionError(f"mega {name}: counters at 0: {zero}")
+        eng._sync_shard_pages_from_table()
+        kv = eng.caches.kv
+        if (st["allocs"] != st["frees"]
+                or any(eng.stats["shard_pages_live"])
+                or any(a.size for a in eng.slot_aux)
+                or (kv is not None and not bool((kv.page_table == -1).all()))):
+            raise AssertionError(f"mega {name}: pages still held after "
+                                 f"draining (allocs {st['allocs']}, frees "
+                                 f"{st['frees']}, live per shard "
+                                 f"{eng.stats['shard_pages_live']})")
+        L = eng.cfg.num_layers
+        pre = "" if eng.num_shards == 1 else "sharded_"
+        want_l = {k: 0 for k in launches}
+        want_l[pre + "alloc_txn"] = st["alloc_txns"]
+        want_l[pre + "free_txn"] = st["free_txns"]
+        want_l[pre + "defrag_txn"] = st["defrag_waves"] + st["rebalance_waves"]
+        path = [pre + "alloc_txn", pre + "free_txn"] + (
+            [pre + "defrag_txn"] if tenants else [])
+        if kv is None:
+            want_l["ssd_scan"] = L * len(counting.prefill_lens)
+            path.append("ssd_scan")
+        else:
+            want_l["paged_attention"] = L * counting.decode_calls
+            path.append("paged_attention")
+        if launches != want_l:
+            raise AssertionError(f"mega {name}: launches {launches} != the "
+                                 f"engine's counts {want_l}")
+        if min(launches[k] for k in path) == 0:
+            raise AssertionError(f"mega {name}: a kernel of the path never "
+                                 f"launched: {launches}")
+        runs[name] = dict(launches=launches, tok_s=toks / wall, wall=wall,
+                          stats=st, key=key,
+                          **({} if tenants else {"engine": eng}))
+        del eng, counting
+    out["runs"] = runs
+
+    # profiled reruns of the unpressured runs; every step's synchronizing
+    # calls counted (the flags' read is the only one of a steady tick)
+    for name, host_name in (("qwen2-0.5b", "qwen2-0.5b"), (MAMBA, MAMBA)):
+        r = runs[name]
+        eng = r.pop("engine")
+        for p in prompts[r["key"]]:
+            eng.submit(p, max_new_tokens=32)
+        with DeviceProfile() as prof:
+            steady, other, done = steady_syncs(eng)
+        if sorted(list(x.out_tokens) for x in done) != sorted(
+                want_toks[r["key"]].values()):
+            raise AssertionError(f"mega {name}: the profiled rerun's tokens "
+                                 f"differ")
+        if set(steady) != {1}:
+            raise AssertionError(f"mega {name}: synchronizing calls of the "
+                                 f"steady ticks {steady} (want 1 each)")
+        busy = prof.busy_ms()
+        wall = 1e3 * r["wall"]
+        hb, hw = host_busy[host_name]
+        r.update(busy=busy, idle=1 - busy / wall, steady=steady, other=other,
+                 host_idle=1 - hb / hw)
+        log(f"phase 7: mega {name}: device busy {busy:.0f} ms of the "
+            f"unprofiled run's {wall:.0f} ms wall: device idle "
+            f"{100 * r['idle']:.1f}% (host loop, phases 5-6: busy "
+            f"{hb:.0f} ms of {hw:.0f} ms, idle {100 * r['host_idle']:.1f}%)")
+        log(f"phase 7: mega {name}: synchronizing calls a step in the "
+            f"rerun (count: steps): steady ticks {steady}, other steps "
+            f"{other}")
+        for key_, us, n in prof.rows[:6]:
+            log(f"phase 7:   {us / 1e3:9.2f} ms  {n:6d}x  {key_[:90]}")
+        del eng
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3587,11 +3815,23 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     timing = phase_timing(device, serve, alloc_logs, pressure, waves)
     sh_timing = phase_sharded_timing(device, sh3, sharded_runs)
+    # the models phase 7 serves again (weights already on the card)
+    models = {"qwen2": (serve["engine"].model._model,
+                        serve["engine"].params),
+              "mamba": (mamba["engine"].model._model,
+                        mamba["engine"].params)}
     del serve["engine"]
     mamba_dev = phase_mamba_profile(mamba)
     pw_timing = phase_piecewise_timing(pw_inputs, pw_errs)
     var_timing = phase_variants_timing(device)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    mega = phase_mega(device, models, serve, mamba, {
+        "qwen2-0.5b": (timing["busy"], 1e3 * serve["wall"]),
+        MAMBA: (mamba_dev["busy"], 1e3 * mamba["wall"])})
+    del models
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
     def mean(xs):
         return sum(xs) / len(xs) if xs else 0.0
@@ -3802,8 +4042,19 @@ def main(argv=None) -> int:
                                   ("bound_ms_by_width", "bound"),
                                   ("path_by_width", "path"))}}
                if by else {})})
+    # each kernel's launches in the mega-step runs (phase 7)
+    for k in kernels:
+        k["launches_by_mega_run"] = {run: r["launches"].get(k["name"], 0)
+                                     for run, r in mega["runs"].items()}
     p_toks = sum(len(t) for t in serve["tokens"].values())
-    log(f"phase 6: total {time.perf_counter() - t_start:.1f} s; serving "
+    log(f"phase 7: mega-step against the host loop, tok/s: " + "; ".join(
+        f"{run} {r['tok_s']:.1f}" for run, r in mega["runs"].items())
+        + f" (host loop, phase 5: qwen2-0.5b {serve['tok_s']:.1f}, under "
+        f"pressure {p_toks / pressure['wall']:.1f}, sharded under pressure "
+        f"{sharded_runs['pressure']['tok_s']:.1f}, {MAMBA} "
+        f"{mamba['tok_s']:.1f}); launches_per_tick "
+        f"{json.dumps(mega['launches_per_tick'])}")
+    log(f"total {time.perf_counter() - t_start:.1f} s; serving "
         f"{serve['tok_s']:.1f} tok/s; under pressure "
         f"{p_toks / pressure['wall']:.1f} tok/s; sharded "
         + "; ".join(f"{k} {r['tok_s']:.1f} tok/s"

@@ -3,6 +3,7 @@
     ouro = Ouroboros(cfg, "vl_chunk", device="cuda")
     state = ouro.init()                                   # core.arena.Arena
     state, offs = ouro.alloc(state, sizes_bytes, mask)    # offs in words
+    state, offs, slot, rank, mask = ouro.grow(state, need, 256, lanes)
     state = ouro.free(state, offs, sizes_bytes, mask)
     state, fwd = ouro.defrag(state)                       # one wave
     state = ouro.write_pattern(state, offs, sizes_bytes, tag)  # data path
@@ -125,6 +126,38 @@ class Ouroboros:
         return transactions.sharded_alloc(
             self.cfg, self.num_shards, self.kind, self.family, state,
             sizes_bytes, mask, home, self.walk)
+
+    def grow(self, state, need, size_bytes: int, lanes: int, home=None):
+        """The decode mega-step's transaction: grant each slot ``b`` its
+        ``need[b]`` new ``size_bytes`` regions, ``need`` a per-slot
+        vector ``(B,)`` on the arena's device.  Lanes come from
+        ``transactions.grow_lanes`` (slot-major, as the host loop
+        issues them); the grant is ONE ordinary alloc transaction (one
+        ``alloc_txn`` or ``sharded_alloc_txn`` launch on the card), so
+        nothing is read back to the host.  ``home`` (sharded only) gives
+        each slot's home shard ``(B,)``; None homes slot ``b`` on
+        ``b % num_shards``.  Returns ``(state, lane offsets, lane slot,
+        lane rank, lane mask)``; offset −1 marks a failed or masked
+        lane."""
+        lane_slot, lane_rank, lane_mask = transactions.grow_lanes(need,
+                                                                  lanes)
+        sizes = torch.full((lanes,), size_bytes, dtype=torch.int32,
+                           device=need.device)
+        if self.num_shards == 1:
+            if home is not None:
+                raise ValueError("home requires num_shards > 1")
+            state, offs = transactions.alloc(self.cfg, self.kind,
+                                             self.family, state, sizes,
+                                             lane_mask)
+        else:
+            if home is None:
+                home = torch.arange(need.shape[0], dtype=torch.int32,
+                                    device=need.device)
+            lane_home = (home.to(torch.int32) % self.num_shards)[lane_slot]
+            state, offs = transactions.sharded_alloc(
+                self.cfg, self.num_shards, self.kind, self.family, state,
+                sizes, lane_mask, lane_home, self.walk)
+        return state, offs, lane_slot, lane_rank, lane_mask
 
     def free(self, state, offsets_words, sizes_bytes, mask,
              shard_hint=None):

@@ -101,6 +101,31 @@ def free_math(cfg: HeapConfig, kind: str, family: str, mem, ctl,
     return mem, ctl
 
 
+def grow_lanes(need, lanes: int):
+    """Expand a per-slot page-need vector ``(B,)`` into allocation lanes:
+    lane ``j`` carries slot ``slot[j]``'s ``rank[j]``-th new page, slots
+    packed in slot order, ``mask[j]`` marks live lanes.  Every shape is
+    fixed by ``B`` and ``lanes`` and nothing is read back to the host.
+    Demand past ``lanes`` is silently truncated: callers compare the
+    granted counts against ``need``.
+
+    >>> import torch
+    >>> slot, rank, mask = grow_lanes(torch.tensor([2, 0, 1]), lanes=4)
+    >>> slot.tolist(), rank.tolist(), mask.tolist()
+    ([0, 0, 2, 2], [0, 1, 0, 0], [True, True, True, False])
+    """
+    need = need.to(torch.int32)
+    B = need.shape[0]
+    cum = torch.cumsum(need, 0, dtype=torch.int32)
+    j = torch.arange(lanes, dtype=torch.int32, device=need.device)
+    mask = j < cum[-1]
+    slot = torch.clamp(torch.searchsorted(cum, j, right=True, out_int32=True),
+                       max=B - 1)
+    rank = torch.where(mask, j - (cum[slot] - need[slot]),
+                       torch.zeros_like(j))
+    return slot, rank, mask
+
+
 def alloc(cfg: HeapConfig, kind: str, family: str, state: arena.Arena,
           sizes_bytes, mask):
     """One bulk alloc transaction: ``(arena, word offsets)``, −1 for a

@@ -8,6 +8,9 @@ Each completed request prints a ``REQ <uid> <tokens...>`` line, then a
 ``served N requests`` summary and the engine stats.  Weights are random,
 made from ``--seed``.  ``--device cpu`` runs the plain PyTorch versions
 of the kernels (with ``--smoke`` for a model the CPU can hold).
+``--mega`` serves through the fused decode mega-step (one device tick,
+one ``(B,)`` flag read per tick) and records ``launches_per_tick`` in
+the stats before serving.
 """
 from __future__ import annotations
 
@@ -34,6 +37,10 @@ def main(argv=None):
                     help="shard the KV page allocator into N independent "
                          "arenas with overflow routing (core/shards.py); "
                          "per-shard occupancy lands in the engine stats")
+    ap.add_argument("--mega", action="store_true",
+                    help="fused decode mega-step: grow, decode, sample and "
+                         "advance on the device with one (B,) flag read "
+                         "per tick; launches_per_tick lands in the stats")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
@@ -54,7 +61,10 @@ def main(argv=None):
     eng = ServingEngine(model, params, max_batch=args.max_batch,
                         max_seq=args.max_seq,
                         defrag_threshold=args.defrag_threshold,
-                        num_shards=args.num_shards, device=device)
+                        num_shards=args.num_shards, mega_step=args.mega,
+                        max_new_cap=max(args.max_new, 16), device=device)
+    if args.mega:
+        eng.launches_per_tick()  # recorded in the stats before serving
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         plen = int(rng.integers(4, args.max_seq // 4))

@@ -77,13 +77,18 @@ class Model:
             caches.kv.seq_lens.add_(tokens.shape[1])
         return logits[:, -1], caches
 
-    def decode_step(self, params, tokens, caches, dtype=torch.bfloat16):
+    def decode_step(self, params, tokens, caches, dtype=torch.bfloat16,
+                    advance=None):
         """One token per sequence.  tokens: (B, 1).  Returns (logits
-        (B, V_pad) float32, caches with every ``seq_lens`` advanced)."""
+        (B, V_pad) float32, caches with every ``seq_lens`` advanced).
+        ``advance`` (B,) bool advances only those rows' ``seq_lens`` (the
+        mega-step's masked advance: a row left out must also have its
+        K/V write land in a table hole, where it drops)."""
         logits, caches = TF.forward(self.cfg, params, tokens, mode="decode",
                                     caches=caches, dtype=dtype)
         if caches.kv is not None:
-            caches.kv.seq_lens.add_(1)
+            caches.kv.seq_lens.add_(1 if advance is None
+                                    else advance.to(torch.int32))
         return logits[:, 0], caches
 
 

@@ -106,9 +106,9 @@ def apply_ssm_layer(cfg: ModelConfig, p, x, cache=None):
         h0 = cache[0]
         # O(1) decode recurrence (S == 1)
         decay = torch.exp(dt[:, 0] * a[None, :])             # (B, H)
-        rep = H // g
-        bh = torch.repeat_interleave(b[:, 0], rep, dim=1)    # (B, H, N)
-        ch = torch.repeat_interleave(c[:, 0], rep, dim=1)
+        rep = H // g   # each group's B, C repeated over its heads
+        bh = b[:, 0, :, None].expand(B, g, rep, n).reshape(B, H, n)
+        ch = c[:, 0, :, None].expand(B, g, rep, n).reshape(B, H, n)
         hf = (h0 * decay[:, :, None, None]
               + (dt[:, 0, :, None] * xh[:, 0].float())[..., None]
               * bh[:, :, None, :].float())

@@ -8,9 +8,11 @@ slots for its 16-token span.
 The heaps are updated in place (``append1``/``prefill_write1`` write
 into the layer views), since they are the largest state the server
 owns.  A write through a table hole (−1) or past the table is dropped,
-as in the reference; admission relies on that.  ``paged_attend1`` runs
-the paged attention kernel on the card and its plain version on the
-CPU (``kernels/ops.paged_attention``).
+as in the reference; admission and the mega-step's failed slots rely
+on that.  The writes keep fixed shapes and read nothing back to the
+host, as does ``scatter_grant_words`` (the mega-step's grants into the
+page table).  ``paged_attend1`` runs the paged attention kernel on the
+card and its plain version on the CPU (``kernels/ops.paged_attention``).
 
 ``forwarding_page_map``/``apply_forwarding`` carry a defragmentation
 wave's forwarding table over to the KV heaps and the page table.
@@ -131,12 +133,31 @@ def _table_ids(page_table, pidx):
 
 
 def _store(layer: KVLayer, ids, slot, k_new, v_new):
-    """Write rows where the page id is mapped; holes drop."""
+    """Write rows where the page id is mapped; holes drop.
+
+    Fixed shapes, no host read: a dropped row repeats the first mapped
+    row's write (its page, slot and value), or, when no row is mapped,
+    writes page 0 slot 0's own value back.  Every index written twice
+    then carries one value, so the words do not depend on the order of
+    the writes."""
     np_ = layer.k.shape[0]
-    ok = (ids >= 0) & (ids < np_)
-    i, s = ids[ok].long(), slot[ok].long()
-    layer.k[i, s] = k_new[ok].to(layer.k.dtype)
-    layer.v[i, s] = v_new[ok].to(layer.v.dtype)
+    ok = ((ids >= 0) & (ids < np_)).reshape(-1)
+    if not ok.numel():
+        return layer
+    i, s = ids.reshape(-1).long(), slot.reshape(-1).long()
+    # (1,) index tensors throughout: a 0-dim index would be read back
+    first = torch.argmax(ok.to(torch.int32)).reshape(1)  # 0: none mapped
+    any_ok = ok.index_select(0, first)
+    zero = torch.zeros_like(first)
+    i = torch.where(ok, i, torch.where(any_ok, i.index_select(0, first),
+                                       zero))
+    s = torch.where(ok, s, torch.where(any_ok, s.index_select(0, first),
+                                       zero))
+    for heap, new in ((layer.k, k_new), (layer.v, v_new)):
+        new = new.reshape((-1,) + tuple(heap.shape[2:])).to(heap.dtype)
+        keep = torch.where(any_ok[:, None, None], new.index_select(0, first),
+                           heap[0, 0][None])
+        heap[i, s] = torch.where(ok[:, None, None], new, keep)
     return layer
 
 
@@ -157,6 +178,42 @@ def prefill_write1(layer: KVLayer, page_table, k, v, pos0: int = 0
     pos = (pos0 + torch.arange(S, device=k.device))[None, :].expand(B, S)
     ids = _table_ids(page_table, pos // page)
     return _store(layer, ids, pos % page, k, v)
+
+
+def scatter_grant_words(page_table, page_counts, lane_slot, lane_rank,
+                        lane_offs, grant_ok, wpp: int):
+    """Scatter granted arena WORD offsets into the page table, in place
+    (the mega-step's path: grants go kernel → page id ``offset // wpp``
+    → table without a host read).  Lane ``j`` lands at row
+    ``lane_slot[j]``, column ``page_counts[slot] + lane_rank[j]``; lanes
+    with ``grant_ok[j]`` False, and columns past the table, are dropped.
+    Fixed shapes: each entry compares against every lane and takes the
+    page of the one that hits it (granted lanes hit distinct entries).
+    Returns ``page_table``.
+
+    >>> import torch
+    >>> pt = torch.full((2, 3), -1, dtype=torch.int32)
+    >>> _ = scatter_grant_words(
+    ...     pt, torch.tensor([1, 0]),                   # pages mapped
+    ...     torch.tensor([0, 1]), torch.tensor([0, 0]),  # lane slot, rank
+    ...     torch.tensor([128, 0]),                     # granted words
+    ...     torch.tensor([True, True]), wpp=64)
+    >>> pt.tolist()
+    [[-1, 2, -1], [0, -1, -1]]
+    """
+    B, P = page_table.shape
+    dev = page_table.device
+    col = page_counts.long()[lane_slot.long()] + lane_rank.long()
+    rows = torch.arange(B, device=dev)[:, None, None]
+    cols = torch.arange(P, device=dev)[None, :, None]
+    hit = (grant_ok[None, None, :] & (lane_slot.long()[None, None, :] == rows)
+           & (col[None, None, :] == cols))
+    pages = torch.div(lane_offs, wpp, rounding_mode="floor").to(torch.int32)
+    new = torch.where(hit, pages[None, None, :],
+                      torch.zeros_like(pages)[None, None, :]).sum(-1)
+    page_table.copy_(torch.where(hit.any(-1), new.to(torch.int32),
+                                 page_table))
+    return page_table
 
 
 def forwarding_page_map(fwd, wpp: int, max_span: int):

@@ -40,13 +40,41 @@ no KV pages, and its state lives in the model's dense state caches
 (the admitted slot's rows written in place by its prefill).  Page ids
 of a slot's aux grant are kept as one int64 numpy array.
 
-Host loop only: the fused decode mega-step (ROADMAP A9),
-snapshot/restore (A13), tracer and metrics (A14) are still to port.
+Two decode loops share admission, retirement and the failure path:
+
+``mega_step=False`` (host loop)  the host computes each slot's page
+    need, issues the bulk grow, scatters the grants, decodes, and reads
+    the tokens back.
+
+``mega_step=True`` (fused decode mega-step)  the per-slot decode state
+    (:class:`MegaState`) lives on the device, allocated once and only
+    ever written in place.  One tick computes the page need from it,
+    runs the bulk grow (``Ouroboros.grow``: one transaction, one kernel
+    launch on the card), scatters the grants into the page table
+    (``kv_cache.scatter_grant_words``), decodes with paged attention,
+    argmaxes and advances the state, all on the device, with no host
+    read inside (on the card the tick runs under
+    ``torch.cuda.set_sync_debug_mode("error")``).  The host then reads
+    one ``(B,)`` uint8 flag vector (bit 0 finished, bit 1 grant failed)
+    and keeps integer mirrors of the state; page ids and tokens come
+    back only at retirement.  A failed slot keeps its length and its
+    K/V write drops in a table hole; the host returns its partial
+    grants, runs a defrag wave and lets the next tick retry, and after
+    two failed ticks in a row evicts the youngest slot.  Unlike the
+    reference, nothing is admitted while a slot's last grant failed:
+    the reference re-admits the evicted request at the next step, before
+    the slots that starved can grow, so under sustained pressure (the
+    96-page run of ``chip_smoke.py``) it evicts and re-admits the same
+    request over and over while the other slots stall.
+    Tokens equal the host loop's.
+
+Snapshot/restore (A13), tracer and metrics (A14) are still to port.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -71,14 +99,51 @@ class Request:
     done: bool = False
 
 
+class MegaState(NamedTuple):
+    """The mega-step's device-resident per-slot state, ``(B,)`` each
+    unless noted.  The tensors are made once and only written in place
+    (admission, the tick, release), so the tick always reads and writes
+    the same storage."""
+    last_tok: torch.Tensor     # int32, token to decode this tick
+    lens: torch.Tensor         # int32, tokens generated (prompt + new)
+    page_counts: torch.Tensor  # int32, KV pages mapped
+    active: torch.Tensor       # bool
+    budget: torch.Tensor       # int32, new tokens still allowed
+    eos: torch.Tensor          # int32, eos id, −1 = none
+    out_buf: torch.Tensor      # (B, max_new_cap) int32, tokens so far
+    n_out: torch.Tensor        # int32, tokens in out_buf
+
+
+@contextlib.contextmanager
+def no_host_sync(device):
+    """Raise on any operation that waits for the card inside the block
+    (``torch.cuda.set_sync_debug_mode("error")``); nothing on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _ceil_div(x, d: int):
+    return -torch.div(-x, d, rounding_mode="floor")
+
+
 class ServingEngine:
     def __init__(self, model: Model, params, *, max_batch: int = 8,
                  max_seq: int = 512, num_pages: Optional[int] = None,
                  kv_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
                  defrag_threshold: Optional[float] = None,
                  num_shards: int = 1,
-                 rebalance_threshold: Optional[int] = None, device="cuda"):
-        for name, v in (("max_batch", max_batch), ("max_seq", max_seq)):
+                 rebalance_threshold: Optional[int] = None,
+                 mega_step: bool = False, max_new_cap: int = 256,
+                 device="cuda"):
+        for name, v in (("max_batch", max_batch), ("max_seq", max_seq),
+                        ("max_new_cap", max_new_cap)):
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
         if not isinstance(num_shards, int) or num_shards < 1:
@@ -117,6 +182,8 @@ class ServingEngine:
         self.page_bytes = 256  # logical bytes per page in the heap
         self.num_shards = num_shards
         self.rebalance_threshold = rebalance_threshold
+        self.mega_step = bool(mega_step)
+        self.max_new_cap = max_new_cap
 
         # per-modality page policy: the SSM state rides the same arena
         # as KV pages, aux_pages per admitted slot (0 for dense models)
@@ -147,6 +214,29 @@ class ServingEngine:
         # victim (it loses the least generated work)
         self._admit_ord = np.zeros(max_batch, np.int64)
         self._admit_counter = 0
+        if self.mega_step:
+            B, dev = max_batch, self.device
+
+            def zeros(dtype=torch.int32):
+                return torch.zeros(B, dtype=dtype, device=dev)
+
+            self.mega = MegaState(
+                last_tok=zeros(), lens=zeros(), page_counts=zeros(),
+                active=zeros(torch.bool), budget=zeros(),
+                eos=torch.full((B,), -1, dtype=torch.int32, device=dev),
+                out_buf=torch.zeros((B, max_new_cap), dtype=torch.int32,
+                                    device=dev),
+                n_out=zeros())
+            # slot b homes on b % num_shards, as in the host loop
+            self._homes = (torch.arange(B, dtype=torch.int32, device=dev)
+                           % num_shards)
+            # host mirrors, advanced from the per-tick flags only
+            self._pages_host = np.zeros(B, np.int64)
+            self._nout_host = np.zeros(B, np.int64)
+            self._fail_streak = np.zeros(B, np.int64)
+            # slots whose grant failed on the last tick: they grow before
+            # anything is admitted
+            self._starving = np.zeros(B, bool)
         self.stats = {"allocs": 0, "frees": 0, "steps": 0,
                       "alloc_failures": 0,
                       "arena_mem_words": int(self.alloc_state.mem.numel()),
@@ -168,11 +258,20 @@ class ServingEngine:
                       # sharded_defrag_txn launch each)
                       "rebalance_waves": 0,
                       # arena pages each admitted slot holds beyond KV
-                      "aux_pages_per_slot": self.aux_pages}
+                      "aux_pages_per_slot": self.aux_pages,
+                      # the decode loop, and the kernel launches of one
+                      # steady tick (``launches_per_tick``)
+                      "mega_step": self.mega_step,
+                      "launches_per_tick": None}
         self.refresh_frag_stats()
 
     # ---- request lifecycle -------------------------------------------------
     def submit(self, prompt, max_new_tokens=32, eos_id=None) -> int:
+        if self.mega_step and max_new_tokens > self.max_new_cap:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} exceeds the mega-step "
+                f"device token buffer (max_new_cap={self.max_new_cap}); "
+                f"raise max_new_cap at engine construction")
         self._uid += 1
         self.waiting.append(Request(self._uid, np.asarray(prompt, np.int32),
                                     max_new_tokens, eos_id))
@@ -223,16 +322,36 @@ class ServingEngine:
 
     def _note_shard_pages(self, offs, delta: int):
         """Move the per-shard live-page counts by ``delta`` for granted
-        or freed word offsets; returns their owning shards."""
+        or freed word offsets; returns their owning shards.  The
+        mega-step skips the count (its grants never reach the host):
+        :meth:`_sync_shard_pages_from_table` recomputes it."""
         shard = offs // self._shard_words
-        self._shard_pages += delta * np.bincount(
-            shard, minlength=self.num_shards).astype(np.int64)
-        self.stats["shard_pages_live"] = [int(x) for x in self._shard_pages]
+        if not self.mega_step:
+            self._shard_pages += delta * np.bincount(
+                shard, minlength=self.num_shards).astype(np.int64)
+            self.stats["shard_pages_live"] = [int(x)
+                                              for x in self._shard_pages]
         return shard
 
-    def _bulk_free(self, pages):
+    def _sync_shard_pages_from_table(self):
+        """Per-shard live pages recomputed from the page table and the
+        aux pages (the mega-step's only source of them): one (B, P)
+        read, made on demand (rebalance checks), never by the tick."""
+        self._shard_pages[:] = 0
+        pages = [a for a in self.slot_aux if a.size]
+        if self.caches.kv is not None:
+            pt = self.caches.kv.page_table.cpu().numpy().astype(np.int64)
+            pages.append(pt[pt >= 0])
+        if pages:
+            self._shard_pages += np.bincount(
+                np.concatenate(pages) * self.wpp // self._shard_words,
+                minlength=self.num_shards).astype(np.int64)
+        self.stats["shard_pages_live"] = [int(x) for x in self._shard_pages]
+
+    def _bulk_free(self, pages, count_stats: bool = True):
         """ONE free transaction returning ``pages`` (ids, a list or an
-        array)."""
+        array).  ``count_stats`` False leaves ``frees`` alone (grants
+        that were never counted as allocs either)."""
         pages = np.asarray(pages, np.int64)
         if not pages.size:
             return
@@ -244,7 +363,8 @@ class ServingEngine:
                            device=self.device)
         self.alloc_state = self.ouro.free(self.alloc_state, offs_t, sizes,
                                           offs_t >= 0)
-        self.stats["frees"] += int(pages.shape[0])
+        if count_stats:
+            self.stats["frees"] += int(pages.shape[0])
         self.stats["free_txns"] += 1
         self._note_shard_pages(offs[offs >= 0], -1)
 
@@ -342,6 +462,8 @@ class ServingEngine:
         ``rebalance_threshold``."""
         if self.num_shards == 1 or self.rebalance_threshold is None:
             return
+        if self.mega_step:
+            self._sync_shard_pages_from_table()
         live = self._shard_pages
         if int(live.max() - live.min()) <= self.rebalance_threshold:
             return
@@ -386,9 +508,13 @@ class ServingEngine:
             if pages:
                 pages[:] = remap(np.asarray(pages, np.int64)).tolist()
         self.slot_aux = [remap(a) if a.size else a for a in self.slot_aux]
+        # mid-flight a mega slot's page ids live only in the page table,
+        # which apply_forwarding rewrote above
         return len(sp)
 
     def _admit(self):
+        if self.mega_step and self._starving.any():
+            return
         for slot in range(self.max_batch):
             if self.slot_req[slot] is not None or not self.waiting:
                 continue
@@ -421,20 +547,23 @@ class ServingEngine:
                                            row, dtype=self.compute_dtype)
             if kv is not None:
                 kv.seq_lens[slot] = lp
-            req.out_tokens.append(int(torch.argmax(logits[0])))
+            first = int(torch.argmax(logits[0]))
+            req.out_tokens.append(first)
             self.slot_req[slot] = req
             self.slot_len[slot] = lp + 1
             self._admit_counter += 1
             self._admit_ord[slot] = self._admit_counter
+            if self.mega_step:
+                self._mega_admit(slot, req, first)
 
     # ---- graceful degradation: evict + requeue, cancel ----------------------
 
-    def _youngest_active(self) -> Optional[int]:
+    def _youngest_active(self, exclude=()) -> Optional[int]:
         """The eviction victim: the most recently admitted active slot
-        (greedy decode replays its stream identically after
-        re-admission)."""
+        not in ``exclude`` (greedy decode replays its stream identically
+        after re-admission)."""
         slots = [s for s in range(self.max_batch)
-                 if self.slot_req[s] is not None]
+                 if self.slot_req[s] is not None and s not in exclude]
         if not slots:
             return None
         return max(slots, key=lambda s: int(self._admit_ord[s]))
@@ -526,21 +655,227 @@ class ServingEngine:
                     self._release(s)
         return finished
 
+    # ---- the fused decode mega-step --------------------------------------
+
+    def _mega_admit(self, slot: int, req: Request, first: int):
+        """Write an admitted slot's control state into the device state.
+        The pages granted at admission are already in its page-table
+        row, which from here on is their only holder (``slot_pages`` is
+        cleared; retirement reads the row back)."""
+        npages = len(self.slot_pages[slot])
+        self._pages_host[slot] = npages
+        self.slot_pages[slot] = []
+        self._nout_host[slot] = 1
+        self._fail_streak[slot] = 0
+        ms = self.mega
+        for t, v in ((ms.last_tok, first), (ms.lens, int(self.slot_len[slot])),
+                     (ms.page_counts, npages), (ms.active, True),
+                     (ms.budget, req.max_new_tokens - 1),
+                     (ms.eos, -1 if req.eos_id is None else int(req.eos_id)),
+                     (ms.n_out, 1)):
+            t[slot] = v
+        ms.out_buf[slot] = 0
+        ms.out_buf[slot, 0] = first
+
+    def _tick(self, alloc_state, caches, ms: MegaState):
+        """One decode tick on the device, reading nothing back: each
+        slot's page need, ONE grow transaction (always issued, also when
+        every lane is masked), the grants into the page table (a slot
+        that missed any page gets none of them: it fails the tick),
+        decode with paged attention, greedy argmax, and the in-place
+        advance of ``ms`` for the slots that did not fail.  Returns
+        ``(alloc_state, flags, lanes)``: flags (B,) uint8, bit 0
+        finished, bit 1 failed; lanes the grow's (offsets, slots, mask),
+        None for an attention-free model (nothing grows, nothing
+        fails)."""
+        B, dev = self.max_batch, self.device
+        kv = caches.kv
+        if kv is not None:
+            need = torch.clamp(_ceil_div(ms.lens + 1, self.page)
+                               - ms.page_counts, min=0)
+            need = torch.where(ms.active, need, torch.zeros_like(need))
+            alloc_state, offs, l_slot, l_rank, l_mask = self.ouro.grow(
+                alloc_state, need, self.page_bytes, B,
+                home=self._homes if self.num_shards > 1 else None)
+            ok = l_mask & (offs >= 0)
+            slots = torch.arange(B, dtype=torch.int32, device=dev)
+            granted = ((l_slot[None, :] == slots[:, None])
+                       & ok[None, :]).sum(1)
+            failed = ms.active & (granted < need)
+            grant_ok = ok & ~failed[l_slot.long()]
+            KV.scatter_grant_words(kv.page_table, ms.page_counts, l_slot,
+                                   l_rank, offs, grant_ok, self.wpp)
+            ms.page_counts.add_(torch.where(failed, torch.zeros_like(need),
+                                            need))
+            lanes = (offs, l_slot, l_mask)
+        else:
+            failed = torch.zeros(B, dtype=torch.bool, device=dev)
+            lanes = None
+        advance = ms.active & ~failed
+        logits, _ = self.model.decode_step(
+            self.params, ms.last_tok[:, None].long(), caches,
+            dtype=self.compute_dtype, advance=advance)
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        col = torch.clamp(ms.n_out, max=self.max_new_cap - 1).long()[:, None]
+        ms.out_buf.scatter_(1, col, torch.where(
+            advance[:, None], nxt[:, None], ms.out_buf.gather(1, col)))
+        step = advance.to(torch.int32)
+        ms.budget.sub_(step)
+        finished = advance & ((ms.budget <= 0)
+                              | ((ms.eos >= 0) & (nxt == ms.eos)))
+        ms.last_tok.copy_(torch.where(advance, nxt, ms.last_tok))
+        ms.lens.add_(step)
+        ms.n_out.add_(step)
+        ms.active.logical_and_(~finished)
+        flags = finished.to(torch.uint8) | (failed.to(torch.uint8) << 1)
+        return alloc_state, flags, lanes
+
+    def _step_mega(self) -> List[Request]:
+        """One mega-step tick and its host follow-up: the tick (guarded
+        against host syncs on the card), the one read of the flags, the
+        host mirrors advanced from them, the failure path, retirement
+        (where page ids and tokens come back)."""
+        active = [s for s in range(self.max_batch)
+                  if self.slot_req[s] is not None]
+        if not active:
+            return []
+        with no_host_sync(self.device):
+            self.alloc_state, flags, lanes = self._tick(
+                self.alloc_state, self.caches, self.mega)
+        flags = flags.cpu().numpy()           # the tick's one host read
+        fin = (flags & 1) > 0
+        fail = (flags & 2) > 0
+        self._starving[:] = fail
+        has_kv = self.caches.kv is not None
+        # the grants recomputed with the device's need formula, so that
+        # allocs and frees stay balanced
+        grants = 0
+        for s in active:
+            if fail[s]:
+                self.stats["alloc_failures"] += 1
+                continue
+            if has_kv:
+                missing = max(-(-(int(self.slot_len[s]) + 1) // self.page)
+                              - int(self._pages_host[s]), 0)
+                grants += missing
+                self._pages_host[s] += missing
+            self.slot_len[s] += 1
+            self._nout_host[s] += 1
+        if has_kv:
+            self.stats["alloc_txns"] += 1
+            self.stats["allocs"] += grants
+        if fail.any():
+            self._recover_failed(fail, fin, *lanes)
+        else:
+            self._fail_streak[:] = 0
+        return [self._release_mega(int(s)) for s in np.nonzero(fin)[0]
+                if self.slot_req[s] is not None]   # not evicted this tick
+
+    def _recover_failed(self, fail, fin, l_offs, l_slot, l_mask):
+        """After a failed tick (host side, as in the host loop): return
+        the failed slots' partial grants (uncounted), run ONE defrag
+        wave, and let the next tick retry.  A slot failing twice in a
+        row means the wave cannot reclaim enough: the youngest active
+        slot not finishing this tick is evicted (requeued)."""
+        offs = l_offs.cpu().numpy()
+        slot = l_slot.cpu().numpy()
+        leaked = l_mask.cpu().numpy() & (offs >= 0) & fail[slot]
+        self._free_offsets(offs[leaked])
+        self.defrag()
+        self._fail_streak[fail] += 1
+        self._fail_streak[~fail] = 0
+        if (self._fail_streak >= 2).any():
+            # a slot finishing this tick retires (and frees) next
+            victim = self._youngest_active(
+                exclude={int(s) for s in np.nonzero(fin)[0]})
+            if victim is not None:
+                self._evict_slot(victim)
+                self._fail_streak[:] = 0
+
+    def _free_offsets(self, offs_words):
+        """Uncounted bulk free of granted word offsets that never
+        reached the table (nor the ``allocs`` count)."""
+        if len(offs_words):
+            self._bulk_free(offs_words.astype(np.int64) // self.wpp,
+                            count_stats=False)
+
+    def _release_mega(self, slot: int) -> Request:
+        """Retire a finished mega slot: its tokens come back from the
+        device, then its pages are freed and its state zeroed."""
+        req = self.slot_req[slot]
+        n = int(self._nout_host[slot])
+        req.out_tokens = self.mega.out_buf[slot, :n].cpu().tolist()
+        req.done = True
+        self._release(slot)
+        return req
+
+    def launches_per_tick(self) -> int:
+        """Hand-written kernel launches of ONE steady decode tick,
+        counted by ``kernels/ops.LAUNCHES`` over a tick run on copies of
+        the arena, the caches and the slot state (the engine's own are
+        left as they are): the mega-step's tick, or the host loop's
+        decode plus its bulk grow (none for an attention-free model).
+        On the card a qwen2 tick is one grow transaction plus one
+        ``paged_attention`` a layer, at every ``max_batch``; on the CPU
+        the plain versions run and the count is 0.  Recorded in
+        ``stats["launches_per_tick"]``."""
+        from repro_torch.kernels import ops
+        alloc_state, caches = _clone(self.alloc_state), _clone(self.caches)
+        before = dict(ops.LAUNCHES)
+        if self.mega_step:
+            with no_host_sync(self.device):
+                self._tick(alloc_state, caches, _clone(self.mega))
+        else:
+            toks = torch.zeros((self.max_batch, 1), dtype=torch.int64,
+                               device=self.device)
+            self.model.decode_step(self.params, toks, caches,
+                                   dtype=self.compute_dtype)
+            if caches.kv is not None:   # _bulk_alloc's lane shapes
+                lanes = 2 * self.max_batch
+                sizes = torch.full((lanes,), self.page_bytes,
+                                   dtype=torch.int32, device=self.device)
+                mask = torch.arange(lanes, device=self.device) < 1
+                kw = ({} if self.num_shards == 1 else {
+                    "shard_hint": torch.zeros(lanes, dtype=torch.int32,
+                                              device=self.device)})
+                self.ouro.alloc(alloc_state, sizes, mask, **kw)
+        n = sum(ops.LAUNCHES[k] - before[k] for k in before)
+        self.stats["launches_per_tick"] = n
+        return n
+
     def step(self) -> List[Request]:
-        """Admit, decode one token for all active slots, retire finished
-        requests.  Returns the requests finished this step."""
+        """Admit, decode one token for all active slots (the mega-step
+        or the host loop), retire finished requests.  Returns the
+        requests finished this step."""
         self._admit()
         self._maybe_rebalance()
-        finished = self._step_host()
+        finished = self._step_mega() if self.mega_step else self._step_host()
         self.stats["steps"] += 1
         self._maybe_auto_defrag()
         return finished
 
     def _release(self, slot: int):
         """Free every page the slot holds (KV, then aux: one transaction
-        each) and zero its state."""
-        self._bulk_free(self.slot_pages[slot])
-        self.slot_pages[slot] = []
+        each) and zero its state, host and device.  Mid-flight a mega
+        slot's KV page ids live only in its page-table row, read back
+        here."""
+        if self.mega_step:
+            kv = self.caches.kv
+            if kv is not None:
+                row = kv.page_table[slot].cpu().numpy()
+                self._bulk_free(row[row >= 0])
+            ms = self.mega
+            for t, v in ((ms.last_tok, 0), (ms.lens, 0), (ms.page_counts, 0),
+                         (ms.active, False), (ms.budget, 0), (ms.eos, -1),
+                         (ms.n_out, 0)):
+                t[slot] = v
+            self._pages_host[slot] = 0
+            self._nout_host[slot] = 0
+            self._fail_streak[slot] = 0
+            self._starving[slot] = False
+        else:
+            self._bulk_free(self.slot_pages[slot])
+            self.slot_pages[slot] = []
         self._free_aux(slot)
         kv = self.caches.kv
         if kv is not None:
@@ -557,3 +892,12 @@ class ServingEngine:
             if not self.waiting and all(r is None for r in self.slot_req):
                 break
         return out
+
+
+def _clone(x):
+    """A deep copy of a tensor or a (nested) NamedTuple of tensors."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return type(x)(*(_clone(v) for v in x))

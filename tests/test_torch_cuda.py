@@ -1,4 +1,6 @@
-"""The port's CUDA kernels held to their plain versions on the card.
+"""The port's CUDA kernels held to their plain versions on the card, and
+the fused decode mega-step held to the host loop there (tokens, launches
+a tick, one synchronizing call a steady tick).
 
 These tests need an NVIDIA card and ``nvcc``; without one they skip
 (the decision is made inside the fixture).  On a machine with a card,
@@ -928,3 +930,142 @@ def test_ring_and_va_waves_match_plain_math_on_the_card(cuda, variant):
         assert int((cf[0] >= 0).sum()) > 0
         want = {"defrag_txn": 1} if S == 1 else {"sharded_defrag_txn": 2}
         assert {k: lg[k] for k in want} == want
+
+
+# --------------------------------------------------------------------------
+# the fused decode mega-step on the card
+# --------------------------------------------------------------------------
+
+def _smoke_engine(cuda, arch, mega, **kw):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServingEngine
+    cfg = get_arch(arch).smoke()
+    m = build_model(cfg)
+    return ServingEngine(m, m.init(0, device=cuda), kv_dtype=torch.bfloat16,
+                         compute_dtype=torch.bfloat16, device=cuda,
+                         mega_step=mega, **kw)
+
+
+def _serve(eng, n=6, max_new=12, seed=0, lo=4, hi=60):
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        eng.submit(rng.integers(2, eng.cfg.vocab_size,
+                                int(rng.integers(lo, hi))),
+                   max_new_tokens=max_new)
+    return {r.uid: list(r.out_tokens) for r in eng.run_until_done(500)}
+
+
+def _exhaust(eng):
+    """The reference's exhaustion trace: a co-tenant binds every chunk
+    to the 2048-B class and frees them."""
+    dev = eng.device
+    big = torch.full((16,), 2048, dtype=torch.int32, device=dev)
+    eng.alloc_state, offs = eng.ouro.alloc(
+        eng.alloc_state, big, torch.ones(16, dtype=torch.bool, device=dev))
+    eng.alloc_state = eng.ouro.free(eng.alloc_state, offs, big, offs >= 0)
+
+
+@pytest.mark.parametrize("arch,kw,pressure", [
+    ("qwen2-0.5b", dict(max_batch=4, max_seq=96), False),
+    ("qwen2-0.5b", dict(max_batch=4, max_seq=96, num_shards=4), False),
+    ("qwen2-0.5b", dict(max_batch=2, max_seq=96, num_pages=16), True),
+    ("mamba2-780m", dict(max_batch=4, max_seq=96), False),
+], ids=("qwen2", "qwen2-4-shards", "qwen2-exhausted", "mamba2"))
+def test_mega_tokens_equal_host_loop_on_the_card(cuda, arch, kw, pressure):
+    """bf16 on the card: the mega-step gives the host loop's tokens,
+    balances allocs and frees, leaves every table row a hole, and under
+    exhaustion fails ticks and runs defrag waves."""
+    out = []
+    for mega in (False, True):
+        eng = _smoke_engine(cuda, arch, mega, **kw)
+        if pressure:
+            _exhaust(eng)
+        ops.reset_launches()
+        toks = _serve(eng)
+        torch.cuda.synchronize()
+        out.append((toks, eng, dict(ops.LAUNCHES)))
+    (host, _, _), (toks, eng, launches) = out
+    assert toks == host and len(toks) == 6
+    st = eng.stats
+    assert st["allocs"] == st["frees"] and st["mega_step"] is True
+    if eng.caches.kv is not None:
+        assert bool((eng.caches.kv.page_table == -1).all())
+        S = eng.num_shards
+        grow = "alloc_txn" if S == 1 else "sharded_alloc_txn"
+        assert launches[grow] == st["alloc_txns"] > 0
+        L = eng.cfg.num_layers
+        assert launches["paged_attention"] % L == 0
+        # one grow a tick, beside the admissions' grants
+        assert 0 < launches["paged_attention"] // L <= st["alloc_txns"]
+    if pressure:
+        assert st["alloc_failures"] > 0 and st["defrag_waves"] > 0
+        assert launches["defrag_txn"] == st["defrag_waves"]
+    eng._sync_shard_pages_from_table()
+    assert not any(eng.stats["shard_pages_live"])
+    assert not bool(eng.mega.active.any())
+
+
+@pytest.mark.parametrize("mega", (True, False), ids=("mega", "host"))
+@pytest.mark.parametrize("arch,S", [("qwen2-0.5b", 1), ("qwen2-0.5b", 4),
+                                    ("mamba2-780m", 1)])
+def test_launches_per_tick_on_the_card(cuda, arch, S, mega):
+    """One grow transaction plus one ``paged_attention`` a layer for
+    qwen2 (none for mamba2) at max_batch 2 and 8, the allocator's part
+    as its kernel counted it (``kernels.alloc_txn.launch_stats``)."""
+    from repro_torch.kernels import alloc_txn as AT
+    counts = []
+    for mb in (2, 8):
+        eng = _smoke_engine(cuda, arch, mega, max_batch=mb, max_seq=64,
+                            num_shards=S)
+        AT.launch_stats(reset=True)
+        ops.reset_launches()
+        n = eng.launches_per_tick()
+        made = AT.launch_stats()
+        counts.append(n)
+        assert eng.stats["launches_per_tick"] == n == sum(
+            ops.LAUNCHES.values())
+        if eng.caches.kv is None:
+            assert sum(made.values()) == 0
+        else:
+            grow = "alloc_txn" if S == 1 else "sharded_alloc_txn"
+            assert ops.LAUNCHES[grow] == made[grow] == 1
+            assert sum(made.values()) == 1
+            assert ops.LAUNCHES["paged_attention"] == eng.cfg.num_layers
+    want = 0 if eng.caches.kv is None else 1 + eng.cfg.num_layers
+    assert counts == [want, want]
+
+
+@pytest.mark.parametrize("arch,S", [("qwen2-0.5b", 1), ("qwen2-0.5b", 4),
+                                    ("mamba2-780m", 1)])
+def test_mega_tick_reads_the_card_once(cuda, arch, S):
+    """Each steady tick (no admission, no retirement, no failure) makes
+    exactly one synchronizing call, the flags' read: every step is run
+    under ``set_sync_debug_mode("warn")`` and its warnings counted (the
+    tick's device part itself runs under ``"error"``)."""
+    import warnings
+    eng = _smoke_engine(cuda, arch, True, max_batch=4, max_seq=96,
+                        num_shards=S)
+    rng = np.random.default_rng(1)
+    for _ in range(4):
+        eng.submit(rng.integers(2, eng.cfg.vocab_size, 20),
+                   max_new_tokens=20)
+    steady = []
+    prev = torch.cuda.get_sync_debug_mode()
+    try:
+        while eng.waiting or any(r is not None for r in eng.slot_req):
+            admitting = bool(eng.waiting)
+            fails = eng.stats["alloc_failures"]
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                done = eng.step()
+                torch.cuda.set_sync_debug_mode(prev)
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            if not (admitting or done
+                    or eng.stats["alloc_failures"] != fails):
+                steady.append(syncs)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert len(steady) >= 10
+    assert set(steady) == {1}, steady
