@@ -71,7 +71,12 @@ Phases, each reporting on its own lines:
    holes, page-id and word-offset tables, float32 and bf16 (both sides
    widen the same values to float32: atol 1e-5 for each), its time a
    call on CUDA events (the wrapper's host work inside) and its three
-   kernels' profiler device time; ``ssd_scan``
+   kernels' profiler device time; then with ``window`` and ``ring`` at
+   mixtral-8x7b's decode shapes (B 8, Hq 32, Hkv 8, D 128, window 4096,
+   lengths 1-8,192 on both sides of it): a 512-slot table and a 258-slot
+   ring (window // 16 + 2), holes, both table modes and dtypes, atol
+   1e-5, each case's device time, CUDA-event time, plain time and bound
+   (the attended pages' bytes); ``ssd_scan``
    against ``ssd_plain`` at mamba2-780m's heads (H 48, P 64, N 128, G 1,
    chunk 64) at 1, 4 and 7 chunks, bf16 and float32 (atol 1e-4 + rtol
    1e-4), and at 1-7 chunks its three kernels' profiler device time a
@@ -143,7 +148,20 @@ Phases, each reporting on its own lines:
    launches equal to the engine's counts; then profiled reruns of the
    qwen2 and mamba2 runs with every step's synchronizing calls counted
    (one, the flags' read, a steady tick), their device idle share beside
-   the host loop's (phases 5-6), and tok/s of both loops.  Each phase
+   the host loop's (phases 5-6), and tok/s of both loops.  Last, alone
+   on the card, the moe slice: full-width mixtral-8x7b cut to 16 of its
+   32 layers (47.0 GB of bf16 weights; 32 do not fit one 80-GB card)
+   serves phase 5's 16 prompts plus one of 4,160 tokens (past the
+   4096-token window), 32 new each, max_batch 8: through the host loop
+   ("phase 5: mixtral-8x7b" lines: each admission's aux grant of 3,584
+   pages, ``allocs == frees``, no page held, the launches equal to the
+   engine's counts, then a rerun holding every ``paged_attention`` call
+   of some ticks, one of them where the long request's window masks,
+   to the plain version at atol 1e-5, and a profiled rerun: device busy
+   and idle share), then through the mega-step ("phase 7:
+   mixtral-8x7b" lines: ``launches_per_tick`` 17, the host loop's
+   tokens, one synchronizing call a steady tick, counted in the timed
+   run).  Each phase
    prints its seconds.  Then one JSON line of per-kernel numbers (each
    kernel's launches in the mega-step runs too), then the card line,
    then the result line ``{"ok": true, "device": {...}}`` last.
@@ -298,6 +316,29 @@ def parts_text(got, made, calls) -> str:
                      f"of {m} recorded)" for k, m in made.items() if m)
 
 
+def device_rows(prof, device=None):
+    """[(name, device us, launches)] of a finished ``torch.profiler``
+    session, largest first: every device activity (kernel, copy, set)
+    summed by name from the profiler's raw records.  The same sums as
+    ``key_averages()``'s device self time, without building its event
+    tree, which takes about 0.1 ms a record (a minute for a serving
+    rerun's 300,000)."""
+    import torch
+    device = device or torch.autograd.DeviceType.CUDA
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != device
+                or getattr(e, "is_user_annotation", lambda: False)()):
+            continue
+        us = (e.duration_ns() / 1e3 if hasattr(e, "duration_ns")
+              else float(e.duration_us()))
+        tot = acc.setdefault(e.name(), [0.0, 0])
+        tot[0] += us
+        tot[1] += 1
+    return sorted(((k, us, n) for k, (us, n) in acc.items() if us > 0),
+                  key=lambda r: -r[1])
+
+
 class DeviceProfile:
     """``torch.profiler`` over a block of work: device time and launch
     count of each kernel whose symbol contains a given name.  With
@@ -331,13 +372,7 @@ class DeviceProfile:
                          for k, m in kernel_launches().items()}
             self.calls = {k: m - self._calls0[k]
                           for k, m in ops.LAUNCHES.items()}
-        self.rows = []
-        for evt in self._prof.key_averages():
-            us = (getattr(evt, "self_device_time_total", None)
-                  or getattr(evt, "self_cuda_time_total", 0) or 0)
-            if us > 0:
-                self.rows.append((evt.key, float(us), int(evt.count)))
-        self.rows.sort(key=lambda r: -r[1])
+        self.rows = device_rows(self._prof)
         return False
 
     def kernel(self, name: str):
@@ -1526,19 +1561,17 @@ def attn_inputs(device, dtype, wpp, seed=0, B=8, Hq=14, Hkv=2, D=64,
             torch.from_numpy(seq).to(device))
 
 
-def attn_bound_ms(q, k, table, seq, wpp) -> tuple:
-    """Least time for this input: valid K and V bytes + q + out + table,
-    or the float32 operations, whichever is larger."""
-    import torch
-    from repro_torch.kernels.ref import page_ids
+def attn_bound_ms(q, k, table, seq, wpp, window=None, ring=False) -> tuple:
+    """Least time for this input: the K and V bytes of the attended
+    tokens (below seq_len, inside the window, on the ring's last lap, of
+    pages that are not holes) + q + out + table, or the float32
+    operations, whichever is larger."""
+    from repro_torch.kernels.ref import page_ids, slot_tokens
     B, Hq, D = q.shape
     NP, page, Hkv, _ = k.shape
-    P = table.shape[1]
     pid = page_ids(table, wpp).cpu()
-    tok = torch.arange(P * page)
-    valid = (tok[None, :] < seq.cpu()[:, None].long()) \
-        & (pid >= 0).repeat_interleave(page, 1)
-    t_valid = int(valid.sum())
+    _, valid = slot_tokens(table.cpu(), seq.cpu(), page, window, ring)
+    t_valid = int((valid & (pid >= 0)[:, :, None]).sum())
     el = k.element_size()
     nbytes = (2 * t_valid * Hkv * D * el + q.numel() * q.element_size()
               + B * Hq * D * 4 + table.numel() * 4 + B * 4)
@@ -1551,17 +1584,19 @@ ATTN_KERNELS = ("paged_attention", "paged_attention_values",
                 "paged_attention_merge")
 
 
-def attn_device_ms(q, k, v, table, seq, wpp, reps=50):
+def attn_device_ms(q, k, v, table, seq, wpp, reps=50, **kw):
     """Device ms of one ``paged_attention`` call from ``torch.profiler``
     over ``reps`` calls: the sum over its three kernels (scores, values,
     merge) of each one's mean over the launches the profiler recorded;
-    each kernel's part; the fewest launches recorded of any of them."""
+    each kernel's part; the fewest launches recorded of any of them.
+    ``kw``: ``window`` and ``ring``."""
     from repro_torch.kernels import paged_attention as pa_kernel
 
     def session():
         with DeviceProfile() as prof:
             for _ in range(reps):
-                pa_kernel.paged_attention(q, k, v, table, seq, wpp=wpp)
+                pa_kernel.paged_attention(q, k, v, table, seq, wpp=wpp,
+                                          **kw)
         return prof
 
     got = profiled(session, {k: reps for k in ATTN_KERNELS}).got
@@ -1611,6 +1646,102 @@ def phase_attention(device):
             res[(dtype, wpp)] = dict(err=err, ms=ms, wall=wall, plain=plain,
                                      bound=bound, by=by, pps=pps,
                                      splits=splits)
+    return res
+
+
+# mixtral-8x7b's decode attention: 32 query and 8 kv heads of 128, a
+# 4096-token sliding window; sequence lengths on both sides of the
+# window, up to 8192 tokens
+MIXTRAL = "mixtral-8x7b"
+MIX_ATTN = dict(B=8, Hq=32, Hkv=8, D=128, page=16, window=4096)
+MIX_SEQ = (1, 100, 4096, 4097, 4160, 5000, 8000, 8192)
+
+
+def mix_attn_inputs(device, dtype, wpp, ring, seed=0):
+    """Unit normals at mixtral's heads: a table of 512 page slots (the
+    8192-token row's pages) or a ring of window // page + 2 = 258 slots,
+    shorter than the longest rows need; holes inside the window, before
+    it and on the ring."""
+    import numpy as np
+    import torch
+    B, Hq, Hkv, D = (MIX_ATTN[k] for k in ("B", "Hq", "Hkv", "D"))
+    page, W = MIX_ATTN["page"], MIX_ATTN["window"]
+    P = W // page + 2 if ring else max(MIX_SEQ) // page
+    NP = B * P + 64
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    q = normal(B, Hq, D)
+    k, v = normal(NP, page, Hkv, D), normal(NP, page, Hkv, D)
+    rng = np.random.default_rng(seed)
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    table[1, 3] = -1            # inside the 100-token row
+    lo = 254 if ring else 260
+    table[5, lo:lo + 2] = -1    # inside row 5's window (or ring)
+    table[7, 0:5] = -1          # before the 8192-token row's window
+    table[6, P - 1] = -1        # the last slot
+    if wpp:
+        table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
+    return (q, k, v, torch.from_numpy(table).to(device),
+            torch.tensor(MIX_SEQ, dtype=torch.int32, device=device), P)
+
+
+def phase_attention_mixtral(device):
+    """``paged_attention`` with ``window`` and ``ring`` against its plain
+    version at mixtral-8x7b's decode shapes: the window alone over a
+    512-slot table, and a 258-slot ring table with the window (what the
+    reference's windowed decode passes), both table modes, float32 and
+    bf16 (atol 1e-5); the device time of a call, its time on CUDA
+    events, the plain version's time and the bound (bytes of the
+    attended tokens at 3.35 TB/s)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa_kernel
+    from repro_torch.kernels import ref
+
+    W, res = MIX_ATTN["window"], {}
+    for ring in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            for wpp in (None, 64):
+                q, k, v, table, seq, P = mix_attn_inputs(device, dtype, wpp,
+                                                         ring)
+                kw = dict(wpp=wpp, window=W, ring=ring)
+                got = pa_kernel.paged_attention(q, k, v, table, seq, **kw)
+                want = ref.paged_attention(q, k, v, table, seq, **kw)
+                whole = ref.paged_attention(q, k, v, table, seq, wpp=wpp)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not (err <= 1e-5) or not torch.isfinite(got).all():
+                    raise AssertionError(
+                        f"paged_attention {MIXTRAL} ring={ring} {dtype} "
+                        f"wpp={wpp}: max error {err} > 1e-5")
+                if not float((whole - want).abs().max()) > 1e-3:
+                    raise AssertionError("the window masked nothing")
+                ms, parts, rec = attn_device_ms(q, k, v, table, seq, wpp,
+                                                window=W, ring=ring)
+                wall = time_ms(lambda: pa_kernel.paged_attention(
+                    q, k, v, table, seq, **kw), 100)
+                plain = time_ms(lambda: ref.paged_attention(
+                    q, k, v, table, seq, **kw), 2, warmup=1)
+                bound, by = attn_bound_ms(q, k, table, seq, wpp, W, ring)
+                pps, splits = pa_kernel.geometry(MIX_ATTN["page"], P)
+                tag = (f"{'ring' if ring else 'window'} "
+                       f"{str(dtype).split('.')[-1]} "
+                       f"{'offsets' if wpp else 'ids'}")
+                log(f"phase 4: paged_attention {MIXTRAL} {tag} (B 8, Hq 32, "
+                    f"Hkv 8, D 128, window {W}, P {P}, seq {list(MIX_SEQ)}): "
+                    f"max error {err:.3g} (atol 1e-5); kernel {ms:.5f} ms a "
+                    f"call (profiler device time: scores {parts[0]:.5f} + "
+                    f"values {parts[1]:.5f} + merge {parts[2]:.5f}, at least "
+                    f"{rec} of 50 calls recorded), {wall:.5f} ms a call on "
+                    f"CUDA events, plain {plain:.3f} ms, bound {bound:.5f} ms "
+                    f"({by}); {splits} splits of {pps} pages")
+                res[tag] = dict(err=err, ms=ms, wall=wall, plain=plain,
+                                bound=bound, by=by, P=P)
+                del q, k, v, got, want, whole
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2670,10 +2801,10 @@ def attention_in_serving(eng, serve, every=8, atol=1e-5):
     from repro_torch.kernels import ops, ref
     kernel, calls, worst = ops.paged_attention, [0, 0], [0.0]
 
-    def checked(q, k, v, table, seq, wpp=None):
-        out = kernel(q, k, v, table, seq, wpp=wpp)
+    def checked(q, k, v, table, seq, **kw):
+        out = kernel(q, k, v, table, seq, **kw)
         if calls[0] % every == 0:
-            want = ref.paged_attention(q, k, v, table, seq, wpp=wpp)
+            want = ref.paged_attention(q, k, v, table, seq, **kw)
             worst[0] = max(worst[0], float((out - want).abs().max()))
             calls[1] += 1
         calls[0] += 1
@@ -3739,6 +3870,315 @@ def phase_mega(device, models, serve, mamba, host_busy):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the moe slice: mixtral-8x7b at full width, 16 of its 32 layers
+# ---------------------------------------------------------------------------
+
+# 32 layers of bf16 weights are 93.4 GB, past one 80-GB card; 16 are 47.0
+MIXTRAL_LAYERS = 16
+MIX_LONG = 4160          # a prompt past the 4096-token window
+MIX_MAX_SEQ = MIX_LONG + 32
+# aux pages a slot: 16 layers x top-2 x d_ff 14336 x 2 B in 256-B pages
+MIX_QUOTA = 3584
+
+
+def mixtral_model(device, seed):
+    """Full-width mixtral-8x7b cut to ``MIXTRAL_LAYERS`` layers, random
+    bf16 weights from ``seed`` (each leaf drawn in float32 and cast as it
+    is drawn), and phase 5's 16 prompts plus one of ``MIX_LONG`` tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    full = get_arch(MIXTRAL)
+    cfg = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    leaves = [params["embed"], params["lm_head"],
+              *params["final_norm"].values(),
+              *(w for b in params["blocks"] for g in b.values()
+                for w in g.values())]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    rng = np.random.default_rng(seed + 1)
+    prompts = make_requests(cfg, seed, 16, 16, 448) + [
+        rng.integers(2, cfg.vocab_size, MIX_LONG)]
+    log(f"phase 5: {MIXTRAL} full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query / {cfg.num_kv_heads} kv heads of "
+        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, {cfg.num_experts} experts "
+        f"top-{cfg.num_experts_per_tok}, "
+        f"window {cfg.sliding_window}, vocab {cfg.padded_vocab}, untied "
+        f"lm_head) at depth {cfg.num_layers} of {full.num_layers}: "
+        f"{nbytes} bytes of bf16 weights ({nbytes / 1e9:.2f} GB) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model, params, prompts
+
+
+def mixtral_engine(device, model, params, **kw):
+    import torch
+    from repro_torch.serve.engine import ServingEngine
+    return ServingEngine(model, params, max_batch=8, max_seq=MIX_MAX_SEQ,
+                         kv_dtype=torch.bfloat16,
+                         compute_dtype=torch.bfloat16, device=device, **kw)
+
+
+def aux_grants(eng):
+    """Record each admission's aux grant (pages) as the engine makes it."""
+    grants, grant = [], eng._alloc_aux
+
+    def recorded(slot):
+        ok = grant(slot)
+        if ok:
+            grants.append(len(eng.slot_aux[slot]))
+        return ok
+    eng._alloc_aux = recorded
+    return grants
+
+
+def drained(eng, name):
+    """``allocs == frees``, no page in the table, no aux page held."""
+    st = eng.stats
+    kv = eng.caches.kv
+    if eng.mega_step:
+        eng._sync_shard_pages_from_table()
+    if (st["allocs"] != st["frees"] or any(st["shard_pages_live"])
+            or any(a.size for a in eng.slot_aux)
+            or not bool((kv.page_table == -1).all())):
+        raise AssertionError(f"{name}: pages still held after draining "
+                             f"(allocs {st['allocs']}, frees {st['frees']})")
+
+
+def serving_launches(launches, st, decode_calls, L, name):
+    """The run's launches equal the engine's counts: one alloc_txn a
+    transaction, one free_txn a retirement, one paged_attention a layer
+    a tick, and nothing else."""
+    want = {k: 0 for k in launches}
+    want.update(alloc_txn=st["alloc_txns"], free_txn=st["free_txns"],
+                paged_attention=L * decode_calls)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} != the engine's "
+                             f"counts {want}")
+    if min(launches[k] for k in ("alloc_txn", "free_txn",
+                                 "paged_attention")) == 0:
+        raise AssertionError(f"{name}: a kernel of the path never "
+                             f"launched: {launches}")
+
+
+def mixtral_checked_rerun(eng, prompts, want_toks, every=32, atol=1e-5):
+    """The host loop's traffic again, every call of every ``every``-th
+    tick and of the first tick in which the long request's window masks
+    held to the plain version at the run's own inputs (the ring
+    and window the model passes); the tokens must equal the timed
+    run's.  Returns (ticks checked, of them masking, calls checked, max
+    error)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    kernel, L = ops.paged_attention, eng.cfg.num_layers
+    W = eng.cfg.sliding_window
+    st = {"calls": 0, "checked": 0, "ticks": [], "masking": [], "err": 0.0,
+          "on": False}
+
+    def checked(q, k, v, table, seq, **kw):
+        out = kernel(q, k, v, table, seq, **kw)
+        tick, layer = divmod(st["calls"], L)
+        if layer == 0:
+            masks = int(seq.max()) > W
+            st["on"] = (tick % every == 0
+                        or (masks and not st["masking"]))
+            if st["on"]:
+                st["ticks"].append(tick)
+                if masks:
+                    st["masking"].append(tick)
+        if st["on"]:
+            if kw.get("window") != W or not kw.get("ring"):
+                raise AssertionError(f"the model passed {kw} to "
+                                     f"paged_attention")
+            want = ref.paged_attention(q, k, v, table, seq, **kw)
+            st["err"] = max(st["err"], float((out - want).abs().max()))
+            st["checked"] += 1
+        st["calls"] += 1
+        return out
+
+    eng.alloc_state = eng.ouro.init()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    ops.paged_attention = checked
+    try:
+        done = eng.run_until_done()
+    finally:
+        ops.paged_attention = kernel
+    torch.cuda.synchronize()
+    if sorted(r.out_tokens for r in done) != sorted(want_toks.values()):
+        raise AssertionError(f"{MIXTRAL}: the checked rerun's tokens differ")
+    if len(st["ticks"]) < 3 or not st["masking"] or not st["err"] <= atol:
+        raise AssertionError(f"{MIXTRAL}: paged_attention at the run's "
+                             f"inputs: ticks {st['ticks']} (masking "
+                             f"{st['masking']}), max error {st['err']} "
+                             f"(atol {atol})")
+    return st
+
+
+def phase_mixtral_serve(device, model, params, prompts):
+    """Phase 5's requests plus one of ``MIX_LONG`` tokens through the host
+    loop: one aux grant of the quota per admission, ``allocs == frees``,
+    no page held, the launches equal to the engine's counts; then a
+    checked rerun (``mixtral_checked_rerun``) and a profiled one."""
+    import gc
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.paged.kv_cache import modality_page_quota
+
+    t0 = time.perf_counter()
+    eng = mixtral_engine(device, model, params)
+    quota = modality_page_quota(eng.cfg)
+    grants = aux_grants(eng)
+    counting = CountingModel(eng.model)
+    eng.model = counting
+    L = eng.cfg.num_layers
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    torch.cuda.synchronize()
+    log(f"phase 5: {MIXTRAL}: engine max_batch 8, max_seq {MIX_MAX_SEQ}, "
+        f"{eng.aux_pages} aux pages a slot (quota {quota}), KV heaps of "
+        f"{eng.caches.kv.layers.k.shape[1]} pages ("
+        f"{2 * eng.caches.kv.layers.k.numel() * 2 / 1e9:.2f} GB); "
+        f"set-up {time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = dict(eng.stats)
+    toks = sum(len(r.out_tokens) for r in done)
+    log(f"phase 5: {MIXTRAL}: served {len(done)} requests (prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens), "
+        f"{toks} tokens, {st['steps']} steps, {counting.decode_calls} "
+        f"decode ticks in {wall:.2f} s: {toks / wall:.1f} tok/s (prefill "
+        f"included: {counting.secs['prefill']:.2f} s host wall)")
+    log(f"phase 5: {MIXTRAL}: stats {json.dumps(st)}")
+    log(f"phase 5: {MIXTRAL}: launches {json.dumps(launches)}; aux grants "
+        f"{grants}")
+    if len(done) != len(prompts) or any(len(r.out_tokens) != 32
+                                        for r in done):
+        raise AssertionError(f"{MIXTRAL}: not every request finished with "
+                             f"32 tokens")
+    if any(not (0 <= t < eng.cfg.padded_vocab) for r in done
+           for t in r.out_tokens):
+        raise AssertionError(f"{MIXTRAL}: a token out of range")
+    if grants != [MIX_QUOTA] * len(prompts) or quota != MIX_QUOTA:
+        raise AssertionError(f"{MIXTRAL}: aux grants {grants}, quota {quota} "
+                             f"(want {MIX_QUOTA} at each of {len(prompts)} "
+                             f"admissions)")
+    if st["alloc_failures"]:
+        raise AssertionError(f"{MIXTRAL}: {st['alloc_failures']} failed "
+                             f"grants")
+    drained(eng, f"{MIXTRAL} host loop")
+    serving_launches(launches, st, counting.decode_calls, L, MIXTRAL)
+    tokens = {r.uid: r.out_tokens for r in done}
+
+    t0 = time.perf_counter()
+    chk = mixtral_checked_rerun(eng, prompts, tokens)
+    log(f"phase 5: {MIXTRAL}: paged_attention at the run's own inputs: "
+        f"{chk['checked']} calls of ticks {chk['ticks']} (the long "
+        f"request's window masks in tick {chk['masking']}) held to the "
+        f"plain version on the card, max error {chk['err']:.3g} (atol "
+        f"1e-5); the rerun's tokens equal the timed run's "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    eng.alloc_state = eng.ouro.init()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    with DeviceProfile() as prof:
+        done = eng.run_until_done()
+    if sorted(r.out_tokens for r in done) != sorted(tokens.values()):
+        raise AssertionError(f"{MIXTRAL}: the profiled rerun's tokens differ")
+    busy = prof.busy_ms()
+    attn = [prof.kernel(KERNEL_SYMBOLS[k]) for k in ATTN_KERNELS]
+    attn_ms = sum(ms * n for ms, n in attn if ms)
+    log(f"phase 5: {MIXTRAL}: profiled rerun: device busy {busy:.0f} ms of "
+        f"the timed run's {1e3 * wall:.0f} ms wall: device idle "
+        f"{100 * (1 - busy / (1e3 * wall)):.1f}%; paged_attention "
+        f"{attn_ms:.1f} ms over {attn[0][1]} recorded calls")
+    for key_, us, n in prof.rows[:6]:
+        log(f"phase 5:   {us / 1e3:9.2f} ms  {n:6d}x  {key_[:90]}")
+    out = dict(tokens=tokens, launches=launches, tok_s=toks / wall,
+               wall=wall, busy=busy, idle=1 - busy / (1e3 * wall),
+               checked=chk, stats=st,
+               attn_ms=attn_ms, attn_calls=attn[0][1])
+    del eng, counting, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mixtral_mega(device, model, params, prompts, host):
+    """The same traffic through the mega-step: ``launches_per_tick`` 1 +
+    16 (one grow, one ``paged_attention`` a layer, as the wrappers and
+    the allocator kernel counted them); then one timed run, each step's
+    synchronizing calls counted (one a steady tick), with the host
+    loop's tokens, the launches equal to the engine's counts and nothing
+    held after draining."""
+    import gc
+    import torch
+    from repro_torch.kernels import ops
+    eng = mixtral_engine(device, model, params, mega_step=True,
+                         max_new_cap=32)
+    L = eng.cfg.num_layers
+    made0, calls0 = kernel_launches(), dict(ops.LAUNCHES)
+    n = eng.launches_per_tick()
+    made = {k: m - made0[k] for k, m in kernel_launches().items()
+            if m - made0[k]}
+    calls = {k: m - calls0[k] for k, m in ops.LAUNCHES.items()
+             if m - calls0[k]}
+    if (n != 1 + L or made != {"alloc_txn": 1}
+            or calls != {"alloc_txn": 1, "paged_attention": L}):
+        raise AssertionError(f"{MIXTRAL} mega: launches_per_tick {n} (want "
+                             f"{1 + L}), wrappers counted {calls}, kernels "
+                             f"{made}")
+    log(f"phase 7: {MIXTRAL}: launches_per_tick {n} at max_batch 8 (the "
+        f"allocator's part as its kernel counted it: {made})")
+    counting = CountingModel(eng.model)
+    eng.model = counting
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    steady, other, done = steady_syncs(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = dict(eng.stats)
+    toks = sum(len(r.out_tokens) for r in done)
+    log(f"phase 7: mega {MIXTRAL}: served {len(done)} requests, {toks} "
+        f"tokens, {st['steps']} steps, {counting.decode_calls} ticks in "
+        f"{wall:.2f} s: {toks / wall:.1f} tok/s (host loop "
+        f"{host['tok_s']:.1f}; each step under sync debug mode \"warn\")")
+    log(f"phase 7: mega {MIXTRAL}: stats {json.dumps(st)}")
+    log(f"phase 7: mega {MIXTRAL}: launches {json.dumps(launches)}")
+    log(f"phase 7: mega {MIXTRAL}: synchronizing calls a step (count: "
+        f"steps): steady ticks {steady}, other steps {other}")
+    if {r.uid: list(r.out_tokens) for r in done} != host["tokens"]:
+        raise AssertionError(f"mega {MIXTRAL}: tokens differ from the host "
+                             f"loop's")
+    if set(steady) != {1}:
+        raise AssertionError(f"mega {MIXTRAL}: synchronizing calls of the "
+                             f"steady ticks {steady} (want 1 each)")
+    drained(eng, f"mega {MIXTRAL}")
+    serving_launches(launches, st, counting.decode_calls, L,
+                     f"mega {MIXTRAL}")
+    out = dict(launches=launches, tok_s=toks / wall, wall=wall, stats=st,
+               steady=steady, launches_per_tick=n)
+    del eng, counting
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3799,6 +4239,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     attn = phase_attention(device)
+    mix_attn = phase_attention_mixtral(device)
     ssd = phase_ssd(device)
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
@@ -3832,6 +4273,25 @@ def main(argv=None) -> int:
         MAMBA: (mamba_dev["busy"], 1e3 * mamba["wall"])})
     del models
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
+    # the moe slice last, alone on the card: 47 GB of weights and 32 GB
+    # of KV heaps leave no room for the other models
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"phase 5: {MIXTRAL}: device memory before it "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    mix_model, mix_params, mix_prompts = mixtral_model(device, args.seed)
+    mix_host = phase_mixtral_serve(device, mix_model, mix_params,
+                                   mix_prompts)
+    log(f"phase 5: {MIXTRAL}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mix_mega = phase_mixtral_mega(device, mix_model, mix_params,
+                                  mix_prompts, mix_host)
+    del mix_params
+    mega["runs"][f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)"] = mix_mega
+    log(f"phase 7: {MIXTRAL}: {time.perf_counter() - t0:.1f} s")
 
     def mean(xs):
         return sum(xs) / len(xs) if xs else 0.0
@@ -3894,6 +4354,8 @@ def main(argv=None) -> int:
             "differing_words": err["words"],
             "launches_by_run": {"qwen2-0.5b": serve["launches"][name],
                                 MAMBA: mamba["launches"][name],
+                                f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)":
+                                    mix_host["launches"][name],
                                 **variant_runs(name)},
             "ms": timing["k_times"][kind][0],
             "plain_ms": mean(timing["p_times"][kind]),
@@ -3964,13 +4426,31 @@ def main(argv=None) -> int:
                     "waves" if kind == "defrag" else "alloc")]["run_ms"]}}
                if kind != "free" else {}),
             **variant_fields(name)})
+    attn_err = max([r["err"] for r in attn.values()]
+                   + [r["err"] for r in mix_attn.values()]
+                   + [mix_host["checked"]["err"]])
     kernels.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:66",
         "launches": serve["launches"]["paged_attention"],
-        "max_abs_err": max(r["err"] for r in attn.values()),
-        "max_err": max(r["err"] for r in attn.values()),
+        "launches_by_run": {
+            "qwen2-0.5b": serve["launches"]["paged_attention"],
+            f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)":
+                mix_host["launches"]["paged_attention"]},
+        "max_abs_err": attn_err, "max_err": attn_err,
+        "mixtral_serving_inputs_max_err": mix_host["checked"]["err"],
+        # mixtral-8x7b's window (4096) and ring (258 slots) cases
+        "ms_by_input_mixtral": {t: r["wall"] for t, r in mix_attn.items()},
+        "device_ms_by_input_mixtral": {t: r["ms"]
+                                       for t, r in mix_attn.items()},
+        "plain_ms_by_input_mixtral": {t: r["plain"]
+                                      for t, r in mix_attn.items()},
+        "bound_ms_by_input_mixtral": {t: r["bound"]
+                                      for t, r in mix_attn.items()},
+        "max_abs_err_by_input_mixtral": {t: r["err"]
+                                         for t, r in mix_attn.items()},
+        "serving_device_ms_mixtral": mix_host["attn_ms"],
         # ms: CUDA events around the wrapper (its host work inside), as
         # for every earlier slice; device_ms: its kernels' profiler time
         "ms": main_attn["wall"], "plain_ms": main_attn["plain"],
@@ -4059,7 +4539,9 @@ def main(argv=None) -> int:
         f"{p_toks / pressure['wall']:.1f} tok/s; sharded "
         + "; ".join(f"{k} {r['tok_s']:.1f} tok/s"
                     for k, r in sharded_runs.items())
-        + f"; {MAMBA} {mamba['tok_s']:.1f} tok/s")
+        + f"; {MAMBA} {mamba['tok_s']:.1f} tok/s; {MIXTRAL} "
+        f"({MIXTRAL_LAYERS} layers) {mix_host['tok_s']:.1f} tok/s host loop, "
+        f"{mix_mega['tok_s']:.1f} mega")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ def get_arch(name: str) -> "ModelConfig":
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | ssm (the families ported so far)
+    family: str                    # dense | moe | ssm (the families ported so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -50,8 +50,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     logit_softcap: Optional[float] = None
 
+    # moe
     num_experts: int = 0
     num_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
 
     # ssm (mamba2 SSD)
     ssm_state: int = 0

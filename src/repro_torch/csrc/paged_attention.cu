@@ -2,8 +2,9 @@
 //
 // Replaces: src/repro/kernels/paged_attention.py::paged_attention (the
 // Pallas kernel; the reference host loop decodes with the jnp
-// paged_attend1, which computes the same function).  The plain PyTorch
-// version is src/repro_torch/kernels/ref.py::paged_attention.
+// paged_attend1, which computes the same function and adds the sliding
+// window and ring tables taken here too).  The plain PyTorch version is
+// src/repro_torch/kernels/ref.py::paged_attention.
 //
 // What it computes: for each sequence b and kv head h, the G = Hq/Hkv
 // query heads of that group attend over the tokens the page table maps,
@@ -11,7 +12,12 @@
 // scores (q . k) * D^-1/2, tokens at or past seq_len and table holes (-1)
 // masked, output acc / (l + 1e-30).  The table holds page ids, or arena
 // word offsets when wpp > 0 (page = floor(offset / wpp), so a -1 hole
-// stays -1).
+// stays -1).  window > 0 also masks tokens before seq_len - window; a
+// ring table's slot j holds absolute page cur - ((cur - j) mod P), cur
+// the page of token seq_len - 1, and its slots that hold no token of the
+// last lap are masked (pa_slot_range).  Each table slot's attended
+// tokens are one run [lo, hi) of its page, and a slot with none is
+// treated as a hole.
 //
 // What bounds it on the H100: the bytes of K and V it reads (each valid
 // token's D elements of one kv head, twice) at 3.35 TB/s, a fraction of a
@@ -39,7 +45,9 @@
 // pages of 16 tokens), so the split kernels' grid is B * Hkv *
 // ceil(P / pps) blocks (128 at the serving shapes, B 8, Hkv 2, P 32:
 // about one wave of the 132 SMs), needing no host read of seq_lens; a
-// split past its sequence exits at once.  A split block has 512 threads,
+// split that holds no attended token (past its sequence, before the
+// window) loads nothing and only writes its split maximum, -1e30, which
+// the values kernels of the later splits read.  A split block has 512 threads,
 // so its many short dependent chains (a score's 64 multiply-adds, a p V
 // sum's 16) overlap.  Every kernel loads its table entries beside
 // seq_len.
@@ -88,6 +96,38 @@ __host__ __device__ inline int pa_splits(int page, int P) {
   return (P + pps - 1) / pps;
 }
 
+// The run [*lo, *hi) of table slot j's tokens that a query at seq_len
+// seq attends (empty: *lo >= *hi).  The slot's absolute page is j, or in
+// a ring table cur - ((cur - j) mod P); its tokens at or past 0, below
+// seq and, with a window, at or past seq - window.
+__host__ __device__ inline void pa_slot_range(int j, int seq, int page,
+                                              int P, int window, int ring,
+                                              int* lo, int* hi) {
+  int a = j;
+  if (ring) {
+    const int cur = ((seq > 1 ? seq : 1) - 1) / page;
+    int r = (cur - j) % P;
+    if (r < 0) r += P;
+    a = cur - r;
+  }
+  const int base = a * page, first = window > 0 ? seq - window : 0;
+  *lo = first - base > 0 ? first - base : 0;
+  *hi = seq - base < page ? seq - base : page;
+  if (a < 0) *hi = 0;
+}
+
+// Table slots a fold visits: the slots up to the one holding token
+// seq - 1 (at most P); with a window and no ring it starts at the
+// window's first page.
+__host__ __device__ inline void pa_fold_span(int seq, int page, int P,
+                                             int window, int ring,
+                                             int* first, int* npages) {
+  int n = seq <= 0 ? 0 : (seq + page - 1) / page;
+  *npages = n > P ? P : n;
+  *first = 0;
+  if (!ring && window > 0 && seq > window) *first = (seq - window) / page;
+}
+
 // bytes rounded up to 16, so every shared region starts 16-byte aligned
 __host__ __device__ inline size_t pa_align16(size_t b) {
   return (b + 15) & ~(size_t)15;
@@ -95,22 +135,23 @@ __host__ __device__ inline size_t pa_align16(size_t b) {
 
 // Shared memory of the split kernels.  Kernel 1: K rows (tokens x D of
 // T), q in float32 and as loaded (G x D), the scores (G x tokens), the
-// page ids.  Kernel 2: V rows, p (G x tokens), the running maxima and
-// the page maxima (G x pages each), the page ids, the earlier splits'
-// maxima (splits x G).
+// page ids and token runs.  Kernel 2: V rows, p (G x tokens), the
+// running maxima and the page maxima (G x pages each), the page ids and
+// token runs, the earlier splits' maxima (splits x G).
 __host__ __device__ inline size_t pa_smem_k1(int G, int D, int page,
                                              size_t elem) {
   const int pps = pa_pages_per_split(page), T = pps * page;
   return pa_align16((size_t)T * D * elem) + pa_align16((size_t)G * D * 4)
          + pa_align16((size_t)G * D * elem) + pa_align16((size_t)G * T * 4)
-         + pa_align16((size_t)pps * 4);
+         + pa_align16((size_t)3 * pps * 4);
 }
 
 __host__ __device__ inline size_t pa_smem_k2(int G, int D, int page,
                                              int P, size_t elem) {
   const int pps = pa_pages_per_split(page), T = pps * page;
   return pa_align16((size_t)T * D * elem) + pa_align16((size_t)G * T * 4)
-         + 2 * pa_align16((size_t)G * pps * 4) + pa_align16((size_t)pps * 4)
+         + 2 * pa_align16((size_t)G * pps * 4)
+         + pa_align16((size_t)3 * pps * 4)
          + pa_align16((size_t)pa_splits(page, P) * G * 4);
 }
 
@@ -157,9 +198,11 @@ __device__ __forceinline__ void copy_chunk(T* dst, const T* src) {
 }
 
 // A split block's place: (b, h) = blockIdx.x / Hkv, % Hkv, split
-// blockIdx.y from page p0, its live page slots (0: past the sequence)
-// and their page ids in pid (-1: a hole), the table entries loaded
-// beside seq_len.  The caller synchronises before reading pid.
+// blockIdx.y from page p0, its live page slots (up to the last one that
+// holds an attended token; 0: none does), their page ids in pid (-1: a
+// hole, or a slot with no attended token) and their token runs in
+// [lo, hi) (pid + pps, pid + 2 pps), the table entries loaded beside
+// seq_len.  The caller synchronises before reading pid.
 struct PaSplit {
   int b, h, bh, p0, seq, live;
 };
@@ -167,7 +210,8 @@ struct PaSplit {
 __device__ __forceinline__ PaSplit pa_split(const int* table,
                                             const int* seq_lens, int Hkv,
                                             int page, int P, int NP,
-                                            int wpp, int* pid) {
+                                            int wpp, int window, int ring,
+                                            int* pid) {
   PaSplit sp;
   sp.bh = blockIdx.x;
   sp.b = sp.bh / Hkv;
@@ -178,12 +222,21 @@ __device__ __forceinline__ PaSplit pa_split(const int* table,
   if (tid < pps && sp.p0 + tid < P)
     raw = table[(size_t)sp.b * P + sp.p0 + tid];
   sp.seq = seq_lens[sp.b];
-  int npages = sp.seq <= 0 ? 0 : (sp.seq + page - 1) / page;
-  if (npages > P) npages = P;
-  sp.live = sp.p0 < npages ? min(pps, npages - sp.p0) : 0;
+  sp.live = 0;
+  for (int i = 0; i < pps && sp.p0 + i < P; ++i) {
+    int lo, hi;
+    pa_slot_range(sp.p0 + i, sp.seq, page, P, window, ring, &lo, &hi);
+    if (lo < hi) sp.live = i + 1;
+  }
   if (sp.live && tid < pps) {
+    int lo = 0, hi = 0;
+    if (tid < sp.live)
+      pa_slot_range(sp.p0 + tid, sp.seq, page, P, window, ring, &lo, &hi);
     const int id = wpp > 0 ? floordiv(raw, wpp) : raw;
-    pid[tid] = (tid < sp.live && id >= 0 && id < NP) ? id : -1;
+    const bool on = lo < hi && id >= 0 && id < NP;
+    pid[tid] = on ? id : -1;
+    pid[pps + tid] = lo;
+    pid[2 * pps + tid] = on ? hi : lo;
   }
   return sp;
 }
@@ -194,10 +247,10 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kp,
     const int* __restrict__ table, const int* __restrict__ seq_lens,
     float* __restrict__ ws, int B, int Hq, int Hkv, int D, int page, int P,
-    int NP, int wpp, float scale) {
+    int NP, int wpp, int window, int ring, float scale) {
   extern __shared__ float4 pa_smem[];
   const int G = Hq / Hkv, tid = threadIdx.x, nt = blockDim.x;
-  const int slots = pa_pages_per_split(page) * page;
+  const int pps = pa_pages_per_split(page), slots = pps * page;
   char* base = reinterpret_cast<char*>(pa_smem);
   T* ks = reinterpret_cast<T*>(base);
   base += pa_align16((size_t)slots * D * sizeof(T));
@@ -208,8 +261,15 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
   float* sc = reinterpret_cast<float*>(base);  // (G, slots)
   base += pa_align16((size_t)G * slots * 4);
   int* pid = reinterpret_cast<int*>(base);
-  const PaSplit sp = pa_split(table, seq_lens, Hkv, page, P, NP, wpp, pid);
-  if (!sp.live) return;
+  const int *tlo = pid + pps, *thi = pid + 2 * pps;
+  const PaSplit sp = pa_split(table, seq_lens, Hkv, page, P, NP, wpp,
+                              window, ring, pid);
+  const PaWs w(ws, B, Hkv, G, D, page, P);
+  float* smax = w.sm + ((size_t)sp.bh * pa_splits(page, P) + blockIdx.y) * G;
+  if (!sp.live) {  // no attended token: the split maximum the later
+    for (int g = tid; g < G; g += nt) smax[g] = PA_NEG;  // splits read
+    return;
+  }
   __syncthreads();
 
   const int cpr = D / VEC;  // chunks a row
@@ -231,7 +291,6 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
   __syncthreads();
 
   // one thread per (query head, token of a page that is not a hole)
-  const PaWs w(ws, B, Hkv, G, D, page, P);
   const size_t pg0 = (size_t)sp.bh * P + sp.p0;  // the split's first page
   const int toks = sp.live * page;
   for (int e = tid; e < G * toks; e += nt) {
@@ -250,20 +309,18 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
     w.sc[((pg0 + i) * G + g) * page + u - i * page] = s;
   }
   __syncthreads();
-  // each page's max over its tokens below seq_len (a hole's: PA_NEG),
-  // and the split's max of them, per query head
+  // each page's max over its attended tokens (a hole's: PA_NEG), and
+  // the split's max of them, per query head
   for (int g = tid; g < G; g += nt) {
     float ms = PA_NEG;
     for (int i = 0; i < sp.live; ++i) {
-      const int ntok = min(page, sp.seq - (sp.p0 + i) * page);
       float m = PA_NEG;
-      if (pid[i] >= 0)
-        for (int t = 0; t < ntok; ++t)
-          m = fmaxf(m, sc[g * slots + i * page + t]);
+      for (int t = tlo[i]; t < thi[i]; ++t)
+        m = fmaxf(m, sc[g * slots + i * page + t]);
       w.pm[(pg0 + i) * G + g] = m;
       ms = fmaxf(ms, m);
     }
-    w.sm[((size_t)sp.bh * pa_splits(page, P) + blockIdx.y) * G + g] = ms;
+    smax[g] = ms;
   }
 }
 
@@ -273,7 +330,7 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
     const T* __restrict__ vp, const int* __restrict__ table,
     const int* __restrict__ seq_lens, float* __restrict__ ws, int B, int Hq,
-    int Hkv, int D, int page, int P, int NP, int wpp) {
+    int Hkv, int D, int page, int P, int NP, int wpp, int window, int ring) {
   extern __shared__ float4 pa_smem[];
   const int G = Hq / Hkv, tid = threadIdx.x, nt = blockDim.x;
   const int pps = pa_pages_per_split(page), slots = pps * page;
@@ -287,9 +344,11 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
   float* pmo = reinterpret_cast<float*>(base);  // (pps, G) page maxima
   base += pa_align16((size_t)G * pps * 4);
   int* pid = reinterpret_cast<int*>(base);
-  base += pa_align16((size_t)pps * 4);
+  const int *tlo = pid + pps, *thi = pid + 2 * pps;
+  base += pa_align16((size_t)3 * pps * 4);
   float* smx = reinterpret_cast<float*>(base);  // earlier splits' maxima
-  const PaSplit sp = pa_split(table, seq_lens, Hkv, page, P, NP, wpp, pid);
+  const PaSplit sp = pa_split(table, seq_lens, Hkv, page, P, NP, wpp,
+                              window, ring, pid);
   if (!sp.live) return;
   __syncthreads();
 
@@ -324,20 +383,20 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
     }
   }
   __syncthreads();
-  // p of each token below seq_len of a page that is not a hole, else 0
+  // p of each attended token of a page that is not a hole, else 0
   const int toks = sp.live * page;
   for (int e = tid; e < G * toks; e += nt) {
     const int g = e / toks, u = e - g * toks, i = u / page;
-    const int t = u - i * page, ntok = min(page, sp.seq - (sp.p0 + i) * page);
+    const int t = u - i * page;
     float p = 0.f;
-    if (pid[i] >= 0 && t < ntok)
+    if (pid[i] >= 0 && t >= tlo[i] && t < thi[i])
       p = expf(w.sc[((pg0 + i) * G + g) * page + t] - mrun[g * pps + i]);
     pr[g * slots + u] = p;
   }
   __pipeline_wait_prior(0);
   __syncthreads();
   // per page and query head: the sum of p over the page's slots in
-  // order, then p V over its tokens below seq_len in order
+  // order, then p V over its attended tokens in order
   for (int e = tid; e < G * sp.live; e += nt) {
     const int g = e / sp.live, i = e - g * sp.live;
     if (pid[i] < 0) continue;
@@ -348,41 +407,44 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
   for (int e = tid; e < sp.live * G * D; e += nt) {
     const int i = e / (G * D), gd = e - i * G * D, g = gd / D, d = gd - g * D;
     if (pid[i] < 0) continue;
-    const int ntok = min(page, sp.seq - (sp.p0 + i) * page);
     const float* prow = pr + g * slots + i * page;
     const T* vcol = vs + (size_t)i * page * D + d;
     float sum = 0.f;
 #pragma unroll 4
-    for (int t = 0; t < ntok; ++t) sum += prow[t] * to_f(vcol[(size_t)t * D]);
+    for (int t = tlo[i]; t < thi[i]; ++t)
+      sum += prow[t] * to_f(vcol[(size_t)t * D]);
     w.pv[((pg0 + i) * G + g) * D + d] = sum;
   }
 }
 
 // Kernel 3: one block per (b, h), one thread per output element (the
 // block covers G * D up to 1024): the online softmax's fold over the
-// pages in table order, holes skipped, out = acc / (l + 1e-30).  The
-// table row's hole flags are staged in shared memory first; a batch's
-// page terms load together, whatever the flags say.
+// pages in table order, holes and slots with no attended token skipped
+// (their update is the identity), out = acc / (l + 1e-30).  The table
+// row's flags are staged in shared memory first; a batch's page terms
+// load together, whatever the flags say.
 __global__ void __launch_bounds__(1024) paged_attention_merge_kernel(
     const int* __restrict__ table, const int* __restrict__ seq_lens,
     float* __restrict__ ws, float* __restrict__ out, int B, int Hq, int Hkv,
-    int D, int page, int P, int NP, int wpp) {
-  extern __shared__ int pa_on[];  // P flags: the page is not a hole
+    int D, int page, int P, int NP, int wpp, int window, int ring) {
+  extern __shared__ int pa_on[];  // P flags: the slot adds to the fold
   const int G = Hq / Hkv, bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
+  const int seq = seq_lens[b];
   for (int i = threadIdx.x; i < P; i += blockDim.x) {  // beside seq_len
     const int raw = table[(size_t)b * P + i];
     const int id = wpp > 0 ? floordiv(raw, wpp) : raw;
-    pa_on[i] = id >= 0 && id < NP;
+    int lo, hi;
+    pa_slot_range(i, seq, page, P, window, ring, &lo, &hi);
+    pa_on[i] = lo < hi && id >= 0 && id < NP;
   }
-  const int seq = seq_lens[b];
-  int npages = seq <= 0 ? 0 : (seq + page - 1) / page;
-  if (npages > P) npages = P;
+  int first, npages;
+  pa_fold_span(seq, page, P, window, ring, &first, &npages);
   __syncthreads();
   const PaWs w(ws, B, Hkv, G, D, page, P);
   for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
     const int g = e / D;
     float m = PA_NEG, l = 0.f, acc = 0.f;
-    for (int i0 = 0; i0 < npages; i0 += PA_FOLD_BATCH) {
+    for (int i0 = first; i0 < npages; i0 += PA_FOLD_BATCH) {
       float pmv[PA_FOLD_BATCH], psv[PA_FOLD_BATCH], pvv[PA_FOLD_BATCH];
 #pragma unroll
       for (int j = 0; j < PA_FOLD_BATCH; ++j) {
@@ -448,7 +510,8 @@ template <typename T, int VEC>
 static int launch(const void* q, const void* k, const void* v,
                   const int* table, const int* seq_lens, float* out,
                   float* ws, int B, int Hq, int Hkv, int D, int page, int P,
-                  int NP, int wpp, float scale, cudaStream_t st) {
+                  int NP, int wpp, int window, int ring, float scale,
+                  cudaStream_t st) {
   const int G = Hq / Hkv;
   const auto k1 = paged_attention_kernel<T, VEC>;
   const auto k2 = paged_attention_values_kernel<T, VEC>;
@@ -461,11 +524,12 @@ static int launch(const void* q, const void* k, const void* v,
     const dim3 grid(B * Hkv, pa_splits(page, P));
     k1<<<grid, PA_THREADS, s1, st>>>((const T*)q, (const T*)k, table,
                                       seq_lens, ws, B, Hq, Hkv, D, page, P,
-                                      NP, wpp, scale);
+                                      NP, wpp, window, ring, scale);
     err = (int)cudaGetLastError();
     if (err) return err;
     k2<<<grid, PA_THREADS, s2, st>>>((const T*)v, table, seq_lens, ws, B,
-                                      Hq, Hkv, D, page, P, NP, wpp);
+                                      Hq, Hkv, D, page, P, NP, wpp, window,
+                                      ring);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
@@ -473,15 +537,16 @@ static int launch(const void* q, const void* k, const void* v,
   err = pa_smem_attr((const void*)paged_attention_merge_kernel, s3);
   if (err) return err;
   paged_attention_merge_kernel<<<B * Hkv, pa_merge_threads(G, D), s3, st>>>(
-      table, seq_lens, ws, out, B, Hq, Hkv, D, page, P, NP, wpp);
+      table, seq_lens, ws, out, B, Hq, Hkv, D, page, P, NP, wpp, window,
+      ring);
   return (int)cudaGetLastError();
 }
 
 extern "C" int paged_attention_launch(
     int dtype_bf16, const void* q, const void* k, const void* v,
     const int* table, const int* seq_lens, float* out, float* ws, int B,
-    int Hq, int Hkv, int D, int page, int P, int NP, int wpp, float scale,
-    void* stream) {
+    int Hq, int Hkv, int D, int page, int P, int NP, int wpp, int window,
+    int ring, float scale, void* stream) {
   // 16-byte chunks when a row's bytes are a multiple of 16: every row of
   // q, K and V then starts 16-byte aligned if the tensors do
   const int elem = dtype_bf16 ? 2 : 4;
@@ -491,5 +556,5 @@ extern "C" int paged_attention_launch(
                               : launch<__nv_bfloat16, 1>)
                        : (vec ? launch<float, 4> : launch<float, 1>);
   return fn(q, k, v, table, seq_lens, out, ws, B, Hq, Hkv, D, page, P, NP,
-            wpp, scale, (cudaStream_t)stream);
+            wpp, window, ring, scale, (cudaStream_t)stream);
 }

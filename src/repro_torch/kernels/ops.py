@@ -117,16 +117,19 @@ def sharded_arena_defrag_txn(cfg, num_shards, kind, family, mem, ctl, src,
                          sizes)
 
 
-def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None,
+                    window=None, ring=False):
     """Paged GQA decode attention, (B, Hq, D) float32.  ``wpp`` set
-    means ``page_table`` holds arena word offsets (page = offset // wpp)."""
+    means ``page_table`` holds arena word offsets (page = offset // wpp);
+    ``window`` keeps the last ``window`` tokens; ``ring`` reads the
+    table as a ring (``kernels/ref.slot_tokens``)."""
     if _on_cuda(q):
         from repro_torch.kernels import paged_attention as pa
         return pa.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
-                                  wpp=wpp)
+                                  wpp=wpp, window=window, ring=ring)
     from repro_torch.kernels import ref
     return ref.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
-                               wpp=wpp)
+                               wpp=wpp, window=window, ring=ring)
 
 
 def ssd_scan(x, dt, a, b, c, h0=None, *, chunk: int):

@@ -3,7 +3,9 @@
 
 ``q`` (B, Hq, D); ``k_pages``/``v_pages`` (NP, page, Hkv, D) in bf16 or
 float32 (the same dtype as ``q``); ``page_table`` (B, P) int32 page ids,
-or arena word offsets when ``wpp`` is set; ``seq_lens`` (B,) int32.
+or arena word offsets when ``wpp`` is set; ``seq_lens`` (B,) int32;
+``window`` (None: none) keeps the last ``window`` tokens, ``ring`` reads
+the table as a ring (slot j holds the page of the ring's last lap).
 Returns (B, Hq, D) float32.  The plain version is
 ``kernels/ref.paged_attention``; ``kernels/ops`` picks by device.
 
@@ -29,8 +31,8 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention_launch.argtypes = [
-            I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float,
-            P]
+            I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+            ctypes.c_float, P]
         lib.paged_attention_launch.restype = I
         lib.paged_attention_workspace_floats.argtypes = [I] * 6
         lib.paged_attention_workspace_floats.restype = ctypes.c_size_t
@@ -49,7 +51,8 @@ def geometry(page: int, P: int):
     return pps.value, splits.value
 
 
-def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None,
+                    window=None, ring=False):
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA paged attention kernel needs tensors "
                          f"on the card, got {q.device}")
@@ -79,6 +82,8 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
             raise ValueError(f"{name} must be contiguous")
     if wpp is not None and wpp <= 0:
         raise ValueError(f"wpp must be positive, got {wpp}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive or None, got {window}")
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
@@ -90,7 +95,7 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
         int(q.dtype == torch.bfloat16), q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), ws.data_ptr(), B, Hq, Hkv, D, page, P, NP,
-        int(wpp or 0), 1.0 / D ** 0.5,
+        int(wpp or 0), int(window or 0), int(bool(ring)), 1.0 / D ** 0.5,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")

@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the port's kernels.
 
 ``paged_attention`` computes exactly what ``csrc/paged_attention.cu``
-computes (and the reference's Pallas ``paged_attention``): scores in
-float32 scaled after the dot, tokens at or past ``seq_len`` and table
-holes masked, online softmax over the pages in table order, output
-``acc / (l + 1e-30)``.  The allocator transaction kernels' plain
-version is the core math itself (``core/transactions.alloc_math`` /
-``free_math``).  ``ssd_ref`` is the naive sequential recurrence of the
+computes (and the reference's Pallas ``paged_attention``, or with
+``window``/``ring`` the reference's jnp ``paged_attend1``): scores in
+float32 scaled after the dot, tokens at or past ``seq_len``, before the
+window and table holes masked, online softmax over the pages in table
+order, output ``acc / (l + 1e-30)``.  The allocator transaction
+kernels' plain version is the core math itself
+(``core/transactions.alloc_math`` / ``free_math``).  ``ssd_ref`` is the naive sequential recurrence of the
 Mamba-2 SSD, the oracle the chunked scan (``kernels/ssd_scan.py``) is
 held to.
 
@@ -37,7 +38,30 @@ def page_ids(page_table, wpp=None):
     return pt if wpp is None else torch.div(pt, wpp, rounding_mode="floor")
 
 
-def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
+def slot_tokens(page_table, seq_lens, page: int, window=None,
+                ring: bool = False):
+    """Absolute token position (B, P, page) int64 of each table slot's
+    tokens and whether it is attended: at or past 0, below ``seq_len``
+    and, with a ``window``, at or past ``seq_len - window``.  A ring
+    table's slot j holds page ``cur - ((cur - j) mod P)``, ``cur`` the
+    page of token ``seq_len - 1`` (the reference's validity rules,
+    ``repro/paged/kv_cache.py`` ``paged_attend1``)."""
+    B, P = page_table.shape
+    dev = page_table.device
+    seq = seq_lens.to(_I64)[:, None, None]
+    j = torch.arange(P, dtype=_I64, device=dev)[None, :, None]
+    if ring:
+        cur = (torch.clamp(seq, min=1) - 1) // page
+        j = cur - torch.remainder(cur - j, P)
+    tok = j * page + torch.arange(page, dtype=_I64, device=dev)
+    valid = (tok >= 0) & (tok < seq)
+    if window is not None:
+        valid &= tok > seq - 1 - window
+    return tok, valid
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None,
+                    window=None, ring=False):
     """q (B, Hq, D); {k,v}_pages (NP, page, Hkv, D); page_table (B, P);
     seq_lens (B,).  Returns (B, Hq, D) float32."""
     B, Hq, D = q.shape
@@ -45,19 +69,18 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None):
     P = page_table.shape[1]
     G = Hq // Hkv
     pid = page_ids(page_table, wpp)
+    _, attended = slot_tokens(page_table, seq_lens, page, window, ring)
     qf = q.reshape(B, Hkv, G, D).float()
     m = torch.full((B, Hkv, G, 1), _NEG, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, Hkv, G, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
-    tok = torch.arange(page, device=q.device)
     for i in range(P):
         ids = pid[:, i]
         k = k_pages[ids.clamp(min=0)].float()      # (B, page, Hkv, D)
         v = v_pages[ids.clamp(min=0)].float()
         s = torch.einsum("bhgd,bthd->bhgt", qf, k) * (1.0 / D ** 0.5)
-        valid = ((i * page + tok)[None, :] < seq_lens[:, None]) \
-            & (ids >= 0)[:, None]                  # (B, page)
+        valid = attended[:, i] & (ids >= 0)[:, None]    # (B, page)
         vb = valid[:, None, None, :]
         s = torch.where(vb, s, torch.full_like(s, _NEG))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))

@@ -41,11 +41,14 @@ def apply_rope(cfg: ModelConfig, x, positions):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
 
-def flash_attention(q, k, v, *, causal: bool, block: int = 512):
+def flash_attention(q, k, v, *, causal: bool, window=None,
+                    block: int = 512):
     """q: (B, S, Hq, D); k, v: (B, T, Hkv, D) → (B, S, Hq, D) float32.
-    Online softmax over KV blocks of ``block`` (the reference's q
-    blocking for S > 4096, sliding windows and padding masks come with
-    the configs that need them)."""
+    Online softmax over KV blocks of ``block``.  ``window``: sliding
+    window width (None = full): key ``kpos`` is seen from query ``qpos``
+    when ``qpos - kpos < window``.  (The reference blocks q for S > 4096,
+    which only bounds its live memory; padding masks come with the
+    configs that need them.)"""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -68,6 +71,8 @@ def flash_attention(q, k, v, *, causal: bool, block: int = 512):
                           device=q.device)
         if causal:
             mask &= qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            mask &= qpos[:, None] - kpos[None, :] < window
         s = torch.where(mask, s, torch.full_like(s, _NEG))
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.where(mask, torch.exp(s - m_new[..., None]),

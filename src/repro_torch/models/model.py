@@ -1,4 +1,5 @@
-"""Public model facade (port), dense decoder and Mamba-2 families:
+"""Public model facade (port), dense and MoE decoders and the Mamba-2
+family:
 
     m = build_model(get_arch("qwen2-0.5b"))
     params = m.init(seed, device="cuda")
@@ -35,7 +36,8 @@ class Model:
 
     def init(self, seed: int = 0, device="cuda", dtype=torch.float32):
         """Random parameters from ``seed`` (float32 masters, as the
-        reference's ``init``)."""
+        reference's ``init``; ``dtype=torch.bfloat16`` casts each leaf
+        as it is drawn, for a model whose float32 tree does not fit)."""
         return Prm.init(self.cfg, seed, resolve_device(device), dtype)
 
     def make_decode_caches(self, batch: int, max_seq: int,

@@ -1,5 +1,6 @@
-"""Parameters of the dense decoder and the Mamba-2 stack (port): init
-from a seed, and the converter from the reference's parameter tree.
+"""Parameters of the dense and MoE decoders and the Mamba-2 stack
+(port): init from a seed, and the converter from the reference's
+parameter tree.
 
 The port's tree mirrors the reference's names with the layer axis
 unstacked into a list::
@@ -7,22 +8,27 @@ unstacked into a list::
     {"embed": (V_pad, d), "final_norm": {"scale": (d,)},
      "blocks": [{"norm1": {"scale"}, "attn": {"wq", "wk", "wv", "wo",
                  "bq", "bk", "bv"}, "norm2": {"scale"},
-                 "ffn": {"w_gate", "w_up", "w_down"}}, ...]}
+                 "ffn": {"w_gate", "w_up", "w_down"}}, ...],
+     "lm_head": (d, V_pad)}     # only when embeddings are untied
 
-or, for the ssm family, blocks ``{"norm": {"scale"}, "mixer": {"in_proj",
-"conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm_scale",
-"out_proj"}}``.
+where a MoE block's ``ffn`` is ``{"router" (d, E), "w_gate" (E, d, f),
+"w_up" (E, d, f), "w_down" (E, f, d)}``, and an ssm block is
+``{"norm": {"scale"}, "mixer": {"in_proj", "conv_w", "conv_b", "a_log",
+"dt_bias", "d_skip", "norm_scale", "out_proj"}}``.
 
 Matrices keep the reference's ``x @ W`` layout, W as (d_in, d_out), and
 attention heads stay merged.  :func:`init` draws the same shapes and
 distributions as the reference ``Model.init``: a normal leaf has
 std = scale/sqrt(shape[0]) of its *stacked* spec, so every block matrix
-has std 1/sqrt(num_layers) (``conv_w`` 1/sqrt(ssm_conv * num_layers))
-and the embedding 1/sqrt(V_pad); norm scales, ``d_skip`` and
-``norm_scale`` are ones, biases (``conv_b`` too) zeros, ``a_log`` the
-constant log 4 and ``dt_bias`` the constant -3.  The numbers differ (a ``torch.Generator``,
-not a JAX key); tests that need the same numbers convert the
-reference's tree with :func:`params_from_jax`.
+(the router and the experts too) has std 1/sqrt(num_layers) (``conv_w``
+1/sqrt(ssm_conv * num_layers)), the embedding 1/sqrt(V_pad) and
+``lm_head`` 1/sqrt(d); norm scales, ``d_skip`` and ``norm_scale`` are
+ones, biases (``conv_b`` too) zeros, ``a_log`` the constant log 4 and
+``dt_bias`` the constant -3.  Each leaf is drawn in float32 and cast to
+``dtype`` at once, so a bf16 init holds only the bf16 tree.  The
+numbers differ (a ``torch.Generator``, not a JAX key); tests that need
+the same numbers convert the reference's tree with
+:func:`params_from_jax`.
 """
 from __future__ import annotations
 
@@ -33,11 +39,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as Moe
 from repro_torch.models import ssm as Ssm
 
 # leaves multiplied into activations: cast to the compute dtype once
 _MATRICES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up",
-             "w_down", "in_proj", "conv_w", "conv_b", "out_proj")
+             "w_down", "in_proj", "conv_w", "conv_b", "out_proj", "router",
+             "lm_head")
 
 
 def _block_shapes(cfg: ModelConfig):
@@ -49,23 +57,24 @@ def _block_shapes(cfg: ModelConfig):
     attn = {"wq": (d, nq), "wk": (d, nkv), "wv": (d, nkv), "wo": (nq, d)}
     if cfg.qkv_bias:
         attn.update(bq=(nq,), bk=(nkv,), bv=(nkv,))
+    ffn = (Moe.moe_shapes(cfg) if cfg.num_experts else
+           {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
     return {"norm1": {"scale": (d,)}, "attn": attn, "norm2": {"scale": (d,)},
-            "ffn": {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}}
+            "ffn": ffn}
 
 
 def check_supported(cfg: ModelConfig):
     """The port runs the dense decoder as qwen2 configures it (RMSNorm,
-    SwiGLU, rotate-half RoPE, tied embedding, full attention) and the
-    Mamba-2 stack as mamba2 configures it.  Anything else comes with its
-    family (ROADMAP A12)."""
+    SwiGLU, rotate-half RoPE), the MoE decoder as mixtral and phi3.5-moe
+    configure it (top-k experts, a sliding window, an untied
+    ``lm_head``), and the Mamba-2 stack as mamba2 configures it.
+    Anything else comes with its family (ROADMAP A12)."""
     unsupported = {
-        "family": cfg.family not in ("dense", "ssm"),
-        "num_experts": cfg.num_experts,
+        "family": cfg.family not in ("dense", "moe", "ssm"),
+        "num_experts": bool(cfg.num_experts) != (cfg.family == "moe"),
         "enc_layers": cfg.enc_layers, "norm": cfg.norm != "rmsnorm",
         "act": cfg.act != "silu", "parallel_block": cfg.parallel_block,
-        "tie_embeddings": not cfg.tie_embeddings,
         "logit_softcap": cfg.logit_softcap,
-        "sliding_window": cfg.sliding_window,
         "mrope_sections": cfg.mrope_sections}
     bad = sorted(k for k, v in unsupported.items() if v)
     if bad:
@@ -102,10 +111,13 @@ def init(cfg: ModelConfig, seed: int, device="cpu",
     blocks = [{grp: {nm: leaf(grp, nm, shp) for nm, shp in leaves.items()}
                for grp, leaves in shapes.items()} for _ in range(L)]
     v, d = cfg.padded_vocab, cfg.d_model
-    return {"embed": normal((v, d), v),
-            "final_norm": {"scale": torch.ones(d, dtype=dtype,
-                                               device=device)},
-            "blocks": blocks}
+    out = {"embed": normal((v, d), v),
+           "final_norm": {"scale": torch.ones(d, dtype=dtype,
+                                              device=device)},
+           "blocks": blocks}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = normal((d, v), d)
+    return out
 
 
 def params_from_jax(cfg: ModelConfig, tree, device="cpu") -> Dict[str, Any]:
@@ -122,9 +134,12 @@ def params_from_jax(cfg: ModelConfig, tree, device="cpu") -> Dict[str, Any]:
         blocks.append({grp: {nm: t(np.asarray(arr)[i])
                              for nm, arr in leaves.items()}
                        for grp, leaves in blocks_np.items()})
-    return {"embed": t(tree["embed"]),
-            "final_norm": {k: t(v) for k, v in tree["final_norm"].items()},
-            "blocks": blocks}
+    out = {"embed": t(tree["embed"]),
+           "final_norm": {k: t(v) for k, v in tree["final_norm"].items()},
+           "blocks": blocks}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = t(tree["lm_head"])
+    return out
 
 
 def cast_for_compute(params, dtype) -> Dict[str, Any]:
@@ -136,6 +151,9 @@ def cast_for_compute(params, dtype) -> Dict[str, Any]:
         return {grp: {nm: (w.to(dtype) if nm in _MATRICES else w)
                       for nm, w in leaves.items()}
                 for grp, leaves in b.items()}
-    return {"embed": params["embed"].to(dtype),
-            "final_norm": params["final_norm"],
-            "blocks": [blk(b) for b in params["blocks"]]}
+    out = {"embed": params["embed"].to(dtype),
+           "final_norm": params["final_norm"],
+           "blocks": [blk(b) for b in params["blocks"]]}
+    if "lm_head" in params:
+        out["lm_head"] = params["lm_head"].to(dtype)
+    return out

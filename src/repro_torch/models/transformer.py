@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense and SSM stacks (port).
+"""Decoder-only LM assembly, dense, MoE and SSM stacks (port).
 
 ``mode`` selects the path: ``train`` (full-sequence mixing, no cache),
 ``prefill`` (full-sequence mixing + paged-KV writes, or the SSM final
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as Lyr
+from repro_torch.models import moe as Moe
 from repro_torch.models import ssm as Ssm
 from repro_torch.paged import kv_cache as KV
 
@@ -34,24 +35,40 @@ def num_rec_layers(cfg: ModelConfig) -> int:
     return cfg.num_layers if cfg.family == "ssm" else 0
 
 
-def _attn_mix(cfg, p, x, positions, mode, kvl, page_table, seq_lens):
+def _attn_mix(cfg, p, x, positions, mode, kvl, page_table, seq_lens,
+              window):
     q, k, v = Lyr.qkv_project(cfg, p, x, positions)
+    # windowed layers address their pages through ring tables (slot =
+    # page index mod P), as the reference sets it for every windowed
+    # decode and prefill; a table that covers the sequence is the
+    # identity ring
+    ring = (window is not None and page_table is not None
+            and mode in ("decode", "prefill"))
     if mode == "decode":
-        KV.append1(kvl, page_table, seq_lens, k, v)
-        o = KV.paged_attend1(kvl, page_table, seq_lens + 1, q)
+        KV.append1(kvl, page_table, seq_lens, k, v, ring=ring)
+        o = KV.paged_attend1(kvl, page_table, seq_lens + 1, q,
+                             window=window, ring=ring)
     else:
-        o = Lyr.flash_attention(q, k, v, causal=True)
+        o = Lyr.flash_attention(q, k, v, causal=True, window=window)
         if mode == "prefill":
-            KV.prefill_write1(kvl, page_table, k, v)
+            KV.prefill_write1(kvl, page_table, k, v, ring=ring)
     return Lyr.attn_out(p, o, x.dtype)
+
+
+def _ffn(cfg, p, x, mode):
+    """The block's FFN: the experts (no capacity drops at decode) or the
+    gated MLP.  The MoE aux loss is a training term; serving drops it."""
+    if cfg.num_experts:
+        return Moe.apply_moe(cfg, p, x, no_drop=(mode == "decode"))[0]
+    return Lyr.apply_mlp(cfg, p, x)
 
 
 def dense_block(cfg, p, x, positions, mode, kvl, page_table, seq_lens):
     h = Lyr.apply_norm(cfg, p["norm1"], x)
     x = x + _attn_mix(cfg, p["attn"], h, positions, mode, kvl, page_table,
-                      seq_lens)
+                      seq_lens, cfg.sliding_window)
     h = Lyr.apply_norm(cfg, p["norm2"], x)
-    return x + Lyr.apply_mlp(cfg, p["ffn"], h)
+    return x + _ffn(cfg, p["ffn"], h, mode)
 
 
 def ssm_block(cfg, p, x, mode, cache):
@@ -86,7 +103,7 @@ def _ssm_stack(cfg, params, x, mode, caches: Caches):
 
 
 def uniform_stack(cfg, params, x, positions, mode, caches: Caches):
-    """The layers of a dense or SSM stack; returns (x, caches)."""
+    """The layers of a dense, MoE or SSM stack; returns (x, caches)."""
     if cfg.family == "ssm":
         return _ssm_stack(cfg, params, x, mode, caches)
     kv = caches.kv
@@ -105,9 +122,11 @@ def embed(cfg, params, tokens, dtype=torch.bfloat16):
 
 
 def unembed(cfg, params, x):
-    """Logits over the padded vocab from the tied embedding, float32."""
+    """Logits over the padded vocab, float32, from the tied embedding or
+    the untied ``lm_head``."""
     h = Lyr.apply_norm(cfg, params["final_norm"], x)
-    return (h @ params["embed"].T.to(h.dtype)).float()
+    w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    return (h @ w.to(h.dtype)).float()
 
 
 def forward(cfg: ModelConfig, params, tokens, positions=None, mode="train",

@@ -13,12 +13,16 @@ on that.  The writes keep fixed shapes and read nothing back to the
 host, as does ``scatter_grant_words`` (the mega-step's grants into the
 page table).  ``paged_attend1`` runs the paged attention kernel on the
 card and its plain version on the CPU (``kernels/ops.paged_attention``).
+A windowed model (mixtral's sliding window) writes and reads through
+ring tables: table slot = page index mod P, so a table shorter than the
+sequence recycles its slots, and attention sees only the last
+``window`` tokens.
 
 ``forwarding_page_map``/``apply_forwarding`` carry a defragmentation
 wave's forwarding table over to the KV heaps and the page table.
 
-Ported so far: bf16/float32 caches.  int8 pages with per-(slot, head)
-scales, ``window`` and ``ring`` tables are ROADMAP item A6.
+Ported so far: bf16/float32 caches, ``window`` and ``ring`` tables.
+int8 pages with per-(slot, head) scales are ROADMAP item A6.
 """
 from __future__ import annotations
 
@@ -103,25 +107,32 @@ def modality_page_quota(cfg, page_bytes: int = 256) -> int:
 
     - ``ssm`` (mamba2): per layer the SSD state, ``(nheads, headdim,
       state)`` float32, plus the ``(conv-1, conv_dim)`` bf16 conv tail;
+    - ``moe`` (mixtral, phi3.5-moe): the routed expert activation
+      buffers, ``top_k × d_ff`` bf16 per MoE layer;
     - dense: 0 (its per-sequence state is all KV pages).
 
-    The hybrid (RG-LRU state) and MoE (expert buffers) quotas come with
-    their families (ROADMAP A12).
+    The hybrid quota (RG-LRU state) comes with its family (ROADMAP A12).
 
     >>> from repro_torch.configs import get_arch
     >>> modality_page_quota(get_arch("mamba2-780m"))
     298656
+    >>> modality_page_quota(get_arch("mixtral-8x7b"))
+    7168
     """
     if cfg.family == "ssm":
         conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
         per_layer = (cfg.ssm_nheads * cfg.ssm_headdim * cfg.ssm_state * 4
                      + (cfg.ssm_conv - 1) * conv_dim * 2)
         return -(-cfg.num_layers * per_layer // page_bytes)
-    if cfg.family == "hybrid" or cfg.num_experts:
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} page quota comes with its "
-            f"family (ROADMAP A12)")
+            f"{cfg.name}: the hybrid page quota comes with its family "
+            f"(ROADMAP A12)")
+    if cfg.num_experts:
+        buf = cfg.num_layers * cfg.num_experts_per_tok * cfg.d_ff * 2
+        return -(-buf // page_bytes)
     return 0
+
 
 def _table_ids(page_table, pidx):
     """``page_table[b, pidx[b, j]]``; columns past the table read −1."""
@@ -161,22 +172,34 @@ def _store(layer: KVLayer, ids, slot, k_new, v_new):
     return layer
 
 
-def append1(layer: KVLayer, page_table, seq_lens, k_t, v_t) -> KVLayer:
+def _page_index(pos, page: int, P: int, ring: bool):
+    """Table slot of token position ``pos``: its page index, mod P in a
+    ring table."""
+    pidx = pos // page
+    return pidx % P if ring and P else pidx
+
+
+def append1(layer: KVLayer, page_table, seq_lens, k_t, v_t,
+            ring: bool = False) -> KVLayer:
     """Write one new token's K/V at position ``seq_lens`` per sequence
-    (in place).  k_t, v_t: (B, 1, Hkv, hd)."""
+    (in place).  k_t, v_t: (B, 1, Hkv, hd).  ``ring``: table slot = page
+    index mod P (windowed attention)."""
     page = layer.k.shape[1]
     pos = seq_lens.to(torch.int64)[:, None]
-    ids = _table_ids(page_table, pos // page)
+    ids = _table_ids(page_table, _page_index(pos, page, page_table.shape[1],
+                                             ring))
     return _store(layer, ids, pos % page, k_t, v_t)
 
 
-def prefill_write1(layer: KVLayer, page_table, k, v, pos0: int = 0
-                   ) -> KVLayer:
-    """Bulk-write a prefill segment (in place).  k, v: (B, S, Hkv, hd)."""
+def prefill_write1(layer: KVLayer, page_table, k, v, pos0: int = 0,
+                   ring: bool = False) -> KVLayer:
+    """Bulk-write a prefill segment (in place).  k, v: (B, S, Hkv, hd).
+    ``ring`` as in :func:`append1`."""
     B, S = k.shape[:2]
     page = layer.k.shape[1]
     pos = (pos0 + torch.arange(S, device=k.device))[None, :].expand(B, S)
-    ids = _table_ids(page_table, pos // page)
+    ids = _table_ids(page_table, _page_index(pos, page, page_table.shape[1],
+                                             ring))
     return _store(layer, ids, pos % page, k, v)
 
 
@@ -259,10 +282,14 @@ def apply_forwarding(kv: PagedKV, fwd, wpp: int,
     return kv
 
 
-def paged_attend1(layer: KVLayer, page_table, kv_len, q, wpp=None):
+def paged_attend1(layer: KVLayer, page_table, kv_len, q, wpp=None, *,
+                  window: Optional[int] = None, ring: bool = False):
     """Decode attention for one layer over the paged heap.
     q: (B, 1, Hq, hd); kv_len: (B,) valid tokens (incl. current).
+    ``window``: only the last ``window`` tokens are seen; ``ring``: the
+    table is a ring (slot j holds the page of the ring's last lap).
     Returns (B, 1, Hq, hd) float32."""
     out = ops.paged_attention(q[:, 0].contiguous(), layer.k, layer.v,
-                              page_table, kv_len.to(torch.int32), wpp=wpp)
+                              page_table, kv_len.to(torch.int32), wpp=wpp,
+                              window=window, ring=ring)
     return out[:, None]

@@ -30,7 +30,8 @@ the emptiest shard differ by more than that many pages (checked after
 admission, before each decode tick).
 
 Per-modality aux pages: a model whose per-sequence state is not KV (the
-ssm family's SSD state and conv tail) holds ``aux_pages``
+ssm family's SSD state and conv tail, the moe family's expert buffers)
+holds ``aux_pages``
 (``kv_cache.modality_page_quota``) pages of the same arena per admitted
 slot: granted in ONE bulk alloc before its prefill (the request is
 requeued when the grant fails), freed in ONE bulk free at retirement,
@@ -809,18 +810,33 @@ class ServingEngine:
         self._release(slot)
         return req
 
+    def _probe_caches(self) -> Caches:
+        """Caches for a probe tick that leaves the engine's as they are:
+        copies of the page table, ``seq_lens`` and the SSM states, and
+        the engine's own KV heaps, which a full-width model cannot hold
+        twice.  The probe's K/V writes land at each row's ``seq_lens``
+        (the next token's slot, written again before it is read) or in
+        pages that are free in the engine's arena (written before they
+        are read when granted), so no read sees them."""
+        c = self.caches
+        kv = None if c.kv is None else c.kv._replace(
+            page_table=c.kv.page_table.clone(),
+            seq_lens=c.kv.seq_lens.clone())
+        return Caches(kv=kv, ssm_h=_clone(c.ssm_h),
+                      ssm_conv=_clone(c.ssm_conv))
+
     def launches_per_tick(self) -> int:
         """Hand-written kernel launches of ONE steady decode tick,
         counted by ``kernels/ops.LAUNCHES`` over a tick run on copies of
-        the arena, the caches and the slot state (the engine's own are
-        left as they are): the mega-step's tick, or the host loop's
-        decode plus its bulk grow (none for an attention-free model).
-        On the card a qwen2 tick is one grow transaction plus one
-        ``paged_attention`` a layer, at every ``max_batch``; on the CPU
-        the plain versions run and the count is 0.  Recorded in
-        ``stats["launches_per_tick"]``."""
+        the arena and the slot state (the engine's own are left as they
+        are; the caches as :meth:`_probe_caches` says): the mega-step's
+        tick, or the host loop's decode plus its bulk grow (none for an
+        attention-free model).  On the card a qwen2 or mixtral tick is
+        one grow transaction plus one ``paged_attention`` a layer, at
+        every ``max_batch``; on the CPU the plain versions run and the
+        count is 0.  Recorded in ``stats["launches_per_tick"]``."""
         from repro_torch.kernels import ops
-        alloc_state, caches = _clone(self.alloc_state), _clone(self.caches)
+        alloc_state, caches = _clone(self.alloc_state), self._probe_caches()
         before = dict(ops.LAUNCHES)
         if self.mega_step:
             with no_host_sync(self.device):

@@ -237,7 +237,8 @@ template <typename T, int VEC>
 static void emu_attention(const void* q, const void* k, const void* v,
                           const int* table, const int* seq_lens, float* out,
                           int B, int Hq, int Hkv, int D, int page, int P,
-                          int NP, int wpp, float scale) {
+                          int NP, int wpp, int window, int ring,
+                          float scale) {
   std::vector<float> ws(
       paged_attention_workspace_floats(B, Hq, Hkv, D, page, P) + 1, NAN);
   int pps, S;
@@ -255,31 +256,43 @@ static void emu_attention(const void* q, const void* k, const void* v,
   split(1, [&] {
     paged_attention_kernel<T, VEC>((const T*)q, (const T*)k, table,
                                    seq_lens, ws.data(), B, Hq, Hkv, D, page,
-                                   P, NP, wpp, scale);
+                                   P, NP, wpp, window, ring, scale);
   });
   split(2, [&] {
     paged_attention_values_kernel<T, VEC>((const T*)v, table, seq_lens,
                                           ws.data(), B, Hq, Hkv, D, page, P,
-                                          NP, wpp);
+                                          NP, wpp, window, ring);
   });
   emu_launch(B * Hkv, pa_merge_threads(G, D), P * sizeof(int), [&] {
     paged_attention_merge_kernel(table, seq_lens, ws.data(), out, B, Hq,
-                                 Hkv, D, page, P, NP, wpp);
+                                 Hkv, D, page, P, NP, wpp, window, ring);
   });
 }
 
 // vec: 16-byte row chunks (the launcher's choice when a row's bytes are
-// a multiple of 16), else one element at a time
+// a multiple of 16), else one element at a time; window 0: none, ring 1:
+// the table is a ring
+extern "C" void emu_paged_attention_window(
+    int bf16, int vec, const void* q, const void* k, const void* v,
+    const int* table, const int* seq_lens, float* out, int B, int Hq,
+    int Hkv, int D, int page, int P, int NP, int wpp, int window, int ring,
+    float scale) {
+  auto fn = bf16 ? (vec ? emu_attention<__nv_bfloat16, 8>
+                        : emu_attention<__nv_bfloat16, 1>)
+                 : (vec ? emu_attention<float, 4> : emu_attention<float, 1>);
+  fn(q, k, v, table, seq_lens, out, B, Hq, Hkv, D, page, P, NP, wpp, window,
+     ring, scale);
+}
+
+// no window, page tables as they are
 extern "C" void emu_paged_attention(int bf16, int vec, const void* q,
                                     const void* k, const void* v,
                                     const int* table, const int* seq_lens,
                                     float* out, int B, int Hq, int Hkv,
                                     int D, int page, int P, int NP, int wpp,
                                     float scale) {
-  auto fn = bf16 ? (vec ? emu_attention<__nv_bfloat16, 8>
-                        : emu_attention<__nv_bfloat16, 1>)
-                 : (vec ? emu_attention<float, 4> : emu_attention<float, 1>);
-  fn(q, k, v, table, seq_lens, out, B, Hq, Hkv, D, page, P, NP, wpp, scale);
+  emu_paged_attention_window(bf16, vec, q, k, v, table, seq_lens, out, B, Hq,
+                             Hkv, D, page, P, NP, wpp, 0, 0, scale);
 }
 
 // The scan's three launches in order, through a workspace as the

@@ -540,6 +540,65 @@ def test_paged_attention_splits_at_serving_shapes(cuda, dtype, wpp):
     assert not bool(got[0].any())
 
 
+# (B, Hq, Hkv, D, page, P, NP, seq_lens, window, ring, holes as (row,
+# first slot, last slot + 1)): the emulated test's window and ring
+# cases, then mixtral-8x7b's decode shapes (a 512-slot table and a
+# 258-slot ring, lengths on both sides of the 4096-token window)
+WINDOW_CASES = {
+    "mixtral-heads-window": (6, 8, 2, 128, 16, 16, 200,
+                             [0, 64, 100, 160, 161, 224], 96, False,
+                             [(3, 0, 4), (4, 7, 8), (5, 2, 9)]),
+    "mixtral-heads-ring": (6, 8, 2, 128, 16, 10, 120,
+                           [16, 159, 160, 161, 1000, 4097], 128,
+                           True, [(3, 4, 5), (5, 0, 2)]),
+    "ring-no-window": (4, 8, 2, 64, 16, 6, 40, [0, 70, 96, 333], None, True,
+                       [(3, 1, 2)]),
+    "narrow-ring-window": (3, 4, 1, 12, 8, 5, 30, [7, 41, 200], 20, True,
+                           [(2, 3, 4)]),
+    "mixtral-window": (8, 32, 8, 128, 16, 512, 4160,
+                       [1, 100, 4096, 4097, 4160, 5000, 8000, 8192], 4096,
+                       False, [(1, 3, 4), (5, 260, 262), (7, 0, 5)]),
+    "mixtral-ring": (8, 32, 8, 128, 16, 258, 2100,
+                     [1, 100, 4096, 4097, 4160, 5000, 8000, 8192], 4096,
+                     True, [(1, 3, 4), (5, 254, 256), (6, 257, 258)]),
+}
+
+
+@pytest.mark.parametrize("case", tuple(WINDOW_CASES))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("wpp", (None, 64))
+def test_paged_attention_window_and_ring_match_plain(cuda, case, dtype,
+                                                     wpp):
+    """``window`` and ``ring`` on the card: windows whose edges fall on
+    split boundaries and inside pages, ring tables shorter than the
+    sequence, holes, both table modes and dtypes; atol 1e-5 of the plain
+    version, one counted launch, and the window changes the result."""
+    B, Hq, Hkv, D, page, P, NP, seq, window, ring, holes = \
+        WINDOW_CASES[case]
+    rng = np.random.default_rng(NP)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D), np.float32))
+    k = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    for row, lo, hi in holes:
+        table[row, lo:hi] = -1
+    if wpp:
+        table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
+    args = [x.to(dtype).to(cuda) for x in (q, k, v)] + [
+        torch.from_numpy(table).to(cuda),
+        torch.tensor(seq, dtype=torch.int32, device=cuda)]
+    kw = dict(wpp=wpp, window=window, ring=ring)
+    ops.reset_launches()
+    got = ops.paged_attention(*args, **kw)
+    want = ref.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == 1
+    assert float((got - want).abs().max()) <= 1e-5
+    assert not bool(got[args[4] == 0].any())
+    plain = ref.paged_attention(*args, wpp=wpp)
+    assert float((plain - want).abs().max()) > 1e-3
+
+
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("B,chunks,with_h0", [(1, 1, False), (1, 4, False),
                                               (1, 7, False), (2, 3, True),
@@ -971,7 +1030,8 @@ def _exhaust(eng):
     ("qwen2-0.5b", dict(max_batch=4, max_seq=96, num_shards=4), False),
     ("qwen2-0.5b", dict(max_batch=2, max_seq=96, num_pages=16), True),
     ("mamba2-780m", dict(max_batch=4, max_seq=96), False),
-], ids=("qwen2", "qwen2-4-shards", "qwen2-exhausted", "mamba2"))
+    ("mixtral-8x7b", dict(max_batch=4, max_seq=96), False),
+], ids=("qwen2", "qwen2-4-shards", "qwen2-exhausted", "mamba2", "mixtral"))
 def test_mega_tokens_equal_host_loop_on_the_card(cuda, arch, kw, pressure):
     """bf16 on the card: the mega-step gives the host loop's tokens,
     balances allocs and frees, leaves every table row a hole, and under
@@ -1008,7 +1068,7 @@ def test_mega_tokens_equal_host_loop_on_the_card(cuda, arch, kw, pressure):
 
 @pytest.mark.parametrize("mega", (True, False), ids=("mega", "host"))
 @pytest.mark.parametrize("arch,S", [("qwen2-0.5b", 1), ("qwen2-0.5b", 4),
-                                    ("mamba2-780m", 1)])
+                                    ("mamba2-780m", 1), ("mixtral-8x7b", 1)])
 def test_launches_per_tick_on_the_card(cuda, arch, S, mega):
     """One grow transaction plus one ``paged_attention`` a layer for
     qwen2 (none for mamba2) at max_batch 2 and 8, the allocator's part
@@ -1037,7 +1097,7 @@ def test_launches_per_tick_on_the_card(cuda, arch, S, mega):
 
 
 @pytest.mark.parametrize("arch,S", [("qwen2-0.5b", 1), ("qwen2-0.5b", 4),
-                                    ("mamba2-780m", 1)])
+                                    ("mamba2-780m", 1), ("mixtral-8x7b", 1)])
 def test_mega_tick_reads_the_card_once(cuda, arch, S):
     """Each steady tick (no admission, no retirement, no failure) makes
     exactly one synchronizing call, the flags' read: every step is run
@@ -1069,3 +1129,71 @@ def test_mega_tick_reads_the_card_once(cuda, arch, S):
         torch.cuda.set_sync_debug_mode(prev)
     assert len(steady) >= 10
     assert set(steady) == {1}, steady
+
+
+def test_mixtral_full_width_two_layers_both_loops(cuda):
+    """mixtral-8x7b at its published widths, cut to 2 layers, bf16: a
+    4160-token prompt (past the 4096-token window) beside short ones,
+    through the host loop and the mega-step: the same tokens, each
+    admission's aux grant of the quota (448 pages at 2 layers),
+    ``allocs == frees``, no page held, ``launches_per_tick`` 3, and the
+    kernel at the run's own inputs within atol 1e-5 of the plain
+    version in a tick where the long request's window masks."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.paged.kv_cache import modality_page_quota
+    from repro_torch.serve.engine import ServingEngine
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b"), num_layers=2)
+    m = build_model(cfg)
+    params = m.init(0, device=cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, n) for n in (4160, 20, 300)]
+    quota = modality_page_quota(cfg)
+    assert quota == 448
+    out, worst, masked = [], [0.0], [0]
+    kernel = ops.paged_attention
+
+    def checked(q, k, v, table, seq, **kw):
+        got = kernel(q, k, v, table, seq, **kw)
+        if int(seq.max()) > cfg.sliding_window:
+            masked[0] += 1
+            want = ref.paged_attention(q, k, v, table, seq, **kw)
+            worst[0] = max(worst[0], float((got - want).abs().max()))
+        return got
+
+    for mega in (False, True):
+        eng = ServingEngine(m, params, max_batch=4, max_seq=4200,
+                            kv_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16, device=cuda,
+                            mega_step=mega, max_new_cap=8)
+        assert eng.launches_per_tick() == 1 + cfg.num_layers
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        grants, toks = [], {}
+        while eng.waiting or any(r is not None for r in eng.slot_req):
+            held = [len(a) for a in eng.slot_aux]
+            for r in eng.step():
+                toks[r.uid] = list(r.out_tokens)
+            grants += [len(a) for a, h in zip(eng.slot_aux, held)
+                       if len(a) and not h]
+        assert grants == [quota] * len(prompts)
+        st = eng.stats
+        assert st["allocs"] == st["frees"] > 0
+        assert bool((eng.caches.kv.page_table == -1).all())
+        assert not any(a.size for a in eng.slot_aux)
+        out.append(toks)
+        if not mega:   # the kernel at the run's own inputs
+            eng.alloc_state = eng.ouro.init()
+            for p in prompts:
+                eng.submit(p, max_new_tokens=8)
+            ops.paged_attention = checked
+            try:
+                again = eng.run_until_done()
+            finally:
+                ops.paged_attention = kernel
+            assert sorted(r.out_tokens for r in again) == sorted(
+                toks.values())
+        del eng
+    assert out[0] == out[1] and len(out[0]) == 3
+    assert masked[0] > 0 and worst[0] <= 1e-5

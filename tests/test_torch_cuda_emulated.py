@@ -83,6 +83,8 @@ def emu(tmp_path_factory):
     so.emu_defrag_txn.argtypes = [ArenaDesc, P, P, P, P, P, I, I, Z]
     so.emu_paged_attention.argtypes = [I, I, P, P, P, P, P, P] + [I] * 8 + [
         ctypes.c_float]
+    so.emu_paged_attention_window.argtypes = [I, I] + [P] * 6 + [I] * 10 + [
+        ctypes.c_float]
     so.emu_sharded_alloc_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
                                          I, I, P, Z]
     so.emu_sharded_free_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
@@ -116,7 +118,8 @@ def emu(tmp_path_factory):
         fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), I]
         fn.restype = I
     for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_defrag_txn,
-              so.emu_paged_attention, so.emu_sharded_alloc_txn,
+              so.emu_paged_attention, so.emu_paged_attention_window,
+              so.emu_sharded_alloc_txn,
               so.emu_sharded_free_txn, so.emu_sharded_defrag_txn,
               so.emu_ssd_scan, so.emu_ring_txn_pop, so.emu_ring_txn_push,
               so.emu_ring_window, so.emu_chunk_txn_claim,
@@ -1631,6 +1634,72 @@ def test_paged_attention_split_kernel_matches_plain(emu, case, dtype, wpp):
                             1.0 / D ** 0.5)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
     assert not bool(got[(st == 0) | (P == 0)].any())   # no token: 0
+
+
+# (B, Hq, Hkv, D, page, P, NP, seq_lens, window, ring, holes): windows
+# and ring tables at mixtral's head shape (G 4, D 128) and at narrow rows
+WINDOW_CASES = {
+    # a 96-token window: its first token on a split boundary (160, 224),
+    # one past it (161), inside a page (100), longer than the sequence
+    # (64); a hole inside the window, holes only before it
+    "mixtral-heads-window": (6, 8, 2, 128, 16, 16, 200,
+                             [0, 64, 100, 160, 161, 224], 96, False,
+                             [(3, 0, 4), (4, 7, 8), (5, 2, 9)]),
+    # ring tables of 10 slots (window // page + 2, as mixtral's 258):
+    # sequences that do not wrap (16, 159), that end on a lap's last
+    # token (160), start the next lap (161) and wrap several times (1000,
+    # 4097), with holes
+    "mixtral-heads-ring": (6, 8, 2, 128, 16, 10, 120,
+                           [16, 159, 160, 161, 1000, 4097], 128,
+                           True, [(3, 4, 5), (5, 0, 2)]),
+    # a ring without a window: every slot of the last lap is attended
+    "ring-no-window": (4, 8, 2, 64, 16, 6, 40, [0, 70, 96, 333], None, True,
+                       [(3, 1, 2)]),
+    # rows of 24 bytes in bf16 (element copies), pages of 8, a window of
+    # 20 tokens inside a ring of 5 slots
+    "narrow-ring-window": (3, 4, 1, 12, 8, 5, 30, [7, 41, 200], 20, True,
+                           [(2, 3, 4)]),
+}
+
+
+@pytest.mark.parametrize("case", tuple(WINDOW_CASES))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("wpp", (None, 64))
+def test_paged_attention_window_ring_kernel_matches_plain(emu, case, dtype,
+                                                          wpp):
+    """``window`` and ``ring`` in the split kernels and the fold: windows
+    whose edges fall on split boundaries and inside pages, ring tables
+    shorter than the sequence that wrap, holes, both table modes and
+    dtypes, D = 128 at G = 4: atol 1e-5 of the plain version on the same
+    (widened) values.  Slots before the window or off the ring's last
+    lap are loaded by no split."""
+    B, Hq, Hkv, D, page, P, NP, seq, window, ring, holes = \
+        WINDOW_CASES[case]
+    rng = np.random.default_rng(NP)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D), np.float32))
+    k = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    for row, lo, hi in holes:
+        table[row, lo:hi] = -1
+    if wpp:
+        table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
+    q, k, v = (x.to(dtype).contiguous() for x in (q, k, v))
+    tt = torch.from_numpy(table)
+    st = torch.tensor(seq, dtype=torch.int32)
+    want = ref.paged_attention(q, k, v, tt, st, wpp=wpp, window=window,
+                               ring=ring)
+    vec = (D * k.element_size()) % 16 == 0
+    got = torch.full((B, Hq, D), float("nan"), dtype=torch.float32)
+    emu.emu_paged_attention_window(
+        int(dtype == torch.bfloat16), int(vec), _p(q), _p(k), _p(v), _p(tt),
+        _p(st), _p(got), B, Hq, Hkv, D, page, P, NP, int(wpp or 0),
+        int(window or 0), int(ring), 1.0 / D ** 0.5)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    assert not bool(got[st == 0].any())   # no token: 0
+    # the window and the ring change what is attended in these cases
+    plain = ref.paged_attention(q, k, v, tt, st, wpp=wpp)
+    assert float((plain - want).abs().max()) > 1e-3
 
 
 def _ssd_inputs(rng, B, L, H, P, G, N, dtype, with_h0):
