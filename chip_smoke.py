@@ -76,7 +76,14 @@ Phases, each reporting on its own lines:
    lengths 1-8,192 on both sides of it): a 512-slot table and a 258-slot
    ring (window // 16 + 2), holes, both table modes and dtypes, atol
    1e-5, each case's device time, CUDA-event time, plain time and bound
-   (the attended pages' bytes); ``ssd_scan``
+   (the attended pages' bytes); then int8 pages with their float32
+   scales (``paged_attention int8`` lines): unit inputs at qwen2's
+   shapes (q float32 on page ids, q bf16 on word offsets), qwen1.5-32b's
+   decode shapes (B 8, Hq 40, Hkv 40, D 128, lengths 1-1,024, a 64-slot
+   table; q bf16 and float32, and its bf16 pages beside them),
+   mixtral-8x7b's 512-slot window and 258-slot ring in int8, atol 1e-5,
+   each with the same four times and its bound (K and V bytes plus
+   scales); ``ssd_scan``
    against ``ssd_plain`` at mamba2-780m's heads (H 48, P 64, N 128, G 1,
    chunk 64) at 1, 4 and 7 chunks, bf16 and float32 (atol 1e-4 + rtol
    1e-4), and at 1-7 chunks its three kernels' profiler device time a
@@ -93,7 +100,11 @@ Phases, each reporting on its own lines:
    pages and evictions must all occur, ``defrag_txn`` launches must equal
    the engine's waves, every uid's tokens must equal the unpressured
    run's, and the recorded alloc/free/defrag log replayed through the
-   plain math on the CPU must end on the engine's words.  A small float32
+   plain math on the CPU must end on the engine's words.  Then
+   qwen2-0.5b with int8 KV pages ("phase 5: qwen2-0.5b int8" lines):
+   unpressured, then under the same 96-page pressure, whose defrag waves
+   must move pages the slots hold (their scales with them) and whose
+   tokens must equal the unpressured int8 run's.  A small float32
    model is served on the card and on the CPU, unpressured and under the
    same pressure, and must give the same tokens (and stats and words).
    Then the same requests through ``ServingEngine(num_shards=4)``: with
@@ -161,7 +172,18 @@ Phases, each reporting on its own lines:
    and idle share), then through the mega-step ("phase 7:
    mixtral-8x7b" lines: ``launches_per_tick`` 17, the host loop's
    tokens, one synchronizing call a steady tick, counted in the timed
-   run).  Each phase
+   run).  Then, alone on the card after mixtral's weights are freed, the
+   int8 slice: qwen1.5-32b at the reference's widths and full depth (64
+   layers, 70.4 GB of bf16 weights), int8 KV pages with float32 scales,
+   max_batch 8, max_seq 1,024, phase 5's 16 prompts, 32 new each:
+   through the host loop ("phase 5: qwen1.5-32b" lines: device memory
+   after the weights and after the heaps, ``allocs == frees``, no page
+   held, the launches equal to the engine's counts, a rerun holding
+   every ``paged_attention`` call of some ticks to the plain version at
+   the run's own inputs, a profiled rerun: device busy and idle share),
+   then through the mega-step ("phase 7: qwen1.5-32b" lines:
+   ``launches_per_tick`` 65, the host loop's tokens, one synchronizing
+   call a steady tick).  Each phase
    prints its seconds.  Then one JSON line of per-kernel numbers (each
    kernel's launches in the mega-step runs too), then the card line,
    then the result line ``{"ok": true, "device": {...}}`` last.
@@ -1561,21 +1583,25 @@ def attn_inputs(device, dtype, wpp, seed=0, B=8, Hq=14, Hkv=2, D=64,
             torch.from_numpy(seq).to(device))
 
 
-def attn_bound_ms(q, k, table, seq, wpp, window=None, ring=False) -> tuple:
+def attn_bound_ms(q, k, table, seq, wpp, window=None, ring=False,
+                  k_scale=None, **_) -> tuple:
     """Least time for this input: the K and V bytes of the attended
     tokens (below seq_len, inside the window, on the ring's last lap, of
-    pages that are not holes) + q + out + table, or the float32
-    operations, whichever is larger."""
+    pages that are not holes; int8 pages with their two float32 scales
+    a token and kv head, one for K and one for V) + q + out + table, or
+    the float32 operations (int8: one more multiply an element of K and
+    of V), whichever is larger."""
     from repro_torch.kernels.ref import page_ids, slot_tokens
     B, Hq, D = q.shape
     NP, page, Hkv, _ = k.shape
     pid = page_ids(table, wpp).cpu()
     _, valid = slot_tokens(table.cpu(), seq.cpu(), page, window, ring)
     t_valid = int((valid & (pid >= 0)[:, :, None]).sum())
-    el = k.element_size()
+    el = k.element_size() + (4 / D if k_scale is not None else 0)
     nbytes = (2 * t_valid * Hkv * D * el + q.numel() * q.element_size()
               + B * Hq * D * 4 + table.numel() * 4 + B * 4)
-    flops = 4 * t_valid * (Hq // Hkv) * Hkv * D
+    flops = (4 * (Hq // Hkv) + (2 if k_scale is not None else 0)) \
+        * t_valid * Hkv * D
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
@@ -1741,6 +1767,123 @@ def phase_attention_mixtral(device):
                 res[tag] = dict(err=err, ms=ms, wall=wall, plain=plain,
                                 bound=bound, by=by, P=P)
                 del q, k, v, got, want, whole
+    torch.cuda.empty_cache()
+    return res
+
+
+# qwen1.5-32b's decode attention: 40 query and 40 kv heads of 128 (G 1),
+# 8 sequences of 1-1,024 tokens on a 64-slot table (max_seq 1,024)
+QWEN32 = "qwen1.5-32b"
+Q32_ATTN = dict(B=8, Hq=40, Hkv=40, D=128, page=16, P=64)
+Q32_SEQ = (1, 17, 64, 255, 448, 600, 1000, 1024)
+
+
+def q32_attn_inputs(device, dtype, seed=0):
+    """Unit normals at qwen1.5-32b's heads (q in ``dtype``, K and V in
+    float32 for the caller to store), a permuted 64-slot table with
+    holes inside the live range."""
+    import numpy as np
+    import torch
+    B, Hq, Hkv, D, page, P = (Q32_ATTN[k] for k in
+                              ("B", "Hq", "Hkv", "D", "page", "P"))
+    NP = B * P + 64
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    q = normal(B, Hq, D).to(dtype)
+    k, v = normal(NP, page, Hkv, D), normal(NP, page, Hkv, D)
+    table = np.random.default_rng(seed).permutation(NP)[:B * P]
+    table = table.reshape(B, P).astype(np.int32)
+    table[2, 1] = -1            # inside the 64-token row
+    table[5, 10:12] = -1        # inside the 600-token row
+    table[7, 63] = -1           # the 1,024-token row's last page
+    return (q, k, v, torch.from_numpy(table).to(device),
+            torch.tensor(Q32_SEQ, dtype=torch.int32, device=device))
+
+
+def int8_pages(k, v):
+    """K and V as the int8 KV cache stores them: the int8 words and a
+    float32 scale per (page, slot, kv head), ``kv_cache._quant``."""
+    from repro_torch.paged.kv_cache import _quant
+    k8, ks = _quant(k.float())
+    v8, vs = _quant(v.float())
+    return k8, v8, dict(k_scale=ks, v_scale=vs)
+
+
+def phase_attention_int8(device):
+    """``paged_attention`` on int8 pages against its plain version (atol
+    1e-5, each element read as float(k8) * scale on both sides): at
+    qwen2's shapes with unit inputs (q float32 on page ids, q bf16 on
+    word offsets), at qwen1.5-32b's decode shapes (q bf16 and float32;
+    and its bf16 pages beside them), and at mixtral-8x7b's window
+    (512-slot table) and ring (258 slots, word offsets); each case's
+    device time a call (profiler), CUDA-event time, plain time and bound
+    (the attended K and V bytes and their scales)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa_kernel
+    from repro_torch.kernels import ref
+
+    def qwen2(dtype, wpp):
+        q, k, v, table, seq = attn_inputs(device, dtype, wpp)
+        return (q, k, v, table, seq), dict(wpp=wpp), 32
+
+    def q32(dtype, quant=True):
+        q, k, v, table, seq = q32_attn_inputs(device, torch.bfloat16)
+        return (q.to(dtype), k.to(torch.bfloat16), v.to(torch.bfloat16),
+                table, seq), dict(quant=quant), Q32_ATTN["P"]
+
+    def mixtral(wpp, ring):
+        q, k, v, table, seq, P = mix_attn_inputs(device, torch.bfloat16, wpp,
+                                                 ring)
+        return ((q, k, v, table, seq),
+                dict(wpp=wpp, window=MIX_ATTN["window"], ring=ring), P)
+
+    cases = (
+        ("unit qwen2 f32 ids", lambda: qwen2(torch.float32, None)),
+        ("unit qwen2 bf16 offsets", lambda: qwen2(torch.bfloat16, 64)),
+        (f"{QWEN32} bf16 ids", lambda: q32(torch.bfloat16)),
+        (f"{QWEN32} f32 ids", lambda: q32(torch.float32)),
+        (f"{QWEN32} bf16 ids, bf16 pages",
+         lambda: q32(torch.bfloat16, quant=False)),
+        (f"{MIXTRAL} window bf16 ids", lambda: mixtral(None, False)),
+        (f"{MIXTRAL} ring bf16 offsets", lambda: mixtral(64, True)))
+    res = {}
+    for tag, make in cases:
+        (q, k, v, table, seq), kw, P = make()
+        if kw.pop("quant", True):
+            k, v, scales = int8_pages(k, v)
+            kw.update(scales)
+        got = pa_kernel.paged_attention(q, k, v, table, seq, **kw)
+        want = ref.paged_attention(q, k, v, table, seq, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (err <= 1e-5) or not torch.isfinite(got).all():
+            raise AssertionError(f"paged_attention int8 {tag}: max error "
+                                 f"{err} > 1e-5")
+        wpp = kw.pop("wpp", None)
+        ms, parts, rec = attn_device_ms(q, k, v, table, seq, wpp, **kw)
+        wall = time_ms(lambda: pa_kernel.paged_attention(
+            q, k, v, table, seq, wpp=wpp, **kw), 100)
+        plain = time_ms(lambda: ref.paged_attention(
+            q, k, v, table, seq, wpp=wpp, **kw), 2, warmup=1)
+        bound, by = attn_bound_ms(q, k, table, seq, wpp, **kw)
+        B, Hq, D = q.shape
+        _, page, Hkv, _ = k.shape
+        pps, splits = pa_kernel.geometry(page, P)
+        log(f"phase 4: paged_attention int8 {tag} (B {B}, Hq {Hq}, Hkv "
+            f"{Hkv}, D {D}, P {P}, pages {k.dtype}, q {q.dtype}): max "
+            f"error {err:.3g} (atol 1e-5); kernel {ms:.5f} ms a call "
+            f"(profiler device time: scores {parts[0]:.5f} + values "
+            f"{parts[1]:.5f} + merge {parts[2]:.5f}, at least {rec} of 50 "
+            f"calls recorded), {wall:.5f} ms a call on CUDA events, plain "
+            f"{plain:.3f} ms, bound {bound:.5f} ms ({by}); {splits} splits "
+            f"of {pps} pages: grid {B * Hkv} x {splits} blocks")
+        res[tag] = dict(err=err, ms=ms, wall=wall, plain=plain, bound=bound,
+                        by=by, parts=parts, int8=k.dtype == torch.int8)
+        del q, k, v, got, want
     torch.cuda.empty_cache()
     return res
 
@@ -2295,6 +2438,103 @@ def phase_pressure(device, serve):
     return dict(log=rec.log, launches=launches, stats=st, wall=wall,
                 bounds=bounds, replay_err=(e_off, e_mem, e_ctl),
                 ouro=rec._ouro)
+
+
+def live_moves(eng):
+    """Count, wave by wave, the pages a wave's forwarding moves that the
+    engine's slots hold (their K/V words and int8 scales move with
+    them)."""
+    from repro_torch.paged.kv_cache import forwarding_page_map
+    moved, forward = [], eng._apply_forwarding
+
+    def counted(fwd):
+        sp, _ = forwarding_page_map(
+            fwd, eng.wpp, eng.ouro.cfg.words_per_chunk // eng.wpp)
+        live = {p for pages in eng.slot_pages for p in pages}
+        moved.append(len(live & set(sp[sp >= 0].tolist())))
+        return forward(fwd)
+    eng._apply_forwarding = counted
+    return moved
+
+
+def phase_qwen2_int8(device, serve):
+    """Phase 5's requests on full-width qwen2-0.5b with int8 KV pages
+    (the same bf16 weights): unpressured, then under phase 5's pressure
+    (96 pages, the co-tenant, ``defrag_threshold`` 0.5), whose defrag
+    waves must move pages the slots hold, with their scales, and whose
+    tokens must equal the unpressured int8 run's; ``allocs == frees``,
+    no page held and the launches equal to the engine's counts in both
+    runs."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServingEngine
+    base = serve["engine"]
+    model, params = base.model._model, base.params
+    out = {}
+    for name, kw in (("qwen2-0.5b int8", {}),
+                     ("qwen2-0.5b int8 under pressure", PRESSURE)):
+        eng = ServingEngine(model, params, max_batch=8, max_seq=512,
+                            kv_dtype=torch.int8,
+                            compute_dtype=torch.bfloat16, device=device,
+                            **kw)
+        counting = CountingModel(eng.model)
+        eng.model = counting
+        moved = live_moves(eng)
+        bound = cotenant(eng) if kw else 0
+        for p in serve["prompts"]:
+            eng.submit(p, max_new_tokens=32)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        st = dict(eng.stats)
+        toks = {r.uid: list(r.out_tokens) for r in done}
+        n = sum(map(len, toks.values()))
+        log(f"phase 5: {name} ({kw}"
+            + (f", co-tenant {bound} x {COTENANT_BYTES} B" if kw else "")
+            + f"): served {len(done)} requests, {n} tokens, {st['steps']} "
+            f"steps in {wall:.2f} s: {n / wall:.1f} tok/s; K/V heaps "
+            f"{eng.caches.kv.layers.k.dtype} with float32 scales "
+            f"{tuple(eng.caches.kv.layers.k_scale.shape)}")
+        log(f"phase 5: {name}: stats {json.dumps(st)}")
+        log(f"phase 5: {name}: launches {json.dumps(launches)}; pages the "
+            f"slots held moved by each wave {moved}")
+        if len(done) != 16 or any(len(t) != 32 for t in toks.values()):
+            raise AssertionError(f"{name}: not every request finished with "
+                                 f"32 tokens")
+        drained(eng, name)
+        want = {k: 0 for k in launches}
+        want.update(alloc_txn=st["alloc_txns"], free_txn=st["free_txns"],
+                    defrag_txn=st["defrag_waves"],
+                    paged_attention=eng.cfg.num_layers
+                    * counting.decode_calls)
+        if launches != want or not launches["paged_attention"]:
+            raise AssertionError(f"{name}: launches {launches} != the "
+                                 f"engine's counts {want}")
+        if kw:
+            zero = [k for k in FAILURE_STATS if not st[k] > 0]
+            if zero or not sum(moved):
+                raise AssertionError(f"{name}: the failure path did not "
+                                     f"fire ({zero} == 0) or moved no page "
+                                     f"a slot held ({moved})")
+            if toks != out["qwen2-0.5b int8"]["tokens"]:
+                raise AssertionError(f"{name}: tokens differ from the "
+                                     f"unpressured int8 run's")
+        else:
+            same = sum(a == b for u, t in toks.items()
+                       for a, b in zip(t, serve["tokens"][u]))
+            log(f"phase 5: {name}: {same} of {n} tokens equal the bf16-page "
+                f"run's (int8 pages change the attended values)")
+        out[name] = dict(tokens=toks, launches=launches, stats=st, wall=wall,
+                         tok_s=n / wall, moved=moved)
+        del eng, counting
+    log(f"phase 5: qwen2-0.5b int8 under pressure: its tokens equal the "
+        f"unpressured int8 run's")
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_defrag_waves(ouro, waves, reps=5):
@@ -4115,18 +4355,247 @@ def phase_mixtral_serve(device, model, params, prompts):
     return out
 
 
-def phase_mixtral_mega(device, model, params, prompts, host):
-    """The same traffic through the mega-step: ``launches_per_tick`` 1 +
-    16 (one grow, one ``paged_attention`` a layer, as the wrappers and
-    the allocator kernel counted them); then one timed run, each step's
-    synchronizing calls counted (one a steady tick), with the host
-    loop's tokens, the launches equal to the engine's counts and nothing
-    held after draining."""
+# ---------------------------------------------------------------------------
+# the int8 slice: qwen1.5-32b at full width and depth, int8 KV pages
+# ---------------------------------------------------------------------------
+
+Q32_MAX_SEQ = 1024
+
+
+def qwen32_model(device, seed):
+    """Full-width, full-depth qwen1.5-32b (64 layers), random bf16
+    weights from ``seed`` (each leaf drawn in float32 and cast as it is
+    drawn, layer by layer), and phase 5's 16 prompt lengths."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    cfg = get_arch(QWEN32)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    leaves = [params["embed"], params["lm_head"],
+              *params["final_norm"].values(),
+              *(w for b in params["blocks"] for g in b.values()
+                for w in g.values())]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 5: {QWEN32} full width and depth ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} query / "
+        f"{cfg.num_kv_heads} kv heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.padded_vocab}, QKV bias, untied lm_head): "
+        f"{sum(t.numel() for t in leaves)} parameters, {nbytes} bytes of "
+        f"bf16 weights ({nbytes / 1e9:.2f} GB) made in "
+        f"{time.perf_counter() - t0:.1f} s; device memory after the "
+        f"weights (mem_get_info): {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} GiB")
+    return model, params, make_requests(cfg, seed, 16, 16, 448)
+
+
+def qwen32_engine(device, model, params, **kw):
+    import torch
+    from repro_torch.serve.engine import ServingEngine
+    return ServingEngine(model, params, max_batch=8, max_seq=Q32_MAX_SEQ,
+                         kv_dtype=torch.int8, compute_dtype=torch.bfloat16,
+                         device=device, **kw)
+
+
+def float64_judged(kernel_err, plain_err, D, atol=1e-5) -> bool:
+    """Whether the kernel's largest error against a float64 evaluation of
+    the same words and scales is within sqrt(D) times the plain
+    version's own, + ``atol``.  Where the scores are large (qwen1.5-32b
+    with random weights: |q|, |k| and |out| in the tens) two float32
+    evaluations part by far more than 1e-5 (the plain version alone is
+    that far from float64 there), so atol 1e-5 against the plain version
+    cannot hold; the kernel sums each score's D products in order (PR
+    17's rounding order), the plain version through cuBLAS in blocks.
+    The factor lies between the two readings that set it, both printed
+    by ``qwen32_checked_rerun``: the kernel's error over the plain
+    version's, and that of a control of lower precision (the plain
+    version staged in bf16, as the JAX reference stages int8 pages),
+    which must fall outside.  A wrong page, slot, head or scale moves
+    the output by about |v|, far past this."""
+    return kernel_err <= D ** 0.5 * plain_err + atol
+
+
+def qwen32_checked_rerun(eng, prompts, want_toks, every=30):
+    """The host loop's traffic again, every ``paged_attention`` call of
+    every ``every``-th tick held at the run's own inputs (its int8 heaps
+    and their scales) to the plain version and, both of them, to a
+    float64 evaluation (``float64_judged``), and a bf16-staged control
+    (``ref.paged_attention(stage=torch.bfloat16)``) that must fail that
+    judgement; the tokens must equal the timed run's.  Returns (ticks
+    checked, calls checked, the kernel's largest difference from the
+    plain version, the kernel's, the plain version's and the control's
+    largest error against float64, the largest ratio of the kernel's
+    error to the plain version's in one call, the largest output)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    kernel, L = ops.paged_attention, eng.cfg.num_layers
+    st = {"calls": 0, "checked": 0, "ticks": [], "err": 0.0, "k64": 0.0,
+          "p64": 0.0, "c64": 0.0, "call_ratio": 0.0, "out": 0.0}
+
+    def checked(q, k, v, table, seq, **kw):
+        out = kernel(q, k, v, table, seq, **kw)
+        tick, layer = divmod(st["calls"], L)
+        if tick % every == 0:
+            if layer == 0:
+                st["ticks"].append(tick)
+            if k.dtype != torch.int8 or kw.get("k_scale") is None:
+                raise AssertionError(f"the model passed {k.dtype} pages "
+                                     f"without scales to paged_attention")
+            want = ref.paged_attention(q, k, v, table, seq, **kw)
+            exact = ref.paged_attention(q, k, v, table, seq,
+                                        dtype=torch.float64, **kw)
+            staged = ref.paged_attention(q, k, v, table, seq,
+                                         stage=torch.bfloat16, **kw)
+            e = {key: float(x.abs().max()) for key, x in (
+                ("err", out - want), ("k64", out - exact),
+                ("p64", want - exact), ("c64", staged - exact),
+                ("out", exact))}
+            for key, x in e.items():
+                st[key] = max(st[key], x)
+            st["call_ratio"] = max(st["call_ratio"],
+                                   e["k64"] / max(e["p64"], 1e-30))
+            st["checked"] += 1
+        st["calls"] += 1
+        return out
+
+    eng.alloc_state = eng.ouro.init()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    ops.paged_attention = checked
+    try:
+        done = eng.run_until_done()
+    finally:
+        ops.paged_attention = kernel
+    torch.cuda.synchronize()
+    if sorted(r.out_tokens for r in done) != sorted(want_toks.values()):
+        raise AssertionError(f"{QWEN32}: the checked rerun's tokens differ")
+    D = eng.cfg.head_dim_
+    if len(st["ticks"]) < 3 or not float64_judged(st["k64"], st["p64"], D):
+        raise AssertionError(f"{QWEN32}: paged_attention at the run's "
+                             f"inputs: ticks {st['ticks']}, error against "
+                             f"float64 {st['k64']} (the plain version's "
+                             f"{st['p64']}, x sqrt({D}) + 1e-5)")
+    if float64_judged(st["c64"], st["p64"], D):
+        raise AssertionError(f"{QWEN32}: the bf16-staged control's error "
+                             f"against float64, {st['c64']}, passes the "
+                             f"limit sqrt({D}) x {st['p64']} + 1e-5, which "
+                             f"then tells no lower precision apart")
+    return st
+
+
+def phase_qwen32_serve(device, model, params, prompts):
+    """Phase 5's 16 prompts, 32 new each, through the host loop of
+    full-width, full-depth qwen1.5-32b on int8 KV pages: ``allocs ==
+    frees``, no page held, the launches equal to the engine's counts;
+    then a checked rerun (``qwen32_checked_rerun``) and a profiled one
+    (device busy and idle share)."""
     import gc
     import torch
     from repro_torch.kernels import ops
-    eng = mixtral_engine(device, model, params, mega_step=True,
-                         max_new_cap=32)
+
+    t0 = time.perf_counter()
+    eng = qwen32_engine(device, model, params)
+    counting = CountingModel(eng.model)
+    eng.model = counting
+    L = eng.cfg.num_layers
+    kv = eng.caches.kv.layers
+    heap = sum(t.numel() * t.element_size() for t in kv)
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 5: {QWEN32}: engine max_batch 8, max_seq {Q32_MAX_SEQ}, "
+        f"K/V heaps {kv.k.dtype} of {kv.k.shape[1]} pages with float32 "
+        f"scales {tuple(kv.k_scale.shape)}: {heap} bytes "
+        f"({heap / 1e9:.2f} GB); set-up {time.perf_counter() - t0:.1f} s; "
+        f"device memory after the heaps (mem_get_info): "
+        f"{free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB")
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = dict(eng.stats)
+    toks = sum(len(r.out_tokens) for r in done)
+    log(f"phase 5: {QWEN32}: served {len(done)} requests (prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens), "
+        f"{toks} tokens, {st['steps']} steps, {counting.decode_calls} "
+        f"decode ticks in {wall:.2f} s: {toks / wall:.1f} tok/s (prefill "
+        f"included: {counting.secs['prefill']:.2f} s host wall); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"phase 5: {QWEN32}: stats {json.dumps(st)}")
+    log(f"phase 5: {QWEN32}: launches {json.dumps(launches)}")
+    if len(done) != len(prompts) or any(len(r.out_tokens) != 32
+                                        for r in done):
+        raise AssertionError(f"{QWEN32}: not every request finished with "
+                             f"32 tokens")
+    if any(not (0 <= t < eng.cfg.padded_vocab) for r in done
+           for t in r.out_tokens):
+        raise AssertionError(f"{QWEN32}: a token out of range")
+    if st["alloc_failures"]:
+        raise AssertionError(f"{QWEN32}: {st['alloc_failures']} failed "
+                             f"grants")
+    drained(eng, f"{QWEN32} host loop")
+    serving_launches(launches, st, counting.decode_calls, L, QWEN32)
+    tokens = {r.uid: r.out_tokens for r in done}
+
+    t0 = time.perf_counter()
+    chk = qwen32_checked_rerun(eng, prompts, tokens)
+    log(f"phase 5: {QWEN32}: paged_attention at the run's own inputs: "
+        f"{chk['checked']} int8 calls of ticks {chk['ticks']}: the kernel "
+        f"differs from the plain version by up to {chk['err']:.3g} (|out| "
+        f"up to {chk['out']:.3g}; atol 1e-5 does not hold at these "
+        f"magnitudes), and from a float64 evaluation of the same words "
+        f"and scales by up to {chk['k64']:.3g}, the plain version by "
+        f"{chk['p64']:.3g} (held: kernel <= sqrt({eng.cfg.head_dim_}) x "
+        f"plain + 1e-5; kernel / plain {chk['k64'] / chk['p64']:.3g}, "
+        f"largest in one call {chk['call_ratio']:.3g}), the bf16-staged "
+        f"control by {chk['c64']:.3g} (control / plain "
+        f"{chk['c64'] / chk['p64']:.3g}: outside the limit, as it must "
+        f"be); the rerun's tokens equal the timed run's "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    eng.alloc_state = eng.ouro.init()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    with DeviceProfile() as prof:
+        done = eng.run_until_done()
+    if sorted(r.out_tokens for r in done) != sorted(tokens.values()):
+        raise AssertionError(f"{QWEN32}: the profiled rerun's tokens differ")
+    busy = prof.busy_ms()
+    attn = [prof.kernel(KERNEL_SYMBOLS[k]) for k in ATTN_KERNELS]
+    attn_ms = sum(ms * n for ms, n in attn if ms)
+    log(f"phase 5: {QWEN32}: profiled rerun: device busy {busy:.0f} ms of "
+        f"the timed run's {1e3 * wall:.0f} ms wall: device idle "
+        f"{100 * (1 - busy / (1e3 * wall)):.1f}%; paged_attention "
+        f"{attn_ms:.1f} ms over {attn[0][1]} recorded calls")
+    for key_, us, n in prof.rows[:6]:
+        log(f"phase 5:   {us / 1e3:9.2f} ms  {n:6d}x  {key_[:90]}")
+    out = dict(tokens=tokens, launches=launches, tok_s=toks / wall,
+               wall=wall, busy=busy, idle=1 - busy / (1e3 * wall),
+               checked=chk, stats=st, attn_ms=attn_ms, attn_calls=attn[0][1])
+    del eng, counting, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_alone_mega(name, eng, prompts, host):
+    """A model that runs alone on the card (mixtral-8x7b, qwen1.5-32b)
+    through the mega-step engine ``eng``: ``launches_per_tick`` 1 + L
+    (one grow, one ``paged_attention`` a layer, as the wrappers and the
+    allocator kernel counted them); then one timed run of ``prompts``,
+    each step's synchronizing calls counted (one a steady tick), with
+    the host loop's tokens, the launches equal to the engine's counts
+    and nothing held after draining."""
+    import gc
+    import torch
+    from repro_torch.kernels import ops
     L = eng.cfg.num_layers
     made0, calls0 = kernel_launches(), dict(ops.LAUNCHES)
     n = eng.launches_per_tick()
@@ -4136,10 +4605,10 @@ def phase_mixtral_mega(device, model, params, prompts, host):
              if m - calls0[k]}
     if (n != 1 + L or made != {"alloc_txn": 1}
             or calls != {"alloc_txn": 1, "paged_attention": L}):
-        raise AssertionError(f"{MIXTRAL} mega: launches_per_tick {n} (want "
+        raise AssertionError(f"{name} mega: launches_per_tick {n} (want "
                              f"{1 + L}), wrappers counted {calls}, kernels "
                              f"{made}")
-    log(f"phase 7: {MIXTRAL}: launches_per_tick {n} at max_batch 8 (the "
+    log(f"phase 7: {name}: launches_per_tick {n} at max_batch 8 (the "
         f"allocator's part as its kernel counted it: {made})")
     counting = CountingModel(eng.model)
     eng.model = counting
@@ -4154,23 +4623,23 @@ def phase_mixtral_mega(device, model, params, prompts, host):
     launches = dict(ops.LAUNCHES)
     st = dict(eng.stats)
     toks = sum(len(r.out_tokens) for r in done)
-    log(f"phase 7: mega {MIXTRAL}: served {len(done)} requests, {toks} "
+    log(f"phase 7: mega {name}: served {len(done)} requests, {toks} "
         f"tokens, {st['steps']} steps, {counting.decode_calls} ticks in "
         f"{wall:.2f} s: {toks / wall:.1f} tok/s (host loop "
         f"{host['tok_s']:.1f}; each step under sync debug mode \"warn\")")
-    log(f"phase 7: mega {MIXTRAL}: stats {json.dumps(st)}")
-    log(f"phase 7: mega {MIXTRAL}: launches {json.dumps(launches)}")
-    log(f"phase 7: mega {MIXTRAL}: synchronizing calls a step (count: "
+    log(f"phase 7: mega {name}: stats {json.dumps(st)}")
+    log(f"phase 7: mega {name}: launches {json.dumps(launches)}")
+    log(f"phase 7: mega {name}: synchronizing calls a step (count: "
         f"steps): steady ticks {steady}, other steps {other}")
     if {r.uid: list(r.out_tokens) for r in done} != host["tokens"]:
-        raise AssertionError(f"mega {MIXTRAL}: tokens differ from the host "
+        raise AssertionError(f"mega {name}: tokens differ from the host "
                              f"loop's")
     if set(steady) != {1}:
-        raise AssertionError(f"mega {MIXTRAL}: synchronizing calls of the "
+        raise AssertionError(f"mega {name}: synchronizing calls of the "
                              f"steady ticks {steady} (want 1 each)")
-    drained(eng, f"mega {MIXTRAL}")
+    drained(eng, f"mega {name}")
     serving_launches(launches, st, counting.decode_calls, L,
-                     f"mega {MIXTRAL}")
+                     f"mega {name}")
     out = dict(launches=launches, tok_s=toks / wall, wall=wall, stats=st,
                steady=steady, launches_per_tick=n)
     del eng, counting
@@ -4240,12 +4709,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     attn = phase_attention(device)
     mix_attn = phase_attention_mixtral(device)
+    t1 = time.perf_counter()
+    int8_attn = phase_attention_int8(device)
+    log(f"phase 4: int8 pages: {time.perf_counter() - t1:.1f} s")
     ssd = phase_ssd(device)
     log(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     serve = phase_serve(device, args.seed)
     pressure = phase_pressure(device, serve)
+    t1 = time.perf_counter()
+    qwen2_int8 = phase_qwen2_int8(device, serve)
+    log(f"phase 5: qwen2-0.5b int8: {time.perf_counter() - t1:.1f} s")
     sharded_runs = phase_sharded_serve(device, serve)
     phase_small_model(device, args.seed)
     mamba = phase_mamba_serve(device, args.seed,
@@ -4287,11 +4762,33 @@ def main(argv=None) -> int:
                                    mix_prompts)
     log(f"phase 5: {MIXTRAL}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    mix_mega = phase_mixtral_mega(device, mix_model, mix_params,
-                                  mix_prompts, mix_host)
+    mix_mega = phase_alone_mega(
+        MIXTRAL, mixtral_engine(device, mix_model, mix_params,
+                                mega_step=True, max_new_cap=32),
+        mix_prompts, mix_host)
     del mix_params
     mega["runs"][f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)"] = mix_mega
     log(f"phase 7: {MIXTRAL}: {time.perf_counter() - t0:.1f} s")
+
+    # the int8 slice last, alone on the card: 70.4 GB of bf16 weights and
+    # 6.9 GB of int8 KV heaps; mixtral's weights are gone first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"phase 5: {QWEN32}: device memory before it "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    q32_model, q32_params, q32_prompts = qwen32_model(device, args.seed)
+    q32_host = phase_qwen32_serve(device, q32_model, q32_params,
+                                  q32_prompts)
+    log(f"phase 5: {QWEN32}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    q32_mega = phase_alone_mega(
+        QWEN32, qwen32_engine(device, q32_model, q32_params,
+                              mega_step=True, max_new_cap=32),
+        q32_prompts, q32_host)
+    del q32_params
+    mega["runs"][f"{QWEN32} (int8)"] = q32_mega
+    log(f"phase 7: {QWEN32}: {time.perf_counter() - t0:.1f} s")
 
     def mean(xs):
         return sum(xs) / len(xs) if xs else 0.0
@@ -4356,6 +4853,10 @@ def main(argv=None) -> int:
                                 MAMBA: mamba["launches"][name],
                                 f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)":
                                     mix_host["launches"][name],
+                                f"{QWEN32} (int8)":
+                                    q32_host["launches"][name],
+                                **{k: r["launches"][name]
+                                   for k, r in qwen2_int8.items()},
                                 **variant_runs(name)},
             "ms": timing["k_times"][kind][0],
             "plain_ms": mean(timing["p_times"][kind]),
@@ -4428,7 +4929,12 @@ def main(argv=None) -> int:
             **variant_fields(name)})
     attn_err = max([r["err"] for r in attn.values()]
                    + [r["err"] for r in mix_attn.values()]
-                   + [mix_host["checked"]["err"]])
+                   + [r["err"] for r in int8_attn.values()]
+                   + [mix_host["checked"]["err"], q32_host["checked"]["err"]])
+    # the int8 runs: every paged_attention launch there read int8 pages
+    int8_runs = {f"{QWEN32} (int8)": q32_host["launches"],
+                 **{k: r["launches"] for k, r in qwen2_int8.items()},
+                 f"mega {QWEN32} (int8)": q32_mega["launches"]}
     kernels.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -4437,7 +4943,9 @@ def main(argv=None) -> int:
         "launches_by_run": {
             "qwen2-0.5b": serve["launches"]["paged_attention"],
             f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)":
-                mix_host["launches"]["paged_attention"]},
+                mix_host["launches"]["paged_attention"],
+            **{k: r["paged_attention"] for k, r in int8_runs.items()
+               if not k.startswith("mega")}},
         "max_abs_err": attn_err, "max_err": attn_err,
         "mixtral_serving_inputs_max_err": mix_host["checked"]["err"],
         # mixtral-8x7b's window (4096) and ring (258 slots) cases
@@ -4451,6 +4959,29 @@ def main(argv=None) -> int:
         "max_abs_err_by_input_mixtral": {t: r["err"]
                                          for t, r in mix_attn.items()},
         "serving_device_ms_mixtral": mix_host["attn_ms"],
+        # int8 pages with float32 scales: launches in the int8 runs, and
+        # the phase 4 cases (unit, qwen1.5-32b's and mixtral's shapes;
+        # one qwen1.5-32b case on bf16 pages beside them)
+        "launches_int8": sum(r["paged_attention"]
+                             for r in int8_runs.values()),
+        "launches_int8_by_run": {k: r["paged_attention"]
+                                 for k, r in int8_runs.items()},
+        "ms_by_input_int8": {t: r["wall"] for t, r in int8_attn.items()},
+        "device_ms_by_input_int8": {t: r["ms"]
+                                    for t, r in int8_attn.items()},
+        "plain_ms_by_input_int8": {t: r["plain"]
+                                   for t, r in int8_attn.items()},
+        "bound_ms_by_input_int8": {t: r["bound"]
+                                   for t, r in int8_attn.items()},
+        "max_abs_err_by_input_int8": {t: r["err"]
+                                      for t, r in int8_attn.items()},
+        f"{QWEN32}_serving_inputs_max_err": q32_host["checked"]["err"],
+        f"{QWEN32}_serving_inputs_float64_err": q32_host["checked"]["k64"],
+        f"{QWEN32}_serving_inputs_plain_float64_err":
+            q32_host["checked"]["p64"],
+        f"{QWEN32}_serving_inputs_bf16_staged_float64_err":
+            q32_host["checked"]["c64"],
+        f"serving_device_ms_{QWEN32}": q32_host["attn_ms"],
         # ms: CUDA events around the wrapper (its host work inside), as
         # for every earlier slice; device_ms: its kernels' profiler time
         "ms": main_attn["wall"], "plain_ms": main_attn["plain"],
@@ -4541,7 +5072,11 @@ def main(argv=None) -> int:
                     for k, r in sharded_runs.items())
         + f"; {MAMBA} {mamba['tok_s']:.1f} tok/s; {MIXTRAL} "
         f"({MIXTRAL_LAYERS} layers) {mix_host['tok_s']:.1f} tok/s host loop, "
-        f"{mix_mega['tok_s']:.1f} mega")
+        f"{mix_mega['tok_s']:.1f} mega; qwen2-0.5b int8 "
+        f"{qwen2_int8['qwen2-0.5b int8']['tok_s']:.1f} tok/s, under pressure "
+        f"{qwen2_int8['qwen2-0.5b int8 under pressure']['tok_s']:.1f}; "
+        f"{QWEN32} (int8) {q32_host['tok_s']:.1f} tok/s host loop, "
+        f"{q32_mega['tok_s']:.1f} mega")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

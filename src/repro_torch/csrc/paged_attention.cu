@@ -17,14 +17,18 @@
 // the page of token seq_len - 1, and its slots that hold no token of the
 // last lap are masked (pa_slot_range).  Each table slot's attended
 // tokens are one run [lo, hi) of its page, and a slot with none is
-// treated as a hole.
+// treated as a hole.  q is bf16 or float32; the pages are in q's type,
+// or int8 with a float32 scale per (page, slot, kv head) for K and for
+// V, an element read as float(k8) * scale (one rounding, before it
+// enters any sum, as the plain version reads it).
 //
 // What bounds it on the H100: the bytes of K and V it reads (each valid
-// token's D elements of one kv head, twice) at 3.35 TB/s, a fraction of a
-// microsecond at decode sizes (8 sequences of up to 512 tokens: about
-// 1 MB); the arithmetic (4 * G * D flops per token per kv head) is far
-// below the card's rate.  In practice a call at these sizes is bound by
-// latency: three launches, each a few dependent round trips to memory.
+// token's D elements of one kv head, twice, plus two scales in int8) at
+// 3.35 TB/s, a fraction of a microsecond at decode sizes (8 sequences
+// of up to 512 tokens: about 1 MB); the arithmetic (4 * G * D flops per
+// token per kv head) is far below the card's rate.  In practice a call
+// at these sizes is bound by latency: three launches, each a few
+// dependent round trips to memory.
 //
 // Exactness: every rounding step is the one the online softmax takes
 // page by page, as the plain version and the earlier one-block kernel
@@ -51,13 +55,15 @@
 // so its many short dependent chains (a score's 64 multiply-adds, a p V
 // sum's 16) overlap.  Every kernel loads its table entries beside
 // seq_len.
-//  1. paged_attention_kernel: a split's K rows and q by cp.async (16
-//     bytes a thread, neighbouring threads on neighbouring addresses; K
+//  1. paged_attention_kernel: a split's K rows by cp.async (16 bytes a
+//     thread, neighbouring threads on neighbouring addresses; K
 //     chunk-major in shared memory, so a warp's 32 tokens read 32
-//     neighbouring 16-byte chunks), one thread per (query head, token)
-//     score; writes the scores, each page's max and the split's max per
-//     query head.
-//  2. paged_attention_values_kernel: a split's V rows by cp.async; each
+//     neighbouring 16-byte chunks), q widened to float32 and, for int8
+//     pages, the split's K scales of its kv head beside them; one
+//     thread per (query head, token) score; writes the scores, each
+//     page's max and the split's max per query head.
+//  2. paged_attention_values_kernel: a split's V rows by cp.async (and
+//     its V scales for int8 pages); each
 //     page's running max from the earlier splits' maxima and its own
 //     pages' (a max is exact in any order); p, its sum per page and p V
 //     per page, in order over the page's tokens, one thread per (page,
@@ -80,6 +86,11 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+// Pages of int8 carry a float32 scale per (page, slot, kv head).
+template <typename T> struct PaQuant { static constexpr bool on = false; };
+template <> struct PaQuant<int8_t> { static constexpr bool on = true; };
 
 __device__ __forceinline__ int floordiv(int a, int b) {
   int q = a / b;
@@ -134,25 +145,28 @@ __host__ __device__ inline size_t pa_align16(size_t b) {
 }
 
 // Shared memory of the split kernels.  Kernel 1: K rows (tokens x D of
-// T), q in float32 and as loaded (G x D), the scores (G x tokens), the
-// page ids and token runs.  Kernel 2: V rows, p (G x tokens), the
-// running maxima and the page maxima (G x pages each), the page ids and
-// token runs, the earlier splits' maxima (splits x G).
+// the page type, elem bytes each), q in float32 (G x D), the scores (G
+// x tokens), the page ids and token runs, and with quant the tokens' K
+// scales.  Kernel 2: V rows, p (G x tokens), the running maxima and the
+// page maxima (G x pages each), the page ids and token runs, the
+// earlier splits' maxima (splits x G), and with quant the V scales.
 __host__ __device__ inline size_t pa_smem_k1(int G, int D, int page,
-                                             size_t elem) {
+                                             size_t elem, bool quant) {
   const int pps = pa_pages_per_split(page), T = pps * page;
   return pa_align16((size_t)T * D * elem) + pa_align16((size_t)G * D * 4)
-         + pa_align16((size_t)G * D * elem) + pa_align16((size_t)G * T * 4)
-         + pa_align16((size_t)3 * pps * 4);
+         + pa_align16((size_t)G * T * 4) + pa_align16((size_t)3 * pps * 4)
+         + (quant ? pa_align16((size_t)T * 4) : 0);
 }
 
 __host__ __device__ inline size_t pa_smem_k2(int G, int D, int page,
-                                             int P, size_t elem) {
+                                             int P, size_t elem,
+                                             bool quant) {
   const int pps = pa_pages_per_split(page), T = pps * page;
   return pa_align16((size_t)T * D * elem) + pa_align16((size_t)G * T * 4)
          + 2 * pa_align16((size_t)G * pps * 4)
          + pa_align16((size_t)3 * pps * 4)
-         + pa_align16((size_t)pa_splits(page, P) * G * 4);
+         + pa_align16((size_t)pa_splits(page, P) * G * 4)
+         + (quant ? pa_align16((size_t)T * 4) : 0);
 }
 
 // The workspace, per (b, h) and page i < P: the page's scores (G x page),
@@ -172,9 +186,11 @@ struct PaWs {
 };
 
 // One 16-byte chunk (VEC elements) of a row widened to float32; VEC 1:
-// one element (rows whose bytes are not a multiple of 16).
+// one element (rows whose bytes are not a multiple of 16).  An int8
+// element is float(k8) * s, the product rounded once; other types
+// ignore s.
 template <typename T, int VEC>
-__device__ __forceinline__ void widen(const T* p, float* x) {
+__device__ __forceinline__ void widen(const T* p, float* x, float s) {
   if constexpr (VEC * sizeof(T) == 16) {
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
     const T* e = reinterpret_cast<const T*>(&raw);
@@ -183,6 +199,26 @@ __device__ __forceinline__ void widen(const T* p, float* x) {
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) x[i] = to_f(p[i]);
+  }
+  if constexpr (PaQuant<T>::on) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) x[i] = __fmul_rn(x[i], s);
+  }
+}
+
+// The scales of a split's tokens for kv head h, one a token slot (0 for
+// a hole's), into shared memory; int8 pages only.
+template <typename T>
+__device__ __forceinline__ void load_scales(float* dst,
+                                            const float* __restrict__ src,
+                                            const int* pid, int toks,
+                                            int page, int Hkv, int h) {
+  if constexpr (PaQuant<T>::on) {
+    for (int u = threadIdx.x; u < toks; u += blockDim.x) {
+      const int id = pid[u / page];
+      dst[u] = id >= 0 ? src[(size_t)(id * page + u % page) * Hkv + h]
+                       : 0.f;
+    }
   }
 }
 
@@ -241,13 +277,15 @@ __device__ __forceinline__ PaSplit pa_split(const int* table,
   return sp;
 }
 
-// Kernel 1: a split's scores and page maxima.
-template <typename T, int VEC>
+// Kernel 1: a split's scores and page maxima.  TQ: q's type; T: the
+// pages' (ksc: their K scales when T is int8, else unused).
+template <typename TQ, typename T, int VEC>
 __global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp,
-    const int* __restrict__ table, const int* __restrict__ seq_lens,
-    float* __restrict__ ws, int B, int Hq, int Hkv, int D, int page, int P,
-    int NP, int wpp, int window, int ring, float scale) {
+    const TQ* __restrict__ q, const T* __restrict__ kp,
+    const float* __restrict__ ksc, const int* __restrict__ table,
+    const int* __restrict__ seq_lens, float* __restrict__ ws, int B, int Hq,
+    int Hkv, int D, int page, int P, int NP, int wpp, int window, int ring,
+    float scale) {
   extern __shared__ float4 pa_smem[];
   const int G = Hq / Hkv, tid = threadIdx.x, nt = blockDim.x;
   const int pps = pa_pages_per_split(page), slots = pps * page;
@@ -256,12 +294,12 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
   base += pa_align16((size_t)slots * D * sizeof(T));
   float* qs = reinterpret_cast<float*>(base);
   base += pa_align16((size_t)G * D * 4);
-  T* qraw = reinterpret_cast<T*>(base);
-  base += pa_align16((size_t)G * D * sizeof(T));
   float* sc = reinterpret_cast<float*>(base);  // (G, slots)
   base += pa_align16((size_t)G * slots * 4);
   int* pid = reinterpret_cast<int*>(base);
   const int *tlo = pid + pps, *thi = pid + 2 * pps;
+  base += pa_align16((size_t)3 * pps * 4);
+  float* kss = reinterpret_cast<float*>(base);  // K scales (int8 pages)
   const PaSplit sp = pa_split(table, seq_lens, Hkv, page, P, NP, wpp,
                               window, ring, pid);
   const PaWs w(ws, B, Hkv, G, D, page, P);
@@ -273,10 +311,8 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
   __syncthreads();
 
   const int cpr = D / VEC;  // chunks a row
-  const T* qg = q + ((size_t)sp.b * Hq + sp.h * G) * D;
-  for (int e = tid; e < G * cpr; e += nt)
-    copy_chunk<T, VEC>(qraw + e * VEC, qg + e * VEC);
-  for (int e = tid; e < sp.live * page * cpr; e += nt) {
+  const int toks = sp.live * page;
+  for (int e = tid; e < toks * cpr; e += nt) {
     const int u = e / cpr, c = e - u * cpr;  // token slot, chunk
     const int id = pid[u / page];
     if (id >= 0)
@@ -285,22 +321,24 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
                                   * D + c * VEC);
   }
   __pipeline_commit();
+  // q and the scales while the K rows arrive
+  const TQ* qg = q + ((size_t)sp.b * Hq + sp.h * G) * D;
+  for (int i = tid; i < G * D; i += nt) qs[i] = to_f(qg[i]);
+  load_scales<T>(kss, ksc, pid, toks, page, Hkv, sp.h);
   __pipeline_wait_prior(0);
-  __syncthreads();
-  for (int i = tid; i < G * D; i += nt) qs[i] = to_f(qraw[i]);
   __syncthreads();
 
   // one thread per (query head, token of a page that is not a hole)
   const size_t pg0 = (size_t)sp.bh * P + sp.p0;  // the split's first page
-  const int toks = sp.live * page;
   for (int e = tid; e < G * toks; e += nt) {
     const int g = e / toks, u = e - g * toks, i = u / page;
     if (pid[i] < 0) continue;
     const float* qr = qs + g * D;
+    const float ku = PaQuant<T>::on ? kss[u] : 1.f;
     float s = 0.f;
     for (int c = 0; c < cpr; ++c) {
       float x[VEC];
-      widen<T, VEC>(ks + ((size_t)c * slots + u) * VEC, x);
+      widen<T, VEC>(ks + ((size_t)c * slots + u) * VEC, x, ku);
 #pragma unroll
       for (int j = 0; j < VEC; ++j) s = fmaf(qr[c * VEC + j], x[j], s);
     }
@@ -325,12 +363,14 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_kernel(
 }
 
 // Kernel 2: a split's p, sum of p and p V per page, each page's p taken
-// against the running max of the pages up to it.
+// against the running max of the pages up to it (vsc: the V scales when
+// T is int8, else unused).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
-    const T* __restrict__ vp, const int* __restrict__ table,
-    const int* __restrict__ seq_lens, float* __restrict__ ws, int B, int Hq,
-    int Hkv, int D, int page, int P, int NP, int wpp, int window, int ring) {
+    const T* __restrict__ vp, const float* __restrict__ vsc,
+    const int* __restrict__ table, const int* __restrict__ seq_lens,
+    float* __restrict__ ws, int B, int Hq, int Hkv, int D, int page, int P,
+    int NP, int wpp, int window, int ring) {
   extern __shared__ float4 pa_smem[];
   const int G = Hq / Hkv, tid = threadIdx.x, nt = blockDim.x;
   const int pps = pa_pages_per_split(page), slots = pps * page;
@@ -347,6 +387,8 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
   const int *tlo = pid + pps, *thi = pid + 2 * pps;
   base += pa_align16((size_t)3 * pps * 4);
   float* smx = reinterpret_cast<float*>(base);  // earlier splits' maxima
+  base += pa_align16((size_t)pa_splits(page, P) * G * 4);
+  float* vss = reinterpret_cast<float*>(base);  // V scales (int8 pages)
   const PaSplit sp = pa_split(table, seq_lens, Hkv, page, P, NP, wpp,
                               window, ring, pid);
   if (!sp.live) return;
@@ -373,6 +415,7 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
   const float* smb = w.sm + (size_t)sp.bh * pa_splits(page, P) * G;
   for (int e = tid; e < s * G; e += nt) smx[e] = smb[e];
   for (int e = tid; e < sp.live * G; e += nt) pmo[e] = w.pm[pg0 * G + e];
+  load_scales<T>(vss, vsc, pid, sp.live * page, page, Hkv, sp.h);
   __syncthreads();
   for (int g = tid; g < G; g += nt) {
     float m = PA_NEG;
@@ -411,8 +454,11 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
     const T* vcol = vs + (size_t)i * page * D + d;
     float sum = 0.f;
 #pragma unroll 4
-    for (int t = tlo[i]; t < thi[i]; ++t)
-      sum += prow[t] * to_f(vcol[(size_t)t * D]);
+    for (int t = tlo[i]; t < thi[i]; ++t) {
+      float x = to_f(vcol[(size_t)t * D]);
+      if constexpr (PaQuant<T>::on) x = __fmul_rn(x, vss[i * page + t]);
+      sum += prow[t] * x;
+    }
     w.pv[((pg0 + i) * G + g) * D + d] = sum;
   }
 }
@@ -491,11 +537,12 @@ extern "C" size_t paged_attention_workspace_floats(int B, int Hq, int Hkv,
          * ((size_t)P * (page + 2 + D) + pa_splits(page, P));
 }
 
-// dynamic shared memory of the split kernels (kernel 1, kernel 2)
+// dynamic shared memory of the split kernels (kernel 1, kernel 2) for
+// pages of elem bytes an element (1: int8, with scales)
 extern "C" size_t paged_attention_smem_bytes(int G, int D, int page, int P,
                                              int elem, int kernel) {
-  return kernel == 1 ? pa_smem_k1(G, D, page, (size_t)elem)
-                     : pa_smem_k2(G, D, page, P, (size_t)elem);
+  return kernel == 1 ? pa_smem_k1(G, D, page, (size_t)elem, elem == 1)
+                     : pa_smem_k2(G, D, page, P, (size_t)elem, elem == 1);
 }
 
 // ---- host launchers (plain C interface, loaded with ctypes) -------------
@@ -506,30 +553,31 @@ static int pa_smem_attr(const void* fn, size_t smem) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int VEC>
+template <typename TQ, typename T, int VEC>
 static int launch(const void* q, const void* k, const void* v,
-                  const int* table, const int* seq_lens, float* out,
-                  float* ws, int B, int Hq, int Hkv, int D, int page, int P,
-                  int NP, int wpp, int window, int ring, float scale,
-                  cudaStream_t st) {
+                  const float* ksc, const float* vsc, const int* table,
+                  const int* seq_lens, float* out, float* ws, int B, int Hq,
+                  int Hkv, int D, int page, int P, int NP, int wpp,
+                  int window, int ring, float scale, cudaStream_t st) {
   const int G = Hq / Hkv;
-  const auto k1 = paged_attention_kernel<T, VEC>;
+  const bool quant = PaQuant<T>::on;
+  const auto k1 = paged_attention_kernel<TQ, T, VEC>;
   const auto k2 = paged_attention_values_kernel<T, VEC>;
-  const size_t s1 = pa_smem_k1(G, D, page, sizeof(T));
-  const size_t s2 = pa_smem_k2(G, D, page, P, sizeof(T));
+  const size_t s1 = pa_smem_k1(G, D, page, sizeof(T), quant);
+  const size_t s2 = pa_smem_k2(G, D, page, P, sizeof(T), quant);
   int err = pa_smem_attr((const void*)k1, s1);
   if (!err) err = pa_smem_attr((const void*)k2, s2);
   if (err) return err;
   if (P > 0) {  // a table of no pages: every output is 0, from the merge
     const dim3 grid(B * Hkv, pa_splits(page, P));
-    k1<<<grid, PA_THREADS, s1, st>>>((const T*)q, (const T*)k, table,
-                                      seq_lens, ws, B, Hq, Hkv, D, page, P,
-                                      NP, wpp, window, ring, scale);
+    k1<<<grid, PA_THREADS, s1, st>>>((const TQ*)q, (const T*)k, ksc,
+                                      table, seq_lens, ws, B, Hq, Hkv, D,
+                                      page, P, NP, wpp, window, ring, scale);
     err = (int)cudaGetLastError();
     if (err) return err;
-    k2<<<grid, PA_THREADS, s2, st>>>((const T*)v, table, seq_lens, ws, B,
-                                      Hq, Hkv, D, page, P, NP, wpp, window,
-                                      ring);
+    k2<<<grid, PA_THREADS, s2, st>>>((const T*)v, vsc, table, seq_lens, ws,
+                                      B, Hq, Hkv, D, page, P, NP, wpp,
+                                      window, ring);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
@@ -542,19 +590,28 @@ static int launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// q in bf16 (q_bf16) or float32; K and V in q's type, or int8 (kv_int8)
+// with their float32 scales k_scale, v_scale (NP, page, Hkv)
 extern "C" int paged_attention_launch(
-    int dtype_bf16, const void* q, const void* k, const void* v,
-    const int* table, const int* seq_lens, float* out, float* ws, int B,
-    int Hq, int Hkv, int D, int page, int P, int NP, int wpp, int window,
-    int ring, float scale, void* stream) {
-  // 16-byte chunks when a row's bytes are a multiple of 16: every row of
-  // q, K and V then starts 16-byte aligned if the tensors do
-  const int elem = dtype_bf16 ? 2 : 4;
+    int q_bf16, int kv_int8, const void* q, const void* k, const void* v,
+    const float* k_scale, const float* v_scale, const int* table,
+    const int* seq_lens, float* out, float* ws, int B, int Hq, int Hkv,
+    int D, int page, int P, int NP, int wpp, int window, int ring,
+    float scale, void* stream) {
+  // 16-byte chunks of K and V when a row's bytes are a multiple of 16:
+  // every row then starts 16-byte aligned if the tensors do
+  using bf16 = __nv_bfloat16;
+  const int elem = kv_int8 ? 1 : (q_bf16 ? 2 : 4);
   const bool vec = (D * elem) % 16 == 0
-                   && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
-  auto fn = dtype_bf16 ? (vec ? launch<__nv_bfloat16, 8>
-                              : launch<__nv_bfloat16, 1>)
-                       : (vec ? launch<float, 4> : launch<float, 1>);
-  return fn(q, k, v, table, seq_lens, out, ws, B, Hq, Hkv, D, page, P, NP,
-            wpp, window, ring, scale, (cudaStream_t)stream);
+                   && ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  decltype(&launch<float, float, 4>) fn;
+  if (kv_int8)
+    fn = q_bf16 ? (vec ? launch<bf16, int8_t, 16> : launch<bf16, int8_t, 1>)
+                : (vec ? launch<float, int8_t, 16>
+                       : launch<float, int8_t, 1>);
+  else
+    fn = q_bf16 ? (vec ? launch<bf16, bf16, 8> : launch<bf16, bf16, 1>)
+                : (vec ? launch<float, float, 4> : launch<float, float, 1>);
+  return fn(q, k, v, k_scale, v_scale, table, seq_lens, out, ws, B, Hq, Hkv,
+            D, page, P, NP, wpp, window, ring, scale, (cudaStream_t)stream);
 }

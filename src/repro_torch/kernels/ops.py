@@ -118,18 +118,21 @@ def sharded_arena_defrag_txn(cfg, num_shards, kind, family, mem, ctl, src,
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None,
-                    window=None, ring=False):
+                    window=None, ring=False, k_scale=None, v_scale=None):
     """Paged GQA decode attention, (B, Hq, D) float32.  ``wpp`` set
     means ``page_table`` holds arena word offsets (page = offset // wpp);
     ``window`` keeps the last ``window`` tokens; ``ring`` reads the
-    table as a ring (``kernels/ref.slot_tokens``)."""
+    table as a ring (``kernels/ref.slot_tokens``); int8 pages come with
+    their float32 scales (``k_scale``/``v_scale``, (NP, page, Hkv))."""
+    kw = dict(wpp=wpp, window=window, ring=ring, k_scale=k_scale,
+              v_scale=v_scale)
     if _on_cuda(q):
         from repro_torch.kernels import paged_attention as pa
         return pa.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
-                                  wpp=wpp, window=window, ring=ring)
+                                  **kw)
     from repro_torch.kernels import ref
     return ref.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
-                               wpp=wpp, window=window, ring=ring)
+                               **kw)
 
 
 def ssd_scan(x, dt, a, b, c, h0=None, *, chunk: int):

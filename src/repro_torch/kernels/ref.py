@@ -61,25 +61,43 @@ def slot_tokens(page_table, seq_lens, page: int, window=None,
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None,
-                    window=None, ring=False):
+                    window=None, ring=False, k_scale=None, v_scale=None,
+                    dtype=torch.float32, stage=None):
     """q (B, Hq, D); {k,v}_pages (NP, page, Hkv, D); page_table (B, P);
-    seq_lens (B,).  Returns (B, Hq, D) float32."""
+    seq_lens (B,); int8 pages come with ``k_scale``/``v_scale`` (NP,
+    page, Hkv) float32, and each element is read as ``float(k8) *
+    scale``.  Returns (B, Hq, D) in ``dtype``, the type the arithmetic
+    runs in: float32, as the kernel's; float64 judges both where two
+    float32 summation orders part (large scores).  ``stage`` (a control
+    of lower precision, on no path of the port): round q / sqrt(D), the
+    scales, each dequantized element and p to that type before the sums,
+    as the JAX reference stages bf16 and int8 pages in bf16."""
     B, Hq, D = q.shape
     NP, page, Hkv, _ = k_pages.shape
     P = page_table.shape[1]
     G = Hq // Hkv
     pid = page_ids(page_table, wpp)
     _, attended = slot_tokens(page_table, seq_lens, page, window, ring)
-    qf = q.reshape(B, Hkv, G, D).float()
-    m = torch.full((B, Hkv, G, 1), _NEG, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, Hkv, G, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
+
+    def rnd(x):
+        return x if stage is None else x.to(stage).to(dtype)
+
+    qf = q.reshape(B, Hkv, G, D).to(dtype)
+    if stage is not None:
+        qf = rnd(qf * D ** -0.5)
+    m = torch.full((B, Hkv, G, 1), _NEG, dtype=dtype, device=q.device)
+    l = torch.zeros((B, Hkv, G, 1), dtype=dtype, device=q.device)
+    acc = torch.zeros((B, Hkv, G, D), dtype=dtype, device=q.device)
     for i in range(P):
         ids = pid[:, i]
-        k = k_pages[ids.clamp(min=0)].float()      # (B, page, Hkv, D)
-        v = v_pages[ids.clamp(min=0)].float()
-        s = torch.einsum("bhgd,bthd->bhgt", qf, k) * (1.0 / D ** 0.5)
+        k = k_pages[ids.clamp(min=0)].to(dtype)    # (B, page, Hkv, D)
+        v = v_pages[ids.clamp(min=0)].to(dtype)
+        if k_scale is not None:
+            k = rnd(k * rnd(k_scale[ids.clamp(min=0)][..., None].to(dtype)))
+            v = rnd(v * rnd(v_scale[ids.clamp(min=0)][..., None].to(dtype)))
+        s = torch.einsum("bhgd,bthd->bhgt", qf, k)
+        if stage is None:
+            s = s * (1.0 / D ** 0.5)
         valid = attended[:, i] & (ids >= 0)[:, None]    # (B, page)
         vb = valid[:, None, None, :]
         s = torch.where(vb, s, torch.full_like(s, _NEG))
@@ -87,7 +105,7 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, wpp=None,
         p = torch.where(vb, torch.exp(s - m_new), torch.zeros_like(s))
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(-1, keepdim=True)
-        acc = alpha * acc + torch.einsum("bhgt,bthd->bhgd", p, v)
+        acc = alpha * acc + torch.einsum("bhgt,bthd->bhgd", rnd(p), rnd(v))
         m = m_new
     return (acc / (l + 1e-30)).reshape(B, Hq, D)
 

@@ -27,6 +27,24 @@ from repro_torch.models import transformer as TF
 from repro_torch.paged import kv_cache as KV
 
 
+def kv_dtype_for(cfg: ModelConfig, seq_len: int, batch: int):
+    """The reference's rule for the KV page type: int8 pages when the
+    bf16 K and V of every attention layer at ``batch`` x ``seq_len``
+    tokens would pass 2.5e12 bytes (qwen1.5-32b at 64 x 32,768), else
+    bf16.
+
+    >>> from repro_torch.configs import get_arch
+    >>> kv_dtype_for(get_arch("qwen1.5-32b"), 32768, 64)
+    torch.int8
+    >>> kv_dtype_for(get_arch("qwen1.5-32b"), 1024, 8)
+    torch.bfloat16
+    """
+    layers = TF.num_attn_layers(cfg)
+    bytes_bf16 = (2 * layers * batch * seq_len * cfg.num_kv_heads
+                  * cfg.head_dim_ * 2)
+    return torch.int8 if bytes_bf16 > 2.5e12 else torch.bfloat16
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -40,15 +58,17 @@ class Model:
         as it is drawn, for a model whose float32 tree does not fit)."""
         return Prm.init(self.cfg, seed, resolve_device(device), dtype)
 
-    def make_decode_caches(self, batch: int, max_seq: int,
-                           kv_dtype=torch.bfloat16,
+    def make_decode_caches(self, batch: int, max_seq: int, kv_dtype=None,
                            num_pages: Optional[int] = None, device="cuda"):
-        """Paged KV for the attention layers; for the ssm family, zero
-        SSD states (float32) and conv tails.  The conv tail is kept in
-        ``kv_dtype``: the reference keeps it in bf16, and its float32
-        engines promote it to float32 at the first row merge."""
+        """Paged KV for the attention layers, in ``kv_dtype`` (None: as
+        :func:`kv_dtype_for` picks; int8 pages carry their scales); for
+        the ssm family, zero SSD states (float32) and conv tails.  The
+        conv tail is bf16, or float32 with float32 KV: the reference
+        keeps it in bf16 whatever the KV type, and its float32 engines
+        promote it to float32 at the first row merge."""
         cfg = self.cfg
         dev = resolve_device(device)
+        kv_dtype = kv_dtype or kv_dtype_for(cfg, max_seq, batch)
         page = KV.PAGE_SIZE
         pps = -(-max_seq // page)
         n_attn, n_rec = TF.num_attn_layers(cfg), TF.num_rec_layers(cfg)
@@ -61,8 +81,10 @@ class Model:
             ssm_h = torch.zeros((n_rec, batch, cfg.ssm_nheads,
                                  cfg.ssm_headdim, cfg.ssm_state),
                                 dtype=torch.float32, device=dev)
+            conv_dtype = (torch.float32 if kv_dtype == torch.float32
+                          else torch.bfloat16)
             ssm_conv = torch.zeros((n_rec, batch, cfg.ssm_conv - 1,
-                                    Ssm.conv_dim(cfg)), dtype=kv_dtype,
+                                    Ssm.conv_dim(cfg)), dtype=conv_dtype,
                                    device=dev)
         return TF.Caches(kv=kv, ssm_h=ssm_h, ssm_conv=ssm_conv)
 

@@ -25,10 +25,14 @@ std = scale/sqrt(shape[0]) of its *stacked* spec, so every block matrix
 ``lm_head`` 1/sqrt(d); norm scales, ``d_skip`` and ``norm_scale`` are
 ones, biases (``conv_b`` too) zeros, ``a_log`` the constant log 4 and
 ``dt_bias`` the constant -3.  Each leaf is drawn in float32 and cast to
-``dtype`` at once, so a bf16 init holds only the bf16 tree.  The
-numbers differ (a ``torch.Generator``, not a JAX key); tests that need
-the same numbers convert the reference's tree with
-:func:`params_from_jax`.
+``dtype`` at once, layer by layer (every leaf of block 0, then block 1,
+..., then ``embed`` and ``lm_head``), so a bf16 init holds the bf16
+tree plus one float32 leaf: for qwen1.5-32b's 70.4 GB of bf16 weights,
+at most its 3.1-GB float32 embedding (a layer's largest leaf, an MLP
+matrix, is 0.56 GB), where drawing each stacked (64, 5120, 27392) leaf
+whole would take 35.9 GB at once.  The numbers differ from the
+reference's (a ``torch.Generator``, not a JAX key); tests that need the
+same numbers convert the reference's tree with :func:`params_from_jax`.
 """
 from __future__ import annotations
 

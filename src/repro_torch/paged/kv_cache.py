@@ -18,11 +18,14 @@ ring tables: table slot = page index mod P, so a table shorter than the
 sequence recycles its slots, and attention sees only the last
 ``window`` tokens.
 
-``forwarding_page_map``/``apply_forwarding`` carry a defragmentation
-wave's forwarding table over to the KV heaps and the page table.
+int8 heaps carry a float32 scale per (page, slot, kv head) beside the
+words (``KVLayer.k_scale``/``v_scale``): each written row is quantized
+over its head dim as the reference does (:func:`_quant`), and attention
+reads ``k8 * k_scale`` (the same for V).
 
-Ported so far: bf16/float32 caches, ``window`` and ``ring`` tables.
-int8 pages with per-(slot, head) scales are ROADMAP item A6.
+``forwarding_page_map``/``apply_forwarding`` carry a defragmentation
+wave's forwarding table over to the KV heaps (and scales) and the page
+table.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ class KVLayer(NamedTuple):
     """One attention layer's page heap (or the stack over layers)."""
     k: torch.Tensor  # (NP, page, Hkv, hd), or (L, NP, page, Hkv, hd)
     v: torch.Tensor
+    # (NP, page, Hkv) float32, or (L, NP, page, Hkv): int8 heaps only
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 class PagedKV(NamedTuple):
@@ -52,20 +58,28 @@ class PagedKV(NamedTuple):
         return self.layers.k.shape[2]
 
     def layer(self, i: int) -> KVLayer:
-        return KVLayer(self.layers.k[i], self.layers.v[i])
+        return KVLayer(*(None if t is None else t[i] for t in self.layers))
 
 
 def init_paged_kv(num_layers: int, num_pages: int, batch: int,
                   max_pages_per_seq: int, num_kv_heads: int, head_dim: int,
                   kv_dtype=torch.bfloat16, page: int = PAGE_SIZE,
                   device="cpu") -> PagedKV:
-    if kv_dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype} is not ported yet (int8 pages: ROADMAP A6)")
+    """Zero heaps; int8 heaps also get zero scales."""
+    if kv_dtype not in (torch.bfloat16, torch.float32, torch.int8):
+        raise TypeError(f"kv_dtype {kv_dtype} is not one of bfloat16, "
+                        f"float32, int8")
     shape = (num_layers, num_pages, page, num_kv_heads, head_dim)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    quant = kv_dtype == torch.int8
     return PagedKV(
-        layers=KVLayer(k=torch.zeros(shape, dtype=kv_dtype, device=device),
-                       v=torch.zeros(shape, dtype=kv_dtype, device=device)),
+        layers=KVLayer(
+            k=zeros(shape, kv_dtype), v=zeros(shape, kv_dtype),
+            k_scale=zeros(shape[:4], torch.float32) if quant else None,
+            v_scale=zeros(shape[:4], torch.float32) if quant else None),
         page_table=torch.full((batch, max_pages_per_seq), -1,
                               dtype=torch.int32, device=device),
         seq_lens=torch.zeros(batch, dtype=torch.int32, device=device))
@@ -143,8 +157,18 @@ def _table_ids(page_table, pidx):
     return torch.where(ok, ids, torch.full_like(ids, -1))
 
 
+def _quant(x):
+    """The reference's int8 quantization of float32 rows over the last
+    axis: ``scale = max|x| / 127 + 1e-8``, words ``round(x / scale)``
+    (half to even, as ``jnp.round``).  Returns (int8 words, scale
+    (...,) float32)."""
+    scale = x.abs().amax(-1, keepdim=True) / 127.0 + 1e-8
+    return torch.round(x / scale).to(torch.int8), scale[..., 0]
+
+
 def _store(layer: KVLayer, ids, slot, k_new, v_new):
-    """Write rows where the page id is mapped; holes drop.
+    """Write rows where the page id is mapped; holes drop.  An int8
+    layer stores the quantized rows and their scales.
 
     Fixed shapes, no host read: a dropped row repeats the first mapped
     row's write (its page, slot and value), or, when no row is mapped,
@@ -164,11 +188,18 @@ def _store(layer: KVLayer, ids, slot, k_new, v_new):
                                        zero))
     s = torch.where(ok, s, torch.where(any_ok, s.index_select(0, first),
                                        zero))
-    for heap, new in ((layer.k, k_new), (layer.v, v_new)):
+    writes = ((layer.k, k_new), (layer.v, v_new))
+    if layer.k_scale is not None:
+        kq, ks = _quant(k_new.float())
+        vq, vs = _quant(v_new.float())
+        writes = ((layer.k, kq), (layer.v, vq), (layer.k_scale, ks),
+                  (layer.v_scale, vs))
+    for heap, new in writes:
         new = new.reshape((-1,) + tuple(heap.shape[2:])).to(heap.dtype)
-        keep = torch.where(any_ok[:, None, None], new.index_select(0, first),
+        row = (-1,) + (1,) * (new.dim() - 1)   # a row flag over its values
+        keep = torch.where(any_ok.view(row), new.index_select(0, first),
                            heap[0, 0][None])
-        heap[i, s] = torch.where(ok[:, None, None], new, keep)
+        heap[i, s] = torch.where(ok.view(row), new, keep)
     return layer
 
 
@@ -257,12 +288,12 @@ def forwarding_page_map(fwd, wpp: int, max_span: int):
 def apply_forwarding(kv: PagedKV, fwd, wpp: int,
                      max_span: Optional[int] = None) -> PagedKV:
     """Apply a defrag forwarding table to the paged cache, in place:
-    move the migrated pages' K/V rows of every layer to their new page
-    ids and rewrite every matching page-table entry, after which reads
-    through the table are identical to those before the wave.  Sources
-    and destinations are disjoint (the planner's guarantee).  Returns
-    ``kv`` (the same tensors).  ``max_span`` defaults to the table's
-    widest extent."""
+    move the migrated pages' K/V rows (and int8 scales) of every layer
+    to their new page ids and rewrite every matching page-table entry,
+    after which reads through the table are identical to those before
+    the wave.  Sources and destinations are disjoint (the planner's
+    guarantee).  Returns ``kv`` (the same tensors).  ``max_span``
+    defaults to the table's widest extent."""
     if max_span is None:
         max_span = max(1, int((fwd.sizes // (wpp * 4)).max()))
     sp, dp = forwarding_page_map(fwd, wpp, max_span)
@@ -272,7 +303,8 @@ def apply_forwarding(kv: PagedKV, fwd, wpp: int,
     s = torch.clamp(sp[rows].long(), max=np_ - 1)
     d = dp[rows].long()
     for heap in kv.layers:
-        heap[:, d] = heap[:, s]
+        if heap is not None:
+            heap[:, d] = heap[:, s]
     key = torch.where(moved, sp, torch.full_like(sp, -2))
     hit = kv.page_table[:, :, None] == key[None, None, :]
     new = torch.where(hit, dp[None, None, :],
@@ -291,5 +323,6 @@ def paged_attend1(layer: KVLayer, page_table, kv_len, q, wpp=None, *,
     Returns (B, 1, Hq, hd) float32."""
     out = ops.paged_attention(q[:, 0].contiguous(), layer.k, layer.v,
                               page_table, kv_len.to(torch.int32), wpp=wpp,
-                              window=window, ring=ring)
+                              window=window, ring=ring,
+                              k_scale=layer.k_scale, v_scale=layer.v_scale)
     return out[:, None]

@@ -7,7 +7,9 @@ decode tick issues at most ONE bulk alloc transaction covering every
 growing slot (``_grow_active``), and each retiring request ONE bulk
 free; on the card each transaction is one CUDA kernel launch
 (``csrc/alloc_txn.cu``) and each layer's decode attention one launch of
-``csrc/paged_attention.cu``.
+``csrc/paged_attention.cu``.  KV pages are bf16, float32 or int8
+(``kv_dtype``); int8 heaps carry a float32 scale per (page, slot, kv
+head), written with each row and moved with each page.
 
 When a grant fails the engine degrades instead of dying, as the
 reference does: it returns the transaction's partial grants, runs ONE
@@ -165,9 +167,9 @@ class ServingEngine:
             raise ValueError(
                 f"defrag_threshold must be None or a frag_ratio in "
                 f"(0, 1), got {defrag_threshold!r}")
-        if kv_dtype not in (torch.bfloat16, torch.float32):
-            raise NotImplementedError(
-                f"kv_dtype {kv_dtype} is not ported yet (ROADMAP A6)")
+        if kv_dtype not in (torch.bfloat16, torch.float32, torch.int8):
+            raise TypeError(f"kv_dtype {kv_dtype} is not one of bfloat16, "
+                            f"float32, int8")
         self.device = resolve_device(device)
         cfg = model.cfg
         self.model, self.cfg = model, cfg
@@ -476,9 +478,10 @@ class ServingEngine:
 
     def _apply_forwarding(self, fwd) -> int:
         """Remap the engine's page references through a forwarding
-        table: KV rows move old→new in place, page-table entries and
-        ``slot_pages`` are rewritten, and the per-shard live counts
-        follow pages that change shards.  Returns the pages migrated."""
+        table: KV rows (and int8 scales) move old→new in place,
+        page-table entries and ``slot_pages`` are rewritten, and the
+        per-shard live counts follow pages that change shards.  Returns
+        the pages migrated."""
         src = fwd.src.cpu()
         if not bool((src >= 0).any()):
             return 0

@@ -599,6 +599,107 @@ def test_paged_attention_window_and_ring_match_plain(cuda, case, dtype,
     assert float((plain - want).abs().max()) > 1e-3
 
 
+# (B, Hq, Hkv, D, page, P, NP, seq_lens, window, ring, holes): int8
+# pages at the emulated test's head shapes (G 1, 4, 7; D 24-128), then
+# qwen1.5-32b's decode shapes (40 query and 40 kv heads of 128, a 64-slot
+# table, lengths 1-1,024) and mixtral-8x7b's window and ring in int8
+INT8_CASES = {
+    "g1-d128": (3, 2, 2, 128, 16, 5, 24, [0, 37, 80], None, False,
+                [(2, 1, 2)]),
+    "g4-d64": (4, 8, 2, 64, 16, 6, 40, [96, 1, 50, 70], None, False,
+               [(0, 2, 3), (3, 4, 6)]),
+    "g7-d32": (3, 14, 2, 32, 16, 5, 30, [80, 17, 64], None, False,
+               [(1, 0, 1)]),
+    "narrow-rows": (2, 2, 1, 24, 8, 5, 20, [33, 7], None, False,
+                    [(0, 3, 4)]),
+    "qwen1.5-32b": (8, 40, 40, 128, 16, 64, 560,
+                    [1, 17, 64, 255, 448, 600, 1000, 1024], None, False,
+                    [(2, 1, 2), (5, 10, 12), (7, 63, 64)]),
+    "mixtral-window": (8, 32, 8, 128, 16, 512, 4160,
+                       [1, 100, 4096, 4097, 4160, 5000, 8000, 8192], 4096,
+                       False, [(1, 3, 4), (5, 260, 262), (7, 0, 5)]),
+    "mixtral-ring": (8, 32, 8, 128, 16, 258, 2100,
+                     [1, 100, 4096, 4097, 4160, 5000, 8000, 8192], 4096,
+                     True, [(1, 3, 4), (5, 254, 256), (6, 257, 258)]),
+}
+
+
+def _int8_args(cuda, case, q_dtype, wpp):
+    """q in ``q_dtype`` and K, V quantized as the KV cache stores them
+    (int8 words, a float32 scale per (page, slot, kv head)), on the
+    card."""
+    from repro_torch.paged.kv_cache import _quant
+    B, Hq, Hkv, D, page, P, NP, seq, window, ring, holes = INT8_CASES[case]
+    rng = np.random.default_rng(NP + D)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D), np.float32))
+    k8, ks = _quant(torch.from_numpy(
+        rng.standard_normal((NP, page, Hkv, D), np.float32)))
+    v8, vs = _quant(torch.from_numpy(
+        rng.standard_normal((NP, page, Hkv, D), np.float32)))
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    for row, lo, hi in holes:
+        table[row, lo:hi] = -1
+    if wpp:
+        table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
+    args = [q.to(q_dtype).to(cuda), k8.to(cuda), v8.to(cuda),
+            torch.from_numpy(table).to(cuda),
+            torch.tensor(seq, dtype=torch.int32, device=cuda)]
+    kw = dict(wpp=wpp, window=window, ring=ring, k_scale=ks.to(cuda),
+              v_scale=vs.to(cuda))
+    return args, kw
+
+
+@pytest.mark.parametrize("case", tuple(INT8_CASES))
+@pytest.mark.parametrize("q_dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("wpp", (None, 64))
+def test_paged_attention_int8_matches_plain(cuda, case, q_dtype, wpp):
+    """int8 pages on the card: each element read as float(k8) * scale,
+    q in float32 and bf16, both table modes, holes, windows and ring
+    tables, qwen1.5-32b's G = 1 at 40 kv heads; atol 1e-5 of the plain
+    version on the same values, one counted launch, and the scales
+    change the result."""
+    args, kw = _int8_args(cuda, case, q_dtype, wpp)
+    ops.reset_launches()
+    got = ops.paged_attention(*args, **kw)
+    want = ref.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == 1
+    assert float((got - want).abs().max()) <= 1e-5
+    assert not bool(got[args[4] == 0].any())
+    ones = torch.ones_like(kw["k_scale"])
+    words = ref.paged_attention(*args, **{**kw, "k_scale": ones,
+                                          "v_scale": ones})
+    assert float((words - want).abs().max()) > 1e-3
+
+
+def test_paged_attention_int8_refuses_what_it_cannot_take(cuda):
+    """Pages in int8 without both scales, scales beside bf16 pages, K and
+    V of two types, scales of another shape or type: each raises, and
+    nothing launches (no call runs the plain version on the card)."""
+    args, kw = _int8_args(cuda, "g4-d64", torch.bfloat16, None)
+    q, k8, v8, table, seq = args
+    ks, vs = kw["k_scale"], kw["v_scale"]
+    bad = [
+        ((q, k8, v8, table, seq), dict(k_scale=ks), TypeError),
+        ((q, k8, v8, table, seq), dict(), TypeError),
+        ((q, k8.to(torch.bfloat16), v8.to(torch.bfloat16), table, seq),
+         dict(k_scale=ks, v_scale=vs), TypeError),
+        ((q, k8, v8.to(torch.bfloat16), table, seq),
+         dict(k_scale=ks, v_scale=vs), TypeError),
+        ((q, k8, v8, table, seq),
+         dict(k_scale=ks.double(), v_scale=vs), TypeError),
+        ((q, k8, v8, table, seq),
+         dict(k_scale=ks[:, :8].contiguous(), v_scale=vs), ValueError),
+        ((q.half(), k8, v8, table, seq),
+         dict(k_scale=ks, v_scale=vs), TypeError),
+    ]
+    ops.reset_launches()
+    for a, extra, err in bad:
+        with pytest.raises(err):
+            ops.paged_attention(*a, **extra)
+    assert ops.LAUNCHES["paged_attention"] == 0
+
+
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("B,chunks,with_h0", [(1, 1, False), (1, 4, False),
                                               (1, 7, False), (2, 3, True),
@@ -995,15 +1096,20 @@ def test_ring_and_va_waves_match_plain_math_on_the_card(cuda, variant):
 # the fused decode mega-step on the card
 # --------------------------------------------------------------------------
 
-def _smoke_engine(cuda, arch, mega, **kw):
+def _smoke_engine(cuda, arch, mega, kv_dtype=torch.bfloat16, **kw):
     from repro_torch.configs import get_arch
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ServingEngine
     cfg = get_arch(arch).smoke()
     m = build_model(cfg)
-    return ServingEngine(m, m.init(0, device=cuda), kv_dtype=torch.bfloat16,
+    return ServingEngine(m, m.init(0, device=cuda), kv_dtype=kv_dtype,
                          compute_dtype=torch.bfloat16, device=cuda,
                          mega_step=mega, **kw)
+
+
+def _kv_dtype(arch):
+    """qwen1.5-32b is the model int8 pages serve: its cases take them."""
+    return torch.int8 if arch == "qwen1.5-32b" else torch.bfloat16
 
 
 def _serve(eng, n=6, max_new=12, seed=0, lo=4, hi=60):
@@ -1031,11 +1137,17 @@ def _exhaust(eng):
     ("qwen2-0.5b", dict(max_batch=2, max_seq=96, num_pages=16), True),
     ("mamba2-780m", dict(max_batch=4, max_seq=96), False),
     ("mixtral-8x7b", dict(max_batch=4, max_seq=96), False),
-], ids=("qwen2", "qwen2-4-shards", "qwen2-exhausted", "mamba2", "mixtral"))
+    ("qwen1.5-32b", dict(max_batch=4, max_seq=96, kv_dtype=torch.int8),
+     False),
+    ("qwen2-0.5b", dict(max_batch=2, max_seq=96, num_pages=16,
+                        kv_dtype=torch.int8), True),
+], ids=("qwen2", "qwen2-4-shards", "qwen2-exhausted", "mamba2", "mixtral",
+        "qwen1.5-32b-int8", "qwen2-int8-exhausted"))
 def test_mega_tokens_equal_host_loop_on_the_card(cuda, arch, kw, pressure):
-    """bf16 on the card: the mega-step gives the host loop's tokens,
-    balances allocs and frees, leaves every table row a hole, and under
-    exhaustion fails ticks and runs defrag waves."""
+    """bf16 compute on the card (bf16 KV, or int8 KV with scales): the
+    mega-step gives the host loop's tokens, balances allocs and frees,
+    leaves every table row a hole, and under exhaustion fails ticks and
+    runs defrag waves."""
     out = []
     for mega in (False, True):
         eng = _smoke_engine(cuda, arch, mega, **kw)
@@ -1068,7 +1180,8 @@ def test_mega_tokens_equal_host_loop_on_the_card(cuda, arch, kw, pressure):
 
 @pytest.mark.parametrize("mega", (True, False), ids=("mega", "host"))
 @pytest.mark.parametrize("arch,S", [("qwen2-0.5b", 1), ("qwen2-0.5b", 4),
-                                    ("mamba2-780m", 1), ("mixtral-8x7b", 1)])
+                                    ("mamba2-780m", 1), ("mixtral-8x7b", 1),
+                                    ("qwen1.5-32b", 1)])
 def test_launches_per_tick_on_the_card(cuda, arch, S, mega):
     """One grow transaction plus one ``paged_attention`` a layer for
     qwen2 (none for mamba2) at max_batch 2 and 8, the allocator's part
@@ -1077,7 +1190,7 @@ def test_launches_per_tick_on_the_card(cuda, arch, S, mega):
     counts = []
     for mb in (2, 8):
         eng = _smoke_engine(cuda, arch, mega, max_batch=mb, max_seq=64,
-                            num_shards=S)
+                            num_shards=S, kv_dtype=_kv_dtype(arch))
         AT.launch_stats(reset=True)
         ops.reset_launches()
         n = eng.launches_per_tick()
@@ -1097,7 +1210,8 @@ def test_launches_per_tick_on_the_card(cuda, arch, S, mega):
 
 
 @pytest.mark.parametrize("arch,S", [("qwen2-0.5b", 1), ("qwen2-0.5b", 4),
-                                    ("mamba2-780m", 1), ("mixtral-8x7b", 1)])
+                                    ("mamba2-780m", 1), ("mixtral-8x7b", 1),
+                                    ("qwen1.5-32b", 1)])
 def test_mega_tick_reads_the_card_once(cuda, arch, S):
     """Each steady tick (no admission, no retirement, no failure) makes
     exactly one synchronizing call, the flags' read: every step is run
@@ -1105,7 +1219,7 @@ def test_mega_tick_reads_the_card_once(cuda, arch, S):
     tick's device part itself runs under ``"error"``)."""
     import warnings
     eng = _smoke_engine(cuda, arch, True, max_batch=4, max_seq=96,
-                        num_shards=S)
+                        num_shards=S, kv_dtype=_kv_dtype(arch))
     rng = np.random.default_rng(1)
     for _ in range(4):
         eng.submit(rng.integers(2, eng.cfg.vocab_size, 20),
@@ -1197,3 +1311,80 @@ def test_mixtral_full_width_two_layers_both_loops(cuda):
         del eng
     assert out[0] == out[1] and len(out[0]) == 3
     assert masked[0] > 0 and worst[0] <= 1e-5
+
+
+def test_qwen1_5_32b_full_width_two_layers_int8_both_loops(cuda):
+    """qwen1.5-32b at the reference's widths (40 query and 40 kv heads of
+    128, d_ff 27,392, vocab 152,064, untied), cut to 2 layers, bf16
+    weights and int8 KV pages: prompts of 448, 20 and 300 tokens through
+    the host loop and the mega-step give the same tokens,
+    ``allocs == frees``, no page held, ``launches_per_tick`` 3, and the
+    kernel at the run's own inputs (scales from the run's heaps) held to
+    a float64 evaluation of the same words: within sqrt(D) times the
+    plain version's own error, + 1e-5, a limit that the plain version
+    staged in bf16 (the JAX reference's staging of int8 pages) must
+    fail.  At two layers random weights drive |q| and |out| past 200,
+    where two float32 summation orders of a score part by far more than
+    1e-5 (the plain version alone is that far from float64), so atol
+    1e-5 against the plain version cannot hold; the kernel sums a
+    score's products in order, the plain version in blocks."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServingEngine
+    cfg = dataclasses.replace(get_arch("qwen1.5-32b"), num_layers=2)
+    m = build_model(cfg)
+    params = m.init(0, device=cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, n) for n in (448, 20, 300)]
+    out, calls = [], [0]
+    err = {"kernel": 0.0, "plain": 0.0, "staged": 0.0}
+    kernel = ops.paged_attention
+
+    def checked(q, k, v, table, seq, **kw):
+        got = kernel(q, k, v, table, seq, **kw)
+        assert k.dtype == torch.int8 and kw["k_scale"] is not None
+        want = ref.paged_attention(q, k, v, table, seq, **kw)
+        exact = ref.paged_attention(q, k, v, table, seq,
+                                    dtype=torch.float64, **kw)
+        staged = ref.paged_attention(q, k, v, table, seq,
+                                     stage=torch.bfloat16, **kw)
+        for name, x in (("kernel", got), ("plain", want),
+                        ("staged", staged)):
+            err[name] = max(err[name], float((x - exact).abs().max()))
+        calls[0] += 1
+        return got
+
+    for mega in (False, True):
+        eng = ServingEngine(m, params, max_batch=4, max_seq=512,
+                            kv_dtype=torch.int8,
+                            compute_dtype=torch.bfloat16, device=cuda,
+                            mega_step=mega, max_new_cap=8)
+        assert eng.launches_per_tick() == 1 + cfg.num_layers
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        toks = {r.uid: list(r.out_tokens) for r in eng.run_until_done()}
+        st = eng.stats
+        assert st["allocs"] == st["frees"] > 0
+        assert bool((eng.caches.kv.page_table == -1).all())
+        assert bool(eng.caches.kv.layers.k_scale.any())
+        out.append(toks)
+        if not mega:   # the kernel at the run's own inputs
+            eng.alloc_state = eng.ouro.init()
+            for p in prompts:
+                eng.submit(p, max_new_tokens=8)
+            ops.paged_attention = checked
+            try:
+                again = eng.run_until_done()
+            finally:
+                ops.paged_attention = kernel
+            assert sorted(r.out_tokens for r in again) == sorted(
+                toks.values())
+        del eng
+    assert out[0] == out[1] and len(out[0]) == 3
+    assert calls[0] >= 7 * cfg.num_layers
+    limit = cfg.head_dim_ ** 0.5 * err["plain"] + 1e-5
+    print(f"errors against float64 {err}: kernel / plain "
+          f"{err['kernel'] / err['plain']:.3g}, staged / plain "
+          f"{err['staged'] / err['plain']:.3g}, limit {limit:.3g}")
+    assert err["kernel"] <= limit < err["staged"], err

@@ -30,6 +30,7 @@ from repro_torch.kernels.alloc_txn import (CHAIN_STATS, FREE_STATS,
                                            SHARD_STATS, TABLE_SMEM_LIMIT,
                                            ArenaDesc, descriptor)
 from repro_torch.kernels.defrag_txn import REBUILD_STATS
+from repro_torch.paged.kv_cache import _quant
 
 # every allocator and wave kernel's launch count, in the harness's order
 LAUNCHES = AT.LAUNCH_STATS + DT.LAUNCH_STATS
@@ -85,6 +86,8 @@ def emu(tmp_path_factory):
         ctypes.c_float]
     so.emu_paged_attention_window.argtypes = [I, I] + [P] * 6 + [I] * 10 + [
         ctypes.c_float]
+    so.emu_paged_attention_int8.argtypes = [I, I] + [P] * 8 + [I] * 10 + [
+        ctypes.c_float]
     so.emu_sharded_alloc_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
                                          I, I, P, Z]
     so.emu_sharded_free_txn.argtypes = [ArenaDesc, P, P, I, I, I, P, P, P,
@@ -119,6 +122,7 @@ def emu(tmp_path_factory):
         fn.restype = I
     for f in (so.emu_alloc_txn, so.emu_free_txn, so.emu_defrag_txn,
               so.emu_paged_attention, so.emu_paged_attention_window,
+              so.emu_paged_attention_int8,
               so.emu_sharded_alloc_txn,
               so.emu_sharded_free_txn, so.emu_sharded_defrag_txn,
               so.emu_ssd_scan, so.emu_ring_txn_pop, so.emu_ring_txn_push,
@@ -1700,6 +1704,129 @@ def test_paged_attention_window_ring_kernel_matches_plain(emu, case, dtype,
     # the window and the ring change what is attended in these cases
     plain = ref.paged_attention(q, k, v, tt, st, wpp=wpp)
     assert float((plain - want).abs().max()) > 1e-3
+
+
+# (B, Hq, Hkv, D, page, P, NP, seq_lens, window, ring, wpp, holes): int8
+# pages with per-(slot, head) scales at G = 1 (qwen1.5-32b's heads, D
+# 128), 4 and 7, D 32-128, both table modes, a window, a wrapping ring,
+# and rows of 24 int8 elements (element copies)
+INT8_CASES = {
+    "g1-d128": (3, 2, 2, 128, 16, 5, 24, [0, 37, 80], None, False, None,
+                [(2, 1, 2)]),
+    "g4-d64-offsets": (4, 8, 2, 64, 16, 6, 40, [96, 1, 50, 70], None, False,
+                       64, [(0, 2, 3), (3, 4, 6)]),
+    "g7-d32": (3, 14, 2, 32, 16, 5, 30, [80, 17, 64], None, False, None,
+               [(1, 0, 1)]),
+    "g4-d128-window": (4, 8, 2, 128, 16, 12, 60, [20, 100, 161, 190], 96,
+                       False, 64, [(2, 3, 5), (3, 0, 4)]),
+    "g1-d128-ring": (4, 2, 2, 128, 16, 10, 50, [16, 160, 161, 1000], 128,
+                     True, None, [(3, 4, 5)]),
+    "narrow-rows": (2, 2, 1, 24, 8, 5, 20, [33, 7], None, False, 64,
+                    [(0, 3, 4)]),
+}
+
+
+def _int8_inputs(case, q_dtype):
+    """Unit-normal q in ``q_dtype`` and K, V quantized as the KV cache
+    stores them (``kv_cache._quant``: int8 words, a float32 scale per
+    (page, slot, kv head)), a permuted table with holes."""
+    B, Hq, Hkv, D, page, P, NP, seq, window, ring, wpp, holes = \
+        INT8_CASES[case]
+    rng = np.random.default_rng(NP + D)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D), np.float32))
+    k8, ks = _quant(torch.from_numpy(
+        rng.standard_normal((NP, page, Hkv, D), np.float32)))
+    v8, vs = _quant(torch.from_numpy(
+        rng.standard_normal((NP, page, Hkv, D), np.float32)))
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    for row, lo, hi in holes:
+        table[row, lo:hi] = -1
+    if wpp:
+        table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
+    return (q.to(q_dtype).contiguous(), k8, v8, ks, vs,
+            torch.from_numpy(table), torch.tensor(seq, dtype=torch.int32),
+            dict(wpp=wpp, window=window, ring=ring))
+
+
+def _emu_int8(so, q, k8, v8, ks, vs, tt, st, wpp, window, ring):
+    B, Hq, D = q.shape
+    NP, page, Hkv, _ = k8.shape
+    got = torch.full((B, Hq, D), float("nan"), dtype=torch.float32)
+    so.emu_paged_attention_int8(
+        int(q.dtype == torch.bfloat16), int(D % 16 == 0), _p(q), _p(k8),
+        _p(v8), _p(ks), _p(vs), _p(tt), _p(st), _p(got), B, Hq, Hkv, D, page,
+        tt.shape[1], NP, int(wpp or 0), int(window or 0), int(ring),
+        1.0 / D ** 0.5)
+    return got
+
+
+@pytest.mark.parametrize("case", tuple(INT8_CASES))
+@pytest.mark.parametrize("q_dtype", (torch.float32, torch.bfloat16))
+def test_paged_attention_int8_kernel_matches_plain(emu, case, q_dtype):
+    """int8 pages in the split kernels and the fold: each element read
+    as float(k8) * scale of its (page, slot, kv head), q in float32 and
+    bf16, G 1, 4 and 7, D 24-128 (16-byte chunks of 16 int8 elements,
+    or element copies), both table modes, a window and a wrapping ring,
+    holes and ragged lengths: atol 1e-5 of the plain version on the same
+    values."""
+    q, k8, v8, ks, vs, tt, st, kw = _int8_inputs(case, q_dtype)
+    want = ref.paged_attention(q, k8, v8, tt, st, k_scale=ks, v_scale=vs,
+                               **kw)
+    got = _emu_int8(emu, q, k8, v8, ks, vs, tt, st, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    assert not bool(got[st == 0].any())   # no token: 0
+    # the scales matter: the words alone give another result
+    ones = torch.ones_like(ks)
+    words = ref.paged_attention(q, k8, v8, tt, st, k_scale=ones,
+                                v_scale=ones, **kw)
+    assert float((words - want).abs().max()) > 1e-3
+
+
+# one-line mutations of the kernel source's scale read: the slot or the
+# kv head of a token's scale off by one
+SCALE_MUTATIONS = {
+    "wrong-slot": ("(id * page + u % page) * Hkv + h]",
+                   "(id * page + (u + 1) % page) * Hkv + h]"),
+    "wrong-head": ("(id * page + u % page) * Hkv + h]",
+                   "(id * page + u % page) * Hkv + (h + 1) % Hkv]"),
+}
+
+
+@pytest.mark.parametrize("mutation", tuple(SCALE_MUTATIONS))
+def test_paged_attention_int8_scale_mutation_fails(mutation,
+                                                   tmp_path_factory):
+    """The int8 cases catch a scale read from the wrong slot or head: the
+    attention kernels alone (``cuda_emu/attention_harness.cpp``) built
+    from a mutated copy of the source give an error far past the
+    tolerance on two of the cases above."""
+    cxx = shutil.which("g++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    src = (CSRC / "paged_attention.cu").read_text()
+    old, new = SCALE_MUTATIONS[mutation]
+    assert src.count(old) == 1, "the scale read moved: update the mutation"
+    out = tmp_path_factory.mktemp("cuda_emu_mutant")
+    (out / "attention_emu.inc").write_text(
+        _device_part(src.replace(old, new)))
+    lib = out / "libattention.so"
+    r = subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                        "-pthread", f"-I{EMU / 'include'}", f"-I{EMU}",
+                        f"-I{out}", "-o", str(lib),
+                        str(EMU / "attention_harness.cpp")],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0 and "c++20" in r.stderr.lower():
+        pytest.skip(f"host compiler lacks C++20: {r.stderr[:200]}")
+    assert r.returncode == 0, r.stderr
+    so = ctypes.CDLL(str(lib))
+    so.emu_paged_attention_int8.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float]
+    so.emu_paged_attention_int8.restype = None
+    for case in ("g4-d64-offsets", "g1-d128-ring"):
+        q, k8, v8, ks, vs, tt, st, kw = _int8_inputs(case, torch.float32)
+        want = ref.paged_attention(q, k8, v8, tt, st, k_scale=ks,
+                                   v_scale=vs, **kw)
+        got = _emu_int8(so, q, k8, v8, ks, vs, tt, st, **kw)
+        assert float((got - want).abs().max()) > 1e-3, case
 
 
 def _ssd_inputs(rng, B, L, H, P, G, N, dtype, with_h0):
