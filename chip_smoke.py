@@ -76,7 +76,11 @@ Phases, each reporting on its own lines:
    lengths 1-8,192 on both sides of it): a 512-slot table and a 258-slot
    ring (window // 16 + 2), holes, both table modes and dtypes, atol
    1e-5, each case's device time, CUDA-event time, plain time and bound
-   (the attended pages' bytes); then int8 pages with their float32
+   (the attended pages' bytes); the same at recurrentgemma-9b's decode
+   shapes (B 8, Hq 16, Hkv 1: G 16, D 256, window 2,048, lengths
+   1-4,192: the merge kernel folds 4 outputs a thread, the scores
+   kernel's shared memory passes 48 KB): a 262-slot table (as served,
+   max_seq 4,192) and a 130-slot ring; then int8 pages with their float32
    scales (``paged_attention int8`` lines): unit inputs at qwen2's
    shapes (q float32 on page ids, q bf16 on word offsets), qwen1.5-32b's
    decode shapes (B 8, Hq 40, Hkv 40, D 128, lengths 1-1,024, a 64-slot
@@ -159,31 +163,33 @@ Phases, each reporting on its own lines:
    launches equal to the engine's counts; then profiled reruns of the
    qwen2 and mamba2 runs with every step's synchronizing calls counted
    (one, the flags' read, a steady tick), their device idle share beside
-   the host loop's (phases 5-6), and tok/s of both loops.  Last, alone
-   on the card, the moe slice: full-width mixtral-8x7b cut to 16 of its
-   32 layers (47.0 GB of bf16 weights; 32 do not fit one 80-GB card)
-   serves phase 5's 16 prompts plus one of 4,160 tokens (past the
-   4096-token window), 32 new each, max_batch 8: through the host loop
-   ("phase 5: mixtral-8x7b" lines: each admission's aux grant of 3,584
-   pages, ``allocs == frees``, no page held, the launches equal to the
-   engine's counts, then a rerun holding every ``paged_attention`` call
-   of some ticks, one of them where the long request's window masks,
-   to the plain version at atol 1e-5, and a profiled rerun: device busy
-   and idle share), then through the mega-step ("phase 7:
-   mixtral-8x7b" lines: ``launches_per_tick`` 17, the host loop's
-   tokens, one synchronizing call a steady tick, counted in the timed
-   run).  Then, alone on the card after mixtral's weights are freed, the
-   int8 slice: qwen1.5-32b at the reference's widths and full depth (64
-   layers, 70.4 GB of bf16 weights), int8 KV pages with float32 scales,
-   max_batch 8, max_seq 1,024, phase 5's 16 prompts, 32 new each:
-   through the host loop ("phase 5: qwen1.5-32b" lines: device memory
-   after the weights and after the heaps, ``allocs == frees``, no page
-   held, the launches equal to the engine's counts, a rerun holding
-   every ``paged_attention`` call of some ticks to the plain version at
-   the run's own inputs, a profiled rerun: device busy and idle share),
-   then through the mega-step ("phase 7: qwen1.5-32b" lines:
-   ``launches_per_tick`` 65, the host loop's tokens, one synchronizing
-   call a steady tick).  Each phase
+   the host loop's (phases 5-6), and tok/s of both loops.  Then three
+   models run alone on the card, one after another, each freed before
+   the next loads (``ALONE``): the hybrid slice, recurrentgemma-9b at
+   the reference's widths and all 38 layers (12 (RG-LRU, RG-LRU, local
+   attention) triples and 2 RG-LRU layers; 22.6 GB of weights, bf16
+   with the RG-LRU gates in float32; max_seq 4,192); the moe slice,
+   full-width mixtral-8x7b cut to 16 of its 32 layers (47.0 GB of bf16
+   weights; 32 do not fit one 80-GB card; max_seq 4,192); the int8
+   slice, qwen1.5-32b at the reference's widths and all 64 layers (70.4
+   GB of bf16 weights) on int8 KV pages with float32 scales (max_seq
+   1,024).  Each serves phase 5's 16 prompts (the two windowed models
+   one of 4,160 tokens more, past their 2,048- and 4,096-token
+   windows), 32 new each, max_batch 8, through the host loop ("phase 5:
+   <model>" lines, ``phase_serve_alone``: device memory (weights, K/V
+   heaps sized by the arena's physical pages, aux pages included, state
+   rows, the peak), each admission's aux grant (4,160, 3,584 and 0
+   pages), ``allocs == frees``, no page held, the launches equal to the
+   engine's counts (one ``paged_attention`` an attention layer a tick),
+   then a rerun holding every ``paged_attention`` call of every 32nd
+   (qwen1.5-32b: 30th) tick and of the first tick where the long
+   request's window masks, at the run's own inputs, to the plain
+   version at atol 1e-5, or, at qwen1.5-32b's magnitudes, where two
+   float32 orders part by more, to float64 beside a bf16-staged control
+   that must fail; "phase 6: <model>": a profiled rerun, device busy,
+   idle share, time by kernel), then through the mega-step ("phase 7:
+   <model>" lines: ``launches_per_tick`` 13, 17 and 65, the host
+   loop's tokens, one synchronizing call a steady tick).  Each phase
    prints its seconds.  Then one JSON line of per-kernel numbers (each
    kernel's launches in the mega-step runs too), then the card line,
    then the result line ``{"ok": true, "device": {...}}`` last.
@@ -1683,16 +1689,17 @@ MIX_ATTN = dict(B=8, Hq=32, Hkv=8, D=128, page=16, window=4096)
 MIX_SEQ = (1, 100, 4096, 4097, 4160, 5000, 8000, 8192)
 
 
-def mix_attn_inputs(device, dtype, wpp, ring, seed=0):
-    """Unit normals at mixtral's heads: a table of 512 page slots (the
-    8192-token row's pages) or a ring of window // page + 2 = 258 slots,
-    shorter than the longest rows need; holes inside the window, before
-    it and on the ring."""
+def window_attn_inputs(device, dtype, wpp, ring, shape, seqs, hole, seed=0):
+    """Unit normals at a windowed model's heads (``shape``: B, Hq, Hkv,
+    D, page, window): a table of the longest row's page slots, or a ring
+    of window // page + 2 slots, shorter than the longest rows need;
+    holes inside the window (row 5's slots ``hole``, ``hole + 1``),
+    before it and on the ring."""
     import numpy as np
     import torch
-    B, Hq, Hkv, D = (MIX_ATTN[k] for k in ("B", "Hq", "Hkv", "D"))
-    page, W = MIX_ATTN["page"], MIX_ATTN["window"]
-    P = W // page + 2 if ring else max(MIX_SEQ) // page
+    B, Hq, Hkv, D = (shape[k] for k in ("B", "Hq", "Hkv", "D"))
+    page, W = shape["page"], shape["window"]
+    P = W // page + 2 if ring else max(seqs) // page
     NP = B * P + 64
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -1705,34 +1712,42 @@ def mix_attn_inputs(device, dtype, wpp, ring, seed=0):
     rng = np.random.default_rng(seed)
     table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
     table[1, 3] = -1            # inside the 100-token row
-    lo = 254 if ring else 260
-    table[5, lo:lo + 2] = -1    # inside row 5's window (or ring)
-    table[7, 0:5] = -1          # before the 8192-token row's window
+    table[5, hole:hole + 2] = -1    # inside row 5's window (or ring)
+    table[7, 0:5] = -1          # before the longest row's window
     table[6, P - 1] = -1        # the last slot
     if wpp:
         table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
     return (q, k, v, torch.from_numpy(table).to(device),
-            torch.tensor(MIX_SEQ, dtype=torch.int32, device=device), P)
+            torch.tensor(seqs, dtype=torch.int32, device=device), P)
 
 
-def phase_attention_mixtral(device):
+def mix_attn_inputs(device, dtype, wpp, ring, seed=0):
+    """mixtral's: a 512-slot table (the 8192-token row's pages) or a
+    258-slot ring."""
+    return window_attn_inputs(device, dtype, wpp, ring, MIX_ATTN, MIX_SEQ,
+                              254 if ring else 260, seed)
+
+
+def phase_attention_window(device, name, shape, seqs, holes):
     """``paged_attention`` with ``window`` and ``ring`` against its plain
-    version at mixtral-8x7b's decode shapes: the window alone over a
-    512-slot table, and a 258-slot ring table with the window (what the
-    reference's windowed decode passes), both table modes, float32 and
-    bf16 (atol 1e-5); the device time of a call, its time on CUDA
-    events, the plain version's time and the bound (bytes of the
-    attended tokens at 3.35 TB/s)."""
+    version at a windowed model's decode shapes: the window alone over a
+    table of the longest row's pages, and a ring table of window // page
+    + 2 slots with the window (what the reference's windowed decode
+    passes), both table modes, float32 and bf16 (atol 1e-5); the device
+    time of a call, its time on CUDA events, the plain version's time
+    and the bound (bytes of the attended tokens at 3.35 TB/s).
+    ``holes``: row 5's holes on the table and on the ring."""
     import torch
     from repro_torch.kernels import paged_attention as pa_kernel
     from repro_torch.kernels import ref
 
-    W, res = MIX_ATTN["window"], {}
+    W, res = shape["window"], {}
+    heads = ", ".join(f"{k} {shape[k]}" for k in ("B", "Hq", "Hkv", "D"))
     for ring in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
             for wpp in (None, 64):
-                q, k, v, table, seq, P = mix_attn_inputs(device, dtype, wpp,
-                                                         ring)
+                q, k, v, table, seq, P = window_attn_inputs(
+                    device, dtype, wpp, ring, shape, seqs, holes[ring])
                 kw = dict(wpp=wpp, window=W, ring=ring)
                 got = pa_kernel.paged_attention(q, k, v, table, seq, **kw)
                 want = ref.paged_attention(q, k, v, table, seq, **kw)
@@ -1741,7 +1756,7 @@ def phase_attention_mixtral(device):
                 err = float((got - want).abs().max())
                 if not (err <= 1e-5) or not torch.isfinite(got).all():
                     raise AssertionError(
-                        f"paged_attention {MIXTRAL} ring={ring} {dtype} "
+                        f"paged_attention {name} ring={ring} {dtype} "
                         f"wpp={wpp}: max error {err} > 1e-5")
                 if not float((whole - want).abs().max()) > 1e-3:
                     raise AssertionError("the window masked nothing")
@@ -1752,12 +1767,12 @@ def phase_attention_mixtral(device):
                 plain = time_ms(lambda: ref.paged_attention(
                     q, k, v, table, seq, **kw), 2, warmup=1)
                 bound, by = attn_bound_ms(q, k, table, seq, wpp, W, ring)
-                pps, splits = pa_kernel.geometry(MIX_ATTN["page"], P)
+                pps, splits = pa_kernel.geometry(shape["page"], P)
                 tag = (f"{'ring' if ring else 'window'} "
                        f"{str(dtype).split('.')[-1]} "
                        f"{'offsets' if wpp else 'ids'}")
-                log(f"phase 4: paged_attention {MIXTRAL} {tag} (B 8, Hq 32, "
-                    f"Hkv 8, D 128, window {W}, P {P}, seq {list(MIX_SEQ)}): "
+                log(f"phase 4: paged_attention {name} {tag} ({heads}, "
+                    f"window {W}, P {P}, seq {list(seqs)}): "
                     f"max error {err:.3g} (atol 1e-5); kernel {ms:.5f} ms a "
                     f"call (profiler device time: scores {parts[0]:.5f} + "
                     f"values {parts[1]:.5f} + merge {parts[2]:.5f}, at least "
@@ -1769,6 +1784,28 @@ def phase_attention_mixtral(device):
                 del q, k, v, got, want, whole
     torch.cuda.empty_cache()
     return res
+
+
+def phase_attention_mixtral(device):
+    """mixtral-8x7b's shapes: a 512-slot table and a 258-slot ring."""
+    return phase_attention_window(device, MIXTRAL, MIX_ATTN, MIX_SEQ,
+                                  {False: 260, True: 254})
+
+
+# recurrentgemma-9b's decode attention: MQA, 16 query heads on 1 kv head
+# of 256 (G 16), a 2,048-token local window; as served (max_seq 4,192) a
+# 262-slot table, or a 130-slot ring (2048 / 16 + 2)
+RGEMMA = "recurrentgemma-9b"
+RG_ATTN = dict(B=8, Hq=16, Hkv=1, D=256, page=16, window=2048)
+RG_SEQ = (1, 100, 2048, 2049, 2100, 3000, 4160, 4192)
+
+
+def phase_attention_rgemma(device):
+    """recurrentgemma-9b's shapes: G 16 and D 256 (the merge kernel folds
+    4 outputs a thread; the scores kernel's shared memory passes 48 KB),
+    a 262-slot table and a 130-slot ring."""
+    return phase_attention_window(device, RGEMMA, RG_ATTN, RG_SEQ,
+                                  {False: 130, True: 70})
 
 
 # qwen1.5-32b's decode attention: 40 query and 40 kv heads of 128 (G 1),
@@ -4111,56 +4148,109 @@ def phase_mega(device, models, serve, mamba, host_busy):
 
 
 # ---------------------------------------------------------------------------
-# the moe slice: mixtral-8x7b at full width, 16 of its 32 layers
+# the models that run alone on the card: recurrentgemma-9b (the hybrid
+# slice), mixtral-8x7b (the moe slice) and qwen1.5-32b (the int8 slice)
 # ---------------------------------------------------------------------------
 
-# 32 layers of bf16 weights are 93.4 GB, past one 80-GB card; 16 are 47.0
-MIXTRAL_LAYERS = 16
-MIX_LONG = 4160          # a prompt past the 4096-token window
-MIX_MAX_SEQ = MIX_LONG + 32
-# aux pages a slot: 16 layers x top-2 x d_ff 14336 x 2 B in 256-B pages
-MIX_QUOTA = 3584
+# a prompt past mixtral's 4,096- and recurrentgemma's 2,048-token windows
+LONG = 4160
+
+# Each model: its depth (None: all of it), whether a 17th prompt of
+# ``LONG`` tokens joins phase 5's 16, max_seq, the KV pages' type, its
+# aux pages a slot, how its serving inputs are judged (``checked_rerun``)
+# and every how many ticks, and its name in the runs' tables.
+ALONE = {
+    # 38 layers; aux: 26 RG-LRU layers x (4096 float32 of state + 3 x
+    # 4096 bf16 of conv tail) in 256-B pages
+    RGEMMA: dict(layers=None, long=True, max_seq=LONG + 32, kv="bfloat16",
+                 quota=4160, judge="plain", every=32, label=RGEMMA),
+    # 32 layers of bf16 weights are 93.4 GB, past one 80-GB card; 16 are
+    # 47.0; aux: 16 layers x top-2 x d_ff 14336 x 2 B in 256-B pages
+    MIXTRAL: dict(layers=16, long=True, max_seq=LONG + 32, kv="bfloat16",
+                  quota=3584, judge="plain", every=32,
+                  label=f"{MIXTRAL} (16 layers)"),
+    # all 64 layers: 70.4 GB of bf16 weights beside its int8 heaps
+    QWEN32: dict(layers=None, long=False, max_seq=1024, kv="int8", quota=0,
+                 judge="float64", every=30, label=f"{QWEN32} (int8)"),
+}
 
 
-def mixtral_model(device, seed):
-    """Full-width mixtral-8x7b cut to ``MIXTRAL_LAYERS`` layers, random
-    bf16 weights from ``seed`` (each leaf drawn in float32 and cast as it
-    is drawn), and phase 5's 16 prompts plus one of ``MIX_LONG`` tokens."""
+def tree_tensors(tree):
+    """Every tensor of a parameter tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tree_tensors(v)]
+    return [tree]
+
+
+def widths(cfg) -> str:
+    """A configuration's widths, as the log names them."""
+    parts = [f"d_model {cfg.d_model}",
+             f"{cfg.num_heads} query / {cfg.num_kv_heads} kv heads of "
+             f"{cfg.head_dim_}",
+             f"d_ff {cfg.d_ff}{' GeGLU' if cfg.act == 'gelu' else ''}"]
+    if cfg.family == "hybrid":
+        parts += [f"{cfg.num_layers // cfg.attn_period} (RG-LRU, RG-LRU, "
+                  f"local attention) triples and "
+                  f"{cfg.num_layers % cfg.attn_period} RG-LRU layers",
+                  f"lru_width {cfg.lru_width}",
+                  f"local window {cfg.local_window}"]
+    if cfg.num_experts:
+        parts.append(f"{cfg.num_experts} experts top-"
+                     f"{cfg.num_experts_per_tok}")
+    if cfg.sliding_window:
+        parts.append(f"window {cfg.sliding_window}")
+    if cfg.qkv_bias:
+        parts.append("QKV bias")
+    parts.append(f"vocab {cfg.padded_vocab}, "
+                 f"{'tied' if cfg.tie_embeddings else 'untied'} lm_head")
+    return ", ".join(parts)
+
+
+def alone_model(device, seed, name):
+    """``name`` at full width and ``ALONE``'s depth, random bf16 weights
+    from ``seed`` (each leaf drawn in float32 and cast as it is drawn;
+    the RG-LRU gates stay float32, as the reference multiplies them),
+    and phase 5's 16 prompts, with one of ``LONG`` tokens after them
+    where the spec asks.  Returns (model, params, prompts, weight
+    bytes)."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model import build_model
-    full = get_arch(MIXTRAL)
-    cfg = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
+    spec, full = ALONE[name], get_arch(name)
+    cfg = dataclasses.replace(full,
+                              num_layers=spec["layers"] or full.num_layers)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed, device=device, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    leaves = [params["embed"], params["lm_head"],
-              *params["final_norm"].values(),
-              *(w for b in params["blocks"] for g in b.values()
-                for w in g.values())]
+    leaves = tree_tensors(params)
     nbytes = sum(t.numel() * t.element_size() for t in leaves)
-    rng = np.random.default_rng(seed + 1)
-    prompts = make_requests(cfg, seed, 16, 16, 448) + [
-        rng.integers(2, cfg.vocab_size, MIX_LONG)]
-    log(f"phase 5: {MIXTRAL} full width (d_model {cfg.d_model}, "
-        f"{cfg.num_heads} query / {cfg.num_kv_heads} kv heads of "
-        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, {cfg.num_experts} experts "
-        f"top-{cfg.num_experts_per_tok}, "
-        f"window {cfg.sliding_window}, vocab {cfg.padded_vocab}, untied "
-        f"lm_head) at depth {cfg.num_layers} of {full.num_layers}: "
-        f"{nbytes} bytes of bf16 weights ({nbytes / 1e9:.2f} GB) made in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return model, params, prompts
+    prompts = make_requests(cfg, seed, 16, 16, 448)
+    if spec["long"]:
+        prompts.append(np.random.default_rng(seed + 1).integers(
+            2, cfg.vocab_size, LONG))
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 5: {name} full width at depth {cfg.num_layers} of "
+        f"{full.num_layers} ({widths(cfg)}): "
+        f"{sum(t.numel() for t in leaves)} parameters, {nbytes} bytes of "
+        f"weights ({nbytes / 1e9:.2f} GB; "
+        f"{', '.join(sorted({str(t.dtype)[6:] for t in leaves}))}) made in "
+        f"{time.perf_counter() - t0:.1f} s; device memory after the "
+        f"weights (mem_get_info): {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} GiB")
+    return model, params, prompts, nbytes
 
 
-def mixtral_engine(device, model, params, **kw):
+def alone_engine(device, model, params, name, **kw):
     import torch
     from repro_torch.serve.engine import ServingEngine
-    return ServingEngine(model, params, max_batch=8, max_seq=MIX_MAX_SEQ,
-                         kv_dtype=torch.bfloat16,
+    spec = ALONE[name]
+    return ServingEngine(model, params, max_batch=8, max_seq=spec["max_seq"],
+                         kv_dtype=getattr(torch, spec["kv"]),
                          compute_dtype=torch.bfloat16, device=device, **kw)
 
 
@@ -4192,8 +4282,8 @@ def drained(eng, name):
 
 def serving_launches(launches, st, decode_calls, L, name):
     """The run's launches equal the engine's counts: one alloc_txn a
-    transaction, one free_txn a retirement, one paged_attention a layer
-    a tick, and nothing else."""
+    transaction, one free_txn a retirement, one paged_attention an
+    attention layer a tick, and nothing else."""
     want = {k: 0 for k in launches}
     want.update(alloc_txn=st["alloc_txns"], free_txn=st["free_txns"],
                 paged_attention=L * decode_calls)
@@ -4206,200 +4296,6 @@ def serving_launches(launches, st, decode_calls, L, name):
                              f"launched: {launches}")
 
 
-def mixtral_checked_rerun(eng, prompts, want_toks, every=32, atol=1e-5):
-    """The host loop's traffic again, every call of every ``every``-th
-    tick and of the first tick in which the long request's window masks
-    held to the plain version at the run's own inputs (the ring
-    and window the model passes); the tokens must equal the timed
-    run's.  Returns (ticks checked, of them masking, calls checked, max
-    error)."""
-    import torch
-    from repro_torch.kernels import ops, ref
-    kernel, L = ops.paged_attention, eng.cfg.num_layers
-    W = eng.cfg.sliding_window
-    st = {"calls": 0, "checked": 0, "ticks": [], "masking": [], "err": 0.0,
-          "on": False}
-
-    def checked(q, k, v, table, seq, **kw):
-        out = kernel(q, k, v, table, seq, **kw)
-        tick, layer = divmod(st["calls"], L)
-        if layer == 0:
-            masks = int(seq.max()) > W
-            st["on"] = (tick % every == 0
-                        or (masks and not st["masking"]))
-            if st["on"]:
-                st["ticks"].append(tick)
-                if masks:
-                    st["masking"].append(tick)
-        if st["on"]:
-            if kw.get("window") != W or not kw.get("ring"):
-                raise AssertionError(f"the model passed {kw} to "
-                                     f"paged_attention")
-            want = ref.paged_attention(q, k, v, table, seq, **kw)
-            st["err"] = max(st["err"], float((out - want).abs().max()))
-            st["checked"] += 1
-        st["calls"] += 1
-        return out
-
-    eng.alloc_state = eng.ouro.init()
-    for p in prompts:
-        eng.submit(p, max_new_tokens=32)
-    ops.paged_attention = checked
-    try:
-        done = eng.run_until_done()
-    finally:
-        ops.paged_attention = kernel
-    torch.cuda.synchronize()
-    if sorted(r.out_tokens for r in done) != sorted(want_toks.values()):
-        raise AssertionError(f"{MIXTRAL}: the checked rerun's tokens differ")
-    if len(st["ticks"]) < 3 or not st["masking"] or not st["err"] <= atol:
-        raise AssertionError(f"{MIXTRAL}: paged_attention at the run's "
-                             f"inputs: ticks {st['ticks']} (masking "
-                             f"{st['masking']}), max error {st['err']} "
-                             f"(atol {atol})")
-    return st
-
-
-def phase_mixtral_serve(device, model, params, prompts):
-    """Phase 5's requests plus one of ``MIX_LONG`` tokens through the host
-    loop: one aux grant of the quota per admission, ``allocs == frees``,
-    no page held, the launches equal to the engine's counts; then a
-    checked rerun (``mixtral_checked_rerun``) and a profiled one."""
-    import gc
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.paged.kv_cache import modality_page_quota
-
-    t0 = time.perf_counter()
-    eng = mixtral_engine(device, model, params)
-    quota = modality_page_quota(eng.cfg)
-    grants = aux_grants(eng)
-    counting = CountingModel(eng.model)
-    eng.model = counting
-    L = eng.cfg.num_layers
-    for p in prompts:
-        eng.submit(p, max_new_tokens=32)
-    torch.cuda.synchronize()
-    log(f"phase 5: {MIXTRAL}: engine max_batch 8, max_seq {MIX_MAX_SEQ}, "
-        f"{eng.aux_pages} aux pages a slot (quota {quota}), KV heaps of "
-        f"{eng.caches.kv.layers.k.shape[1]} pages ("
-        f"{2 * eng.caches.kv.layers.k.numel() * 2 / 1e9:.2f} GB); "
-        f"set-up {time.perf_counter() - t0:.1f} s; device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    done = eng.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    st = dict(eng.stats)
-    toks = sum(len(r.out_tokens) for r in done)
-    log(f"phase 5: {MIXTRAL}: served {len(done)} requests (prompts "
-        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens), "
-        f"{toks} tokens, {st['steps']} steps, {counting.decode_calls} "
-        f"decode ticks in {wall:.2f} s: {toks / wall:.1f} tok/s (prefill "
-        f"included: {counting.secs['prefill']:.2f} s host wall)")
-    log(f"phase 5: {MIXTRAL}: stats {json.dumps(st)}")
-    log(f"phase 5: {MIXTRAL}: launches {json.dumps(launches)}; aux grants "
-        f"{grants}")
-    if len(done) != len(prompts) or any(len(r.out_tokens) != 32
-                                        for r in done):
-        raise AssertionError(f"{MIXTRAL}: not every request finished with "
-                             f"32 tokens")
-    if any(not (0 <= t < eng.cfg.padded_vocab) for r in done
-           for t in r.out_tokens):
-        raise AssertionError(f"{MIXTRAL}: a token out of range")
-    if grants != [MIX_QUOTA] * len(prompts) or quota != MIX_QUOTA:
-        raise AssertionError(f"{MIXTRAL}: aux grants {grants}, quota {quota} "
-                             f"(want {MIX_QUOTA} at each of {len(prompts)} "
-                             f"admissions)")
-    if st["alloc_failures"]:
-        raise AssertionError(f"{MIXTRAL}: {st['alloc_failures']} failed "
-                             f"grants")
-    drained(eng, f"{MIXTRAL} host loop")
-    serving_launches(launches, st, counting.decode_calls, L, MIXTRAL)
-    tokens = {r.uid: r.out_tokens for r in done}
-
-    t0 = time.perf_counter()
-    chk = mixtral_checked_rerun(eng, prompts, tokens)
-    log(f"phase 5: {MIXTRAL}: paged_attention at the run's own inputs: "
-        f"{chk['checked']} calls of ticks {chk['ticks']} (the long "
-        f"request's window masks in tick {chk['masking']}) held to the "
-        f"plain version on the card, max error {chk['err']:.3g} (atol "
-        f"1e-5); the rerun's tokens equal the timed run's "
-        f"({time.perf_counter() - t0:.1f} s)")
-
-    eng.alloc_state = eng.ouro.init()
-    for p in prompts:
-        eng.submit(p, max_new_tokens=32)
-    with DeviceProfile() as prof:
-        done = eng.run_until_done()
-    if sorted(r.out_tokens for r in done) != sorted(tokens.values()):
-        raise AssertionError(f"{MIXTRAL}: the profiled rerun's tokens differ")
-    busy = prof.busy_ms()
-    attn = [prof.kernel(KERNEL_SYMBOLS[k]) for k in ATTN_KERNELS]
-    attn_ms = sum(ms * n for ms, n in attn if ms)
-    log(f"phase 5: {MIXTRAL}: profiled rerun: device busy {busy:.0f} ms of "
-        f"the timed run's {1e3 * wall:.0f} ms wall: device idle "
-        f"{100 * (1 - busy / (1e3 * wall)):.1f}%; paged_attention "
-        f"{attn_ms:.1f} ms over {attn[0][1]} recorded calls")
-    for key_, us, n in prof.rows[:6]:
-        log(f"phase 5:   {us / 1e3:9.2f} ms  {n:6d}x  {key_[:90]}")
-    out = dict(tokens=tokens, launches=launches, tok_s=toks / wall,
-               wall=wall, busy=busy, idle=1 - busy / (1e3 * wall),
-               checked=chk, stats=st,
-               attn_ms=attn_ms, attn_calls=attn[0][1])
-    del eng, counting, prof
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
-
-
-# ---------------------------------------------------------------------------
-# the int8 slice: qwen1.5-32b at full width and depth, int8 KV pages
-# ---------------------------------------------------------------------------
-
-Q32_MAX_SEQ = 1024
-
-
-def qwen32_model(device, seed):
-    """Full-width, full-depth qwen1.5-32b (64 layers), random bf16
-    weights from ``seed`` (each leaf drawn in float32 and cast as it is
-    drawn, layer by layer), and phase 5's 16 prompt lengths."""
-    import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.models.model import build_model
-    cfg = get_arch(QWEN32)
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(seed, device=device, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    leaves = [params["embed"], params["lm_head"],
-              *params["final_norm"].values(),
-              *(w for b in params["blocks"] for g in b.values()
-                for w in g.values())]
-    nbytes = sum(t.numel() * t.element_size() for t in leaves)
-    free, total = torch.cuda.mem_get_info()
-    log(f"phase 5: {QWEN32} full width and depth ({cfg.num_layers} layers, "
-        f"d_model {cfg.d_model}, {cfg.num_heads} query / "
-        f"{cfg.num_kv_heads} kv heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.padded_vocab}, QKV bias, untied lm_head): "
-        f"{sum(t.numel() for t in leaves)} parameters, {nbytes} bytes of "
-        f"bf16 weights ({nbytes / 1e9:.2f} GB) made in "
-        f"{time.perf_counter() - t0:.1f} s; device memory after the "
-        f"weights (mem_get_info): {free / 2**30:.2f} GiB free of "
-        f"{total / 2**30:.2f} GiB")
-    return model, params, make_requests(cfg, seed, 16, 16, 448)
-
-
-def qwen32_engine(device, model, params, **kw):
-    import torch
-    from repro_torch.serve.engine import ServingEngine
-    return ServingEngine(model, params, max_batch=8, max_seq=Q32_MAX_SEQ,
-                         kv_dtype=torch.int8, compute_dtype=torch.bfloat16,
-                         device=device, **kw)
-
-
 def float64_judged(kernel_err, plain_err, D, atol=1e-5) -> bool:
     """Whether the kernel's largest error against a float64 evaluation of
     the same words and scales is within sqrt(D) times the plain
@@ -4410,53 +4306,74 @@ def float64_judged(kernel_err, plain_err, D, atol=1e-5) -> bool:
     cannot hold; the kernel sums each score's D products in order (PR
     17's rounding order), the plain version through cuBLAS in blocks.
     The factor lies between the two readings that set it, both printed
-    by ``qwen32_checked_rerun``: the kernel's error over the plain
-    version's, and that of a control of lower precision (the plain
-    version staged in bf16, as the JAX reference stages int8 pages),
-    which must fall outside.  A wrong page, slot, head or scale moves
-    the output by about |v|, far past this."""
+    by ``checked_rerun``: the kernel's error over the plain version's,
+    and that of a control of lower precision (the plain version staged
+    in bf16, as the JAX reference stages int8 pages), which must fall
+    outside.  A wrong page, slot, head or scale moves the output by
+    about |v|, far past this."""
     return kernel_err <= D ** 0.5 * plain_err + atol
 
 
-def qwen32_checked_rerun(eng, prompts, want_toks, every=30):
+def checked_rerun(eng, prompts, want_toks, name, atol=1e-5):
     """The host loop's traffic again, every ``paged_attention`` call of
-    every ``every``-th tick held at the run's own inputs (its int8 heaps
-    and their scales) to the plain version and, both of them, to a
-    float64 evaluation (``float64_judged``), and a bf16-staged control
+    every ``ALONE[name]["every"]``-th tick, and of the first tick in
+    which a request's window masks, held at the run's own inputs (the
+    model's window, ring tables and page type): to the plain version
+    within ``atol`` (judge "plain"), or, where two float32 orders part
+    by more (judge "float64"), to a float64 evaluation as
+    ``float64_judged`` says, beside a bf16-staged control
     (``ref.paged_attention(stage=torch.bfloat16)``) that must fail that
-    judgement; the tokens must equal the timed run's.  Returns (ticks
-    checked, calls checked, the kernel's largest difference from the
-    plain version, the kernel's, the plain version's and the control's
-    largest error against float64, the largest ratio of the kernel's
-    error to the plain version's in one call, the largest output)."""
+    judgement.  The tokens must equal the timed run's.  Returns the
+    ticks checked, of them masking, the calls checked, the kernel's
+    largest difference from the plain version and its largest output;
+    for judge "float64" also the kernel's, the plain version's and the
+    control's largest error against float64 and the largest ratio of
+    the kernel's to the plain version's in one call."""
     import torch
     from repro_torch.kernels import ops, ref
-    kernel, L = ops.paged_attention, eng.cfg.num_layers
-    st = {"calls": 0, "checked": 0, "ticks": [], "err": 0.0, "k64": 0.0,
-          "p64": 0.0, "c64": 0.0, "call_ratio": 0.0, "out": 0.0}
+    from repro_torch.models.transformer import num_attn_layers
+    cfg, spec = eng.cfg, ALONE[name]
+    kernel, L = ops.paged_attention, num_attn_layers(cfg)
+    W = cfg.local_window if cfg.family == "hybrid" else cfg.sliding_window
+    pages = eng.caches.kv.layers.k.dtype
+    st = {"calls": 0, "checked": 0, "ticks": [], "masking": [], "err": 0.0,
+          "out": 0.0, "k64": 0.0, "p64": 0.0, "c64": 0.0, "call_ratio": 0.0,
+          "on": False}
 
     def checked(q, k, v, table, seq, **kw):
         out = kernel(q, k, v, table, seq, **kw)
         tick, layer = divmod(st["calls"], L)
-        if tick % every == 0:
-            if layer == 0:
+        if layer == 0:
+            masks = W is not None and int(seq.max()) > W
+            st["on"] = (tick % spec["every"] == 0
+                        or (masks and not st["masking"]))
+            if st["on"]:
                 st["ticks"].append(tick)
-            if k.dtype != torch.int8 or kw.get("k_scale") is None:
-                raise AssertionError(f"the model passed {k.dtype} pages "
-                                     f"without scales to paged_attention")
+                if masks:
+                    st["masking"].append(tick)
+        if st["on"]:
+            if (kw.get("window") != W
+                    or bool(kw.get("ring")) != (W is not None)
+                    or k.dtype != pages
+                    or (kw.get("k_scale") is None) != (pages != torch.int8)):
+                raise AssertionError(f"{name}: the model passed {k.dtype} "
+                                     f"pages and {kw} to paged_attention")
             want = ref.paged_attention(q, k, v, table, seq, **kw)
-            exact = ref.paged_attention(q, k, v, table, seq,
-                                        dtype=torch.float64, **kw)
-            staged = ref.paged_attention(q, k, v, table, seq,
-                                         stage=torch.bfloat16, **kw)
-            e = {key: float(x.abs().max()) for key, x in (
-                ("err", out - want), ("k64", out - exact),
-                ("p64", want - exact), ("c64", staged - exact),
-                ("out", exact))}
+            e = {"err": out - want}
+            if spec["judge"] == "float64":
+                exact = ref.paged_attention(q, k, v, table, seq,
+                                            dtype=torch.float64, **kw)
+                staged = ref.paged_attention(q, k, v, table, seq,
+                                             stage=torch.bfloat16, **kw)
+                e.update(k64=out - exact, p64=want - exact,
+                         c64=staged - exact)
+            e = {key: float(x.abs().max()) for key, x in e.items()}
+            e["out"] = float(out.abs().max())
             for key, x in e.items():
                 st[key] = max(st[key], x)
-            st["call_ratio"] = max(st["call_ratio"],
-                                   e["k64"] / max(e["p64"], 1e-30))
+            if "k64" in e:
+                st["call_ratio"] = max(st["call_ratio"],
+                                       e["k64"] / max(e["p64"], 1e-30))
             st["checked"] += 1
         st["calls"] += 1
         return out
@@ -4471,45 +4388,96 @@ def qwen32_checked_rerun(eng, prompts, want_toks, every=30):
         ops.paged_attention = kernel
     torch.cuda.synchronize()
     if sorted(r.out_tokens for r in done) != sorted(want_toks.values()):
-        raise AssertionError(f"{QWEN32}: the checked rerun's tokens differ")
-    D = eng.cfg.head_dim_
-    if len(st["ticks"]) < 3 or not float64_judged(st["k64"], st["p64"], D):
-        raise AssertionError(f"{QWEN32}: paged_attention at the run's "
-                             f"inputs: ticks {st['ticks']}, error against "
-                             f"float64 {st['k64']} (the plain version's "
-                             f"{st['p64']}, x sqrt({D}) + 1e-5)")
-    if float64_judged(st["c64"], st["p64"], D):
-        raise AssertionError(f"{QWEN32}: the bf16-staged control's error "
+        raise AssertionError(f"{name}: the checked rerun's tokens differ")
+    if (len(st["ticks"]) < 3 or st["checked"] != L * len(st["ticks"])
+            or (spec["long"] and not st["masking"])):
+        raise AssertionError(f"{name}: checked ticks {st['ticks']} (masking "
+                             f"{st['masking']}), {st['checked']} calls")
+    D = cfg.head_dim_
+    if spec["judge"] == "plain" and not st["err"] <= atol:
+        raise AssertionError(f"{name}: paged_attention at the run's inputs: "
+                             f"max error {st['err']} (atol {atol})")
+    if spec["judge"] == "float64" and not float64_judged(st["k64"],
+                                                         st["p64"], D):
+        raise AssertionError(f"{name}: paged_attention at the run's inputs: "
+                             f"error against float64 {st['k64']} (the "
+                             f"plain version's {st['p64']}, x sqrt({D}) + "
+                             f"{atol})")
+    if spec["judge"] == "float64" and float64_judged(st["c64"], st["p64"],
+                                                     D):
+        raise AssertionError(f"{name}: the bf16-staged control's error "
                              f"against float64, {st['c64']}, passes the "
-                             f"limit sqrt({D}) x {st['p64']} + 1e-5, which "
-                             f"then tells no lower precision apart")
+                             f"limit sqrt({D}) x {st['p64']} + {atol}, "
+                             f"which then tells no lower precision apart")
     return st
 
 
-def phase_qwen32_serve(device, model, params, prompts):
-    """Phase 5's 16 prompts, 32 new each, through the host loop of
-    full-width, full-depth qwen1.5-32b on int8 KV pages: ``allocs ==
-    frees``, no page held, the launches equal to the engine's counts;
-    then a checked rerun (``qwen32_checked_rerun``) and a profiled one
-    (device busy and idle share)."""
+def checked_text(chk, cfg, judge) -> str:
+    """What ``checked_rerun`` held, as the log says it."""
+    D = cfg.head_dim_
+    W = cfg.local_window if cfg.family == "hybrid" else cfg.sliding_window
+    head = (f"G {cfg.num_heads // cfg.num_kv_heads}, D {D}"
+            + (f", window {W}, ring" if W else ""))
+    mask = (f" (the long request's window masks in tick {chk['masking']})"
+            if chk["masking"] else "")
+    if judge == "plain":
+        held = (f"the kernel within {chk['err']:.3g} of the plain version "
+                f"(atol 1e-5; |out| up to {chk['out']:.3g})")
+    else:
+        held = (f"the kernel differs from the plain version by up to "
+                f"{chk['err']:.3g} (|out| up to {chk['out']:.3g}; atol 1e-5 "
+                f"does not hold at these magnitudes), and from a float64 "
+                f"evaluation of the same words and scales by up to "
+                f"{chk['k64']:.3g}, the plain version by {chk['p64']:.3g} "
+                f"(held: kernel <= sqrt({D}) x plain + 1e-5; kernel / plain "
+                f"{chk['k64'] / chk['p64']:.3g}, largest in one call "
+                f"{chk['call_ratio']:.3g}), the bf16-staged control by "
+                f"{chk['c64']:.3g} (control / plain "
+                f"{chk['c64'] / chk['p64']:.3g}: outside the limit, as it "
+                f"must be)")
+    return (f"({head}): {chk['checked']} calls of ticks {chk['ticks']}{mask}"
+            f": {held}")
+
+
+def phase_serve_alone(device, name, model, params, prompts, weight_bytes):
+    """``prompts``, 32 new each, through the host loop of ``name`` alone
+    on the card: each admission's aux grant of ``ALONE``'s quota,
+    ``allocs == frees``, no page held, finite recurrent states, the
+    launches equal to the engine's counts (one ``paged_attention`` an
+    attention layer a tick); device memory (weights, K/V heaps, state
+    rows, peak); then a checked rerun (``checked_rerun``) and a profiled
+    one (phase 6: device busy, idle share, time by kernel)."""
     import gc
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models.transformer import num_attn_layers
+    from repro_torch.paged.kv_cache import modality_page_quota
 
+    spec = ALONE[name]
     t0 = time.perf_counter()
-    eng = qwen32_engine(device, model, params)
+    eng = alone_engine(device, model, params, name)
+    quota = modality_page_quota(eng.cfg)
+    grants = aux_grants(eng)
     counting = CountingModel(eng.model)
     eng.model = counting
-    L = eng.cfg.num_layers
-    kv = eng.caches.kv.layers
-    heap = sum(t.numel() * t.element_size() for t in kv)
+    L = num_attn_layers(eng.cfg)
+    kv, c = eng.caches.kv.layers, eng.caches
+    heap = sum(t.numel() * t.element_size() for t in kv if t is not None)
+    scales = ("" if kv.k_scale is None else
+              f" with float32 scales {tuple(kv.k_scale.shape)}")
+    rows = ("" if c.ssm_h is None else
+            f", recurrent state rows {tuple(c.ssm_h.shape)} {c.ssm_h.dtype} "
+            f"and conv tails {tuple(c.ssm_conv.shape)} {c.ssm_conv.dtype} "
+            f"{(c.ssm_h.nbytes + c.ssm_conv.nbytes) / 2**20:.1f} MiB")
     free, total = torch.cuda.mem_get_info()
-    log(f"phase 5: {QWEN32}: engine max_batch 8, max_seq {Q32_MAX_SEQ}, "
-        f"K/V heaps {kv.k.dtype} of {kv.k.shape[1]} pages with float32 "
-        f"scales {tuple(kv.k_scale.shape)}: {heap} bytes "
-        f"({heap / 1e9:.2f} GB); set-up {time.perf_counter() - t0:.1f} s; "
-        f"device memory after the heaps (mem_get_info): "
-        f"{free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB")
+    log(f"phase 5: {name}: engine max_batch 8, max_seq {spec['max_seq']}, "
+        f"{eng.aux_pages} aux pages a slot (quota {quota}); device memory: "
+        f"weights {weight_bytes / 2**30:.2f} GiB, K/V heaps of {L} layers "
+        f"{kv.k.dtype} x {kv.k.shape[1]} physical pages (the arena's, aux "
+        f"pages included){scales} {heap / 2**30:.2f} GiB{rows}; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+        f"{free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB "
+        f"(mem_get_info); set-up {time.perf_counter() - t0:.1f} s")
     for p in prompts:
         eng.submit(p, max_new_tokens=32)
     torch.cuda.synchronize()
@@ -4522,43 +4490,42 @@ def phase_qwen32_serve(device, model, params, prompts):
     launches = dict(ops.LAUNCHES)
     st = dict(eng.stats)
     toks = sum(len(r.out_tokens) for r in done)
-    log(f"phase 5: {QWEN32}: served {len(done)} requests (prompts "
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 5: {name}: served {len(done)} requests (prompts "
         f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens), "
         f"{toks} tokens, {st['steps']} steps, {counting.decode_calls} "
         f"decode ticks in {wall:.2f} s: {toks / wall:.1f} tok/s (prefill "
         f"included: {counting.secs['prefill']:.2f} s host wall); peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"phase 5: {QWEN32}: stats {json.dumps(st)}")
-    log(f"phase 5: {QWEN32}: launches {json.dumps(launches)}")
+        f"device memory {peak / 2**30:.2f} GiB")
+    log(f"phase 5: {name}: stats {json.dumps(st)}")
+    log(f"phase 5: {name}: launches {json.dumps(launches)}; aux grants "
+        f"{grants}")
     if len(done) != len(prompts) or any(len(r.out_tokens) != 32
                                         for r in done):
-        raise AssertionError(f"{QWEN32}: not every request finished with "
+        raise AssertionError(f"{name}: not every request finished with "
                              f"32 tokens")
     if any(not (0 <= t < eng.cfg.padded_vocab) for r in done
            for t in r.out_tokens):
-        raise AssertionError(f"{QWEN32}: a token out of range")
+        raise AssertionError(f"{name}: a token out of range")
+    if grants != [spec["quota"]] * len(prompts) or quota != spec["quota"]:
+        raise AssertionError(f"{name}: aux grants {grants}, quota {quota} "
+                             f"(want {spec['quota']} at each of "
+                             f"{len(prompts)} admissions)")
     if st["alloc_failures"]:
-        raise AssertionError(f"{QWEN32}: {st['alloc_failures']} failed "
-                             f"grants")
-    drained(eng, f"{QWEN32} host loop")
-    serving_launches(launches, st, counting.decode_calls, L, QWEN32)
+        raise AssertionError(f"{name}: {st['alloc_failures']} failed grants")
+    if c.ssm_h is not None and not (torch.isfinite(c.ssm_h).all()
+                                    and torch.isfinite(c.ssm_conv.float())
+                                    .all()):
+        raise AssertionError(f"{name}: a recurrent state is not finite")
+    drained(eng, f"{name} host loop")
+    serving_launches(launches, st, counting.decode_calls, L, name)
     tokens = {r.uid: r.out_tokens for r in done}
 
     t0 = time.perf_counter()
-    chk = qwen32_checked_rerun(eng, prompts, tokens)
-    log(f"phase 5: {QWEN32}: paged_attention at the run's own inputs: "
-        f"{chk['checked']} int8 calls of ticks {chk['ticks']}: the kernel "
-        f"differs from the plain version by up to {chk['err']:.3g} (|out| "
-        f"up to {chk['out']:.3g}; atol 1e-5 does not hold at these "
-        f"magnitudes), and from a float64 evaluation of the same words "
-        f"and scales by up to {chk['k64']:.3g}, the plain version by "
-        f"{chk['p64']:.3g} (held: kernel <= sqrt({eng.cfg.head_dim_}) x "
-        f"plain + 1e-5; kernel / plain {chk['k64'] / chk['p64']:.3g}, "
-        f"largest in one call {chk['call_ratio']:.3g}), the bf16-staged "
-        f"control by {chk['c64']:.3g} (control / plain "
-        f"{chk['c64'] / chk['p64']:.3g}: outside the limit, as it must "
-        f"be); the rerun's tokens equal the timed run's "
-        f"({time.perf_counter() - t0:.1f} s)")
+    chk = checked_rerun(eng, prompts, tokens, name)
+    log(f"phase 5: {name}: paged_attention at the run's own inputs "
+        f"{checked_text(chk, eng.cfg, spec['judge'])}; the rerun's tokens "
+        f"equal the timed run's ({time.perf_counter() - t0:.1f} s)")
 
     eng.alloc_state = eng.ouro.init()
     for p in prompts:
@@ -4566,19 +4533,21 @@ def phase_qwen32_serve(device, model, params, prompts):
     with DeviceProfile() as prof:
         done = eng.run_until_done()
     if sorted(r.out_tokens for r in done) != sorted(tokens.values()):
-        raise AssertionError(f"{QWEN32}: the profiled rerun's tokens differ")
+        raise AssertionError(f"{name}: the profiled rerun's tokens differ")
     busy = prof.busy_ms()
     attn = [prof.kernel(KERNEL_SYMBOLS[k]) for k in ATTN_KERNELS]
     attn_ms = sum(ms * n for ms, n in attn if ms)
-    log(f"phase 5: {QWEN32}: profiled rerun: device busy {busy:.0f} ms of "
+    log(f"phase 6: {name}: profiled rerun: device busy {busy:.0f} ms of "
         f"the timed run's {1e3 * wall:.0f} ms wall: device idle "
         f"{100 * (1 - busy / (1e3 * wall)):.1f}%; paged_attention "
-        f"{attn_ms:.1f} ms over {attn[0][1]} recorded calls")
-    for key_, us, n in prof.rows[:6]:
-        log(f"phase 5:   {us / 1e3:9.2f} ms  {n:6d}x  {key_[:90]}")
+        f"{attn_ms:.1f} ms over {attn[0][1]} recorded calls "
+        f"({100 * attn_ms / busy:.1f}% of device busy)")
+    for key_, us, n in prof.rows[:8]:
+        log(f"phase 6:   {us / 1e3:9.2f} ms  {n:6d}x  {key_[:90]}")
     out = dict(tokens=tokens, launches=launches, tok_s=toks / wall,
                wall=wall, busy=busy, idle=1 - busy / (1e3 * wall),
-               checked=chk, stats=st, attn_ms=attn_ms, attn_calls=attn[0][1])
+               checked=chk, stats=st, attn_ms=attn_ms, attn_calls=attn[0][1],
+               peak=peak)
     del eng, counting, prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -4586,17 +4555,19 @@ def phase_qwen32_serve(device, model, params, prompts):
 
 
 def phase_alone_mega(name, eng, prompts, host):
-    """A model that runs alone on the card (mixtral-8x7b, qwen1.5-32b)
-    through the mega-step engine ``eng``: ``launches_per_tick`` 1 + L
-    (one grow, one ``paged_attention`` a layer, as the wrappers and the
-    allocator kernel counted them); then one timed run of ``prompts``,
+    """A model that runs alone on the card (recurrentgemma-9b,
+    mixtral-8x7b, qwen1.5-32b) through the mega-step engine ``eng``:
+    ``launches_per_tick`` 1 + L (one grow, one ``paged_attention`` an
+    attention layer, as the wrappers and the allocator kernel counted
+    them); then one timed run of ``prompts``,
     each step's synchronizing calls counted (one a steady tick), with
     the host loop's tokens, the launches equal to the engine's counts
     and nothing held after draining."""
     import gc
     import torch
     from repro_torch.kernels import ops
-    L = eng.cfg.num_layers
+    from repro_torch.models.transformer import num_attn_layers
+    L = num_attn_layers(eng.cfg)
     made0, calls0 = kernel_launches(), dict(ops.LAUNCHES)
     n = eng.launches_per_tick()
     made = {k: m - made0[k] for k, m in kernel_launches().items()
@@ -4710,6 +4681,9 @@ def main(argv=None) -> int:
     attn = phase_attention(device)
     mix_attn = phase_attention_mixtral(device)
     t1 = time.perf_counter()
+    rg_attn = phase_attention_rgemma(device)
+    log(f"phase 4: {RGEMMA}'s shapes: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
     int8_attn = phase_attention_int8(device)
     log(f"phase 4: int8 pages: {time.perf_counter() - t1:.1f} s")
     ssd = phase_ssd(device)
@@ -4749,46 +4723,30 @@ def main(argv=None) -> int:
     del models
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
-    # the moe slice last, alone on the card: 47 GB of weights and 32 GB
-    # of KV heaps leave no room for the other models
+    # the models that run alone on the card, one after another, each
+    # freed before the next loads: recurrentgemma-9b (22.6 GB of weights,
+    # 7.0 GB of KV heaps), mixtral-8x7b (47 GB and 32 GB), qwen1.5-32b
+    # (70.4 GB of bf16 weights and 6.9 GB of int8 heaps)
     import gc
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    log(f"phase 5: {MIXTRAL}: device memory before it "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    mix_model, mix_params, mix_prompts = mixtral_model(device, args.seed)
-    mix_host = phase_mixtral_serve(device, mix_model, mix_params,
-                                   mix_prompts)
-    log(f"phase 5: {MIXTRAL}: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    mix_mega = phase_alone_mega(
-        MIXTRAL, mixtral_engine(device, mix_model, mix_params,
-                                mega_step=True, max_new_cap=32),
-        mix_prompts, mix_host)
-    del mix_params
-    mega["runs"][f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)"] = mix_mega
-    log(f"phase 7: {MIXTRAL}: {time.perf_counter() - t0:.1f} s")
-
-    # the int8 slice last, alone on the card: 70.4 GB of bf16 weights and
-    # 6.9 GB of int8 KV heaps; mixtral's weights are gone first
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    log(f"phase 5: {QWEN32}: device memory before it "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    q32_model, q32_params, q32_prompts = qwen32_model(device, args.seed)
-    q32_host = phase_qwen32_serve(device, q32_model, q32_params,
-                                  q32_prompts)
-    log(f"phase 5: {QWEN32}: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    q32_mega = phase_alone_mega(
-        QWEN32, qwen32_engine(device, q32_model, q32_params,
-                              mega_step=True, max_new_cap=32),
-        q32_prompts, q32_host)
-    del q32_params
-    mega["runs"][f"{QWEN32} (int8)"] = q32_mega
-    log(f"phase 7: {QWEN32}: {time.perf_counter() - t0:.1f} s")
+    alone = {}
+    for name, spec in ALONE.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        log(f"phase 5: {name}: device memory before it "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        model, params, prompts, nbytes = alone_model(device, args.seed, name)
+        host = phase_serve_alone(device, name, model, params, prompts,
+                                 nbytes)
+        log(f"phase 5-6: {name}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run = phase_alone_mega(
+            name, alone_engine(device, model, params, name, mega_step=True,
+                               max_new_cap=32), prompts, host)
+        del model, params
+        mega["runs"][spec["label"]] = run
+        alone[name] = dict(host=host, mega=run, label=spec["label"])
+        log(f"phase 7: {name}: {time.perf_counter() - t0:.1f} s")
 
     def mean(xs):
         return sum(xs) / len(xs) if xs else 0.0
@@ -4851,10 +4809,8 @@ def main(argv=None) -> int:
             "differing_words": err["words"],
             "launches_by_run": {"qwen2-0.5b": serve["launches"][name],
                                 MAMBA: mamba["launches"][name],
-                                f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)":
-                                    mix_host["launches"][name],
-                                f"{QWEN32} (int8)":
-                                    q32_host["launches"][name],
+                                **{a["label"]: a["host"]["launches"][name]
+                                   for a in alone.values()},
                                 **{k: r["launches"][name]
                                    for k, r in qwen2_int8.items()},
                                 **variant_runs(name)},
@@ -4929,12 +4885,15 @@ def main(argv=None) -> int:
             **variant_fields(name)})
     attn_err = max([r["err"] for r in attn.values()]
                    + [r["err"] for r in mix_attn.values()]
+                   + [r["err"] for r in rg_attn.values()]
                    + [r["err"] for r in int8_attn.values()]
-                   + [mix_host["checked"]["err"], q32_host["checked"]["err"]])
+                   + [a["host"]["checked"]["err"] for a in alone.values()])
     # the int8 runs: every paged_attention launch there read int8 pages
-    int8_runs = {f"{QWEN32} (int8)": q32_host["launches"],
+    q32, mix, rg = (alone[k]["host"] for k in (QWEN32, MIXTRAL, RGEMMA))
+    int8_runs = {ALONE[QWEN32]["label"]: q32["launches"],
                  **{k: r["launches"] for k, r in qwen2_int8.items()},
-                 f"mega {QWEN32} (int8)": q32_mega["launches"]}
+                 f"mega {ALONE[QWEN32]['label']}":
+                     alone[QWEN32]["mega"]["launches"]}
     kernels.append({
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -4942,12 +4901,12 @@ def main(argv=None) -> int:
         "launches": serve["launches"]["paged_attention"],
         "launches_by_run": {
             "qwen2-0.5b": serve["launches"]["paged_attention"],
-            f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)":
-                mix_host["launches"]["paged_attention"],
+            **{a["label"]: a["host"]["launches"]["paged_attention"]
+               for a in alone.values()},
             **{k: r["paged_attention"] for k, r in int8_runs.items()
                if not k.startswith("mega")}},
         "max_abs_err": attn_err, "max_err": attn_err,
-        "mixtral_serving_inputs_max_err": mix_host["checked"]["err"],
+        "mixtral_serving_inputs_max_err": mix["checked"]["err"],
         # mixtral-8x7b's window (4096) and ring (258 slots) cases
         "ms_by_input_mixtral": {t: r["wall"] for t, r in mix_attn.items()},
         "device_ms_by_input_mixtral": {t: r["ms"]
@@ -4958,7 +4917,16 @@ def main(argv=None) -> int:
                                       for t, r in mix_attn.items()},
         "max_abs_err_by_input_mixtral": {t: r["err"]
                                          for t, r in mix_attn.items()},
-        "serving_device_ms_mixtral": mix_host["attn_ms"],
+        "serving_device_ms_mixtral": mix["attn_ms"],
+        # recurrentgemma-9b's window (2048) at G 16, D 256: a 262-slot
+        # table and a 130-slot ring, and its serving rerun's inputs
+        **{f"{key}_by_input_recurrentgemma": {t: r[k]
+                                             for t, r in rg_attn.items()}
+           for key, k in (("ms", "wall"), ("device_ms", "ms"),
+                          ("plain_ms", "plain"), ("bound_ms", "bound"),
+                          ("max_abs_err", "err"))},
+        "recurrentgemma_serving_inputs_max_err": rg["checked"]["err"],
+        "serving_device_ms_recurrentgemma": rg["attn_ms"],
         # int8 pages with float32 scales: launches in the int8 runs, and
         # the phase 4 cases (unit, qwen1.5-32b's and mixtral's shapes;
         # one qwen1.5-32b case on bf16 pages beside them)
@@ -4975,13 +4943,13 @@ def main(argv=None) -> int:
                                    for t, r in int8_attn.items()},
         "max_abs_err_by_input_int8": {t: r["err"]
                                       for t, r in int8_attn.items()},
-        f"{QWEN32}_serving_inputs_max_err": q32_host["checked"]["err"],
-        f"{QWEN32}_serving_inputs_float64_err": q32_host["checked"]["k64"],
+        f"{QWEN32}_serving_inputs_max_err": q32["checked"]["err"],
+        f"{QWEN32}_serving_inputs_float64_err": q32["checked"]["k64"],
         f"{QWEN32}_serving_inputs_plain_float64_err":
-            q32_host["checked"]["p64"],
+            q32["checked"]["p64"],
         f"{QWEN32}_serving_inputs_bf16_staged_float64_err":
-            q32_host["checked"]["c64"],
-        f"serving_device_ms_{QWEN32}": q32_host["attn_ms"],
+            q32["checked"]["c64"],
+        f"serving_device_ms_{QWEN32}": q32["attn_ms"],
         # ms: CUDA events around the wrapper (its host work inside), as
         # for every earlier slice; device_ms: its kernels' profiler time
         "ms": main_attn["wall"], "plain_ms": main_attn["plain"],
@@ -5070,13 +5038,12 @@ def main(argv=None) -> int:
         f"{p_toks / pressure['wall']:.1f} tok/s; sharded "
         + "; ".join(f"{k} {r['tok_s']:.1f} tok/s"
                     for k, r in sharded_runs.items())
-        + f"; {MAMBA} {mamba['tok_s']:.1f} tok/s; {MIXTRAL} "
-        f"({MIXTRAL_LAYERS} layers) {mix_host['tok_s']:.1f} tok/s host loop, "
-        f"{mix_mega['tok_s']:.1f} mega; qwen2-0.5b int8 "
+        + f"; {MAMBA} {mamba['tok_s']:.1f} tok/s; qwen2-0.5b int8 "
         f"{qwen2_int8['qwen2-0.5b int8']['tok_s']:.1f} tok/s, under pressure "
         f"{qwen2_int8['qwen2-0.5b int8 under pressure']['tok_s']:.1f}; "
-        f"{QWEN32} (int8) {q32_host['tok_s']:.1f} tok/s host loop, "
-        f"{q32_mega['tok_s']:.1f} mega")
+        + "; ".join(f"{a['label']} {a['host']['tok_s']:.1f} tok/s host "
+                    f"loop, {a['mega']['tok_s']:.1f} mega"
+                    for a in alone.values()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

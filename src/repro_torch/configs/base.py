@@ -31,7 +31,7 @@ def get_arch(name: str) -> "ModelConfig":
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm (the families ported so far)
+    family: str                    # dense | moe | ssm | hybrid (those ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -63,7 +63,11 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 64
 
+    # hybrid (recurrentgemma: every `attn_period`-th block is local attn)
+    lru_width: Optional[int] = None
     attn_period: int = 3
+    local_window: int = 2048
+
     enc_layers: int = 0
     modality: Optional[str] = None
 
@@ -105,6 +109,8 @@ class ModelConfig:
             ssm_state=min(self.ssm_state, 32),
             ssm_headdim=16 if self.ssm_state else self.ssm_headdim,
             ssm_chunk=16,
+            lru_width=128 if self.lru_width else None,
+            local_window=64 if self.family == "hybrid" else self.local_window,
             sliding_window=64 if self.sliding_window else None,
             enc_layers=min(self.enc_layers, 2),
             mrope_sections=(4, 6, 6) if self.mrope_sections else None,

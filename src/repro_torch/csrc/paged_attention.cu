@@ -463,9 +463,10 @@ __global__ void __launch_bounds__(PA_THREADS) paged_attention_values_kernel(
   }
 }
 
-// Kernel 3: one block per (b, h), one thread per output element (the
-// block covers G * D up to 1024): the online softmax's fold over the
-// pages in table order, holes and slots with no attended token skipped
+// Kernel 3: one block per (b, h) of min(G * D, 1024) threads; each
+// thread folds the output elements e = threadIdx.x + k * blockDim.x
+// (one element up to G * D = 1024, four at recurrentgemma's G 16, D
+// 256): the online softmax's fold over the pages in table order, holes and slots with no attended token skipped
 // (their update is the identity), out = acc / (l + 1e-30).  The table
 // row's flags are staged in shared memory first; a batch's page terms
 // load together, whatever the flags say.
@@ -515,7 +516,8 @@ __global__ void __launch_bounds__(1024) paged_attention_merge_kernel(
   }
 }
 
-// the merge kernel's block: one thread per output element, up to 1024
+// the merge kernel's block: one thread per output element, at most 1024
+// (a thread then folds several elements)
 static inline int pa_merge_threads(int G, int D) {
   const int t = (G * D + 31) / 32 * 32;
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);

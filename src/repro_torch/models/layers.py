@@ -1,5 +1,6 @@
 """Transformer building blocks (port): norms, RoPE, blockwise flash
-attention for prefill, GQA projections and the gated MLP.
+attention for prefill, GQA projections and the gated MLP (SwiGLU or
+GeGLU).
 
 ``flash_attention`` is the reference's jnp blockwise online-softmax
 scan written as plain matmul/softmax in PyTorch (no fused attention
@@ -111,7 +112,9 @@ def attn_out(p, o, dtype):
 
 
 def apply_mlp(cfg: ModelConfig, p, x):
-    """SwiGLU."""
-    g = F.silu(x @ p["w_gate"].to(x.dtype))
+    """SwiGLU, or GeGLU for ``act="gelu"`` with the tanh approximation
+    (``jax.nn.gelu``'s default, which the reference calls)."""
+    h = x @ p["w_gate"].to(x.dtype)
+    g = F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")
     u = x @ p["w_up"].to(x.dtype)
     return (g * u) @ p["w_down"].to(x.dtype)

@@ -1,5 +1,5 @@
-"""Public model facade (port), dense and MoE decoders and the Mamba-2
-family:
+"""Public model facade (port), dense and MoE decoders, the Mamba-2
+family and the hybrid (RG-LRU + local attention) family:
 
     m = build_model(get_arch("qwen2-0.5b"))
     params = m.init(seed, device="cuda")
@@ -10,7 +10,9 @@ family:
 Caches are updated in place (KV heaps and ``seq_lens``; the SSM states)
 and returned.  An attention-free model (``ssm``) carries no KV: its
 caches are the per-layer SSD state and conv tail, and ``prefill`` with
-``Caches()`` returns them freshly stacked.
+``Caches()`` returns them freshly stacked.  A hybrid model carries both:
+KV pages for its attention layers, and each recurrent layer's RG-LRU
+state and conv tail.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import params as Prm
+from repro_torch.models import rglru as Rgl
 from repro_torch.models import ssm as Ssm
 from repro_torch.models import transformer as TF
 from repro_torch.paged import kv_cache as KV
@@ -62,8 +65,9 @@ class Model:
                            num_pages: Optional[int] = None, device="cuda"):
         """Paged KV for the attention layers, in ``kv_dtype`` (None: as
         :func:`kv_dtype_for` picks; int8 pages carry their scales); for
-        the ssm family, zero SSD states (float32) and conv tails.  The
-        conv tail is bf16, or float32 with float32 KV: the reference
+        the recurrent layers, zero states (float32: the ssm family's SSD
+        state (H, P, N), the hybrid's RG-LRU state (R,)) and conv tails.
+        The conv tail is bf16, or float32 with float32 KV: the reference
         keeps it in bf16 whatever the KV type, and its float32 engines
         promote it to float32 at the first row merge."""
         cfg = self.cfg
@@ -78,14 +82,19 @@ class Model:
                 n_attn, num_pages or batch * pps, batch, pps,
                 cfg.num_kv_heads, cfg.head_dim_, kv_dtype, page, device=dev)
         if n_rec:
-            ssm_h = torch.zeros((n_rec, batch, cfg.ssm_nheads,
-                                 cfg.ssm_headdim, cfg.ssm_state),
-                                dtype=torch.float32, device=dev)
+            if cfg.family == "hybrid":
+                r = cfg.lru_width or cfg.d_model
+                h_shape = (n_rec, batch, r)
+                c_shape = (n_rec, batch, Rgl.CONV_WIDTH - 1, r)
+            else:
+                h_shape = (n_rec, batch, cfg.ssm_nheads, cfg.ssm_headdim,
+                           cfg.ssm_state)
+                c_shape = (n_rec, batch, cfg.ssm_conv - 1,
+                           Ssm.conv_dim(cfg))
+            ssm_h = torch.zeros(h_shape, dtype=torch.float32, device=dev)
             conv_dtype = (torch.float32 if kv_dtype == torch.float32
                           else torch.bfloat16)
-            ssm_conv = torch.zeros((n_rec, batch, cfg.ssm_conv - 1,
-                                    Ssm.conv_dim(cfg)), dtype=conv_dtype,
-                                   device=dev)
+            ssm_conv = torch.zeros(c_shape, dtype=conv_dtype, device=dev)
         return TF.Caches(kv=kv, ssm_h=ssm_h, ssm_conv=ssm_conv)
 
     def prefill(self, params, batch, caches, dtype=torch.bfloat16):
@@ -105,11 +114,15 @@ class Model:
                     advance=None):
         """One token per sequence.  tokens: (B, 1).  Returns (logits
         (B, V_pad) float32, caches with every ``seq_lens`` advanced).
-        ``advance`` (B,) bool advances only those rows' ``seq_lens`` (the
-        mega-step's masked advance: a row left out must also have its
-        K/V write land in a table hole, where it drops)."""
+        ``advance`` (B,) bool advances only those rows' ``seq_lens`` and
+        recurrent states (the mega-step's masked advance: a row left out
+        must also have its K/V write land in a table hole, where it
+        drops).  An attention-free model's rows always advance: it has
+        no grant that can fail, and an idle row is rewritten at
+        admission."""
+        rows = advance if caches.kv is not None else None
         logits, caches = TF.forward(self.cfg, params, tokens, mode="decode",
-                                    caches=caches, dtype=dtype)
+                                    caches=caches, dtype=dtype, rows=rows)
         if caches.kv is not None:
             caches.kv.seq_lens.add_(1 if advance is None
                                     else advance.to(torch.int32))

@@ -1,6 +1,6 @@
-"""Parameters of the dense and MoE decoders and the Mamba-2 stack
-(port): init from a seed, and the converter from the reference's
-parameter tree.
+"""Parameters of the dense and MoE decoders, the Mamba-2 stack and the
+hybrid (RG-LRU + local attention) stack (port): init from a seed, and
+the converter from the reference's parameter tree.
 
 The port's tree mirrors the reference's names with the layer axis
 unstacked into a list::
@@ -14,25 +14,36 @@ unstacked into a list::
 where a MoE block's ``ffn`` is ``{"router" (d, E), "w_gate" (E, d, f),
 "w_up" (E, d, f), "w_down" (E, f, d)}``, and an ssm block is
 ``{"norm": {"scale"}, "mixer": {"in_proj", "conv_w", "conv_b", "a_log",
-"dt_bias", "d_skip", "norm_scale", "out_proj"}}``.
+"dt_bias", "d_skip", "norm_scale", "out_proj"}}``.  A hybrid model has
+no ``blocks``: ``triples`` is a list of ``{"rec1", "rec2", "attn"}``
+(num_layers // 3 of them) and ``tail`` a list of the num_layers % 3
+recurrent blocks after them, where a recurrent block is ``{"norm1",
+"mixer": {"w_gate_branch", "w_rec_branch", "conv_w", "conv_b",
+"w_input_gate", "w_rec_gate", "lambda_p", "w_out"}, "norm2", "ffn"}``
+and ``attn`` a dense block.
 
 Matrices keep the reference's ``x @ W`` layout, W as (d_in, d_out), and
 attention heads stay merged.  :func:`init` draws the same shapes and
 distributions as the reference ``Model.init``: a normal leaf has
 std = scale/sqrt(shape[0]) of its *stacked* spec, so every block matrix
 (the router and the experts too) has std 1/sqrt(num_layers) (``conv_w``
-1/sqrt(ssm_conv * num_layers)), the embedding 1/sqrt(V_pad) and
-``lm_head`` 1/sqrt(d); norm scales, ``d_skip`` and ``norm_scale`` are
-ones, biases (``conv_b`` too) zeros, ``a_log`` the constant log 4 and
-``dt_bias`` the constant -3.  Each leaf is drawn in float32 and cast to
-``dtype`` at once, layer by layer (every leaf of block 0, then block 1,
-..., then ``embed`` and ``lm_head``), so a bf16 init holds the bf16
-tree plus one float32 leaf: for qwen1.5-32b's 70.4 GB of bf16 weights,
-at most its 3.1-GB float32 embedding (a layer's largest leaf, an MLP
-matrix, is 0.56 GB), where drawing each stacked (64, 5120, 27392) leaf
-whole would take 35.9 GB at once.  The numbers differ from the
-reference's (a ``torch.Generator``, not a JAX key); tests that need the
-same numbers convert the reference's tree with :func:`params_from_jax`.
+1/sqrt(ssm_conv * num_layers)); a hybrid's are stacked by triple and by
+tail, so 1/sqrt(num_layers // 3) and 1/sqrt(num_layers % 3) (``conv_w``
+half that); the embedding 1/sqrt(V_pad) and ``lm_head`` 1/sqrt(d);
+norm scales, ``d_skip`` and ``norm_scale`` are ones, biases (``conv_b``
+too) zeros, ``a_log`` the constant log 4, ``dt_bias`` the constant -3
+and ``lambda_p`` the constant 1.  Each leaf is drawn in float32 and
+cast to ``dtype`` at once, layer by layer (every leaf of block 0, then
+block 1, ..., then ``embed`` and ``lm_head``), so a bf16 init holds the
+bf16 tree plus one float32 leaf: for qwen1.5-32b's 70.4 GB of bf16
+weights, at most its 3.1-GB float32 embedding (a layer's largest leaf,
+an MLP matrix, is 0.56 GB), where drawing each stacked (64, 5120, 27392)
+leaf whole would take 35.9 GB at once.  The leaves the reference
+multiplies in float32 (the RG-LRU's ``w_input_gate``, ``w_rec_gate``
+and ``lambda_p``) stay float32 at any ``dtype``.  The numbers differ
+from the reference's (a ``torch.Generator``, not a JAX key); tests that
+need the same numbers convert the reference's tree with
+:func:`params_from_jax`.
 """
 from __future__ import annotations
 
@@ -44,12 +55,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as Moe
+from repro_torch.models import rglru as Rgl
 from repro_torch.models import ssm as Ssm
 
 # leaves multiplied into activations: cast to the compute dtype once
 _MATRICES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up",
              "w_down", "in_proj", "conv_w", "conv_b", "out_proj", "router",
-             "lm_head")
+             "w_gate_branch", "w_rec_branch", "w_out", "embed", "lm_head")
+# leaves the reference multiplies in float32: never cast down
+_FLOAT32 = ("w_input_gate", "w_rec_gate", "lambda_p")
 
 
 def _block_shapes(cfg: ModelConfig):
@@ -67,17 +81,35 @@ def _block_shapes(cfg: ModelConfig):
             "ffn": ffn}
 
 
+def _rec_shapes(cfg: ModelConfig):
+    """A hybrid's recurrent block: RG-LRU mixer and gated MLP."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"norm1": {"scale": (d,)}, "mixer": Rgl.rglru_shapes(cfg),
+            "norm2": {"scale": (d,)},
+            "ffn": {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}}
+
+
+def hybrid_counts(cfg: ModelConfig):
+    """(triples, tail blocks) of a hybrid stack."""
+    return divmod(cfg.num_layers, cfg.attn_period)
+
+
 def check_supported(cfg: ModelConfig):
     """The port runs the dense decoder as qwen2 configures it (RMSNorm,
     SwiGLU, rotate-half RoPE), the MoE decoder as mixtral and phi3.5-moe
     configure it (top-k experts, a sliding window, an untied
-    ``lm_head``), and the Mamba-2 stack as mamba2 configures it.
-    Anything else comes with its family (ROADMAP A12)."""
+    ``lm_head``), the Mamba-2 stack as mamba2 configures it and the
+    hybrid stack as recurrentgemma configures it (RG-LRU and local
+    attention in (rec, rec, attn) triples, GeGLU).  Anything else comes
+    with its family (ROADMAP A12)."""
     unsupported = {
-        "family": cfg.family not in ("dense", "moe", "ssm"),
+        "family": cfg.family not in ("dense", "moe", "ssm", "hybrid"),
         "num_experts": bool(cfg.num_experts) != (cfg.family == "moe"),
         "enc_layers": cfg.enc_layers, "norm": cfg.norm != "rmsnorm",
-        "act": cfg.act != "silu", "parallel_block": cfg.parallel_block,
+        "act": cfg.act not in ("silu", "gelu"),
+        # a triple is (rec, rec, attn), as the reference lays it out
+        "attn_period": cfg.family == "hybrid" and cfg.attn_period != 3,
+        "parallel_block": cfg.parallel_block,
         "logit_softcap": cfg.logit_softcap,
         "mrope_sections": cfg.mrope_sections}
     bad = sorted(k for k, v in unsupported.items() if v)
@@ -93,32 +125,46 @@ def init(cfg: ModelConfig, seed: int, device="cpu",
     check_supported(cfg)
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
-    L = cfg.num_layers
 
-    def normal(shape, fan_in, scale=1.0):
+    def normal(shape, fan_in, scale=1.0, dt=dtype):
         x = torch.randn(shape, generator=g, device=device,
                         dtype=torch.float32)
-        return (x * (scale / fan_in ** 0.5)).to(dtype)
+        return (x * (scale / fan_in ** 0.5)).to(dt)
 
-    def leaf(group, name, shape):
+    def leaf(group, name, shape, stacked):
+        """``stacked``: the leading dimension of the leaf's stacked spec,
+        its fan-in."""
+        dt = torch.float32 if name in _FLOAT32 else dtype
         if group.startswith("norm") or name in ("d_skip", "norm_scale"):
-            return torch.ones(shape, dtype=dtype, device=device)
+            return torch.ones(shape, dtype=dt, device=device)
         if name in ("bq", "bk", "bv", "conv_b"):
-            return torch.zeros(shape, dtype=dtype, device=device)
-        if name in ("a_log", "dt_bias"):
-            return torch.full(shape, math.log(4.0) if name == "a_log"
-                              else -3.0, dtype=dtype, device=device)
-        scale = 1.0 / math.sqrt(cfg.ssm_conv) if name == "conv_w" else 1.0
-        return normal(shape, L, scale)  # stacked spec: fan_in = layers
+            return torch.zeros(shape, dtype=dt, device=device)
+        if name in ("a_log", "dt_bias", "lambda_p"):
+            c = {"a_log": math.log(4.0), "dt_bias": -3.0, "lambda_p": 1.0}
+            return torch.full(shape, c[name], dtype=dt, device=device)
+        width = Rgl.CONV_WIDTH if cfg.family == "hybrid" else cfg.ssm_conv
+        scale = 1.0 / math.sqrt(width) if name == "conv_w" else 1.0
+        return normal(shape, stacked, scale, dt)
 
-    shapes = _block_shapes(cfg)
-    blocks = [{grp: {nm: leaf(grp, nm, shp) for nm, shp in leaves.items()}
-               for grp, leaves in shapes.items()} for _ in range(L)]
+    def block(shapes, stacked):
+        return {grp: {nm: leaf(grp, nm, shp, stacked)
+                      for nm, shp in leaves.items()}
+                for grp, leaves in shapes.items()}
+
+    out = {}
+    if cfg.family == "hybrid":
+        ntri, tail = hybrid_counts(cfg)
+        rec, attn = _rec_shapes(cfg), _block_shapes(cfg)
+        out["triples"] = [{"rec1": block(rec, ntri), "rec2": block(rec, ntri),
+                           "attn": block(attn, ntri)} for _ in range(ntri)]
+        out["tail"] = [block(rec, tail) for _ in range(tail)]
+    else:
+        shapes = _block_shapes(cfg)
+        out["blocks"] = [block(shapes, cfg.num_layers)
+                         for _ in range(cfg.num_layers)]
     v, d = cfg.padded_vocab, cfg.d_model
-    out = {"embed": normal((v, d), v),
-           "final_norm": {"scale": torch.ones(d, dtype=dtype,
-                                              device=device)},
-           "blocks": blocks}
+    out["embed"] = normal((v, d), v)
+    out["final_norm"] = {"scale": torch.ones(d, dtype=dtype, device=device)}
     if not cfg.tie_embeddings:
         out["lm_head"] = normal((d, v), d)
     return out
@@ -126,21 +172,29 @@ def init(cfg: ModelConfig, seed: int, device="cpu",
 
 def params_from_jax(cfg: ModelConfig, tree, device="cpu") -> Dict[str, Any]:
     """Convert the reference ``Model.init`` tree, given as numpy arrays
-    (``blocks/*`` stacked over layers), into the port's tree."""
+    (``blocks``, ``triples`` and ``tail`` stacked over their layers),
+    into the port's tree."""
     check_supported(cfg)
 
     def t(x):
         return torch.from_numpy(np.array(x, copy=True)).to(device)
 
-    blocks_np = tree["blocks"]
-    blocks = []
-    for i in range(cfg.num_layers):
-        blocks.append({grp: {nm: t(np.asarray(arr)[i])
-                             for nm, arr in leaves.items()}
-                       for grp, leaves in blocks_np.items()})
-    out = {"embed": t(tree["embed"]),
-           "final_norm": {k: t(v) for k, v in tree["final_norm"].items()},
-           "blocks": blocks}
+    def unstack(sub, i):
+        return {k: (unstack(v, i) if isinstance(v, dict)
+                    else t(np.asarray(v)[i])) for k, v in sub.items()}
+
+    def layers(name, n):
+        return [unstack(tree[name], i) for i in range(n)]
+
+    out = {}
+    if cfg.family == "hybrid":
+        ntri, tail = hybrid_counts(cfg)
+        out["triples"] = layers("triples", ntri)
+        out["tail"] = layers("tail", tail) if tail else []
+    else:
+        out["blocks"] = layers("blocks", cfg.num_layers)
+    out["embed"] = t(tree["embed"])
+    out["final_norm"] = {k: t(v) for k, v in tree["final_norm"].items()}
     if not cfg.tie_embeddings:
         out["lm_head"] = t(tree["lm_head"])
     return out
@@ -149,15 +203,13 @@ def params_from_jax(cfg: ModelConfig, tree, device="cpu") -> Dict[str, Any]:
 def cast_for_compute(params, dtype) -> Dict[str, Any]:
     """A tree whose matrices, biases and embedding are already in the
     compute dtype, so no layer casts a weight per call.  Norm
-    parameters stay as they are: the norms run in float32.  Casting
-    once is numerically the same as the reference's cast at each use."""
-    def blk(b):
-        return {grp: {nm: (w.to(dtype) if nm in _MATRICES else w)
-                      for nm, w in leaves.items()}
-                for grp, leaves in b.items()}
-    out = {"embed": params["embed"].to(dtype),
-           "final_norm": params["final_norm"],
-           "blocks": [blk(b) for b in params["blocks"]]}
-    if "lm_head" in params:
-        out["lm_head"] = params["lm_head"].to(dtype)
-    return out
+    parameters stay as they are: the norms run in float32; so do the
+    RG-LRU's float32 leaves.  Casting once is numerically the same as
+    the reference's cast at each use."""
+    def cast(x, name=None):
+        if isinstance(x, dict):
+            return {k: cast(v, k) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cast(v) for v in x]
+        return x.to(dtype) if name in _MATRICES else x
+    return cast(params)

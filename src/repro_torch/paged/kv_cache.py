@@ -123,15 +123,18 @@ def modality_page_quota(cfg, page_bytes: int = 256) -> int:
       state)`` float32, plus the ``(conv-1, conv_dim)`` bf16 conv tail;
     - ``moe`` (mixtral, phi3.5-moe): the routed expert activation
       buffers, ``top_k × d_ff`` bf16 per MoE layer;
+    - ``hybrid`` (recurrentgemma): per recurrent layer the RG-LRU
+      state, ``(lru_width,)`` float32, plus the ``(3, lru_width)`` bf16
+      conv tail;
     - dense: 0 (its per-sequence state is all KV pages).
-
-    The hybrid quota (RG-LRU state) comes with its family (ROADMAP A12).
 
     >>> from repro_torch.configs import get_arch
     >>> modality_page_quota(get_arch("mamba2-780m"))
     298656
     >>> modality_page_quota(get_arch("mixtral-8x7b"))
     7168
+    >>> modality_page_quota(get_arch("recurrentgemma-9b"))
+    4160
     """
     if cfg.family == "ssm":
         conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
@@ -139,9 +142,9 @@ def modality_page_quota(cfg, page_bytes: int = 256) -> int:
                      + (cfg.ssm_conv - 1) * conv_dim * 2)
         return -(-cfg.num_layers * per_layer // page_bytes)
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid page quota comes with its family "
-            f"(ROADMAP A12)")
+        r = cfg.lru_width or cfg.d_model
+        n_rec = cfg.num_layers - cfg.num_layers // cfg.attn_period
+        return -(-n_rec * (r * 4 + 3 * r * 2) // page_bytes)
     if cfg.num_experts:
         buf = cfg.num_layers * cfg.num_experts_per_tok * cfg.d_ff * 2
         return -(-buf // page_bytes)

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core import HeapConfig, Ouroboros
 from repro_torch.kernels import ops, ref
+from repro_torch.models.transformer import num_attn_layers
 
 pytestmark = pytest.mark.cuda
 
@@ -561,6 +562,22 @@ WINDOW_CASES = {
     "mixtral-ring": (8, 32, 8, 128, 16, 258, 2100,
                      [1, 100, 4096, 4097, 4160, 5000, 8000, 8192], 4096,
                      True, [(1, 3, 4), (5, 254, 256), (6, 257, 258)]),
+    # recurrentgemma-9b's heads (G 16 on one kv head of 256): the
+    # emulated test's cases, then its decode shapes as served (max_seq
+    # 4,192: a 262-slot table) and on a 130-slot ring, lengths on both
+    # sides of the 2,048-token window
+    "hybrid-heads-window": (4, 16, 1, 256, 16, 12, 50, [0, 100, 161, 190],
+                            96, False, [(2, 3, 5), (3, 0, 4)]),
+    "hybrid-heads-ring": (4, 16, 1, 256, 16, 10, 60, [16, 160, 161, 1000],
+                          128, True, [(3, 4, 5), (1, 9, 10)]),
+    "hybrid-recurrentgemma-window": (8, 16, 1, 256, 16, 262, 2160,
+                              [1, 100, 2048, 2049, 2100, 3000, 4160, 4192],
+                              2048, False,
+                              [(1, 3, 4), (5, 130, 132), (7, 0, 5)]),
+    "hybrid-recurrentgemma-ring": (8, 16, 1, 256, 16, 130, 1100,
+                            [1, 100, 2048, 2049, 2100, 3000, 4160, 4192],
+                            2048, True,
+                            [(1, 3, 4), (5, 70, 72), (6, 129, 130)]),
 }
 
 
@@ -1141,8 +1158,9 @@ def _exhaust(eng):
      False),
     ("qwen2-0.5b", dict(max_batch=2, max_seq=96, num_pages=16,
                         kv_dtype=torch.int8), True),
+    ("recurrentgemma-9b", dict(max_batch=4, max_seq=96), False),
 ], ids=("qwen2", "qwen2-4-shards", "qwen2-exhausted", "mamba2", "mixtral",
-        "qwen1.5-32b-int8", "qwen2-int8-exhausted"))
+        "qwen1.5-32b-int8", "qwen2-int8-exhausted", "hybrid"))
 def test_mega_tokens_equal_host_loop_on_the_card(cuda, arch, kw, pressure):
     """bf16 compute on the card (bf16 KV, or int8 KV with scales): the
     mega-step gives the host loop's tokens, balances allocs and frees,
@@ -1166,7 +1184,7 @@ def test_mega_tokens_equal_host_loop_on_the_card(cuda, arch, kw, pressure):
         S = eng.num_shards
         grow = "alloc_txn" if S == 1 else "sharded_alloc_txn"
         assert launches[grow] == st["alloc_txns"] > 0
-        L = eng.cfg.num_layers
+        L = num_attn_layers(eng.cfg)
         assert launches["paged_attention"] % L == 0
         # one grow a tick, beside the admissions' grants
         assert 0 < launches["paged_attention"] // L <= st["alloc_txns"]
@@ -1181,11 +1199,13 @@ def test_mega_tokens_equal_host_loop_on_the_card(cuda, arch, kw, pressure):
 @pytest.mark.parametrize("mega", (True, False), ids=("mega", "host"))
 @pytest.mark.parametrize("arch,S", [("qwen2-0.5b", 1), ("qwen2-0.5b", 4),
                                     ("mamba2-780m", 1), ("mixtral-8x7b", 1),
-                                    ("qwen1.5-32b", 1)])
+                                    ("qwen1.5-32b", 1),
+                                    ("recurrentgemma-9b", 1)])
 def test_launches_per_tick_on_the_card(cuda, arch, S, mega):
-    """One grow transaction plus one ``paged_attention`` a layer for
-    qwen2 (none for mamba2) at max_batch 2 and 8, the allocator's part
-    as its kernel counted it (``kernels.alloc_txn.launch_stats``)."""
+    """One grow transaction plus one ``paged_attention`` an attention
+    layer for qwen2 (none for mamba2; one of recurrentgemma's four smoke
+    layers) at max_batch 2 and 8, the allocator's part as its kernel
+    counted it (``kernels.alloc_txn.launch_stats``)."""
     from repro_torch.kernels import alloc_txn as AT
     counts = []
     for mb in (2, 8):
@@ -1204,14 +1224,16 @@ def test_launches_per_tick_on_the_card(cuda, arch, S, mega):
             grow = "alloc_txn" if S == 1 else "sharded_alloc_txn"
             assert ops.LAUNCHES[grow] == made[grow] == 1
             assert sum(made.values()) == 1
-            assert ops.LAUNCHES["paged_attention"] == eng.cfg.num_layers
-    want = 0 if eng.caches.kv is None else 1 + eng.cfg.num_layers
+            assert ops.LAUNCHES["paged_attention"] == num_attn_layers(
+                eng.cfg)
+    want = 0 if eng.caches.kv is None else 1 + num_attn_layers(eng.cfg)
     assert counts == [want, want]
 
 
 @pytest.mark.parametrize("arch,S", [("qwen2-0.5b", 1), ("qwen2-0.5b", 4),
                                     ("mamba2-780m", 1), ("mixtral-8x7b", 1),
-                                    ("qwen1.5-32b", 1)])
+                                    ("qwen1.5-32b", 1),
+                                    ("recurrentgemma-9b", 1)])
 def test_mega_tick_reads_the_card_once(cuda, arch, S):
     """Each steady tick (no admission, no retirement, no failure) makes
     exactly one synchronizing call, the flags' read: every step is run
@@ -1388,3 +1410,80 @@ def test_qwen1_5_32b_full_width_two_layers_int8_both_loops(cuda):
           f"{err['kernel'] / err['plain']:.3g}, staged / plain "
           f"{err['staged'] / err['plain']:.3g}, limit {limit:.3g}")
     assert err["kernel"] <= limit < err["staged"], err
+
+
+def test_hybrid_full_width_four_layers_both_loops(cuda):
+    """recurrentgemma-9b at its full widths (d_model 4096, lru_width 4096,
+    16 query heads on 1 kv head of 256, d_ff 12,288 GeGLU, vocab
+    256,000, untied), cut to 4 layers (one (RG-LRU, RG-LRU, local
+    attention) triple and one RG-LRU layer), bf16: a 4160-token prompt
+    (past the 2,048-token window) beside short ones through the host
+    loop and the mega-step give the same tokens, each admission's aux
+    grant of the quota (480 pages at 3 recurrent layers),
+    ``allocs == frees``, no page held, ``launches_per_tick`` 2; and the
+    kernel at the run's own inputs of the ticks where the long
+    request's window masks held to the plain version at atol 1e-5."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.paged.kv_cache import modality_page_quota
+    from repro_torch.serve.engine import ServingEngine
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b"), num_layers=4)
+    m = build_model(cfg)
+    params = m.init(0, device=cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, n) for n in (4160, 20, 300)]
+    quota = modality_page_quota(cfg)
+    assert quota == 480
+    out, masked, err = [], [0], [0.0]
+    kernel = ops.paged_attention
+
+    def checked(q, k, v, table, seq, **kw):
+        got = kernel(q, k, v, table, seq, **kw)
+        assert kw["window"] == cfg.local_window and kw["ring"]
+        if int(seq.max()) > cfg.local_window:
+            masked[0] += 1
+            want = ref.paged_attention(q, k, v, table, seq, **kw)
+            err[0] = max(err[0], float((got - want).abs().max()))
+        return got
+
+    for mega in (False, True):
+        eng = ServingEngine(m, params, max_batch=4, max_seq=4200,
+                            kv_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16, device=cuda,
+                            mega_step=mega, max_new_cap=8)
+        assert eng.launches_per_tick() == 1 + num_attn_layers(cfg) == 2
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        grants, toks = [], {}
+        while eng.waiting or any(r is not None for r in eng.slot_req):
+            held = [len(a) for a in eng.slot_aux]
+            for r in eng.step():
+                toks[r.uid] = list(r.out_tokens)
+            grants += [len(a) for a, h in zip(eng.slot_aux, held)
+                       if len(a) and not h]
+        assert grants == [quota] * len(prompts)
+        st = eng.stats
+        assert st["allocs"] == st["frees"] > 0
+        assert bool((eng.caches.kv.page_table == -1).all())
+        assert not any(a.size for a in eng.slot_aux)
+        assert bool(torch.isfinite(eng.caches.ssm_h).all())
+        out.append(toks)
+        if not mega:   # the kernel at the run's own inputs
+            eng.alloc_state = eng.ouro.init()
+            for p in prompts:
+                eng.submit(p, max_new_tokens=8)
+            ops.paged_attention = checked
+            try:
+                again = eng.run_until_done()
+            finally:
+                ops.paged_attention = kernel
+            assert sorted(r.out_tokens for r in again) == sorted(
+                toks.values())
+        del eng
+    assert out[0] == out[1] and len(out[0]) == 3
+    assert masked[0] > 0
+    print(f"recurrentgemma 4 layers: {masked[0]} masking calls, max error "
+          f"{err[0]:.3g}")
+    assert err[0] <= 1e-5, err
+

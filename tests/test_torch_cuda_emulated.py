@@ -1663,6 +1663,14 @@ WINDOW_CASES = {
     # 20 tokens inside a ring of 5 slots
     "narrow-ring-window": (3, 4, 1, 12, 8, 5, 30, [7, 41, 200], 20, True,
                            [(2, 3, 4)]),
+    # recurrentgemma-9b's heads: G 16 on one kv head of 256 (the merge
+    # block's 1024 threads fold 4 outputs each; the scores kernel's
+    # shared memory passes 48 KB), ragged lengths, a 96-token window and
+    # holes inside and before it, then a ring of 10 slots that wraps
+    "hybrid-heads-window": (4, 16, 1, 256, 16, 12, 50, [0, 100, 161, 190],
+                            96, False, [(2, 3, 5), (3, 0, 4)]),
+    "hybrid-heads-ring": (4, 16, 1, 256, 16, 10, 60, [16, 160, 161, 1000],
+                          128, True, [(3, 4, 5), (1, 9, 10)]),
 }
 
 
@@ -1674,9 +1682,9 @@ def test_paged_attention_window_ring_kernel_matches_plain(emu, case, dtype,
     """``window`` and ``ring`` in the split kernels and the fold: windows
     whose edges fall on split boundaries and inside pages, ring tables
     shorter than the sequence that wrap, holes, both table modes and
-    dtypes, D = 128 at G = 4: atol 1e-5 of the plain version on the same
-    (widened) values.  Slots before the window or off the ring's last
-    lap are loaded by no split."""
+    dtypes, D = 128 at G = 4 and D = 256 at G = 16: atol 1e-5 of the
+    plain version on the same (widened) values.  Slots before the window
+    or off the ring's last lap are loaded by no split."""
     B, Hq, Hkv, D, page, P, NP, seq, window, ring, holes = \
         WINDOW_CASES[case]
     rng = np.random.default_rng(NP)
