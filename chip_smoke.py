@@ -30,11 +30,14 @@ Phases, each reporting on its own lines:
    against CPU copies.  Then one admission's and one retirement's lanes
    of full-width mamba2-780m (298,656 pages of 256 B, lane tables in the
    device workspace) on the mamba2 engine's arena, single and 4-shard,
-   against the plain math run on a second arena on the card (the
+   against the plain math on CPU copies of the same words (the
    retirement's revived chunks enqueued in parallel, one enqueue a
    block, by the free kernels' own count), and on the
    single arena the next admission's grant (the freed lanes' chunks in
-   the class queue) against the plain math on CPU copies.  No
+   the class queue) against the plain math on CPU copies; those three
+   plain replays run in a worker process beside the next phases, and
+   their verdicts are read before the mamba2 run of phase 5 ("phase 3
+   (plain replays)" lines).  No
    piecewise kernel launches in this phase.  Then "phase 3 (piecewise)":
    the piecewise allocator API of all six variants (page and chunk over
    the ring, va and vl families) on the 65536-page geometry, seeded
@@ -80,9 +83,14 @@ Phases, each reporting on its own lines:
    shapes (B 8, Hq 16, Hkv 1: G 16, D 256, window 2,048, lengths
    1-4,192: the merge kernel folds 4 outputs a thread, the scores
    kernel's shared memory passes 48 KB): a 262-slot table (as served,
-   max_seq 4,192) and a 130-slot ring; then int8 pages with their float32
-   scales (``paged_attention int8`` lines): unit inputs at qwen2's
-   shapes (q float32 on page ids, q bf16 on word offsets), qwen1.5-32b's
+   max_seq 4,192) and a 130-slot ring; then at the decode shapes of
+   seamless-m4t-large-v2's decoder (B 8, Hq 16, Hkv 16: G 1, D 64) and
+   qwen2-vl-2b (Hq 12, Hkv 2: G 6, D 128) on a 32-slot table (max_seq
+   512, lengths 0-512 with holes), float32 and bf16 pages, atol 1e-5,
+   each with the same four times and its bound; then int8 pages with
+   their float32 scales (``paged_attention int8`` lines): unit inputs
+   at qwen2's shapes (q float32 on page ids, q bf16 on word offsets),
+   qwen1.5-32b's
    decode shapes (B 8, Hq 40, Hkv 40, D 128, lengths 1-1,024, a 64-slot
    table; q bf16 and float32, and its bf16 pages beside them),
    mixtral-8x7b's 512-slot window and 258-slot ring in int8, atol 1e-5,
@@ -163,9 +171,17 @@ Phases, each reporting on its own lines:
    launches equal to the engine's counts; then profiled reruns of the
    qwen2 and mamba2 runs with every step's synchronizing calls counted
    (one, the flags' read, a steady tick), their device idle share beside
-   the host loop's (phases 5-6), and tok/s of both loops.  Then three
-   models run alone on the card, one after another, each freed before
-   the next loads (``ALONE``): the hybrid slice, recurrentgemma-9b at
+   the host loop's (phases 5-6), and tok/s of both loops.  Then the
+   encoder-decoder and the VLM slices (``SMALL``): seamless-m4t-large-v2
+   at full width and depth (24 encoder + 24 decoder layers, LayerNorm,
+   GeGLU, 512 zero encoder frames a row, 4.07 GB of bf16 weights) and
+   qwen2-vl-2b (28 layers, M-RoPE, 3.09 GB), each served as the models
+   below are (max_seq 512, every 30th tick checked; seamless's scores
+   reach the tens, so its check is judged against float64), its phase 6
+   adding the encoder's and the cross-attention's device time
+   (``encdec_device_ms``), each freed before the next loads.  Then
+   three models run alone on the card, one after another, each freed
+   before the next loads (``ALONE``): the hybrid slice, recurrentgemma-9b at
    the reference's widths and all 38 layers (12 (RG-LRU, RG-LRU, local
    attention) triples and 2 RG-LRU layers; 22.6 GB of weights, bf16
    with the RG-LRU gates in float32; max_seq 4,192); the moe slice,
@@ -176,9 +192,9 @@ Phases, each reporting on its own lines:
    1,024).  Each serves phase 5's 16 prompts (the two windowed models
    one of 4,160 tokens more, past their 2,048- and 4,096-token
    windows), 32 new each, max_batch 8, through the host loop ("phase 5:
-   <model>" lines, ``phase_serve_alone``: device memory (weights, K/V
-   heaps sized by the arena's physical pages, aux pages included, state
-   rows, the peak), each admission's aux grant (4,160, 3,584 and 0
+   <model>" lines, ``phase_serve_alone``, as for ``SMALL``: device
+   memory (weights, K/V heaps sized by the arena's physical pages, aux
+   pages included, state rows, the peak), each admission's aux grant (4,160, 3,584 and 0
    pages), ``allocs == frees``, no page held, the launches equal to the
    engine's counts (one ``paged_attention`` an attention layer a tick),
    then a rerun holding every ``paged_attention`` call of every 32nd
@@ -188,8 +204,9 @@ Phases, each reporting on its own lines:
    float32 orders part by more, to float64 beside a bf16-staged control
    that must fail; "phase 6: <model>": a profiled rerun, device busy,
    idle share, time by kernel), then through the mega-step ("phase 7:
-   <model>" lines: ``launches_per_tick`` 13, 17 and 65, the host
-   loop's tokens, one synchronizing call a steady tick).  Each phase
+   <model>" lines: ``launches_per_tick`` 25 and 29 (``SMALL``), 13, 17
+   and 65, the host loop's tokens, one synchronizing call a steady
+   tick).  Each phase
    prints its seconds.  Then one JSON line of per-kernel numbers (each
    kernel's launches in the mega-step runs too), then the card line,
    then the result line ``{"ok": true, "device": {...}}`` last.
@@ -1636,48 +1653,81 @@ def attn_device_ms(q, k, v, table, seq, wpp, reps=50, **kw):
     return sum(parts), parts, min(n for _, n in got.values())
 
 
-def phase_attention(device):
-    """``paged_attention`` against its plain version at the decode
-    shapes, four lines (dtype x table mode): the max error, the device
-    time of a call (its three kernels, profiler), the CUDA-event
-    time of a call (the wrapper's host work inside), the plain version's
-    time and the bound; and the split geometry."""
+def attn_case(what, q, k, v, table, seq, wpp, atol=1e-5):
+    """One ``paged_attention`` input against its plain version: the max
+    error (within ``atol``), the device time of a call (its three
+    kernels, profiler), the CUDA-event time of a call (the wrapper's
+    host work inside), the plain version's time and the bound; and the
+    split geometry, on one line."""
     import torch
     from repro_torch.kernels import paged_attention as pa_kernel
     from repro_torch.kernels import ref
 
+    got = pa_kernel.paged_attention(q, k, v, table, seq, wpp=wpp)
+    want = ref.paged_attention(q, k, v, table, seq, wpp=wpp)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not (err <= atol) or not torch.isfinite(got).all():
+        raise AssertionError(f"paged_attention {what}: max error {err} > "
+                             f"{atol}")
+    ms, parts, rec = attn_device_ms(q, k, v, table, seq, wpp)
+    wall = time_ms(lambda: pa_kernel.paged_attention(
+        q, k, v, table, seq, wpp=wpp), 200)
+    plain = time_ms(lambda: ref.paged_attention(
+        q, k, v, table, seq, wpp=wpp), 10)
+    bound, by = attn_bound_ms(q, k, table, seq, wpp)
+    B, Hq, D = q.shape
+    _, page, Hkv, _ = k.shape
+    pps, splits = pa_kernel.geometry(page, table.shape[1])
+    log(f"phase 4: paged_attention {what}: max error {err:.3g} (atol "
+        f"{atol}); kernel {ms:.5f} ms a call (profiler device time: scores "
+        f"{parts[0]:.5f} + values {parts[1]:.5f} + merge {parts[2]:.5f}, at "
+        f"least {rec} of 50 calls recorded), {wall:.5f} ms a call on CUDA "
+        f"events (wrapper inside), plain {plain:.4f} ms, bound "
+        f"{bound:.5f} ms ({by}); {splits} splits of {pps} pages: grid "
+        f"{B * Hkv} x {splits} blocks")
+    return dict(err=err, ms=ms, wall=wall, plain=plain, bound=bound, by=by,
+                pps=pps, splits=splits)
+
+
+def phase_attention(device):
+    """``paged_attention`` against its plain version at qwen2-0.5b's
+    decode shapes, four lines (dtype x table mode, ``attn_case``)."""
+    import torch
     res = {}
-    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-5)):
+    for dtype in (torch.float32, torch.bfloat16):
         for wpp in (None, 64):
-            q, k, v, table, seq = attn_inputs(device, dtype, wpp)
-            got = pa_kernel.paged_attention(q, k, v, table, seq, wpp=wpp)
-            want = ref.paged_attention(q, k, v, table, seq, wpp=wpp)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if not (err <= atol) or not torch.isfinite(got).all():
-                raise AssertionError(f"paged_attention {dtype} wpp={wpp}: "
-                                     f"max error {err} > {atol}")
-            ms, parts, rec = attn_device_ms(q, k, v, table, seq, wpp)
-            wall = time_ms(lambda: pa_kernel.paged_attention(
-                q, k, v, table, seq, wpp=wpp), 200)
-            plain = time_ms(lambda: ref.paged_attention(
-                q, k, v, table, seq, wpp=wpp), 10)
-            bound, by = attn_bound_ms(q, k, table, seq, wpp)
-            B, Hq, _ = q.shape
-            _, page, Hkv, _ = k.shape
-            pps, splits = pa_kernel.geometry(page, table.shape[1])
             tag = f"{str(dtype).split('.')[-1]} {'offsets' if wpp else 'ids'}"
-            log(f"phase 4: paged_attention {tag}: max error {err:.3g} "
-                f"(atol {atol}); kernel {ms:.5f} ms a call (profiler device "
-                f"time: scores {parts[0]:.5f} + values {parts[1]:.5f} + merge "
-                f"{parts[2]:.5f}, at least {rec} of 50 calls recorded), "
-                f"{wall:.5f} ms a call on "
-                f"CUDA events (wrapper inside), plain {plain:.4f} ms, bound "
-                f"{bound:.5f} ms ({by}); {splits} splits of {pps} pages: "
-                f"grid {B * Hkv} x {splits} blocks")
-            res[(dtype, wpp)] = dict(err=err, ms=ms, wall=wall, plain=plain,
-                                     bound=bound, by=by, pps=pps,
-                                     splits=splits)
+            res[(dtype, wpp)] = attn_case(
+                tag, *attn_inputs(device, dtype, wpp), wpp)
+    return res
+
+
+# the decode attention of the encoder-decoder and the VLM slices, as
+# served (max_seq 512: a 32-slot table, lengths 0-512 with holes):
+# seamless-m4t-large-v2's decoder, 16 query heads over 16 kv heads of
+# 64 (G 1); qwen2-vl-2b's 12 over 2 of 128 (G 6)
+SEAMLESS = "seamless-m4t-large-v2"
+QWEN2VL = "qwen2-vl-2b"
+NEW_ATTN = {SEAMLESS: dict(B=8, Hq=16, Hkv=16, D=64),
+            QWEN2VL: dict(B=8, Hq=12, Hkv=2, D=128)}
+
+
+def phase_attention_shapes(device):
+    """``paged_attention`` at the decode shapes of ``NEW_ATTN``, float32
+    and bf16 pages on page ids (``attn_case``, atol 1e-5).  Returns
+    {model: {dtype: case}}."""
+    import torch
+    res = {}
+    for name, shape in NEW_ATTN.items():
+        heads = ", ".join(f"{k} {v}" for k, v in shape.items())
+        res[name] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[-1]
+            res[name][dt] = attn_case(
+                f"{name} {dt} ids ({heads}, P 32)",
+                *attn_inputs(device, dtype, None, NP=384, **shape), None)
+        torch.cuda.empty_cache()
     return res
 
 
@@ -3256,19 +3306,93 @@ def aux_geometry():
     return aux, 256 + 8 * aux
 
 
-def phase_aux_pairs(device, reps=10):
-    """One admission's and one retirement's lanes of full-width
-    mamba2-780m (298,656 256-B pages) on the engine's arena, single and
-    4-shard: the kernels (lane tables in the device workspace) against
-    the plain math, word for word (single: on a second arena on the
-    card, its words after the grant kept for phase 5; 4-shard: on CPU
-    copies, the faster host for the plain chain); then the kernels'
-    device times (``torch.profiler``, each alloc from a fresh arena, each
-    free of that alloc's grant), the plain versions' times and the byte
-    bounds."""
+def plain_replay(job):
+    """One of phase 3's 298,656-lane transactions through the plain
+    allocator math on the CPU, in the worker process of
+    ``PlainReplays``: the alloc from the words ``job`` gives (numpy
+    arrays: ``mem``, ``ctl``, ``sizes``, ``mask``) on the engine's arena
+    geometry (``pages``, ``S`` shards), and with ``free`` offsets the
+    free of them after it; each result held to the kernel's, word for
+    word (``k_offs``, ``k_mem``, ``k_ctl``; ``k_free_mem``,
+    ``k_free_ctl``).  Returns the plain ms of each, the differing words
+    of each and whether every lane was granted."""
     import torch
     from repro_torch.core import shards
     from repro_torch.core import transactions as T
+    from repro_torch.paged.kv_cache import make_kv_allocator
+    torch.set_num_threads(2)
+    o = make_kv_allocator(job["pages"], device="cpu",
+                          num_shards=job["S"])[0]
+    t = {k: torch.from_numpy(v) for k, v in job.items()
+         if not isinstance(v, int)}
+    S, mem, ctl = job["S"], t["mem"], t["ctl"]
+    n = t["sizes"].shape[0]
+    t0 = time.perf_counter()
+    if S == 1:
+        offs = T.alloc_math(o.cfg, o.kind, o.family, mem, ctl, t["sizes"],
+                            t["mask"])[2]
+    else:
+        offs = T.sharded_alloc_math(o.cfg, S, o.kind, o.family, mem, ctl,
+                                    t["sizes"], t["mask"],
+                                    shards.home_shards(n, S, None), o.walk)[2]
+    out = {"alloc_ms": 1e3 * (time.perf_counter() - t0),
+           "granted": bool((offs >= 0).all()),
+           "alloc_err": {"words": 0, "max_abs": 0},
+           "free_err": {"words": 0, "max_abs": 0}}
+    merge_err(out["alloc_err"], word_err(offs, t["k_offs"]),
+              word_err(mem, t["k_mem"]), word_err(ctl, t["k_ctl"]))
+    if "free" in t:
+        t0 = time.perf_counter()
+        if S == 1:
+            T.free_math(o.cfg, o.kind, o.family, mem, ctl, t["free"],
+                        t["sizes"], t["mask"])
+        else:
+            T.sharded_free_math(o.cfg, S, o.kind, o.family, mem, ctl,
+                                t["free"], t["sizes"], t["mask"])
+        out["free_ms"] = 1e3 * (time.perf_counter() - t0)
+        merge_err(out["free_err"], word_err(mem, t["k_free_mem"]),
+                  word_err(ctl, t["k_free_ctl"]))
+    return out
+
+
+class PlainReplays:
+    """Worker processes (spawned, one a job, two CPU threads each) that
+    run ``plain_replay`` jobs while the card goes on with the next
+    phases: phase 3's three 298,656-lane plain replays take 1-1.5
+    minutes of the CPU each, and the checks they feed wait only for
+    ``results``.  ``close`` stops them."""
+
+    def __init__(self, workers: int = 3):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        self.pool = ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = {}
+
+    def submit(self, key, **job):
+        """``job``'s tensors go to the worker as numpy arrays."""
+        self.futures[key] = self.pool.submit(plain_replay, {
+            k: (v if isinstance(v, int) else v.cpu().numpy())
+            for k, v in job.items()})
+
+    def results(self) -> dict:
+        return {k: f.result() for k, f in self.futures.items()}
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_aux_pairs(device, replays, reps=10):
+    """One admission's and one retirement's lanes of full-width
+    mamba2-780m (298,656 256-B pages) on the engine's arena, single and
+    4-shard: the kernels (lane tables in the device workspace) run here,
+    and their words go to ``replays`` to be held to the plain math on
+    the CPU (``plain_replay``; ``finish_aux_pairs`` reads the verdicts);
+    the single arena's fresh and granted words are kept for phase 5.
+    Then the kernels' device times (``torch.profiler``, each alloc from
+    a fresh arena, each free of that alloc's grant) and the byte
+    bounds."""
+    import torch
     from repro_torch.kernels import alloc_txn as AT
     from repro_torch.paged.kv_cache import make_kv_allocator
 
@@ -3285,39 +3409,18 @@ def phase_aux_pairs(device, reps=10):
               lib.free_txn_workspace_bytes(desc, n, S, AT.TABLE_SMEM_LIMIT))
         if not all(ws):
             raise AssertionError(f"{n} lanes fit in shared memory: {ws}")
-        pdev = device if S == 1 else "cpu"
         sk = o.init()
-        sp = (o if S == 1 else make_kv_allocator(
-            n_pages, device="cpu", num_shards=S)[0]).init()
         fresh = (sk.mem.clone(), sk.ctl.clone())
         sizes = torch.full((n,), 256, dtype=torch.int32, device=device)
         mask = torch.ones(n, dtype=torch.bool, device=device)
-        psz, pmask = sizes.to(pdev), mask.to(pdev)
-        base = (o.kind, o.family, sp.mem, sp.ctl)
         chains()
         shard_steps()
         _, offs = o.alloc(sk, sizes, mask)
         took = chains()
         steps = shard_steps()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if S == 1:
-            want = T.alloc_math(o.cfg, *base, psz, pmask)[2]
-        else:
-            home = shards.home_shards(n, S, None, device=pdev)
-            want = T.sharded_alloc_math(o.cfg, S, *base, psz, pmask, home,
-                                        o.walk)[2]
-        torch.cuda.synchronize()
-        plain_alloc = 1e3 * (time.perf_counter() - t0)
-        err = {"words": 0, "max_abs": 0}
-        merge_err(err, word_err(offs, want), word_err(sk.mem, sp.mem),
-                  word_err(sk.ctl, sp.ctl))
-        if err["words"] or not bool((want >= 0).all()):
-            raise AssertionError(f"{n}-lane alloc, {S} shard(s): "
-                                 f"{err['words']} differing words")
         granted = (sk.mem.clone(), sk.ctl.clone())
         if S == 1:
-            res["grant"] = dict(fresh=fresh, offs=want, mem=granted[0],
+            res["grant"] = dict(fresh=fresh, offs=offs, mem=granted[0],
                                 ctl=granted[1])
         perm = torch.randperm(n, generator=torch.Generator().manual_seed(1))
         fo = offs[perm.to(device)].contiguous()
@@ -3330,18 +3433,10 @@ def phase_aux_pairs(device, reps=10):
             raise AssertionError(f"{n}-lane free, {S} shard(s): the "
                                  f"enqueue of {revived} revived chunks "
                                  f"took {freed}")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if S == 1:
-            T.free_math(o.cfg, *base, fo, psz, pmask)
-        else:
-            T.sharded_free_math(o.cfg, S, *base, fo.cpu(), psz, pmask)
-        torch.cuda.synchronize()
-        plain_free = 1e3 * (time.perf_counter() - t0)
-        merge_err(err, word_err(sk.mem, sp.mem), word_err(sk.ctl, sp.ctl))
-        if err["words"]:
-            raise AssertionError(f"{n}-lane free, {S} shard(s): "
-                                 f"{err['words']} differing words")
+        replays.submit(S, pages=n_pages, S=S, mem=fresh[0], ctl=fresh[1],
+                       sizes=sizes, mask=mask, k_offs=offs, k_mem=granted[0],
+                       k_ctl=granted[1], free=fo, k_free_mem=sk.mem,
+                       k_free_ctl=sk.ctl)
 
         def session():
             with DeviceProfile(counted=True) as prof:
@@ -3366,35 +3461,64 @@ def phase_aux_pairs(device, reps=10):
         bound_a = (9 * n + (4 * n if S > 1 else 0) + ctl + 8 * chg_a) \
             / HBM_BYTES_PER_S * 1e3
         bound_f = (9 * n + ctl + 8 * chg_f) / HBM_BYTES_PER_S * 1e3
-        res[S] = dict(alloc=dict(ms=alloc_ms, plain=plain_alloc,
-                                 bound=bound_a, steps=steps,
+        res[S] = dict(alloc=dict(ms=alloc_ms, bound=bound_a, steps=steps,
                                  launches=pa[5]),
-                      free=dict(ms=free_ms, plain=plain_free,
-                                bound=bound_f, enqueue=freed), err=err,
-                      plain_on=pdev)
+                      free=dict(ms=free_ms, bound=bound_f, enqueue=freed))
         pre = "sharded_" if S > 1 else ""
         log(f"phase 3: {n} lanes ({S} shard(s), {o.cfg.num_chunks} chunks, "
-            f"workspace {ws[0]} / {ws[1]} B): alloc and free, 0 differing "
-            f"words and offsets; {pre}alloc_txn {alloc_ms:.3f} ms a call "
+            f"workspace {ws[0]} / {ws[1]} B): alloc and free; "
+            f"{pre}alloc_txn {alloc_ms:.3f} ms a call "
             f"({pa[4]}), {pre}free_txn {free_ms:.3f} ms a call ({pf[4]}; "
             f"profiler device time; launches as the card counted them); "
             + (f"the alloc's steps (the kernel's count): {shard_text(steps)} "
                f"of {(o.walk + 1) * S} in {sum(pa[5].values()):g} "
                f"launch(es); " if S > 1 else "")
-            + f"plain math on the "
-            f"{'card' if S == 1 else 'CPU'} {plain_alloc:.0f} / "
-            f"{plain_free:.0f} ms; bounds {1e3 * bound_a:.2f} / "
+            + f"bounds {1e3 * bound_a:.2f} / "
             f"{1e3 * bound_f:.2f} us; the alloc's chunk chain"
             f"{'s' if S > 1 else ''} (the kernel's count): "
             f"{chain_text(took)}; the free's enqueue{'s' if S > 1 else ''} "
-            f"(the kernel's count): {enqueue_text(freed)}")
+            f"(the kernel's count): {enqueue_text(freed)}; the words go to "
+            f"the plain math on the CPU beside the next phases")
         res[S]["chain"] = took
         if S == 1:
-            res[S]["requeued"] = requeued_alloc(o, lay, sk, sizes, mask, err,
-                                                reps)
-        del sk, sp, granted
+            res[S]["requeued"] = requeued_alloc(o, lay, sk, sizes, mask,
+                                                replays, reps)
+        del sk, granted
         torch.cuda.empty_cache()
     return res
+
+
+def finish_aux_pairs(res, replays):
+    """Wait for ``phase_aux_pairs``' plain replays: every alloc and free
+    word for word equal to the kernel's and every lane granted, else
+    raise; their plain ms and differing words go into ``res``."""
+    got = replays.results()
+    for S in (1, SHARDS):
+        r = got[S]
+        for kind in ("alloc", "free"):
+            e = r[f"{kind}_err"]
+            if e["words"] or not r["granted"]:
+                raise AssertionError(f"298,656-lane {kind}, {S} shard(s): "
+                                     f"{e['words']} differing words "
+                                     f"(granted {r['granted']})")
+            res[S][kind]["plain"] = r[f"{kind}_ms"]
+        res[S]["err"] = dict(r["alloc_err"])
+        merge_err(res[S]["err"], (r["free_err"]["words"],
+                                  r["free_err"]["max_abs"]))
+    q = got["requeued"]
+    if q["alloc_err"]["words"] or not q["granted"]:
+        raise AssertionError(f"298,656-lane alloc after the free: "
+                             f"{q['alloc_err']['words']} differing words")
+    merge_err(res[1]["err"], (q["alloc_err"]["words"],
+                              q["alloc_err"]["max_abs"]))
+    res[1]["requeued"]["plain"] = q["alloc_ms"]
+    log(f"phase 3 (plain replays): the 298,656-lane alloc and free against "
+        f"the plain math on the CPU, beside the card's phases: 0 differing "
+        f"words and offsets, every lane granted; single arena "
+        f"{got[1]['alloc_ms']:.0f} / {got[1]['free_ms']:.0f} ms, "
+        f"{SHARDS} shards {got[SHARDS]['alloc_ms']:.0f} / "
+        f"{got[SHARDS]['free_ms']:.0f} ms, the next admission "
+        f"{q['alloc_ms']:.0f} ms")
 
 
 def revived_by(o, mem, offs) -> int:
@@ -3409,37 +3533,24 @@ def revived_by(o, mem, offs) -> int:
     return int((fc[((g // ws) * nc + (g % ws) // wpc).unique()] == 0).sum())
 
 
-def requeued_alloc(o, lay, sk, sizes, mask, err, reps):
+def requeued_alloc(o, lay, sk, sizes, mask, replays, reps):
     """The next admission on the engine's arena, as the serving run makes
     it: the lanes granted again after the retirement freed them, their
     chunks waiting in the class queue (dequeue runs take them).  The
-    kernel against the plain math on CPU copies of the freed words, word
-    for word; its device time (profiler, each alloc from the freed
-    words), the plain time and the byte bound."""
+    kernel's words go to ``replays`` against the plain math on CPU
+    copies of the freed words; its device time (profiler, each alloc
+    from the freed words) and the byte bound."""
     import torch
-    from repro_torch.core import transactions as T
     n = sizes.shape[0]
     freed = (sk.mem.clone(), sk.ctl.clone())   # after the session's free
     queued = int(freed[1][lay.off_back] - freed[1][lay.off_front])
-    t_check = time.perf_counter()
     chains()
     _, rq = o.alloc(sk, sizes, mask)
     took = chains()
-    cm, cc = freed[0].cpu(), freed[1].cpu()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = T.alloc_math(o.cfg, o.kind, o.family, cm, cc, sizes.cpu(),
-                        mask.cpu())[2]
-    plain = 1e3 * (time.perf_counter() - t0)
-    e = {"words": 0, "max_abs": 0}
-    merge_err(e, word_err(rq, want), word_err(sk.mem, cm),
-              word_err(sk.ctl, cc))
-    if e["words"] or not bool((want >= 0).all()):
-        raise AssertionError(f"{n}-lane alloc after the free: {e['words']} "
-                             f"differing words")
-    merge_err(err, (e["words"], e["max_abs"]))
+    replays.submit("requeued", pages=aux_geometry()[1], S=1,
+                   mem=freed[0], ctl=freed[1], sizes=sizes, mask=mask,
+                   k_offs=rq, k_mem=sk.mem, k_ctl=sk.ctl)
     chg = int((sk.mem != freed[0]).sum())
-    del cm, cc
 
     def session():
         with DeviceProfile(counted=True) as prof:
@@ -3453,14 +3564,12 @@ def requeued_alloc(o, lay, sk, sizes, mask, err, reps):
     ms, rec = per_call(profiled(session), "alloc")[:2]
     bound = (9 * n + 8 * lay.ctl_words + 8 * chg) / HBM_BYTES_PER_S * 1e3
     log(f"phase 3: {n} lanes, the next admission ({queued} chunks of the "
-        f"freed lanes in the class queue): 0 differing words and offsets; "
-        f"{ka} {ms:.3f} ms (profiler device time, {rec} of {reps} launches "
-        f"recorded); plain math on the CPU {plain:.0f} ms; bound "
+        f"freed lanes in the class queue): {ka} {ms:.3f} ms (profiler "
+        f"device time, {rec} of {reps} launches recorded); bound "
         f"{1e3 * bound:.2f} us; its chunk chain (the kernel's count): "
-        f"{chain_text(took)} ({time.perf_counter() - t_check:.1f} s for "
-        f"this check)")
+        f"{chain_text(took)}")
     del freed
-    return dict(ms=ms, plain=plain, bound=bound, queued=queued, chain=took)
+    return dict(ms=ms, bound=bound, queued=queued, chain=took)
 
 
 SSD_SHAPE = dict(H=48, P=64, G=1, N=128, Q=64)   # mamba2-780m's heads
@@ -4155,10 +4264,25 @@ def phase_mega(device, models, serve, mamba, host_busy):
 # a prompt past mixtral's 4,096- and recurrentgemma's 2,048-token windows
 LONG = 4160
 
-# Each model: its depth (None: all of it), whether a 17th prompt of
-# ``LONG`` tokens joins phase 5's 16, max_seq, the KV pages' type, its
-# aux pages a slot, how its serving inputs are judged (``checked_rerun``)
-# and every how many ticks, and its name in the runs' tables.
+# Each model served at full width by ``phase_serve_alone`` and
+# ``phase_alone_mega``: its depth (None: all of it), whether a 17th
+# prompt of ``LONG`` tokens joins phase 5's 16, max_seq, the KV pages'
+# type, its aux pages a slot, how its serving inputs are judged
+# (``checked_rerun``) and every how many ticks, and its name in the
+# runs' tables.  ``SMALL``: the encoder-decoder and the VLM slices (4.1
+# and 3.1 GB of bf16 weights), served first, each freed before the
+# next loads; ``ALONE``: the models that need the card alone.
+SMALL = {
+    # 24 encoder + 24 decoder layers; 512 encoder frames a row.  Its
+    # LayerNorm'd random weights give scores in the tens and |out| up to
+    # 32 at the serving inputs, where the kernel and the plain version
+    # part by ~1.3e-4, each as far from float64: judged against float64
+    SEAMLESS: dict(layers=None, long=False, max_seq=512, kv="bfloat16",
+                   quota=0, judge="float64", every=30, label=SEAMLESS),
+    # 28 layers, M-RoPE (its three streams equal, as the engine serves)
+    QWEN2VL: dict(layers=None, long=False, max_seq=512, kv="bfloat16",
+                  quota=0, judge="plain", every=30, label=QWEN2VL),
+}
 ALONE = {
     # 38 layers; aux: 26 RG-LRU layers x (4096 float32 of state + 3 x
     # 4096 bf16 of conv tail) in 256-B pages
@@ -4173,6 +4297,7 @@ ALONE = {
     QWEN32: dict(layers=None, long=False, max_seq=1024, kv="int8", quota=0,
                  judge="float64", every=30, label=f"{QWEN32} (int8)"),
 }
+SPECS = {**SMALL, **ALONE}
 
 
 def tree_tensors(tree):
@@ -4190,6 +4315,11 @@ def widths(cfg) -> str:
              f"{cfg.num_heads} query / {cfg.num_kv_heads} kv heads of "
              f"{cfg.head_dim_}",
              f"d_ff {cfg.d_ff}{' GeGLU' if cfg.act == 'gelu' else ''}"]
+    if cfg.is_encdec:
+        parts += [f"{cfg.enc_layers} encoder + {cfg.num_layers} decoder "
+                  f"layers with cross-attention", cfg.norm]
+    if cfg.mrope_sections:
+        parts.append(f"M-RoPE sections {cfg.mrope_sections}")
     if cfg.family == "hybrid":
         parts += [f"{cfg.num_layers // cfg.attn_period} (RG-LRU, RG-LRU, "
                   f"local attention) triples and "
@@ -4220,7 +4350,7 @@ def alone_model(device, seed, name):
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.model import build_model
-    spec, full = ALONE[name], get_arch(name)
+    spec, full = SPECS[name], get_arch(name)
     cfg = dataclasses.replace(full,
                               num_layers=spec["layers"] or full.num_layers)
     model = build_model(cfg)
@@ -4248,7 +4378,7 @@ def alone_model(device, seed, name):
 def alone_engine(device, model, params, name, **kw):
     import torch
     from repro_torch.serve.engine import ServingEngine
-    spec = ALONE[name]
+    spec = SPECS[name]
     return ServingEngine(model, params, max_batch=8, max_seq=spec["max_seq"],
                          kv_dtype=getattr(torch, spec["kv"]),
                          compute_dtype=torch.bfloat16, device=device, **kw)
@@ -4270,7 +4400,7 @@ def aux_grants(eng):
 def drained(eng, name):
     """``allocs == frees``, no page in the table, no aux page held."""
     st = eng.stats
-    kv = eng.caches.kv
+    kv = eng._kv()
     if eng.mega_step:
         eng._sync_shard_pages_from_table()
     if (st["allocs"] != st["frees"] or any(st["shard_pages_live"])
@@ -4316,7 +4446,7 @@ def float64_judged(kernel_err, plain_err, D, atol=1e-5) -> bool:
 
 def checked_rerun(eng, prompts, want_toks, name, atol=1e-5):
     """The host loop's traffic again, every ``paged_attention`` call of
-    every ``ALONE[name]["every"]``-th tick, and of the first tick in
+    every ``SPECS[name]["every"]``-th tick, and of the first tick in
     which a request's window masks, held at the run's own inputs (the
     model's window, ring tables and page type): to the plain version
     within ``atol`` (judge "plain"), or, where two float32 orders part
@@ -4332,10 +4462,10 @@ def checked_rerun(eng, prompts, want_toks, name, atol=1e-5):
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models.transformer import num_attn_layers
-    cfg, spec = eng.cfg, ALONE[name]
+    cfg, spec = eng.cfg, SPECS[name]
     kernel, L = ops.paged_attention, num_attn_layers(cfg)
     W = cfg.local_window if cfg.family == "hybrid" else cfg.sliding_window
-    pages = eng.caches.kv.layers.k.dtype
+    pages = eng._kv().layers.k.dtype
     st = {"calls": 0, "checked": 0, "ticks": [], "masking": [], "err": 0.0,
           "out": 0.0, "k64": 0.0, "p64": 0.0, "c64": 0.0, "call_ratio": 0.0,
           "on": False}
@@ -4440,20 +4570,21 @@ def checked_text(chk, cfg, judge) -> str:
 
 
 def phase_serve_alone(device, name, model, params, prompts, weight_bytes):
-    """``prompts``, 32 new each, through the host loop of ``name`` alone
-    on the card: each admission's aux grant of ``ALONE``'s quota,
-    ``allocs == frees``, no page held, finite recurrent states, the
-    launches equal to the engine's counts (one ``paged_attention`` an
-    attention layer a tick); device memory (weights, K/V heaps, state
-    rows, peak); then a checked rerun (``checked_rerun``) and a profiled
-    one (phase 6: device busy, idle share, time by kernel)."""
+    """``prompts``, 32 new each, through the host loop of ``name`` on the
+    card (``SPECS``): each admission's aux grant of its quota, ``allocs
+    == frees``, no page held, finite recurrent states, the launches
+    equal to the engine's counts (one ``paged_attention`` an attention
+    layer a tick); device memory (weights, K/V heaps, state rows or
+    cross K/V, peak); then a checked rerun (``checked_rerun``) and a
+    profiled one (phase 6: device busy, idle share, time by kernel; an
+    encoder-decoder's encoder and cross-attention, ``encdec_device_ms``)."""
     import gc
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import num_attn_layers
     from repro_torch.paged.kv_cache import modality_page_quota
 
-    spec = ALONE[name]
+    spec = SPECS[name]
     t0 = time.perf_counter()
     eng = alone_engine(device, model, params, name)
     quota = modality_page_quota(eng.cfg)
@@ -4461,14 +4592,21 @@ def phase_serve_alone(device, name, model, params, prompts, weight_bytes):
     counting = CountingModel(eng.model)
     eng.model = counting
     L = num_attn_layers(eng.cfg)
-    kv, c = eng.caches.kv.layers, eng.caches
+    kv, c = eng._kv().layers, eng.caches
     heap = sum(t.numel() * t.element_size() for t in kv if t is not None)
     scales = ("" if kv.k_scale is None else
               f" with float32 scales {tuple(kv.k_scale.shape)}")
-    rows = ("" if c.ssm_h is None else
-            f", recurrent state rows {tuple(c.ssm_h.shape)} {c.ssm_h.dtype} "
-            f"and conv tails {tuple(c.ssm_conv.shape)} {c.ssm_conv.dtype} "
-            f"{(c.ssm_h.nbytes + c.ssm_conv.nbytes) / 2**20:.1f} MiB")
+    if eng.cfg.is_encdec:
+        rows = (f", cross K and V {tuple(c.cross_k.shape)} "
+                f"{c.cross_k.dtype} "
+                f"{(c.cross_k.nbytes + c.cross_v.nbytes) / 2**20:.1f} MiB")
+    elif c.ssm_h is not None:
+        rows = (f", recurrent state rows {tuple(c.ssm_h.shape)} "
+                f"{c.ssm_h.dtype} and conv tails {tuple(c.ssm_conv.shape)} "
+                f"{c.ssm_conv.dtype} "
+                f"{(c.ssm_h.nbytes + c.ssm_conv.nbytes) / 2**20:.1f} MiB")
+    else:
+        rows = ""
     free, total = torch.cuda.mem_get_info()
     log(f"phase 5: {name}: engine max_batch 8, max_seq {spec['max_seq']}, "
         f"{eng.aux_pages} aux pages a slot (quota {quota}); device memory: "
@@ -4487,6 +4625,7 @@ def phase_serve_alone(device, name, model, params, prompts, weight_bytes):
     done = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    run_lens, run_ticks = list(counting.prefill_lens), counting.decode_calls
     launches = dict(ops.LAUNCHES)
     st = dict(eng.stats)
     toks = sum(len(r.out_tokens) for r in done)
@@ -4513,10 +4652,10 @@ def phase_serve_alone(device, name, model, params, prompts, weight_bytes):
                              f"{len(prompts)} admissions)")
     if st["alloc_failures"]:
         raise AssertionError(f"{name}: {st['alloc_failures']} failed grants")
-    if c.ssm_h is not None and not (torch.isfinite(c.ssm_h).all()
-                                    and torch.isfinite(c.ssm_conv.float())
-                                    .all()):
-        raise AssertionError(f"{name}: a recurrent state is not finite")
+    states = ((c.cross_k, c.cross_v) if eng.cfg.is_encdec
+              else (c.ssm_h, c.ssm_conv) if c.ssm_h is not None else ())
+    if not all(bool(torch.isfinite(t.float()).all()) for t in states):
+        raise AssertionError(f"{name}: a state or cross K/V is not finite")
     drained(eng, f"{name} host loop")
     serving_launches(launches, st, counting.decode_calls, L, name)
     tokens = {r.uid: r.out_tokens for r in done}
@@ -4548,15 +4687,63 @@ def phase_serve_alone(device, name, model, params, prompts, weight_bytes):
                wall=wall, busy=busy, idle=1 - busy / (1e3 * wall),
                checked=chk, stats=st, attn_ms=attn_ms, attn_calls=attn[0][1],
                peak=peak)
+    if eng.cfg.is_encdec:
+        out.update(encdec_device_ms(eng, run_lens, run_ticks, busy, name))
     del eng, counting, prof
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
+def encdec_device_ms(eng, prompt_lens, ticks, busy, name):
+    """An encoder-decoder run's encoder and cross-attention device ms:
+    the run's own calls at its own shapes, profiled apart from the rest
+    (``torch.profiler`` cannot split a serving rerun's kernels by the
+    module that launched them): one encode of the stub frontend's
+    ``max_seq`` zero frames an admission, and for the cross-attention
+    (``flash_attention`` over the cross K/V, projections excluded) a
+    call a decoder layer an admission (the prompt's queries) and a tick
+    (8 queries), over the engine's own cross K/V and valid lengths."""
+    import torch
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as Lyr
+    cfg, c, dt = eng.cfg, eng.caches, eng.compute_dtype
+    L, B, dev = cfg.num_layers, eng.max_batch, eng.device
+    frames = torch.zeros((1, eng.max_seq, cfg.d_model), dtype=torch.float32,
+                         device=dev)
+    with DeviceProfile() as enc:
+        for _ in prompt_lens:
+            ED.encode(cfg, eng.params, frames, dt)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    with DeviceProfile() as xat:
+        for S in prompt_lens:
+            q = torch.randn((1, S, cfg.num_heads, cfg.head_dim_),
+                            generator=g, device=dev).to(dt)
+            for i in range(L):
+                Lyr.flash_attention(q, c.cross_k[i, :1], c.cross_v[i, :1],
+                                    causal=False,
+                                    kv_valid_len=c.enc_valid[:1])
+        q = torch.randn((B, 1, cfg.num_heads, cfg.head_dim_), generator=g,
+                        device=dev).to(dt)
+        for _ in range(ticks):
+            for i in range(L):
+                Lyr.flash_attention(q, c.cross_k[i], c.cross_v[i],
+                                    causal=False, kv_valid_len=c.enc_valid)
+    e_ms, x_ms = enc.busy_ms(), xat.busy_ms()
+    log(f"phase 6: {name}: the encoder {e_ms:.1f} ms of device time "
+        f"({len(prompt_lens)} encodes of {eng.max_seq} frames x "
+        f"{cfg.enc_layers} layers, {100 * e_ms / busy:.1f}% of the rerun's "
+        f"device busy); cross-attention {x_ms:.1f} ms ({L} calls an "
+        f"admission and a tick, {ticks} ticks, over {eng.max_seq} keys: "
+        f"{100 * x_ms / busy:.1f}%); both the run's calls at its shapes, "
+        f"profiled apart")
+    return dict(encoder_ms=e_ms, cross_ms=x_ms)
+
+
 def phase_alone_mega(name, eng, prompts, host):
-    """A model that runs alone on the card (recurrentgemma-9b,
-    mixtral-8x7b, qwen1.5-32b) through the mega-step engine ``eng``:
+    """A model of ``SPECS`` (``SMALL``, then the ones that run alone on
+    the card) through the mega-step engine ``eng``:
     ``launches_per_tick`` 1 + L (one grow, one ``paged_attention`` an
     attention layer, as the wrappers and the allocator kernel counted
     them); then one timed run of ``prompts``,
@@ -4635,6 +4822,17 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    replays = PlainReplays()
+    try:
+        return run(args, replays)
+    finally:
+        replays.close()
+
+
+def run(args, replays) -> int:
+    """Every phase, in order (``main``'s body; ``replays``: the worker
+    process of phase 3's plain replays)."""
+    import torch
     from repro_torch.kernels import build, ops
 
     device = torch.device("cuda", 0)
@@ -4662,7 +4860,7 @@ def main(argv=None) -> int:
     alloc_logs, alloc_errs = phase_alloc(device, seed=args.seed)
     waves, defrag_err = phase_defrag(device, seed=args.seed)
     sh3, sharded_errs = phase_sharded(device, seed=args.seed)
-    aux_pairs = phase_aux_pairs(device)
+    aux_pairs = phase_aux_pairs(device, replays)
     no_piecewise(ops.LAUNCHES, "phase 3's kernels and plain replays")
     log(f"phase 3: {time.perf_counter() - t0:.1f} s; no piecewise step "
         f"launched")
@@ -4684,6 +4882,10 @@ def main(argv=None) -> int:
     rg_attn = phase_attention_rgemma(device)
     log(f"phase 4: {RGEMMA}'s shapes: {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
+    new_attn = phase_attention_shapes(device)
+    log(f"phase 4: {SEAMLESS}'s and {QWEN2VL}'s shapes: "
+        f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
     int8_attn = phase_attention_int8(device)
     log(f"phase 4: int8 pages: {time.perf_counter() - t1:.1f} s")
     ssd = phase_ssd(device)
@@ -4697,6 +4899,10 @@ def main(argv=None) -> int:
     log(f"phase 5: qwen2-0.5b int8: {time.perf_counter() - t1:.1f} s")
     sharded_runs = phase_sharded_serve(device, serve)
     phase_small_model(device, args.seed)
+    t1 = time.perf_counter()
+    finish_aux_pairs(aux_pairs, replays)
+    log(f"phase 3 (plain replays): waited {time.perf_counter() - t1:.1f} s "
+        f"for them")
     mamba = phase_mamba_serve(device, args.seed,
                               [len(p) for p in serve["prompts"]],
                               aux_pairs.pop("grant"))
@@ -4723,13 +4929,14 @@ def main(argv=None) -> int:
     del models
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
+    # the encoder-decoder and the VLM (4.1 and 3.1 GB of weights), then
     # the models that run alone on the card, one after another, each
     # freed before the next loads: recurrentgemma-9b (22.6 GB of weights,
     # 7.0 GB of KV heaps), mixtral-8x7b (47 GB and 32 GB), qwen1.5-32b
     # (70.4 GB of bf16 weights and 6.9 GB of int8 heaps)
     import gc
     alone = {}
-    for name, spec in ALONE.items():
+    for name, spec in SPECS.items():
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -4755,8 +4962,6 @@ def main(argv=None) -> int:
     kernels = []
     def aux_fields(S, kind):
         t = aux_pairs[S][kind]
-        plain = ("plain_ms_298656_lanes" if aux_pairs[S]["plain_on"] != "cpu"
-                 else "plain_cpu_ms_298656_lanes")
         geo = ({"chain_298656_lanes": aux_pairs[S]["chain"],
                 "steps_298656_lanes": t["steps"],
                 "launches_298656_lanes": t["launches"]}
@@ -4768,7 +4973,8 @@ def main(argv=None) -> int:
                        bound_ms_298656_lanes_requeued=r["bound"],
                        queued_chunks_298656_lanes_requeued=r["queued"],
                        chain_298656_lanes_requeued=r["chain"])
-        return {"ms_298656_lanes": t["ms"], plain: t["plain"],
+        return {"ms_298656_lanes": t["ms"],
+                "plain_cpu_ms_298656_lanes": t["plain"],
                 "bound_ms_298656_lanes": t["bound"], **geo}
 
     def variant_runs(name):
@@ -4886,6 +5092,8 @@ def main(argv=None) -> int:
     attn_err = max([r["err"] for r in attn.values()]
                    + [r["err"] for r in mix_attn.values()]
                    + [r["err"] for r in rg_attn.values()]
+                   + [r["err"] for m in new_attn.values()
+                      for r in m.values()]
                    + [r["err"] for r in int8_attn.values()]
                    + [a["host"]["checked"]["err"] for a in alone.values()])
     # the int8 runs: every paged_attention launch there read int8 pages
@@ -4927,6 +5135,18 @@ def main(argv=None) -> int:
                           ("max_abs_err", "err"))},
         "recurrentgemma_serving_inputs_max_err": rg["checked"]["err"],
         "serving_device_ms_recurrentgemma": rg["attn_ms"],
+        # the encoder-decoder's (G 1, D 64) and the VLM's (G 6, D 128)
+        # decode shapes, and their serving reruns
+        **{f"{key}_by_input_{name}": {dt: r[k]
+                                      for dt, r in new_attn[name].items()}
+           for name in NEW_ATTN
+           for key, k in (("ms", "wall"), ("device_ms", "ms"),
+                          ("plain_ms", "plain"), ("bound_ms", "bound"),
+                          ("max_abs_err", "err"))},
+        **{f"{name}_serving_inputs_max_err": alone[name]["host"]["checked"][
+            "err"] for name in SMALL},
+        **{f"serving_device_ms_{name}": alone[name]["host"]["attn_ms"]
+           for name in SMALL},
         # int8 pages with float32 scales: launches in the int8 runs, and
         # the phase 4 cases (unit, qwen1.5-32b's and mixtral's shapes;
         # one qwen1.5-32b case on bf16 pages beside them)

@@ -31,7 +31,7 @@ def get_arch(name: str) -> "ModelConfig":
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid (those ported)
+    family: str                    # dense | moe | ssm | hybrid | encdec
     num_layers: int
     d_model: int
     num_heads: int
@@ -68,7 +68,10 @@ class ModelConfig:
     attn_period: int = 3
     local_window: int = 2048
 
+    # encoder-decoder
     enc_layers: int = 0
+
+    # modality frontend stub: None | "vision" | "audio"
     modality: Optional[str] = None
 
     source: str = ""
@@ -76,6 +79,10 @@ class ModelConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
 
     @property
     def d_inner(self) -> int:

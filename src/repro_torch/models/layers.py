@@ -1,6 +1,7 @@
-"""Transformer building blocks (port): norms, RoPE, blockwise flash
-attention for prefill, GQA projections and the gated MLP (SwiGLU or
-GeGLU).
+"""Transformer building blocks (port): norms (RMSNorm, LayerNorm), RoPE
+and M-RoPE, blockwise flash attention (causal, sliding-window,
+bidirectional and cross, with a per-row valid key length), GQA
+projections and the gated MLP (SwiGLU or GeGLU).
 
 ``flash_attention`` is the reference's jnp blockwise online-softmax
 scan written as plain matmul/softmax in PyTorch (no fused attention
@@ -20,10 +21,17 @@ _NEG = -1e30
 
 
 def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
-    """RMSNorm computed in float32, cast back."""
+    """RMSNorm, or LayerNorm (``scale`` and ``bias``) for
+    ``norm="layernorm"``, computed in float32, cast back."""
     xf = x.float()
-    var = (xf ** 2).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        var = (xf ** 2).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"]
+    return out.to(x.dtype)
 
 
 def rope_freqs(cfg: ModelConfig, device=None):
@@ -33,9 +41,22 @@ def rope_freqs(cfg: ModelConfig, device=None):
 
 
 def apply_rope(cfg: ModelConfig, x, positions):
-    """Rotate-half RoPE.  x: (B, S, H, D); positions: (B, S) int."""
+    """Rotate-half RoPE.  x: (B, S, H, D); positions: (B, S) int, or
+    (3, B, S) for M-RoPE (temporal, height and width streams; 2-D
+    positions are broadcast to all three)."""
     inv = rope_freqs(cfg, x.device)
-    ang = positions[..., None].float() * inv              # (B, S, D/2)
+    if cfg.mrope_sections is not None:
+        # frequency slot j rotates by the stream that owns its section
+        # (sliced, not gathered: no index tensor to copy to the card)
+        if positions.dim() == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        ang, j = [], 0
+        for i, n in enumerate(cfg.mrope_sections):
+            ang.append(positions[i][..., None].float() * inv[j:j + n])
+            j += n
+        ang = torch.cat(ang, -1)                               # (B, S, D/2)
+    else:
+        ang = positions[..., None].float() * inv              # (B, S, D/2)
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
@@ -43,13 +64,15 @@ def apply_rope(cfg: ModelConfig, x, positions):
 
 
 def flash_attention(q, k, v, *, causal: bool, window=None,
-                    block: int = 512):
+                    kv_valid_len=None, block: int = 512):
     """q: (B, S, Hq, D); k, v: (B, T, Hkv, D) → (B, S, Hq, D) float32.
     Online softmax over KV blocks of ``block``.  ``window``: sliding
     window width (None = full): key ``kpos`` is seen from query ``qpos``
-    when ``qpos - kpos < window``.  (The reference blocks q for S > 4096,
-    which only bounds its live memory; padding masks come with the
-    configs that need them.)"""
+    when ``qpos - kpos < window``.  ``kv_valid_len`` (B,) int: row b
+    sees only keys ``kpos < kv_valid_len[b]`` (the cross-attention's
+    padding mask); a row of valid length 0 comes out as zeros.  (The
+    reference blocks q for S > 4096, which only bounds its live
+    memory.)"""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -74,6 +97,9 @@ def flash_attention(q, k, v, *, causal: bool, window=None,
             mask &= qpos[:, None] >= kpos[None, :]
         if window is not None:
             mask &= qpos[:, None] - kpos[None, :] < window
+        if kv_valid_len is not None:               # (B, 1, 1, S, block)
+            mask = mask & (kpos[None, :] < kv_valid_len[:, None]
+                           )[:, None, None, None, :]
         s = torch.where(mask, s, torch.full_like(s, _NEG))
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.where(mask, torch.exp(s - m_new[..., None]),

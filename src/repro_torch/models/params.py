@@ -1,6 +1,7 @@
-"""Parameters of the dense and MoE decoders, the Mamba-2 stack and the
-hybrid (RG-LRU + local attention) stack (port): init from a seed, and
-the converter from the reference's parameter tree.
+"""Parameters of the dense and MoE decoders, the Mamba-2 stack, the
+hybrid (RG-LRU + local attention) stack and the encoder-decoder (port):
+init from a seed, and the converter from the reference's parameter
+tree.
 
 The port's tree mirrors the reference's names with the layer axis
 unstacked into a list::
@@ -20,7 +21,12 @@ no ``blocks``: ``triples`` is a list of ``{"rec1", "rec2", "attn"}``
 recurrent blocks after them, where a recurrent block is ``{"norm1",
 "mixer": {"w_gate_branch", "w_rec_branch", "conv_w", "conv_b",
 "w_input_gate", "w_rec_gate", "lambda_p", "w_out"}, "norm2", "ffn"}``
-and ``attn`` a dense block.
+and ``attn`` a dense block.  An encoder-decoder has no ``blocks``
+either: ``enc_in`` (d, d), ``enc_blocks`` (enc_layers dense blocks),
+``enc_norm``, and ``dec_blocks`` (num_layers blocks that add
+``norm_x`` and a cross-attention ``xattn`` of the same leaves as
+``attn``).  With ``norm="layernorm"`` every norm group is ``{"scale",
+"bias"}``.
 
 Matrices keep the reference's ``x @ W`` layout, W as (d_in, d_out), and
 attention heads stay merged.  :func:`init` draws the same shapes and
@@ -29,9 +35,10 @@ std = scale/sqrt(shape[0]) of its *stacked* spec, so every block matrix
 (the router and the experts too) has std 1/sqrt(num_layers) (``conv_w``
 1/sqrt(ssm_conv * num_layers)); a hybrid's are stacked by triple and by
 tail, so 1/sqrt(num_layers // 3) and 1/sqrt(num_layers % 3) (``conv_w``
-half that); the embedding 1/sqrt(V_pad) and ``lm_head`` 1/sqrt(d);
-norm scales, ``d_skip`` and ``norm_scale`` are ones, biases (``conv_b``
-too) zeros, ``a_log`` the constant log 4, ``dt_bias`` the constant -3
+half that); an encoder-decoder's by stack, 1/sqrt(enc_layers) and
+1/sqrt(num_layers); the embedding 1/sqrt(V_pad), ``enc_in`` and
+``lm_head`` 1/sqrt(d); norm scales, ``d_skip`` and ``norm_scale`` are
+ones, biases (``conv_b`` and the LayerNorms' too) zeros, ``a_log`` the constant log 4, ``dt_bias`` the constant -3
 and ``lambda_p`` the constant 1.  Each leaf is drawn in float32 and
 cast to ``dtype`` at once, layer by layer (every leaf of block 0, then
 block 1, ..., then ``embed`` and ``lm_head``), so a bf16 init holds the
@@ -61,31 +68,50 @@ from repro_torch.models import ssm as Ssm
 # leaves multiplied into activations: cast to the compute dtype once
 _MATRICES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up",
              "w_down", "in_proj", "conv_w", "conv_b", "out_proj", "router",
-             "w_gate_branch", "w_rec_branch", "w_out", "embed", "lm_head")
+             "w_gate_branch", "w_rec_branch", "w_out", "embed", "lm_head",
+             "enc_in")
 # leaves the reference multiplies in float32: never cast down
 _FLOAT32 = ("w_input_gate", "w_rec_gate", "lambda_p")
 
 
-def _block_shapes(cfg: ModelConfig):
-    if cfg.family == "ssm":
-        return {"norm": {"scale": (cfg.d_model,)},
-                "mixer": Ssm.ssm_shapes(cfg)}
-    hd, d, f = cfg.head_dim_, cfg.d_model, cfg.d_ff
+def _norm_shapes(cfg: ModelConfig):
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": (d,), "bias": (d,)}
+    return {"scale": (d,)}
+
+
+def _attn_shapes(cfg: ModelConfig):
+    hd, d = cfg.head_dim_, cfg.d_model
     nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
     attn = {"wq": (d, nq), "wk": (d, nkv), "wv": (d, nkv), "wo": (nq, d)}
     if cfg.qkv_bias:
         attn.update(bq=(nq,), bk=(nkv,), bv=(nkv,))
+    return attn
+
+
+def _block_shapes(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return {"norm": _norm_shapes(cfg), "mixer": Ssm.ssm_shapes(cfg)}
+    d, f = cfg.d_model, cfg.d_ff
     ffn = (Moe.moe_shapes(cfg) if cfg.num_experts else
            {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
-    return {"norm1": {"scale": (d,)}, "attn": attn, "norm2": {"scale": (d,)},
-            "ffn": ffn}
+    return {"norm1": _norm_shapes(cfg), "attn": _attn_shapes(cfg),
+            "norm2": _norm_shapes(cfg), "ffn": ffn}
+
+
+def _dec_shapes(cfg: ModelConfig):
+    """An encoder-decoder's decoder block: self-attention, then
+    cross-attention behind ``norm_x``, then the MLP."""
+    return {**_block_shapes(cfg), "norm_x": _norm_shapes(cfg),
+            "xattn": _attn_shapes(cfg)}
 
 
 def _rec_shapes(cfg: ModelConfig):
     """A hybrid's recurrent block: RG-LRU mixer and gated MLP."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"norm1": {"scale": (d,)}, "mixer": Rgl.rglru_shapes(cfg),
-            "norm2": {"scale": (d,)},
+    return {"norm1": _norm_shapes(cfg), "mixer": Rgl.rglru_shapes(cfg),
+            "norm2": _norm_shapes(cfg),
             "ffn": {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}}
 
 
@@ -95,23 +121,26 @@ def hybrid_counts(cfg: ModelConfig):
 
 
 def check_supported(cfg: ModelConfig):
-    """The port runs the dense decoder as qwen2 configures it (RMSNorm,
-    SwiGLU, rotate-half RoPE), the MoE decoder as mixtral and phi3.5-moe
-    configure it (top-k experts, a sliding window, an untied
-    ``lm_head``), the Mamba-2 stack as mamba2 configures it and the
-    hybrid stack as recurrentgemma configures it (RG-LRU and local
-    attention in (rec, rec, attn) triples, GeGLU).  Anything else comes
-    with its family (ROADMAP A12)."""
+    """The port runs the dense decoder as qwen2 and qwen2-vl configure
+    it (RMSNorm, SwiGLU, rotate-half RoPE or M-RoPE), the MoE decoder
+    as mixtral and phi3.5-moe configure it (top-k experts, a sliding
+    window, an untied ``lm_head``), the Mamba-2 stack as mamba2
+    configures it, the hybrid stack as recurrentgemma configures it
+    (RG-LRU and local attention in (rec, rec, attn) triples, GeGLU) and
+    the encoder-decoder as seamless-m4t configures it (LayerNorm,
+    GeGLU, cross-attention).  Anything else comes with its family
+    (ROADMAP A12)."""
     unsupported = {
-        "family": cfg.family not in ("dense", "moe", "ssm", "hybrid"),
+        "family": cfg.family not in ("dense", "moe", "ssm", "hybrid",
+                                     "encdec"),
         "num_experts": bool(cfg.num_experts) != (cfg.family == "moe"),
-        "enc_layers": cfg.enc_layers, "norm": cfg.norm != "rmsnorm",
+        "enc_layers": bool(cfg.enc_layers) != (cfg.family == "encdec"),
+        "norm": cfg.norm not in ("rmsnorm", "layernorm"),
         "act": cfg.act not in ("silu", "gelu"),
         # a triple is (rec, rec, attn), as the reference lays it out
         "attn_period": cfg.family == "hybrid" and cfg.attn_period != 3,
         "parallel_block": cfg.parallel_block,
-        "logit_softcap": cfg.logit_softcap,
-        "mrope_sections": cfg.mrope_sections}
+        "logit_softcap": cfg.logit_softcap}
     bad = sorted(k for k, v in unsupported.items() if v)
     if bad:
         raise NotImplementedError(
@@ -135,10 +164,10 @@ def init(cfg: ModelConfig, seed: int, device="cpu",
         """``stacked``: the leading dimension of the leaf's stacked spec,
         its fan-in."""
         dt = torch.float32 if name in _FLOAT32 else dtype
+        if name in ("bq", "bk", "bv", "conv_b", "bias"):
+            return torch.zeros(shape, dtype=dt, device=device)
         if group.startswith("norm") or name in ("d_skip", "norm_scale"):
             return torch.ones(shape, dtype=dt, device=device)
-        if name in ("bq", "bk", "bv", "conv_b"):
-            return torch.zeros(shape, dtype=dt, device=device)
         if name in ("a_log", "dt_bias", "lambda_p"):
             c = {"a_log": math.log(4.0), "dt_bias": -3.0, "lambda_p": 1.0}
             return torch.full(shape, c[name], dtype=dt, device=device)
@@ -151,20 +180,32 @@ def init(cfg: ModelConfig, seed: int, device="cpu",
                       for nm, shp in leaves.items()}
                 for grp, leaves in shapes.items()}
 
+    def norm():
+        return {nm: leaf("norm", nm, shp, 1)
+                for nm, shp in _norm_shapes(cfg).items()}
+
     out = {}
+    v, d = cfg.padded_vocab, cfg.d_model
     if cfg.family == "hybrid":
         ntri, tail = hybrid_counts(cfg)
         rec, attn = _rec_shapes(cfg), _block_shapes(cfg)
         out["triples"] = [{"rec1": block(rec, ntri), "rec2": block(rec, ntri),
                            "attn": block(attn, ntri)} for _ in range(ntri)]
         out["tail"] = [block(rec, tail) for _ in range(tail)]
+    elif cfg.is_encdec:
+        enc, dec = _block_shapes(cfg), _dec_shapes(cfg)
+        out["enc_blocks"] = [block(enc, cfg.enc_layers)
+                             for _ in range(cfg.enc_layers)]
+        out["dec_blocks"] = [block(dec, cfg.num_layers)
+                             for _ in range(cfg.num_layers)]
+        out["enc_in"] = normal((d, d), d)
+        out["enc_norm"] = norm()
     else:
         shapes = _block_shapes(cfg)
         out["blocks"] = [block(shapes, cfg.num_layers)
                          for _ in range(cfg.num_layers)]
-    v, d = cfg.padded_vocab, cfg.d_model
     out["embed"] = normal((v, d), v)
-    out["final_norm"] = {"scale": torch.ones(d, dtype=dtype, device=device)}
+    out["final_norm"] = norm()
     if not cfg.tie_embeddings:
         out["lm_head"] = normal((d, v), d)
     return out
@@ -172,8 +213,8 @@ def init(cfg: ModelConfig, seed: int, device="cpu",
 
 def params_from_jax(cfg: ModelConfig, tree, device="cpu") -> Dict[str, Any]:
     """Convert the reference ``Model.init`` tree, given as numpy arrays
-    (``blocks``, ``triples`` and ``tail`` stacked over their layers),
-    into the port's tree."""
+    (``blocks``, ``triples``, ``tail``, ``enc_blocks`` and
+    ``dec_blocks`` stacked over their layers), into the port's tree."""
     check_supported(cfg)
 
     def t(x):
@@ -191,6 +232,11 @@ def params_from_jax(cfg: ModelConfig, tree, device="cpu") -> Dict[str, Any]:
         ntri, tail = hybrid_counts(cfg)
         out["triples"] = layers("triples", ntri)
         out["tail"] = layers("tail", tail) if tail else []
+    elif cfg.is_encdec:
+        out["enc_blocks"] = layers("enc_blocks", cfg.enc_layers)
+        out["dec_blocks"] = layers("dec_blocks", cfg.num_layers)
+        out["enc_in"] = t(tree["enc_in"])
+        out["enc_norm"] = {k: t(v) for k, v in tree["enc_norm"].items()}
     else:
         out["blocks"] = layers("blocks", cfg.num_layers)
     out["embed"] = t(tree["embed"])

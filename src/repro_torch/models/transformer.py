@@ -200,8 +200,14 @@ def hybrid_stack(cfg, params, x, positions, mode, caches: Caches,
     return x, st.result()
 
 
-def embed(cfg, params, tokens, dtype=torch.bfloat16):
-    return params["embed"].to(dtype)[tokens]
+def embed(cfg, params, tokens, extra_embeds=None, dtype=torch.bfloat16):
+    """Token embeddings in ``dtype``, plus ``extra_embeds`` (B, S, d)
+    (the VLM's stub patch embeddings, ``mm_embeds``) cast to ``dtype``
+    first, as the reference adds them."""
+    x = params["embed"].to(dtype)[tokens]
+    if extra_embeds is not None:
+        x = x + extra_embeds.to(dtype)
+    return x
 
 
 def unembed(cfg, params, x):
@@ -212,9 +218,12 @@ def unembed(cfg, params, x):
     return (h @ w.to(h.dtype)).float()
 
 
-def forward(cfg: ModelConfig, params, tokens, positions=None, mode="train",
-            caches: Caches = Caches(), dtype=torch.bfloat16, rows=None):
+def forward(cfg: ModelConfig, params, tokens, positions=None,
+            extra_embeds=None, mode="train", caches: Caches = Caches(),
+            dtype=torch.bfloat16, rows=None):
     """Returns (logits, caches); prefill keeps only the last position.
+    ``positions``: (B, S), or M-RoPE's three streams batch-first (B, 3,
+    S), as batches carry them; ``extra_embeds``: see :func:`embed`.
     ``rows`` (B,) bool: at decode, only these rows' recurrent states are
     rewritten."""
     B, S = tokens.shape
@@ -227,7 +236,9 @@ def forward(cfg: ModelConfig, params, tokens, positions=None, mode="train",
         else:
             positions = torch.arange(S, device=tokens.device)[None].expand(
                 B, S)
-    x = embed(cfg, params, tokens, dtype)
+    elif positions.dim() == 3 and positions.shape[1] == 3:
+        positions = positions.transpose(0, 1)       # rope wants (3, B, S)
+    x = embed(cfg, params, tokens, extra_embeds, dtype)
     stack = hybrid_stack if cfg.family == "hybrid" else uniform_stack
     x, caches = stack(cfg, params, x, positions, mode, caches, rows)
     if mode == "prefill":

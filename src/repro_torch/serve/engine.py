@@ -43,6 +43,15 @@ no KV pages, and its state lives in the model's dense state caches
 (the admitted slot's rows written in place by its prefill).  Page ids
 of a slot's aux grant are kept as one int64 numpy array.
 
+An encoder-decoder (seamless-m4t) pages its decoder's self-attention
+KV like any decoder; its admission encodes the stub audio frontend's
+zero frames at the fixed encoder length ``max_seq`` for the admitted
+row alone and writes that row's cross K/V and valid encoder length
+(the prompt length), which decode then only reads.  A VLM (qwen2-vl)
+serves as a dense decoder: the reference engine passes neither
+``mm_embeds`` nor M-RoPE positions, so its three position streams are
+equal.
+
 Two decode loops share admission, retirement and the failure path:
 
 ``mega_step=False`` (host loop)  the host computes each slot's page
@@ -83,7 +92,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models import encdec as ED
+from repro_torch.models.model import Model, kv_of
 from repro_torch.models.params import cast_for_compute
 from repro_torch.models.transformer import Caches
 from repro_torch.paged import kv_cache as KV
@@ -280,6 +290,14 @@ class ServingEngine:
                                     max_new_tokens, eos_id))
         return self._uid
 
+    def _kv(self, caches=None) -> Optional[KV.PagedKV]:
+        """The paged KV of ``caches`` (default: the engine's), None for
+        an attention-free model; an encoder-decoder's is its decoder's
+        self-attention KV.  Every page-table read and write of the
+        engine (admission, growth, defrag forwarding, the mega tick,
+        retirement, eviction, cancel) goes through here."""
+        return kv_of(self.cfg, self.caches if caches is None else caches)
+
     def _bulk_alloc(self, homes) -> np.ndarray:
         """ONE allocator transaction granting one page per entry of
         ``homes`` (the requesting slot's home shard; a grant overflows
@@ -342,8 +360,8 @@ class ServingEngine:
         read, made on demand (rebalance checks), never by the tick."""
         self._shard_pages[:] = 0
         pages = [a for a in self.slot_aux if a.size]
-        if self.caches.kv is not None:
-            pt = self.caches.kv.page_table.cpu().numpy().astype(np.int64)
+        if self._kv() is not None:
+            pt = self._kv().page_table.cpu().numpy().astype(np.int64)
             pages.append(pt[pt >= 0])
         if pages:
             self._shard_pages += np.bincount(
@@ -376,7 +394,7 @@ class ServingEngine:
         (admission path; decode growth coalesces in ``_grow_active``).
         False, with the partial grants returned, when the heap cannot
         hold them even after a defrag wave."""
-        if self.caches.kv is None:  # attention-free: no KV pages
+        if self._kv() is None:  # attention-free: no KV pages
             return True
         need = -(-upto_tokens // self.page)
         missing = need - len(self.slot_pages[slot])
@@ -416,7 +434,7 @@ class ServingEngine:
             cols.append(len(self.slot_pages[s]) + grown.get(s, 0))
             grown[s] = grown.get(s, 0) + 1
         dev = self.device
-        self.caches.kv.page_table[
+        self._kv().page_table[
             torch.tensor(slots, dtype=torch.int64, device=dev),
             torch.tensor(cols, dtype=torch.int64, device=dev)] = \
             torch.tensor(pages, dtype=torch.int32, device=dev)
@@ -486,8 +504,8 @@ class ServingEngine:
         if not bool((src >= 0).any()):
             return 0
         max_span = self.ouro.cfg.words_per_chunk // self.wpp
-        if self.caches.kv is not None:
-            KV.apply_forwarding(self.caches.kv, fwd, self.wpp,
+        if self._kv() is not None:
+            KV.apply_forwarding(self._kv(), fwd, self.wpp,
                                 max_span=max_span)
         sp, dp = (x.cpu().numpy().astype(np.int64) for x in
                   KV.forwarding_page_map(fwd, self.wpp, max_span))
@@ -531,24 +549,24 @@ class ServingEngine:
                 self._free_aux(slot)
                 self.waiting.insert(0, req)  # heap full; retry later
                 break
-            # prefill the admitted row alone: its own table row, the
-            # shared heaps, seq_len 0 (the reference's padded batch with
-            # the other rows' tables hidden writes exactly these pages);
-            # an SSM model writes the final states into the slot's rows
-            kv, c = self.caches.kv, self.caches
-            row = Caches(
-                kv=None if kv is None else KV.PagedKV(
-                    layers=kv.layers,
-                    page_table=kv.page_table[slot:slot + 1],
-                    seq_lens=torch.zeros(1, dtype=torch.int32,
-                                         device=self.device)),
-                ssm_h=None if c.ssm_h is None else c.ssm_h[:, slot:slot + 1],
-                ssm_conv=(None if c.ssm_conv is None
-                          else c.ssm_conv[:, slot:slot + 1]))
+            kv = self._kv()
             tokens = torch.as_tensor(req.prompt[None], dtype=torch.int64,
                                      device=self.device)
-            logits, _ = self.model.prefill(self.params, {"tokens": tokens},
-                                           row, dtype=self.compute_dtype)
+            batch = {"tokens": tokens}
+            if self.cfg.is_encdec:
+                # the stub audio frontend, as the reference's: zero frames
+                # at the FIXED encoder length max_seq (every row's cross
+                # K/V has one shape), ``src_valid`` = the prompt length
+                # masking the rest out of cross-attention; the row is
+                # encoded alone (rows never meet in the encoder)
+                batch["src_embeds"] = torch.zeros(
+                    (1, self.max_seq, self.cfg.d_model), dtype=torch.float32,
+                    device=self.device)
+                batch["src_valid"] = torch.full(
+                    (1,), lp, dtype=torch.int32, device=self.device)
+            logits, _ = self.model.prefill(self.params, batch,
+                                           self._row_caches(slot),
+                                           dtype=self.compute_dtype)
             if kv is not None:
                 kv.seq_lens[slot] = lp
             first = int(torch.argmax(logits[0]))
@@ -559,6 +577,27 @@ class ServingEngine:
             self._admit_ord[slot] = self._admit_counter
             if self.mega_step:
                 self._mega_admit(slot, req, first)
+
+    def _row_caches(self, slot: int):
+        """The caches an admitted row prefills alone: its own table row,
+        the shared heaps, seq_len 0 (the reference's padded batch with
+        the other rows' tables hidden writes exactly these pages); the
+        slot's rows of the recurrent states (an SSM or hybrid model), or
+        of the cross K/V and ``enc_valid`` (an encoder-decoder), which
+        the prefill writes in place (the rows the reference's row merge
+        keeps)."""
+        c, kv, rows = self.caches, self._kv(), slice(slot, slot + 1)
+        row_kv = None if kv is None else KV.PagedKV(
+            layers=kv.layers, page_table=kv.page_table[rows],
+            seq_lens=torch.zeros(1, dtype=torch.int32, device=self.device))
+        if self.cfg.is_encdec:
+            return ED.EncDecCaches(
+                self_kv=row_kv, cross_k=c.cross_k[:, rows],
+                cross_v=c.cross_v[:, rows], enc_valid=c.enc_valid[rows])
+        return Caches(
+            kv=row_kv,
+            ssm_h=None if c.ssm_h is None else c.ssm_h[:, rows],
+            ssm_conv=None if c.ssm_conv is None else c.ssm_conv[:, rows])
 
     # ---- graceful degradation: evict + requeue, cancel ----------------------
 
@@ -609,7 +648,7 @@ class ServingEngine:
         wave, evicts the youngest slot and retries; never raises.
         Returns the slots still active."""
         active = list(active)
-        if self.caches.kv is None:  # attention-free: no KV pages
+        if self._kv() is None:  # attention-free: no KV pages
             return active
         while True:
             slots = []
@@ -693,7 +732,7 @@ class ServingEngine:
         None for an attention-free model (nothing grows, nothing
         fails)."""
         B, dev = self.max_batch, self.device
-        kv = caches.kv
+        kv = self._kv(caches)
         if kv is not None:
             need = torch.clamp(_ceil_div(ms.lens + 1, self.page)
                                - ms.page_counts, min=0)
@@ -750,7 +789,7 @@ class ServingEngine:
         fin = (flags & 1) > 0
         fail = (flags & 2) > 0
         self._starving[:] = fail
-        has_kv = self.caches.kv is not None
+        has_kv = self._kv() is not None
         # the grants recomputed with the device's need formula, so that
         # allocs and frees stay balanced
         grants = 0
@@ -813,18 +852,20 @@ class ServingEngine:
         self._release(slot)
         return req
 
-    def _probe_caches(self) -> Caches:
+    def _probe_caches(self):
         """Caches for a probe tick that leaves the engine's as they are:
         copies of the page table, ``seq_lens`` and the SSM states, and
         the engine's own KV heaps, which a full-width model cannot hold
-        twice.  The probe's K/V writes land at each row's ``seq_lens``
-        (the next token's slot, written again before it is read) or in
-        pages that are free in the engine's arena (written before they
-        are read when granted), so no read sees them."""
-        c = self.caches
-        kv = None if c.kv is None else c.kv._replace(
-            page_table=c.kv.page_table.clone(),
-            seq_lens=c.kv.seq_lens.clone())
+        twice (nor the cross K/V, which decode only reads).  The probe's
+        K/V writes land at each row's ``seq_lens`` (the next token's
+        slot, written again before it is read) or in pages that are free
+        in the engine's arena (written before they are read when
+        granted), so no read sees them."""
+        c, kv = self.caches, self._kv()
+        kv = None if kv is None else kv._replace(
+            page_table=kv.page_table.clone(), seq_lens=kv.seq_lens.clone())
+        if self.cfg.is_encdec:
+            return c._replace(self_kv=kv, enc_valid=c.enc_valid.clone())
         return Caches(kv=kv, ssm_h=_clone(c.ssm_h),
                       ssm_conv=_clone(c.ssm_conv))
 
@@ -849,7 +890,7 @@ class ServingEngine:
                                device=self.device)
             self.model.decode_step(self.params, toks, caches,
                                    dtype=self.compute_dtype)
-            if caches.kv is not None:   # _bulk_alloc's lane shapes
+            if self._kv(caches) is not None:   # _bulk_alloc's lane shapes
                 lanes = 2 * self.max_batch
                 sizes = torch.full((lanes,), self.page_bytes,
                                    dtype=torch.int32, device=self.device)
@@ -878,8 +919,8 @@ class ServingEngine:
         each) and zero its state, host and device.  Mid-flight a mega
         slot's KV page ids live only in its page-table row, read back
         here."""
+        kv = self._kv()
         if self.mega_step:
-            kv = self.caches.kv
             if kv is not None:
                 row = kv.page_table[slot].cpu().numpy()
                 self._bulk_free(row[row >= 0])
@@ -896,7 +937,6 @@ class ServingEngine:
             self._bulk_free(self.slot_pages[slot])
             self.slot_pages[slot] = []
         self._free_aux(slot)
-        kv = self.caches.kv
         if kv is not None:
             kv.page_table[slot] = -1
             kv.seq_lens[slot] = 0

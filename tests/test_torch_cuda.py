@@ -1487,3 +1487,171 @@ def test_hybrid_full_width_four_layers_both_loops(cuda):
           f"{err[0]:.3g}")
     assert err[0] <= 1e-5, err
 
+
+
+# the decode shapes of the encoder-decoder (seamless-m4t-large-v2: 16
+# query heads over 16 kv heads of 64, G 1) and the VLM (qwen2-vl-2b: 12
+# over 2 of 128, G 6)
+NEW_SHAPES = {"seamless-G1-D64": (16, 16, 64), "qwen2-vl-G6-D128": (12, 2, 128)}
+
+
+@pytest.mark.parametrize("shape", tuple(NEW_SHAPES))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("wpp", (None, 64))
+def test_paged_attention_at_the_encdec_and_vlm_shapes(cuda, shape, dtype,
+                                                      wpp):
+    """B 8 on a 32-slot table (max_seq 512), ragged lengths 0-512, a hole
+    inside a live split and a split of holes: atol 1e-5 of the plain
+    version, one counted launch, a zero-length row all 0."""
+    Hq, Hkv, D = NEW_SHAPES[shape]
+    rng = np.random.default_rng(Hq + D)
+    B, page, P, NP = 8, 16, 32, 300
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D), np.float32))
+    k = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    table[4, 2] = -1
+    table[6, 4:8] = -1
+    if wpp:
+        table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
+    seq = np.array([0, 1, 17, 512, 100, 255, 300, 511], np.int32)
+    args = [x.to(dtype).to(cuda) for x in (q, k, v)] + [
+        torch.from_numpy(table).to(cuda), torch.from_numpy(seq).to(cuda)]
+    ops.reset_launches()
+    got = ops.paged_attention(*args, wpp=wpp)
+    want = ref.paged_attention(*args, wpp=wpp)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == 1
+    assert float((got - want).abs().max()) <= 1e-5
+    assert not bool(got[0].any())
+
+
+def _both_loops_full_width(cuda, cfg, lens, max_seq=512):
+    """``cfg`` at full width in bf16 through the host loop and the
+    mega-step: the same tokens, ``allocs == frees``, no page held,
+    ``launches_per_tick`` 1 + the decoder's layers; every
+    ``paged_attention`` call of a rerun of the host loop's traffic held
+    to the plain version at atol 1e-5.  Returns (tokens, max error,
+    calls checked)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServingEngine
+    m = build_model(cfg)
+    params = m.init(0, device=cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, n) for n in lens]
+    out, calls = [], [0]
+    err = {"plain": 0.0, "kernel64": 0.0, "plain64": 0.0, "staged64": 0.0,
+           "out": 0.0}
+    kernel = ops.paged_attention
+
+    def checked(q, k, v, table, seq, **kw):
+        got = kernel(q, k, v, table, seq, **kw)
+        want = ref.paged_attention(q, k, v, table, seq, **kw)
+        exact = ref.paged_attention(q, k, v, table, seq,
+                                    dtype=torch.float64, **kw)
+        staged = ref.paged_attention(q, k, v, table, seq,
+                                     stage=torch.bfloat16, **kw)
+        for name, x, y in (("plain", got, want), ("kernel64", got, exact),
+                           ("plain64", want, exact),
+                           ("staged64", staged, exact),
+                           ("out", want, torch.zeros_like(want))):
+            err[name] = max(err[name], float((x - y).abs().max()))
+        calls[0] += 1
+        return got
+
+    for mega in (False, True):
+        eng = ServingEngine(m, params, max_batch=4, max_seq=max_seq,
+                            kv_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16, device=cuda,
+                            mega_step=mega, max_new_cap=8)
+        assert eng.launches_per_tick() == 1 + num_attn_layers(cfg)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        toks = {r.uid: list(r.out_tokens) for r in eng.run_until_done()}
+        st = eng.stats
+        assert st["allocs"] == st["frees"] > 0
+        assert bool((eng._kv().page_table == -1).all())
+        out.append(toks)
+        if not mega:
+            eng.alloc_state = eng.ouro.init()
+            for p in prompts:
+                eng.submit(p, max_new_tokens=8)
+            ops.paged_attention = checked
+            try:
+                again = eng.run_until_done()
+            finally:
+                ops.paged_attention = kernel
+            assert sorted(r.out_tokens for r in again) == sorted(
+                toks.values())
+        del eng
+    assert out[0] == out[1] and len(out[0]) == len(lens)
+    print(f"{cfg.name} {cfg.num_layers} layers: {calls[0]} checked calls, "
+          f"errors {err}")
+    return out[0], err, calls[0]
+
+
+def test_encdec_full_width_four_layers_both_loops(cuda):
+    """seamless-m4t-large-v2 at its full widths (d_model 1024, 16 heads
+    of 64 over 16 kv heads, d_ff 8,192 GeGLU, LayerNorm, vocab 256,256
+    untied), cut to 4 encoder and 4 decoder layers: prompts of 300, 20
+    and 5 tokens over 512 encoder frames each, the same tokens in both
+    loops, ``launches_per_tick`` 5, and the kernel (G 1, D 64) at the
+    run's own inputs held to a float64 evaluation of the same words:
+    within sqrt(D) times the plain version's own error, + 1e-5, a limit
+    that the plain version staged in bf16 must fail.  At four layers
+    random weights drive |out| to 70 and the scores into the hundreds,
+    where two float32 summation orders part by ~6e-4 (each as far from
+    float64), so atol 1e-5 against the plain version cannot hold."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("seamless-m4t-large-v2"),
+                              num_layers=4, enc_layers=4)
+    toks, err, calls = _both_loops_full_width(cuda, cfg, (300, 20, 5))
+    assert calls >= 7 * cfg.num_layers
+    limit = cfg.head_dim_ ** 0.5 * err["plain64"] + 1e-5
+    assert err["kernel64"] <= limit < err["staged64"], err
+
+
+def test_vlm_full_width_four_layers_both_loops(cuda):
+    """qwen2-vl-2b at its full widths (d_model 1536, 12 heads of 128 over
+    2 kv heads, M-RoPE sections (16, 24, 24), QKV bias, tied
+    embeddings), cut to 4 layers: the same tokens in both loops,
+    ``launches_per_tick`` 5, the kernel (G 6, D 128) at the run's own
+    inputs within atol 1e-5; and a float32 prefill with ``mm_embeds``
+    and three distinct position streams on the card within 1e-3 of the
+    same prefill on the CPU (TF32 off)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_arch("qwen2-vl-2b"), num_layers=4)
+    toks, err, calls = _both_loops_full_width(cuda, cfg, (300, 20, 5))
+    assert calls >= 7 * cfg.num_layers
+    assert err["plain"] <= 1e-5, err
+    m = build_model(cfg)
+    params = m.init(0, device="cpu")
+    rng = np.random.default_rng(1)
+    S = 40
+    toks_ = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)))
+    mm = torch.from_numpy(0.1 * rng.standard_normal((1, S, cfg.d_model))
+                          .astype(np.float32))
+    pos = torch.from_numpy(np.stack([np.arange(S), np.arange(S) // 8,
+                                     np.arange(S) % 8])[None])
+    logits = []
+    for dev in ("cpu", cuda):
+        c = m.make_decode_caches(1, 64, kv_dtype=torch.float32, device=dev)
+        c.kv.page_table.copy_(torch.arange(4, dtype=torch.int32)[None])
+        lg, _ = m.prefill(_to(params, dev), {
+            "tokens": toks_.to(dev), "mm_embeds": mm.to(dev),
+            "positions": pos.to(dev)}, c, dtype=torch.float32)
+        logits.append(lg.cpu())
+    print(f"qwen2-vl prefill, card against CPU: "
+          f"{float((logits[0] - logits[1]).abs().max()):.3g}")
+    assert float((logits[0] - logits[1]).abs().max()) <= 1e-3
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
