@@ -86,8 +86,11 @@ Phases, each reporting on its own lines:
    max_seq 4,192) and a 130-slot ring; then at the decode shapes of
    seamless-m4t-large-v2's decoder (B 8, Hq 16, Hkv 16: G 1, D 64) and
    qwen2-vl-2b (Hq 12, Hkv 2: G 6, D 128) on a 32-slot table (max_seq
-   512, lengths 0-512 with holes), float32 and bf16 pages, atol 1e-5,
-   each with the same four times and its bound; then int8 pages with
+   512, lengths 0-512 with holes), and of command-r-35b (Hq 64, Hkv 8:
+   G 8, D 128) and internlm2-20b (Hq 48, Hkv 8: G 6, D 128) on a
+   64-slot table (max_seq 1,024, lengths 0-1,024 with holes), float32
+   and bf16 pages, atol 1e-5, each with the same four times and its
+   bound, each model's seconds on its own line; then int8 pages with
    their float32 scales (``paged_attention int8`` lines): unit inputs
    at qwen2's shapes (q float32 on page ids, q bf16 on word offsets),
    qwen1.5-32b's
@@ -171,7 +174,15 @@ Phases, each reporting on its own lines:
    launches equal to the engine's counts; then profiled reruns of the
    qwen2 and mamba2 runs with every step's synchronizing calls counted
    (one, the flags' read, a steady tick), their device idle share beside
-   the host loop's (phases 5-6), and tok/s of both loops.  Then the
+   the host loop's (phases 5-6), and tok/s of both loops.  Then "phase 7
+   (replay)": the port's traffic-replay harness (``serve/replay.py``),
+   ``replay_pair`` of a host-loop and a mega-step engine over traces of
+   the reference's scenario zoo from ``--seed``: full-width qwen2-0.5b
+   through steady, bursty and abandon, mamba2-780m through abandon (aux
+   pages under cancels); the same tokens per uid and cancels in both
+   loops, both engines conserved, each run's ``summary()`` (tick p50 and
+   p99, queue wait, allocator counters) on one JSON line, each pair's
+   launches counted from 0.  Then the
    encoder-decoder and the VLM slices (``SMALL``): seamless-m4t-large-v2
    at full width and depth (24 encoder + 24 decoder layers, LayerNorm,
    GeGLU, 512 zero encoder frames a row, 4.07 GB of bf16 weights) and
@@ -180,35 +191,44 @@ Phases, each reporting on its own lines:
    reach the tens, so its check is judged against float64), its phase 6
    adding the encoder's and the cross-attention's device time
    (``encdec_device_ms``), each freed before the next loads.  Then
-   three models run alone on the card, one after another, each freed
+   five models run alone on the card, one after another, each freed
    before the next loads (``ALONE``): the hybrid slice, recurrentgemma-9b at
    the reference's widths and all 38 layers (12 (RG-LRU, RG-LRU, local
    attention) triples and 2 RG-LRU layers; 22.6 GB of weights, bf16
    with the RG-LRU gates in float32; max_seq 4,192); the moe slice,
    full-width mixtral-8x7b cut to 16 of its 32 layers (47.0 GB of bf16
    weights; 32 do not fit one 80-GB card; max_seq 4,192); the int8
-   slice, qwen1.5-32b at the reference's widths and all 64 layers (70.4
-   GB of bf16 weights) on int8 KV pages with float32 scales (max_seq
-   1,024).  Each serves phase 5's 16 prompts (the two windowed models
+   slice, qwen1.5-32b at the reference's widths cut to 32 of its 64
+   layers (35.2 GB of bf16 weights; all 64 fit, but the script's wall
+   does not hold them beside the last two configs) on int8 KV pages with
+   float32 scales (max_seq 1,024); internlm2-20b at all 48 layers (39.7 GB) and command-r-35b
+   at all 40 (60.6 GB: LayerNorm, the parallel block, a 256,000-token
+   vocab tied to the embedding), both on bf16 pages at max_seq 1,024.
+   Each serves phase 5's 16 prompts (the two windowed models
    one of 4,160 tokens more, past their 2,048- and 4,096-token
    windows), 32 new each, max_batch 8, through the host loop ("phase 5:
    <model>" lines, ``phase_serve_alone``, as for ``SMALL``: device
    memory (weights, K/V heaps sized by the arena's physical pages, aux
-   pages included, state rows, the peak), each admission's aux grant (4,160, 3,584 and 0
-   pages), ``allocs == frees``, no page held, the launches equal to the
+   pages included, state rows, the peak), each admission's aux grant
+   (4,160, 3,584 and 0 pages), ``allocs == frees``, no page held, the launches equal to the
    engine's counts (one ``paged_attention`` an attention layer a tick),
    then a rerun holding every ``paged_attention`` call of every 32nd
    (qwen1.5-32b: 30th) tick and of the first tick where the long
    request's window masks, at the run's own inputs, to the plain
    version at atol 1e-5, or, at qwen1.5-32b's magnitudes, where two
    float32 orders part by more, to float64 beside a bf16-staged control
-   that must fail; "phase 6: <model>": a profiled rerun, device busy,
-   idle share, time by kernel), then through the mega-step ("phase 7:
-   <model>" lines: ``launches_per_tick`` 25 and 29 (``SMALL``), 13, 17
-   and 65, the host loop's tokens, one synchronizing call a steady
-   tick).  Each phase
+   that must fail; "phase 6: <model>": a profiled window, the traffic's
+   first 17 steps again (the first admits the whole batch, each prompt
+   prefilled alone; then 16 steady decode ticks) with the timed run's
+   tokens so far, then every request cancelled and no page held: device
+   busy, idle share against the timed run's wall over the same steps,
+   time by kernel), then through the mega-step ("phase 7:
+   <model>" lines: ``launches_per_tick`` 25 and 29 (``SMALL``), 13, 17,
+   33, 49 and 41, the host loop's tokens, one synchronizing call a
+   steady tick).  Each phase
    prints its seconds.  Then one JSON line of per-kernel numbers (each
-   kernel's launches in the mega-step runs too), then the card line,
+   kernel's launches in the mega-step runs and the replay pairs too),
+   then the card line,
    then the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises: the script exits non-zero and prints no result line.
@@ -1703,31 +1723,41 @@ def phase_attention(device):
     return res
 
 
-# the decode attention of the encoder-decoder and the VLM slices, as
-# served (max_seq 512: a 32-slot table, lengths 0-512 with holes):
-# seamless-m4t-large-v2's decoder, 16 query heads over 16 kv heads of
-# 64 (G 1); qwen2-vl-2b's 12 over 2 of 128 (G 6)
+# the decode attention of the dense models served after phase 7, as
+# served: seamless-m4t-large-v2's decoder, 16 query heads over 16 kv
+# heads of 64 (G 1), and qwen2-vl-2b's 12 over 2 of 128 (G 6), at max_seq
+# 512 (a 32-slot table, lengths 0-512 with holes); command-r-35b's 64
+# over 8 of 128 (G 8) and internlm2-20b's 48 over 8 of 128 (G 6), at
+# max_seq 1,024 (a 64-slot table, lengths 0-1,024 with holes)
 SEAMLESS = "seamless-m4t-large-v2"
 QWEN2VL = "qwen2-vl-2b"
+COMMANDR = "command-r-35b"
+INTERNLM = "internlm2-20b"
 NEW_ATTN = {SEAMLESS: dict(B=8, Hq=16, Hkv=16, D=64),
-            QWEN2VL: dict(B=8, Hq=12, Hkv=2, D=128)}
+            QWEN2VL: dict(B=8, Hq=12, Hkv=2, D=128),
+            COMMANDR: dict(B=8, Hq=64, Hkv=8, D=128, P=64, NP=600),
+            INTERNLM: dict(B=8, Hq=48, Hkv=8, D=128, P=64, NP=600)}
 
 
 def phase_attention_shapes(device):
     """``paged_attention`` at the decode shapes of ``NEW_ATTN``, float32
-    and bf16 pages on page ids (``attn_case``, atol 1e-5).  Returns
-    {model: {dtype: case}}."""
+    and bf16 pages on page ids (``attn_case``, atol 1e-5), each model's
+    seconds on its own line.  Returns {model: {dtype: case}}."""
     import torch
     res = {}
     for name, shape in NEW_ATTN.items():
-        heads = ", ".join(f"{k} {v}" for k, v in shape.items())
+        t0 = time.perf_counter()
+        shape = {"P": 32, "NP": 384, **shape}
+        heads = ", ".join(f"{k} {v}" for k, v in shape.items()
+                          if k != "NP")
         res[name] = {}
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype).split(".")[-1]
             res[name][dt] = attn_case(
-                f"{name} {dt} ids ({heads}, P 32)",
-                *attn_inputs(device, dtype, None, NP=384, **shape), None)
+                f"{name} {dt} ids ({heads})",
+                *attn_inputs(device, dtype, None, **shape), None)
         torch.cuda.empty_cache()
+        log(f"phase 4: {name}'s shapes: {time.perf_counter() - t0:.1f} s")
     return res
 
 
@@ -4060,13 +4090,62 @@ MEGA_RUNS = (
 )
 
 
-def mega_engine(device, model, params, max_batch=8, **kw):
+def mega_engine(device, model, params, max_batch=8, mega=True, **kw):
     import torch
     from repro_torch.serve.engine import ServingEngine
     return ServingEngine(model, params, max_batch=max_batch, max_seq=512,
                          kv_dtype=torch.bfloat16,
                          compute_dtype=torch.bfloat16, device=device,
-                         mega_step=True, max_new_cap=32, **kw)
+                         mega_step=mega, max_new_cap=32, **kw)
+
+
+# the replay phase: (model, scenario of the reference's zoo)
+REPLAYS = (("qwen2-0.5b", "steady"), ("qwen2-0.5b", "bursty"),
+           ("qwen2-0.5b", "abandon"), (MAMBA, "abandon"))
+
+
+def phase_replay(device, models, seed):
+    """The port's traffic-replay harness on the card (``REPLAYS``):
+    ``replay_pair`` of a host-loop and a mega-step engine, both built as
+    ``mega_engine`` builds them, over a trace of the reference's zoo
+    from ``seed``: the same tokens per uid and cancels, and both
+    engines conserved (``assert_conserved``).  Each run's ``summary()``
+    on one JSON line; each pair's launches (counted from 0 just before
+    it) must include every kernel of its path.  Returns {pair:
+    launches}."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import replay as rp
+    out = {}
+    for name, sc in REPLAYS:
+        t0 = time.perf_counter()
+        model, params = models["mamba" if name == MAMBA else "qwen2"]
+        trace = rp.generate_trace(rp.SCENARIOS[sc], seed=seed,
+                                  vocab_size=model.cfg.vocab_size)
+        host = mega_engine(device, model, params, mega=False)
+        mega = mega_engine(device, model, params)
+        ops.reset_launches()
+        rh, rm = rp.replay_pair(host, mega, trace, scenario=sc)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+        need = ("alloc_txn", "free_txn",
+                "ssd_scan" if name == MAMBA else "paged_attention")
+        if not all(launches.get(k) for k in need):
+            raise AssertionError(f"replay {name} {sc}: a kernel of its path "
+                                 f"never launched: {launches}")
+        if (sc == "abandon") != bool(rh.cancelled):
+            raise AssertionError(f"replay {name} {sc}: cancelled "
+                                 f"{rh.cancelled}")
+        for r in (rh, rm):
+            log(f"phase 7 (replay): {json.dumps(r.summary())}")
+        log(f"phase 7 (replay): {name} {sc}: {len(trace)} requests, "
+            f"{sum(map(len, rh.tokens.values()))} tokens, cancelled "
+            f"{rh.cancelled}: the mega-step's tokens equal the host loop's "
+            f"per uid, allocs == frees and no page held on both; launches "
+            f"{json.dumps(launches)} ({time.perf_counter() - t0:.1f} s)")
+        out[f"replay {name} {sc}"] = launches
+        del host, mega
+    return out
 
 
 def mega_launches(device, models):
@@ -4293,9 +4372,21 @@ ALONE = {
     MIXTRAL: dict(layers=16, long=True, max_seq=LONG + 32, kv="bfloat16",
                   quota=3584, judge="plain", every=32,
                   label=f"{MIXTRAL} (16 layers)"),
-    # all 64 layers: 70.4 GB of bf16 weights beside its int8 heaps
-    QWEN32: dict(layers=None, long=False, max_seq=1024, kv="int8", quota=0,
-                 judge="float64", every=30, label=f"{QWEN32} (int8)"),
+    # cut to 32 of its 64 layers (35.2 GB of bf16 weights) so that the
+    # script stays within its wall with the last two configs in; all 64
+    # (70.4 GB beside the int8 heaps, a 72.37-GiB peak) fit the card
+    QWEN32: dict(layers=32, long=False, max_seq=1024, kv="int8", quota=0,
+                 judge="float64", every=30,
+                 label=f"{QWEN32} (int8, 32 layers)"),
+    # all 48 layers: 39.7 GB of bf16 weights; |out| up to 67 at the
+    # serving inputs, where the kernel holds atol 1e-5 (7.6e-6: one ulp)
+    INTERNLM: dict(layers=None, long=False, max_seq=1024, kv="bfloat16",
+                   quota=0, judge="plain", every=30, label=INTERNLM),
+    # all 40 layers, the parallel block: 60.6 GB of bf16 weights, the
+    # 256,000 x 8192 embedding tied to the logits; |out| up to 74, the
+    # kernel within 5.7e-6
+    COMMANDR: dict(layers=None, long=False, max_seq=1024, kv="bfloat16",
+                   quota=0, judge="plain", every=30, label=COMMANDR),
 }
 SPECS = {**SMALL, **ALONE}
 
@@ -4354,9 +4445,11 @@ def alone_model(device, seed, name):
     cfg = dataclasses.replace(full,
                               num_layers=spec["layers"] or full.num_layers)
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(seed, device=device, dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
     leaves = tree_tensors(params)
     nbytes = sum(t.numel() * t.element_size() for t in leaves)
     prompts = make_requests(cfg, seed, 16, 16, 448)
@@ -4369,8 +4462,9 @@ def alone_model(device, seed, name):
         f"{sum(t.numel() for t in leaves)} parameters, {nbytes} bytes of "
         f"weights ({nbytes / 1e9:.2f} GB; "
         f"{', '.join(sorted({str(t.dtype)[6:] for t in leaves}))}) made in "
-        f"{time.perf_counter() - t0:.1f} s; device memory after the "
-        f"weights (mem_get_info): {free / 2**30:.2f} GiB free of "
+        f"{time.perf_counter() - t0:.1f} s (peak device memory while "
+        f"drawing them {init_peak / 2**30:.2f} GiB); device memory after "
+        f"the weights (mem_get_info): {free / 2**30:.2f} GiB free of "
         f"{total / 2**30:.2f} GiB")
     return model, params, prompts, nbytes
 
@@ -4569,6 +4663,43 @@ def checked_text(chk, cfg, judge) -> str:
             f": {held}")
 
 
+# the phase 6 window of a ``SPECS`` model: the traffic's first steps (the
+# first admits a whole batch, each prompt prefilled alone, and decodes;
+# the rest are steady decode ticks)
+WINDOW_STEPS = 17
+
+
+def profiled_window(eng, counting, prompts, tokens, name):
+    """The timed run's traffic again, its first ``WINDOW_STEPS`` steps
+    under ``torch.profiler``; every active request's tokens so far must
+    open the timed run's tokens of the same prompt (``tokens``, by uid
+    in submission order).  Then every request is cancelled and the
+    engine must hold no page.  Returns (the profile, the window's
+    prefill lengths, its decode ticks)."""
+    eng.alloc_state = eng.ouro.init()
+    want = [tokens[u] for u in sorted(tokens)]
+    first = eng.submit(prompts[0], max_new_tokens=32)
+    for p in prompts[1:]:
+        eng.submit(p, max_new_tokens=32)
+    n_pre, n_dec = len(counting.prefill_lens), counting.decode_calls
+    with DeviceProfile() as prof:
+        for _ in range(WINDOW_STEPS):
+            if eng.step():
+                raise AssertionError(f"{name}: a request finished inside "
+                                     f"the profiled window")
+    live = [r for r in eng.slot_req if r is not None]
+    if len(live) != eng.max_batch or any(
+            r.out_tokens != want[r.uid - first][:len(r.out_tokens)]
+            or len(r.out_tokens) != WINDOW_STEPS + 1 for r in live):
+        raise AssertionError(f"{name}: the profiled window's tokens differ "
+                             f"from the timed run's")
+    for uid in [r.uid for r in live + eng.waiting]:
+        eng.cancel(uid)
+    drained(eng, f"{name} after the profiled window")
+    return (prof, counting.prefill_lens[n_pre:],
+            counting.decode_calls - n_dec)
+
+
 def phase_serve_alone(device, name, model, params, prompts, weight_bytes):
     """``prompts``, 32 new each, through the host loop of ``name`` on the
     card (``SPECS``): each admission's aux grant of its quota, ``allocs
@@ -4622,10 +4753,14 @@ def phase_serve_alone(device, name, model, params, prompts, weight_bytes):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    done = eng.run_until_done()
+    done, window_wall = [], None
+    while eng.waiting or any(r is not None for r in eng.slot_req):
+        done += eng.step()
+        if eng.stats["steps"] == WINDOW_STEPS:
+            torch.cuda.synchronize()
+            window_wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    run_lens, run_ticks = list(counting.prefill_lens), counting.decode_calls
     launches = dict(ops.LAUNCHES)
     st = dict(eng.stats)
     toks = sum(len(r.out_tokens) for r in done)
@@ -4666,29 +4801,28 @@ def phase_serve_alone(device, name, model, params, prompts, weight_bytes):
         f"{checked_text(chk, eng.cfg, spec['judge'])}; the rerun's tokens "
         f"equal the timed run's ({time.perf_counter() - t0:.1f} s)")
 
-    eng.alloc_state = eng.ouro.init()
-    for p in prompts:
-        eng.submit(p, max_new_tokens=32)
-    with DeviceProfile() as prof:
-        done = eng.run_until_done()
-    if sorted(r.out_tokens for r in done) != sorted(tokens.values()):
-        raise AssertionError(f"{name}: the profiled rerun's tokens differ")
+    t0 = time.perf_counter()
+    prof, win_lens, win_ticks = profiled_window(eng, counting, prompts,
+                                                tokens, name)
     busy = prof.busy_ms()
+    idle = 1 - busy / (1e3 * window_wall)
     attn = [prof.kernel(KERNEL_SYMBOLS[k]) for k in ATTN_KERNELS]
     attn_ms = sum(ms * n for ms, n in attn if ms)
-    log(f"phase 6: {name}: profiled rerun: device busy {busy:.0f} ms of "
-        f"the timed run's {1e3 * wall:.0f} ms wall: device idle "
-        f"{100 * (1 - busy / (1e3 * wall)):.1f}%; paged_attention "
-        f"{attn_ms:.1f} ms over {attn[0][1]} recorded calls "
-        f"({100 * attn_ms / busy:.1f}% of device busy)")
+    log(f"phase 6: {name}: profiled window (the traffic's first "
+        f"{WINDOW_STEPS} steps: {len(win_lens)} admission prefills and "
+        f"{win_ticks} decode ticks; its tokens the timed run's): device "
+        f"busy {busy:.0f} ms of the timed run's {1e3 * window_wall:.0f} ms "
+        f"wall over the same steps: device idle {100 * idle:.1f}%; "
+        f"paged_attention {attn_ms:.1f} ms over {attn[0][1]} recorded calls "
+        f"({100 * attn_ms / busy:.1f}% of device busy) "
+        f"({time.perf_counter() - t0:.1f} s)")
     for key_, us, n in prof.rows[:8]:
         log(f"phase 6:   {us / 1e3:9.2f} ms  {n:6d}x  {key_[:90]}")
     out = dict(tokens=tokens, launches=launches, tok_s=toks / wall,
-               wall=wall, busy=busy, idle=1 - busy / (1e3 * wall),
-               checked=chk, stats=st, attn_ms=attn_ms, attn_calls=attn[0][1],
-               peak=peak)
+               wall=wall, busy=busy, idle=idle, checked=chk, stats=st,
+               attn_ms=attn_ms, attn_calls=attn[0][1], peak=peak)
     if eng.cfg.is_encdec:
-        out.update(encdec_device_ms(eng, run_lens, run_ticks, busy, name))
+        out.update(encdec_device_ms(eng, win_lens, win_ticks, busy, name))
     del eng, counting, prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -4881,10 +5015,7 @@ def run(args, replays) -> int:
     t1 = time.perf_counter()
     rg_attn = phase_attention_rgemma(device)
     log(f"phase 4: {RGEMMA}'s shapes: {time.perf_counter() - t1:.1f} s")
-    t1 = time.perf_counter()
     new_attn = phase_attention_shapes(device)
-    log(f"phase 4: {SEAMLESS}'s and {QWEN2VL}'s shapes: "
-        f"{time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     int8_attn = phase_attention_int8(device)
     log(f"phase 4: int8 pages: {time.perf_counter() - t1:.1f} s")
@@ -4926,14 +5057,18 @@ def run(args, replays) -> int:
     mega = phase_mega(device, models, serve, mamba, {
         "qwen2-0.5b": (timing["busy"], 1e3 * serve["wall"]),
         MAMBA: (mamba_dev["busy"], 1e3 * mamba["wall"])})
-    del models
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    replays_run = phase_replay(device, models, args.seed)
+    del models
+    log(f"phase 7 (replay): {time.perf_counter() - t0:.1f} s")
 
     # the encoder-decoder and the VLM (4.1 and 3.1 GB of weights), then
     # the models that run alone on the card, one after another, each
     # freed before the next loads: recurrentgemma-9b (22.6 GB of weights,
     # 7.0 GB of KV heaps), mixtral-8x7b (47 GB and 32 GB), qwen1.5-32b
-    # (70.4 GB of bf16 weights and 6.9 GB of int8 heaps)
+    # (32 layers: 35.2 GB of bf16 weights and int8 heaps), internlm2-20b
+    # (39.7 GB) and command-r-35b (60.6 GB)
     import gc
     alone = {}
     for name, spec in SPECS.items():
@@ -5144,9 +5279,9 @@ def run(args, replays) -> int:
                           ("plain_ms", "plain"), ("bound_ms", "bound"),
                           ("max_abs_err", "err"))},
         **{f"{name}_serving_inputs_max_err": alone[name]["host"]["checked"][
-            "err"] for name in SMALL},
+            "err"] for name in (*SMALL, INTERNLM, COMMANDR)},
         **{f"serving_device_ms_{name}": alone[name]["host"]["attn_ms"]
-           for name in SMALL},
+           for name in (*SMALL, INTERNLM, COMMANDR)},
         # int8 pages with float32 scales: launches in the int8 runs, and
         # the phase 4 cases (unit, qwen1.5-32b's and mixtral's shapes;
         # one qwen1.5-32b case on bf16 pages beside them)
@@ -5241,10 +5376,13 @@ def run(args, replays) -> int:
                                   ("bound_ms_by_width", "bound"),
                                   ("path_by_width", "path"))}}
                if by else {})})
-    # each kernel's launches in the mega-step runs (phase 7)
+    # each kernel's launches in the mega-step runs and the replay pairs
+    # (phase 7)
     for k in kernels:
         k["launches_by_mega_run"] = {run: r["launches"].get(k["name"], 0)
                                      for run, r in mega["runs"].items()}
+        k["launches_by_replay"] = {run: n.get(k["name"], 0)
+                                   for run, n in replays_run.items()}
     p_toks = sum(len(t) for t in serve["tokens"].values())
     log(f"phase 7: mega-step against the host loop, tok/s: " + "; ".join(
         f"{run} {r['tok_s']:.1f}" for run, r in mega["runs"].items())

@@ -12,7 +12,8 @@ unstacked into a list::
                  "ffn": {"w_gate", "w_up", "w_down"}}, ...],
      "lm_head": (d, V_pad)}     # only when embeddings are untied
 
-where a MoE block's ``ffn`` is ``{"router" (d, E), "w_gate" (E, d, f),
+where a parallel block (command-r) has no ``norm2``, a MoE block's
+``ffn`` is ``{"router" (d, E), "w_gate" (E, d, f),
 "w_up" (E, d, f), "w_down" (E, f, d)}``, and an ssm block is
 ``{"norm": {"scale"}, "mixer": {"in_proj", "conv_w", "conv_b", "a_log",
 "dt_bias", "d_skip", "norm_scale", "out_proj"}}``.  A hybrid model has
@@ -96,8 +97,11 @@ def _block_shapes(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
     ffn = (Moe.moe_shapes(cfg) if cfg.num_experts else
            {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
-    return {"norm1": _norm_shapes(cfg), "attn": _attn_shapes(cfg),
-            "norm2": _norm_shapes(cfg), "ffn": ffn}
+    out = {"norm1": _norm_shapes(cfg), "attn": _attn_shapes(cfg),
+           "ffn": ffn}
+    if not cfg.parallel_block:   # a parallel block has one norm
+        out["norm2"] = _norm_shapes(cfg)
+    return out
 
 
 def _dec_shapes(cfg: ModelConfig):
@@ -128,8 +132,9 @@ def check_supported(cfg: ModelConfig):
     configures it, the hybrid stack as recurrentgemma configures it
     (RG-LRU and local attention in (rec, rec, attn) triples, GeGLU) and
     the encoder-decoder as seamless-m4t configures it (LayerNorm,
-    GeGLU, cross-attention).  Anything else comes with its family
-    (ROADMAP A12)."""
+    GeGLU, cross-attention), and command-r's parallel block (attention
+    and FFN from one norm, summed).  No reference config sets
+    ``logit_softcap``, so it stays refused."""
     unsupported = {
         "family": cfg.family not in ("dense", "moe", "ssm", "hybrid",
                                      "encdec"),
@@ -139,12 +144,12 @@ def check_supported(cfg: ModelConfig):
         "act": cfg.act not in ("silu", "gelu"),
         # a triple is (rec, rec, attn), as the reference lays it out
         "attn_period": cfg.family == "hybrid" and cfg.attn_period != 3,
-        "parallel_block": cfg.parallel_block,
+        "parallel_block": (cfg.parallel_block
+                           and cfg.family not in ("dense", "moe")),
         "logit_softcap": cfg.logit_softcap}
     bad = sorted(k for k, v in unsupported.items() if v)
     if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: {bad} not ported yet (ROADMAP A12)")
+        raise NotImplementedError(f"{cfg.name}: {bad} not ported")
 
 
 def init(cfg: ModelConfig, seed: int, device="cpu",
@@ -158,7 +163,9 @@ def init(cfg: ModelConfig, seed: int, device="cpu",
     def normal(shape, fan_in, scale=1.0, dt=dtype):
         x = torch.randn(shape, generator=g, device=device,
                         dtype=torch.float32)
-        return (x * (scale / fan_in ** 0.5)).to(dt)
+        # scaled in place: one float32 copy of the leaf at a time (8.4
+        # GB for command-r's 256,000 x 8192 embedding), the same values
+        return x.mul_(scale / fan_in ** 0.5).to(dt)
 
     def leaf(group, name, shape, stacked):
         """``stacked``: the leading dimension of the leaf's stacked spec,

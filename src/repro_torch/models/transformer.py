@@ -82,10 +82,15 @@ def _ffn(cfg, p, x, mode):
 def dense_block(cfg, p, x, positions, mode, kvl, page_table, seq_lens,
                 window=None):
     """Attention (``window``: the hybrid's local window, else the
-    config's sliding window) and the FFN, each behind its norm."""
+    config's sliding window) and the FFN, each behind its norm; a
+    parallel block (command-r) feeds both from ``norm1`` and adds them
+    to ``x`` in the reference's order, ``x + a + f``."""
     h = Lyr.apply_norm(cfg, p["norm1"], x)
-    x = x + _attn_mix(cfg, p["attn"], h, positions, mode, kvl, page_table,
-                      seq_lens, window or cfg.sliding_window)
+    a = _attn_mix(cfg, p["attn"], h, positions, mode, kvl, page_table,
+                  seq_lens, window or cfg.sliding_window)
+    if cfg.parallel_block:
+        return x + a + _ffn(cfg, p["ffn"], h, mode)
+    x = x + a
     h = Lyr.apply_norm(cfg, p["norm2"], x)
     return x + _ffn(cfg, p["ffn"], h, mode)
 

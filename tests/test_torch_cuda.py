@@ -1655,3 +1655,119 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+LAST_SHAPES = {"command-r-G8-D128": (64, 8, 128),
+               "internlm2-G6-D128": (48, 8, 128)}
+
+
+@pytest.mark.parametrize("shape", tuple(LAST_SHAPES))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("wpp", (None, 64))
+def test_paged_attention_at_the_command_r_and_internlm2_shapes(cuda, shape,
+                                                               dtype, wpp):
+    """command-r-35b's decode shape (Hq 64 over Hkv 8: G 8, D 128) and
+    internlm2-20b's (Hq 48 over Hkv 8: G 6, D 128), B 8 on a 64-slot
+    table (max_seq 1,024), ragged lengths 0-1,024, a hole inside a live
+    split and a split of holes: atol 1e-5 of the plain version, one
+    counted launch, a zero-length row all 0."""
+    Hq, Hkv, D = LAST_SHAPES[shape]
+    rng = np.random.default_rng(Hq + D)
+    B, page, P, NP = 8, 16, 64, 600
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D), np.float32))
+    k = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((NP, page, Hkv, D), np.float32))
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    table[4, 2] = -1
+    table[6, 4:8] = -1
+    if wpp:
+        table = np.where(table >= 0, table * wpp, -1).astype(np.int32)
+    seq = np.array([0, 1, 17, 1024, 100, 255, 300, 1023], np.int32)
+    args = [x.to(dtype).to(cuda) for x in (q, k, v)] + [
+        torch.from_numpy(table).to(cuda), torch.from_numpy(seq).to(cuda)]
+    ops.reset_launches()
+    got = ops.paged_attention(*args, wpp=wpp)
+    want = ref.paged_attention(*args, wpp=wpp)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == 1
+    assert float((got - want).abs().max()) <= 1e-5
+    assert not bool(got[0].any())
+
+
+@pytest.mark.parametrize("arch", ("command-r-35b", "internlm2-20b"))
+def test_last_dense_full_width_four_layers_both_loops(cuda, arch):
+    """command-r-35b (d_model 8192, 64 heads over 8 kv heads of 128,
+    d_ff 22,528, LayerNorm, the parallel block, vocab 256,000 tied) and
+    internlm2-20b (d_model 6144, 48 heads over 8, d_ff 16,384, vocab
+    92,544 untied) at full width, cut to 4 layers, bf16: the same
+    tokens in both loops, ``allocs == frees``, ``launches_per_tick`` 5,
+    and every ``paged_attention`` call of a rerun of the host loop's
+    traffic within atol 1e-5 of the plain version (7.6e-6 on the card
+    for both, |out| up to 214)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(arch), num_layers=4)
+    toks, err, calls = _both_loops_full_width(cuda, cfg, (300, 20, 5))
+    assert calls >= 7 * cfg.num_layers
+    assert all(0 <= t < cfg.padded_vocab for ts in toks.values() for t in ts)
+    assert err["plain"] <= 1e-5, err
+
+
+def test_phi3_5_moe_full_width_four_layers_both_loops(cuda):
+    """phi3.5-moe at its full widths (d_model 4096, 32 heads over 8 kv
+    heads of 128, 16 experts of d_ff 6,400, top-2, vocab 32,064
+    untied), cut to 4 of its 32 layers (its 83.7 GB of bf16 weights do
+    not fit one card), bf16: the same tokens in both loops, each
+    admission's aux grant of the quota, ``allocs == frees``, no page
+    held, ``launches_per_tick`` 5, and every ``paged_attention`` call of
+    a rerun of the host loop's traffic within atol 1e-5 of the plain
+    version."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.paged.kv_cache import modality_page_quota
+    from repro_torch.serve.engine import ServingEngine
+    cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b"), num_layers=4)
+    quota = modality_page_quota(cfg)
+    assert quota == 400          # 4 layers x top-2 x 6,400 x 2 B / 256 B
+    grants, grant = [], ServingEngine._alloc_aux
+
+    def recorded(self, slot):
+        ok = grant(self, slot)
+        if ok:
+            grants.append(len(self.slot_aux[slot]))
+        return ok
+    ServingEngine._alloc_aux = recorded
+    try:
+        toks, err, calls = _both_loops_full_width(cuda, cfg, (300, 20, 5))
+    finally:
+        ServingEngine._alloc_aux = grant
+    assert grants and set(grants) == {quota}
+    assert calls >= 7 * cfg.num_layers
+    assert err["plain"] <= 1e-5, err
+
+
+@pytest.mark.parametrize("arch,scenario", [("qwen2-0.5b", "bursty"),
+                                           ("qwen2-0.5b", "abandon"),
+                                           ("mamba2-780m", "abandon")])
+def test_replay_pair_on_the_card(cuda, arch, scenario):
+    """The port's replay harness on the card (float32 smoke engines):
+    the host loop and the mega-step give the same tokens per uid and
+    cancels, both conserve every page; only ticks that load a kernel
+    library count as compiled (none of the mega-step's, which runs the
+    host loop's kernels after it)."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import replay as rp
+    cfg, make = rp.engine_factory(arch, device=cuda)
+    trace = rp.generate_trace(rp.SCENARIOS[scenario], seed=0,
+                              vocab_size=cfg.vocab_size)
+    host, mega = rp.replay_pair(make(mega=False), make(mega=True), trace,
+                                scenario=scenario)
+    assert host.tokens == mega.tokens and host.tokens
+    assert host.cancelled == mega.cancelled
+    assert (scenario == "abandon") == bool(host.cancelled)
+    assert sum(host.compiled) <= len(build.SOURCES)
+    assert not any(mega.compiled)
+    for r in (host, mega):
+        s = r.summary()
+        assert s["allocs"] == s["frees"] > 0
+        assert s["completed"] + s["cancelled"] == len(trace)

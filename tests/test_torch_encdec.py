@@ -110,8 +110,12 @@ def test_config_copy_matches_reference():
 def test_check_supported_accepts_encdec_and_refuses_the_rest():
     for cfg in (get_arch(ARCH), get_arch(ARCH).smoke()):
         P.check_supported(cfg)
+    # command-r's parallel block is supported now, in the dense family;
+    # an encoder-decoder with one is still refused
+    P.check_supported(jget("command-r-35b"))
     with pytest.raises(NotImplementedError, match="parallel_block"):
-        P.check_supported(jget("command-r-35b"))
+        P.check_supported(dataclasses.replace(get_arch(ARCH),
+                                              parallel_block=True))
     # an encoder only with the encdec family, and the reverse
     for bad in (dataclasses.replace(get_arch(ARCH), enc_layers=0),
                 dataclasses.replace(get_arch("qwen2-0.5b"), enc_layers=2)):

@@ -143,8 +143,14 @@ def test_config_copy_matches_reference():
 def test_check_supported_accepts_hybrid_and_refuses_the_rest():
     for cfg in (get_arch(ARCH), get_arch(ARCH).smoke()):
         P.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        P.check_supported(jget("command-r-35b"))
+    # every reference config is supported now; a logit softcap, which
+    # none sets, is still refused
+    from repro.configs import ALL_ARCHS
+    for arch in ALL_ARCHS:
+        P.check_supported(jget(arch))
+    with pytest.raises(NotImplementedError, match="logit_softcap"):
+        P.check_supported(dataclasses.replace(jget(ARCH),
+                                              logit_softcap=30.0))
     bad = dataclasses.replace(get_arch(ARCH).smoke(), attn_period=4)
     with pytest.raises(NotImplementedError, match="attn_period"):
         P.check_supported(bad)

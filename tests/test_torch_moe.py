@@ -106,8 +106,14 @@ def test_check_supported_accepts_moe_and_refuses_the_rest():
     for arch in ARCHS:
         P.check_supported(get_arch(arch))
         P.check_supported(get_arch(arch).smoke())
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        P.check_supported(jget("command-r-35b"))
+    # every reference config is supported now (command-r's parallel
+    # block too); a logit softcap, which none sets, is still refused
+    from repro.configs import ALL_ARCHS
+    for arch in ALL_ARCHS:
+        P.check_supported(jget(arch))
+    with pytest.raises(NotImplementedError, match="logit_softcap"):
+        P.check_supported(dataclasses.replace(jget("command-r-35b"),
+                                              logit_softcap=30.0))
 
 
 @pytest.mark.parametrize("arch,want", [("mixtral-8x7b", 7168),
