@@ -182,7 +182,22 @@ Phases, each reporting on its own lines:
    pages under cancels); the same tokens per uid and cancels in both
    loops, both engines conserved, each run's ``summary()`` (tick p50 and
    p99, queue wait, allocator counters) on one JSON line, each pair's
-   launches counted from 0.  Then the
+   launches counted from 0.  Then "phase 8 (snapshot)": crash-safe and
+   observable serving.  Phase 5's 16 requests (32 new each, max_batch
+   8, bf16) with a ``Tracer`` on: full-width qwen2-0.5b through the host
+   loop and the mega-step, and mamba2-780m through the host loop (its
+   298,656 aux pages a slot in the arena image), each served 8 steps,
+   snapshot to a checkpoint directory under ``build/``, restored into a
+   fresh engine and served to the end: the arena's ``mem``/``ctl`` words
+   and every cache leaf right after restore equal the source's, the
+   tokens per uid equal phase 5's, ``allocs == frees``, one
+   synchronizing call a steady mega tick after restore, the drained
+   telemetry's ``t_alloc``/``t_free`` totals equal the engine's
+   ``allocs``/``frees``, both traces and the metrics exposition valid,
+   every kernel of the path launched (counts from 0 before the first
+   step); the ms to snapshot and to restore and the snapshot's bytes;
+   then qwen2's host loop with the tracer off and on, in turns, tok/s
+   of each.  Then the
    encoder-decoder and the VLM slices (``SMALL``): seamless-m4t-large-v2
    at full width and depth (24 encoder + 24 decoder layers, LayerNorm,
    GeGLU, 512 zero encoder frames a row, 4.07 GB of bf16 weights) and
@@ -4148,6 +4163,164 @@ def phase_replay(device, models, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8 (snapshot): crash-safe and observable serving
+# ---------------------------------------------------------------------------
+
+SNAPSHOT_AFTER = 8                     # steps served before the snapshot
+SNAPSHOT_RUNS = (("qwen2-0.5b host loop", "qwen2", False),
+                 ("qwen2-0.5b mega-step", "qwen2", True),
+                 (f"{MAMBA} host loop", "mamba", False))
+TRACER_TURNS = ("off", "on")
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def differing_leaves(a, b) -> list:
+    """The snapshot leaves (arena words, caches, mega-step state, host
+    tables) where two engines differ."""
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import checkpoint as CK
+    fa, fb = (CK.flatten(e._snapshot_tree()) for e in (a, b))
+    return [k for k in fa
+            if not (torch.equal(fa[k], fb[k])
+                    if isinstance(fa[k], torch.Tensor)
+                    else np.array_equal(fa[k], fb[k]))]
+
+
+def phase_snapshot(device, models, serve, mamba, card):
+    """``SNAPSHOT_RUNS``: each serves phase 5's requests ``SNAPSHOT_AFTER``
+    steps with a ``Tracer``, snapshots to a directory under ``build/``,
+    restores into a fresh engine and finishes there, held to phase 5's
+    tokens and the checks the module docstring lists; then
+    ``TRACER_TURNS`` of qwen2's host loop.  Returns {run: numbers}."""
+    import shutil
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import validate_exposition
+    from repro_torch.obs.trace import Tracer, validate_trace
+    root = os.path.join(ROOT, "build", "snapshots")
+    shutil.rmtree(root, ignore_errors=True)
+    want = {"qwen2": serve["tokens"], "mamba": mamba["tokens"]}
+    prompts = {"qwen2": serve["prompts"], "mamba": mamba["prompts"]}
+    runs = {}
+    for name, key, mega in SNAPSHOT_RUNS:
+        t_run = time.perf_counter()
+        src = mega_engine(device, *models[key], mega=mega, tracer=Tracer())
+        for p in prompts[key]:
+            src.submit(p, max_new_tokens=32)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        early = []
+        for _ in range(SNAPSHOT_AFTER):
+            early += src.step()
+        d = os.path.join(root, key + ("-mega" if mega else "-host"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src.snapshot(directory=d)     # its host copies wait for the card
+        snap_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = dir_bytes(d)
+        dst = mega_engine(device, *models[key], mega=mega, tracer=Tracer())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = dst.restore(d)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        differ = differing_leaves(src, dst)
+        if step != SNAPSHOT_AFTER or differ:
+            raise AssertionError(f"phase 8: {name}: restored step {step}, "
+                                 f"leaves differing from the source's: "
+                                 f"{differ}")
+        events = [validate_trace(src.tracer.to_json())]
+        del src
+        if mega:
+            steady, other, rest = steady_syncs(dst)
+        else:
+            steady, other, rest = None, None, dst.run_until_done()
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+        got = {r.uid: list(r.out_tokens) for r in early + rest}
+        if got != want[key]:
+            bad = sorted(u for u in set(got) | set(want[key])
+                         if got.get(u) != want[key].get(u))
+            raise AssertionError(f"phase 8: {name}: tokens of uids {bad} "
+                                 f"differ from phase 5's")
+        st = dst.stats
+        kv = dst.caches.kv
+        if (st["allocs"] != st["frees"] or any(a.size for a in dst.slot_aux)
+                or (kv is not None
+                    and not bool((kv.page_table == -1).all()))):
+            raise AssertionError(f"phase 8: {name}: pages still held "
+                                 f"(allocs {st['allocs']}, frees "
+                                 f"{st['frees']})")
+        if mega and set(steady) != {1}:
+            raise AssertionError(f"phase 8: {name}: synchronizing calls of "
+                                 f"the steady ticks after restore {steady}")
+        path = ("alloc_txn", "free_txn",
+                "paged_attention" if kv is not None else "ssd_scan")
+        if not all(launches.get(k) for k in path):
+            raise AssertionError(f"phase 8: {name}: a kernel of the path "
+                                 f"never launched: {launches}")
+        tele = dst.drain_telemetry()
+        books = {"t_alloc": int(tele["t_alloc"].sum()),
+                 "t_free": int(tele["t_free"].sum()),
+                 "allocs": st["allocs"], "frees": st["frees"]}
+        if (books["t_alloc"], books["t_free"]) != (st["allocs"],
+                                                   st["frees"]):
+            raise AssertionError(f"phase 8: {name}: telemetry against the "
+                                 f"host books {books}")
+        events.append(validate_trace(dst.tracer.to_json()))
+        names = {ev["name"] for ev in dst.tracer.events}
+        if not {"restore", "tick", "admission", "prefill"} <= names:
+            raise AssertionError(f"phase 8: {name}: spans {names}")
+        samples = validate_exposition(dst.publish_metrics().to_prometheus())
+        runs[name] = dict(snapshot_ms=snap_ms, restore_ms=restore_ms,
+                          bytes=nbytes, events=events, samples=samples,
+                          launches=launches, books=books, steady=steady)
+        log(f"phase 8 (snapshot): {name}: snapshot after {SNAPSHOT_AFTER} "
+            f"steps to disk {snap_ms:.1f} ms, {nbytes} bytes "
+            f"({nbytes / 2**20:.1f} MiB), restore {restore_ms:.1f} ms; "
+            f"every snapshot leaf equal after restore; "
+            f"{len(got)} requests finished with phase 5's tokens, allocs "
+            f"== frees ({st['allocs']}); traces valid, {events[0]} events "
+            f"before the snapshot (snapshot span included), {events[1]} "
+            f"after; metrics {samples} samples; telemetry "
+            f"{json.dumps(books)}"
+            + (f"; synchronizing calls a step after restore: steady "
+               f"{steady}, other {other}" if mega else "")
+            + f"; launches {json.dumps(launches)} "
+            f"({time.perf_counter() - t_run:.1f} s; {card})")
+        shutil.rmtree(d)
+        del dst
+    # the tracer's cost on qwen2's host loop, in turns
+    tok_s = {"off": [], "on": []}
+    for turn in TRACER_TURNS:
+        eng = mega_engine(device, *models["qwen2"], mega=False,
+                          tracer=Tracer() if turn == "on" else None)
+        for p in prompts["qwen2"]:
+            eng.submit(p, max_new_tokens=32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if {r.uid: list(r.out_tokens) for r in done} != want["qwen2"]:
+            raise AssertionError(f"phase 8: tracer {turn}: tokens differ")
+        tok_s[turn].append(sum(len(r.out_tokens) for r in done) / wall)
+        del eng
+    log(f"phase 8 (snapshot): qwen2-0.5b host loop tok/s, tracer "
+        f"{' / '.join(TRACER_TURNS)}: "
+        + " / ".join(f"{tok_s[t][TRACER_TURNS[:i].count(t)]:.1f}"
+                     for i, t in enumerate(TRACER_TURNS))
+        + f" (phase 5, tracer off: {serve['tok_s']:.1f}; {card})")
+    torch.cuda.empty_cache()
+    return dict(runs=runs, tok_s=tok_s)
+
+
 def mega_launches(device, models):
     """``launches_per_tick`` of full-width qwen2-0.5b (single arena and 4
     shards) and mamba2-780m at max_batch 2 and 8, each beside the
@@ -5060,8 +5233,11 @@ def run(args, replays) -> int:
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     replays_run = phase_replay(device, models, args.seed)
-    del models
     log(f"phase 7 (replay): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    snapshots = phase_snapshot(device, models, serve, mamba, card)
+    del models
+    log(f"phase 8 (snapshot): {time.perf_counter() - t0:.1f} s")
 
     # the encoder-decoder and the VLM (4.1 and 3.1 GB of weights), then
     # the models that run alone on the card, one after another, each
@@ -5383,6 +5559,9 @@ def run(args, replays) -> int:
                                      for run, r in mega["runs"].items()}
         k["launches_by_replay"] = {run: n.get(k["name"], 0)
                                    for run, n in replays_run.items()}
+        k["launches_by_snapshot_run"] = {
+            run: r["launches"].get(k["name"], 0)
+            for run, r in snapshots["runs"].items()}
     p_toks = sum(len(t) for t in serve["tokens"].values())
     log(f"phase 7: mega-step against the host loop, tok/s: " + "; ".join(
         f"{run} {r['tok_s']:.1f}" for run, r in mega["runs"].items())

@@ -110,6 +110,13 @@ def ptxas_report(name: str) -> str:
                      if "registers" in ln or "Compiling entry" in ln)
 
 
+def libraries_loaded() -> int:
+    """How many kernel libraries this process has loaded (each built
+    first when absent): the port's counterpart of a jit cache's size,
+    which grows exactly when a call paid a first-use build or load."""
+    return len(_LIBS)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel source, built on first use."""
     lib = _LIBS.get(name)

@@ -1,7 +1,7 @@
 """Parameters of the dense and MoE decoders, the Mamba-2 stack, the
 hybrid (RG-LRU + local attention) stack and the encoder-decoder (port):
-init from a seed, and the converter from the reference's parameter
-tree.
+init from a seed, and the converters from the reference's parameter
+tree and from its serving engine's snapshots.
 
 The port's tree mirrors the reference's names with the layer axis
 unstacked into a list::
@@ -251,6 +251,40 @@ def params_from_jax(cfg: ModelConfig, tree, device="cpu") -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         out["lm_head"] = t(tree["lm_head"])
     return out
+
+
+def snapshot_from_jax(snap, device="cpu") -> Dict[str, Any]:
+    """Convert the reference engine's in-memory snapshot (``{"tree",
+    "meta"}``, numpy leaves, bfloat16 as ``ml_dtypes`` arrays, in the
+    reference's dicts and NamedTuples) into the port's: every leaf a
+    tensor on ``device``, every NamedTuple the port's of the same name.
+    ``ServingEngine.restore`` of the result continues the reference's
+    streams; a port snapshot goes the other way through its key paths
+    (``ckpt.checkpoint.flatten`` gives the reference's keys), as a
+    checkpoint directory does."""
+    import json
+    from repro_torch.ckpt import checkpoint as CK
+    from repro_torch.models.encdec import EncDecCaches
+    from repro_torch.models.transformer import Caches
+    from repro_torch.paged.kv_cache import KVLayer, PagedKV
+    from repro_torch.serve.engine import MegaState
+    types = {t.__name__: t for t in (Caches, EncDecCaches, KVLayer,
+                                     PagedKV, MegaState)}
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            name = type(x).__name__
+            if name not in types:
+                raise TypeError(f"no port counterpart of {name}")
+            return types[name](*(conv(v) for v in x))
+        return CK.as_tensor(np.asarray(x)).to(device)
+
+    return {"tree": conv(snap["tree"]),
+            "meta": json.loads(json.dumps(snap["meta"]))}
 
 
 def cast_for_compute(params, dtype) -> Dict[str, Any]:

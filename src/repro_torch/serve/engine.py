@@ -80,22 +80,54 @@ Two decode loops share admission, retirement and the failure path:
     request over and over while the other slots stall.
     Tokens equal the host loop's.
 
-Snapshot/restore (A13), tracer and metrics (A14) are still to port.
+Crash-safe serving: :meth:`ServingEngine.snapshot` captures the whole
+serving state at a step boundary (arena words and control block, KV
+heaps with their int8 scales, page table and ``seq_lens``, the recurrent
+state rows, the mega-step's device state and host mirrors, the request
+queue and the stats) in memory or as a committed checkpoint
+(``ckpt/checkpoint.py``: the reference's on-disk format, so either
+package restores the other's); :meth:`ServingEngine.restore` checks the
+layout fingerprint (``tests/golden/serve_snapshot_fingerprint.txt``)
+and every leaf's shape and dtype first, then copies the words into the
+engine's own storage (``copy_``: the arena's region views and the
+mega-step's state keep their storage), and decoding resumes token for
+token.  ``models/params.snapshot_from_jax`` turns a reference engine's
+in-memory snapshot into one this engine restores.
+
+Observability: the engine's phases open ``tracer`` spans with the
+reference's names and arguments (admission, prefill, tick, bulk_grow,
+defrag_wave, rebalance_wave, eviction, cancel, snapshot, restore);
+spans time the host (``obs/trace.py``).  ``drain_telemetry`` decodes
+the ctl telemetry words the kernels advance, and ``publish_metrics``
+publishes stats, fragmentation gauges and telemetry through a
+``MetricsRegistry`` with the reference's names, help strings and
+labels.  The port has no jit: ``jit_first_calls`` counts the kernel
+libraries loaded during steps (``kernels/build.libraries_loaded``; kept
+out of ``stats``, whose shared keys mean what the reference's mean),
+and ``last_tick_compiled`` says whether the last step loaded one (the
+signal ``serve/replay.py`` splits its tick latencies on, and the
+``tick`` span's ``"compile"``/``"steady"`` category).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt import checkpoint as CK
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.models import encdec as ED
 from repro_torch.models.model import Model, kv_of
 from repro_torch.models.params import cast_for_compute
 from repro_torch.models.transformer import Caches
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs import trace as obs_trace
 from repro_torch.paged import kv_cache as KV
 
 
@@ -110,6 +142,39 @@ class Request:
     eos_id: Optional[int] = None
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+
+
+SNAPSHOT_VERSION = 1
+
+# stats fields that describe THIS engine (its geometry and path), not
+# the served traffic: a restore leaves them as they are
+_IDENTITY_STATS = {"arena_mem_words", "arena_ctl_words", "num_shards",
+                   "mega_step", "launches_per_tick", "aux_pages_per_slot"}
+
+
+def _req_to_json(r: Request) -> dict:
+    return {"uid": int(r.uid),
+            "prompt": [int(t) for t in np.asarray(r.prompt)],
+            "max_new_tokens": int(r.max_new_tokens),
+            "eos_id": None if r.eos_id is None else int(r.eos_id),
+            "out_tokens": [int(t) for t in r.out_tokens],
+            "done": bool(r.done)}
+
+
+def _req_from_json(d: dict) -> Request:
+    return Request(
+        uid=int(d["uid"]),
+        prompt=np.asarray(d["prompt"], np.int32),
+        max_new_tokens=int(d["max_new_tokens"]),
+        eos_id=None if d["eos_id"] is None else int(d["eos_id"]),
+        out_tokens=[int(t) for t in d["out_tokens"]],
+        done=bool(d["done"]))
+
+
+def _dtype_name(dtype) -> str:
+    """A torch dtype by the name the reference (numpy) gives it:
+    ``"float32"``, ``"bfloat16"``, ``"int8"``."""
+    return str(dtype).removeprefix("torch.")
 
 
 class MegaState(NamedTuple):
@@ -154,6 +219,7 @@ class ServingEngine:
                  num_shards: int = 1,
                  rebalance_threshold: Optional[int] = None,
                  mega_step: bool = False, max_new_cap: int = 256,
+                 tracer: Optional[obs_trace.Tracer] = None,
                  device="cuda"):
         for name, v in (("max_batch", max_batch), ("max_seq", max_seq),
                         ("max_new_cap", max_new_cap)):
@@ -197,6 +263,15 @@ class ServingEngine:
         self.rebalance_threshold = rebalance_threshold
         self.mega_step = bool(mega_step)
         self.max_new_cap = max_new_cap
+        # engine phases open spans through the tracer (NULL: a no-op),
+        # host-side readings publish through the metrics registry
+        self.tracer = tracer if tracer is not None else obs_trace.NULL
+        self.metrics = obs_metrics.MetricsRegistry()
+        # kernel libraries loaded during steps: the port's counterpart
+        # of the reference's stats["jit_first_calls"] (jit cache growth),
+        # kept apart from ``stats`` because it counts something else
+        self.jit_first_calls = 0
+        self.last_tick_compiled = False
 
         # per-modality page policy: the SSM state rides the same arena
         # as KV pages, aux_pages per admitted slot (0 for dense models)
@@ -313,14 +388,15 @@ class ServingEngine:
         home = np.zeros(lanes, np.int32)
         home[:n_pages] = homes
         self.stats["alloc_txns"] += 1
-        if self.num_shards > 1:
-            self.alloc_state, offs = self.ouro.alloc(
-                self.alloc_state, sizes, mask,
-                shard_hint=torch.from_numpy(home).to(self.device))
-        else:
-            self.alloc_state, offs = self.ouro.alloc(self.alloc_state, sizes,
-                                                     mask)
-        offs = offs[:n_pages].cpu().numpy()
+        with self.tracer.span("bulk_grow", pages=n_pages):
+            if self.num_shards > 1:
+                self.alloc_state, offs = self.ouro.alloc(
+                    self.alloc_state, sizes, mask,
+                    shard_hint=torch.from_numpy(home).to(self.device))
+            else:
+                self.alloc_state, offs = self.ouro.alloc(
+                    self.alloc_state, sizes, mask)
+            offs = offs[:n_pages].cpu().numpy()
         ok = offs >= 0
         self.stats["allocs"] += int(ok.sum())
         self.stats["alloc_failures"] += int((~ok).sum())
@@ -449,6 +525,88 @@ class ServingEngine:
         self.stats.update(fs)
         return fs
 
+    # ---- observability (obs/) -----------------------------------------------
+
+    def drain_telemetry(self) -> dict:
+        """The arena's telemetry words (the ctl accumulators every
+        transaction advances in the kernel) decoded into ``{field:
+        np.ndarray}``, per-class arrays with a leading shard axis when
+        ``num_shards > 1``.  A read, not a reset: the words are
+        monotonic."""
+        lay = self.ouro.layout
+        if self.num_shards > 1:
+            lay = lay.shard
+        return obs_telemetry.decode(lay, self.alloc_state.ctl)
+
+    def publish_metrics(self,
+                        registry: Optional[
+                            obs_metrics.MetricsRegistry] = None
+                        ) -> obs_metrics.MetricsRegistry:
+        """Publish every host-side reading through a metrics registry
+        (``self.metrics`` unless one is passed): the engine's stat
+        counters, fragmentation gauges, and the drained telemetry words
+        labelled by size class / shard / walk attempt, under the
+        reference's names, help strings and labels.  Returns the
+        registry (export with ``to_prometheus()``/``to_json()``)."""
+        reg = self.metrics if registry is None else registry
+        counters = ("steps", "allocs", "frees", "alloc_failures",
+                    "alloc_txns", "alloc_overflows", "evictions",
+                    "cancels", "defrag_waves", "rebalance_waves",
+                    "auto_defrag_waves", "pages_migrated",
+                    "jit_first_calls")
+        for k in counters:
+            v = (self.jit_first_calls if k == "jit_first_calls"
+                 else self.stats[k])
+            reg.counter(f"repro_engine_{k}_total",
+                        f"engine stats[{k!r}]").set(float(v))
+        reg.gauge("repro_engine_waiting",
+                  "requests queued for admission").set(
+                      float(len(self.waiting)))
+        reg.gauge("repro_engine_active_slots",
+                  "batch slots decoding").set(
+            float(sum(r is not None for r in self.slot_req)))
+        self.refresh_frag_stats()
+        for k in ("free_words", "largest_free_extent", "frag_ratio"):
+            g = reg.gauge(f"repro_arena_{k}",
+                          f"allocator frag_stats[{k!r}]",
+                          labelnames=("shard",))
+            v = self.stats[k]
+            for sh, x in enumerate(v if isinstance(v, list) else [v]):
+                g.labels(shard=sh).set(float(x))
+        per_class = {"t_alloc": "repro_alloc_granted_total",
+                     "t_free": "repro_free_total",
+                     "t_fail": "repro_alloc_failed_total",
+                     "t_wrap": "repro_ring_wrap_total"}
+        scalar = {"t_grow": "repro_segment_grow_total",
+                  "t_shrink": "repro_segment_shrink_total",
+                  "t_pool_wrap": "repro_pool_wrap_total"}
+        for field, arr in self.drain_telemetry().items():
+            arr = np.atleast_2d(np.asarray(arr))   # (S, w)
+            if field in per_class:
+                m = reg.counter(per_class[field],
+                                f"in-kernel ctl telemetry {field}",
+                                labelnames=("shard", "size_class"))
+                for sh in range(arr.shape[0]):
+                    for c in range(arr.shape[1]):
+                        m.labels(shard=sh, size_class=c).set(
+                            float(arr[sh, c]))
+            elif field in scalar:
+                m = reg.counter(scalar[field],
+                                f"in-kernel ctl telemetry {field}",
+                                labelnames=("shard",))
+                for sh in range(arr.shape[0]):
+                    m.labels(shard=sh).set(float(arr[sh, 0]))
+            elif field == "t_walk":
+                m = reg.counter("repro_overflow_walk_served_total",
+                                "lanes served per overflow-walk "
+                                "attempt (in-kernel histogram)",
+                                labelnames=("shard", "attempt"))
+                for sh in range(arr.shape[0]):
+                    for a in range(arr.shape[1]):
+                        m.labels(shard=sh, attempt=a).set(
+                            float(arr[sh, a]))
+        return reg
+
     # ---- defragmentation (core/defrag.py) -----------------------------------
 
     def defrag(self) -> int:
@@ -457,8 +615,9 @@ class ServingEngine:
         table (KV heaps, page table, slot page lists).  Returns the
         pages migrated.  Runs on allocation failure and past
         ``defrag_threshold``; operators may call it between steps."""
-        self.alloc_state, fwd = self.ouro.defrag(self.alloc_state)
-        moved = self._apply_forwarding(fwd)
+        with self.tracer.span("defrag_wave"):
+            self.alloc_state, fwd = self.ouro.defrag(self.alloc_state)
+            moved = self._apply_forwarding(fwd)
         self.stats["defrag_waves"] += 1
         self.stats["pages_migrated"] += moved
         self.refresh_frag_stats()
@@ -488,8 +647,9 @@ class ServingEngine:
         live = self._shard_pages
         if int(live.max() - live.min()) <= self.rebalance_threshold:
             return
-        self.alloc_state, fwd = self.ouro.rebalance(self.alloc_state)
-        moved = self._apply_forwarding(fwd)
+        with self.tracer.span("rebalance_wave"):
+            self.alloc_state, fwd = self.ouro.rebalance(self.alloc_state)
+            moved = self._apply_forwarding(fwd)
         self.stats["rebalance_waves"] += 1
         self.stats["pages_migrated"] += moved
         self.refresh_frag_stats()
@@ -564,9 +724,11 @@ class ServingEngine:
                     device=self.device)
                 batch["src_valid"] = torch.full(
                     (1,), lp, dtype=torch.int32, device=self.device)
-            logits, _ = self.model.prefill(self.params, batch,
-                                           self._row_caches(slot),
-                                           dtype=self.compute_dtype)
+            with self.tracer.span("prefill", slot=slot, uid=req.uid,
+                                  prompt_len=lp):
+                logits, _ = self.model.prefill(self.params, batch,
+                                               self._row_caches(slot),
+                                               dtype=self.compute_dtype)
             if kv is not None:
                 kv.seq_lens[slot] = lp
             first = int(torch.argmax(logits[0]))
@@ -617,7 +779,8 @@ class ServingEngine:
         tokens discarded (re-admission replays the identical stream).
         Counted in ``stats["evictions"]``."""
         req = self.slot_req[slot]
-        self._release(slot)
+        with self.tracer.span("eviction", slot=slot):
+            self._release(slot)
         req.out_tokens = []
         req.done = False
         self.waiting.insert(0, req)
@@ -632,11 +795,13 @@ class ServingEngine:
             if r.uid == uid:
                 self.waiting.pop(i)
                 self.stats["cancels"] += 1
+                self.tracer.instant("cancel", uid=uid, where="waiting")
                 return True
         for slot in range(self.max_batch):
             r = self.slot_req[slot]
             if r is not None and r.uid == uid:
-                self._release(slot)
+                with self.tracer.span("cancel", uid=uid, slot=slot):
+                    self._release(slot)
                 self.stats["cancels"] += 1
                 return True
         return False
@@ -906,12 +1071,26 @@ class ServingEngine:
     def step(self) -> List[Request]:
         """Admit, decode one token for all active slots (the mega-step
         or the host loop), retire finished requests.  Returns the
-        requests finished this step."""
-        self._admit()
+        requests finished this step.
+
+        The whole step is one ``tick`` span, of category ``"compile"``
+        when a kernel library was built or loaded during it and
+        ``"steady"`` otherwise; ``last_tick_compiled`` is the same
+        signal and ``jit_first_calls`` counts the loads."""
+        ts = self.tracer.begin()
+        pre = build.libraries_loaded()
+        with self.tracer.span("admission"):
+            self._admit()
         self._maybe_rebalance()
         finished = self._step_mega() if self.mega_step else self._step_host()
         self.stats["steps"] += 1
         self._maybe_auto_defrag()
+        grew = build.libraries_loaded() - pre
+        self.jit_first_calls += grew
+        self.last_tick_compiled = grew > 0
+        self.tracer.complete(
+            "tick", ts, cat="compile" if grew > 0 else "steady",
+            step=self.stats["steps"], finished=len(finished))
         return finished
 
     def _release(self, slot: int):
@@ -951,6 +1130,185 @@ class ServingEngine:
             if not self.waiting and all(r is None for r in self.slot_req):
                 break
         return out
+
+    # ---- crash-safe serving: snapshot / restore -----------------------------
+
+    def snapshot_fingerprint(self) -> dict:
+        """Everything that decides how snapshot words are interpreted:
+        the arena layout's rendering, the allocator's and the engine's
+        geometry, the KV page type (by numpy's name), exactly the
+        reference's fields.  A snapshot restores only into an engine
+        whose fingerprint is equal; the reference's allocator backend
+        and lowering are not in it (transactions are word for word the
+        same on every one)."""
+        kv = self._kv()
+        return {
+            "snapshot_version": SNAPSHOT_VERSION,
+            "arena_layout": self.ouro.layout.describe(),
+            "variant": self.ouro.variant,
+            "num_shards": self.num_shards,
+            "wpp": self.wpp,
+            "page_bytes": self.page_bytes,
+            "page_tokens": self.page,
+            "num_pages": self.num_pages,
+            "arch": self.cfg.name,
+            "max_batch": self.max_batch,
+            "max_seq": self.max_seq,
+            "mega_step": self.mega_step,
+            "max_new_cap": self.max_new_cap if self.mega_step else None,
+            "kv_dtype": None if kv is None else _dtype_name(kv.layers.k.dtype),
+        }
+
+    def _snapshot_tree(self):
+        """The array half of a snapshot, keyed as the reference's (also
+        the restore template): the arena's words, the caches, and in
+        mega-step mode the device state and its host mirrors."""
+        tree = {"arena_mem": self.alloc_state.mem,
+                "arena_ctl": self.alloc_state.ctl,
+                "caches": self.caches,
+                "slot_len": self.slot_len}
+        if self.mega_step:
+            tree["mega"] = self.mega
+            tree["pages_host"] = self._pages_host
+            tree["nout_host"] = self._nout_host
+            tree["fail_streak"] = self._fail_streak
+        return tree
+
+    def _snapshot_meta(self) -> dict:
+        """The JSON half: fingerprint, request queue, host tables and
+        stats (the reference's keys), and in mega-step mode the slots
+        the admission gate holds back (``starving``, the port's own)."""
+        meta = {
+            "fingerprint": self.snapshot_fingerprint(),
+            "uid": self._uid,
+            "admit_counter": self._admit_counter,
+            "admit_ord": [int(x) for x in self._admit_ord],
+            "slot_reqs": [None if r is None else _req_to_json(r)
+                          for r in self.slot_req],
+            "waiting": [_req_to_json(r) for r in self.waiting],
+            "slot_pages": [[int(p) for p in ps] for ps in self.slot_pages],
+            "slot_aux": [[int(p) for p in ps] for ps in self.slot_aux],
+            "shard_pages": [int(x) for x in self._shard_pages],
+            "stats": dict(self.stats),
+        }
+        if self.mega_step:
+            meta["starving"] = [bool(x) for x in self._starving]
+        # round-trip now: an unserializable field fails at snapshot
+        # time, not at a later restore, and the copy is deep
+        return json.loads(json.dumps(meta))
+
+    def snapshot(self, directory: Optional[str] = None,
+                 step: Optional[int] = None, keep: int = 3):
+        """Capture the whole serving state at a step boundary.  With
+        ``directory``, writes an atomic committed checkpoint
+        (``ckpt/checkpoint.py``; the meta rides its ``extra`` sidecar)
+        at ``step`` (default: the steps served) keeping ``keep`` steps,
+        and returns its path; otherwise returns the in-memory snapshot
+        ``{"tree", "meta"}`` (host copies of every leaf) that
+        :meth:`restore` accepts."""
+        with self.tracer.span("snapshot", to_disk=directory is not None):
+            meta = self._snapshot_meta()
+            if directory is not None:
+                return CK.save(self._snapshot_tree(), directory,
+                               step=self.stats["steps"] if step is None
+                               else step, keep=keep, extra=meta)
+            tree = self._snapshot_tree()
+            host = {k: (v.detach().to("cpu", copy=True)
+                        if isinstance(v, torch.Tensor) else np.array(v))
+                    for k, v in CK.flatten(tree).items()}
+            return {"tree": CK.unflatten_like(tree, host), "meta": meta}
+
+    def restore(self, source, step: Optional[int] = None):
+        """Load a snapshot: an in-memory one (this engine's, or the
+        reference's through ``models/params.snapshot_from_jax``) or a
+        checkpoint directory either package wrote (its newest committed
+        step unless ``step`` is given).  The layout fingerprint is
+        checked first, and every leaf's shape and dtype before anything
+        changes: a mismatch raises ``ValueError`` naming it.  The words
+        are then copied into the engine's storage.  Returns the
+        restored checkpoint step (None for an in-memory snapshot)."""
+        with self.tracer.span("restore"):
+            if isinstance(source, str):
+                meta_rec, s = CK.read_meta(source, step)
+                meta = meta_rec.get("extra")
+                if meta is None or "fingerprint" not in meta:
+                    raise ValueError(
+                        f"checkpoint step {s} under {source!r} is not a "
+                        f"serving-engine snapshot (no fingerprint sidecar)")
+                self._validate_fingerprint(meta["fingerprint"])
+                tree, s = CK.restore(self._snapshot_tree(), source, step=s)
+                self._apply_snapshot(tree, meta)
+                return s
+            meta = source["meta"]
+            self._validate_fingerprint(meta["fingerprint"])
+            self._apply_snapshot(source["tree"], meta)
+            return None
+
+    def _validate_fingerprint(self, fp: dict):
+        mine = self.snapshot_fingerprint()
+        if fp != mine:
+            diffs = sorted(k for k in set(fp) | set(mine)
+                           if fp.get(k) != mine.get(k))
+            raise ValueError(
+                f"snapshot layout fingerprint mismatch on fields "
+                f"{diffs} — refusing to restore: a snapshot from a "
+                f"different ArenaLayout or engine geometry would be "
+                f"silently misinterpreted (snapshot "
+                f"{ {k: fp.get(k) for k in diffs} !r} vs engine "
+                f"{ {k: mine.get(k) for k in diffs} !r})")
+
+    def _apply_snapshot(self, tree, meta):
+        """Install validated snapshot state: every leaf is checked
+        against the live engine's before anything changes, then tensor
+        leaves are copied into the engine's own tensors (never rebound)
+        and the host tables replaced."""
+        live = CK.flatten(self._snapshot_tree())
+        given = CK.flatten(tree)
+        new = {}
+        for k, old in live.items():
+            if k not in given:
+                raise ValueError(f"snapshot has no leaf {k!r}")
+            v = given[k]
+            if isinstance(old, torch.Tensor):
+                v = CK.as_tensor(v)
+            elif isinstance(v, torch.Tensor):
+                v = v.cpu().numpy()
+            else:
+                v = np.asarray(v)
+            got_dt, want_dt = (_dtype_name(v.dtype), _dtype_name(old.dtype))
+            if tuple(v.shape) != tuple(old.shape) or got_dt != want_dt:
+                raise ValueError(
+                    f"snapshot leaf {k}: shape/dtype {tuple(v.shape)}/"
+                    f"{got_dt} does not match the engine's "
+                    f"{tuple(old.shape)}/{want_dt}")
+            new[k] = v
+        for k, old in live.items():
+            if isinstance(old, torch.Tensor):
+                old.copy_(new[k])
+        self.slot_len = new["slot_len"].astype(np.int64)
+        if self.mega_step:
+            self._pages_host = new["pages_host"].astype(np.int64)
+            self._nout_host = new["nout_host"].astype(np.int64)
+            self._fail_streak = new["fail_streak"].astype(np.int64)
+            # a reference snapshot has no admission gate: the slots
+            # whose last grant failed are the nearest equivalent
+            self._starving = np.asarray(
+                meta.get("starving", self._fail_streak > 0), bool)
+        self.slot_req = [None if d is None else _req_from_json(d)
+                         for d in meta["slot_reqs"]]
+        self.waiting = [_req_from_json(d) for d in meta["waiting"]]
+        self.slot_pages = [[int(p) for p in ps] for ps in meta["slot_pages"]]
+        self.slot_aux = [np.asarray(ps, np.int64) if ps else _NO_PAGES
+                         for ps in meta.get("slot_aux",
+                                            [[]] * self.max_batch)]
+        self._uid = int(meta["uid"])
+        self._admit_counter = int(meta["admit_counter"])
+        self._admit_ord = np.asarray(meta["admit_ord"], np.int64)
+        self._shard_pages = np.asarray(meta["shard_pages"], np.int64)
+        for k, v in meta["stats"].items():
+            if k in self.stats and k not in _IDENTITY_STATS:
+                self.stats[k] = v
+        self.refresh_frag_stats()
 
 
 def _clone(x):

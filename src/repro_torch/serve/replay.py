@@ -18,7 +18,10 @@ admission, so cancels keep parity.
 Compile ticks: the port has no jit.  Its only compile is a kernel
 library built or loaded at first use (``kernels/build.py``), so a tick
 during which the loaded libraries grew counts as ``compiled``; every
-other tick, and every tick on the CPU, does not.
+other tick, and every tick on the CPU, does not.  The engine keeps that
+signal (``ServingEngine.last_tick_compiled``, the tick span's category)
+and the replay reads it from there, as the reference's reads its
+engine's.
 
     from repro_torch.serve.replay import (SCENARIOS, engine_factory,
                                           generate_trace, replay_pair)
@@ -197,9 +200,9 @@ def replay(engine, trace: List[TraceItem], *, scenario: str = "",
     """Drive ``engine`` through ``trace`` to drain: submit arrivals at
     their step, issue scheduled cancels, tick once per step, and record
     completion tokens, tick latency (host wall; each tick ends in a
-    host read of its tokens or flags) and queue waits.  Raises if the
-    trace does not drain within ``max_steps``."""
-    from repro_torch.kernels import build
+    host read of its tokens or flags), whether the tick loaded a kernel
+    library (``engine.last_tick_compiled``) and queue waits.  Raises if
+    the trace does not drain within ``max_steps``."""
     items = sorted(trace, key=lambda it: it.step)
     cancel_at: Dict[int, List[int]] = {}
     arrived: Dict[int, int] = {}        # uid -> arrival step
@@ -223,11 +226,10 @@ def replay(engine, trace: List[TraceItem], *, scenario: str = "",
         for uid in cancel_at.pop(t, []):
             if uid not in tokens and engine.cancel(uid):
                 cancelled.append(uid)
-        libs = len(build._LIBS)
         t0 = time.perf_counter()
         done = engine.step()
         tick_ms.append(1e3 * (time.perf_counter() - t0))
-        compiled.append(len(build._LIBS) > libs)
+        compiled.append(engine.last_tick_compiled)
         for r in engine.slot_req:
             if r is not None and r.uid not in admitted:
                 admitted[r.uid] = t

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels held to their plain versions on the card, and
-the fused decode mega-step held to the host loop there (tokens, launches
-a tick, one synchronizing call a steady tick).
+"""The port's CUDA kernels held to their plain versions on the card, the
+fused decode mega-step held to the host loop there (tokens, launches a
+tick, one synchronizing call a steady tick), and snapshot/restore of
+the serving state on the card and between the card and the CPU.
 
 These tests need an NVIDIA card and ``nvcc``; without one they skip
 (the decision is made inside the fixture).  On a machine with a card,
@@ -1129,12 +1130,16 @@ def _kv_dtype(arch):
     return torch.int8 if arch == "qwen1.5-32b" else torch.bfloat16
 
 
-def _serve(eng, n=6, max_new=12, seed=0, lo=4, hi=60):
+def _submit(eng, n=6, max_new=12, seed=0, lo=4, hi=60):
     rng = np.random.default_rng(seed)
     for _ in range(n):
         eng.submit(rng.integers(2, eng.cfg.vocab_size,
                                 int(rng.integers(lo, hi))),
                    max_new_tokens=max_new)
+
+
+def _serve(eng, n=6, max_new=12, seed=0, lo=4, hi=60):
+    _submit(eng, n, max_new, seed, lo, hi)
     return {r.uid: list(r.out_tokens) for r in eng.run_until_done(500)}
 
 
@@ -1771,3 +1776,93 @@ def test_replay_pair_on_the_card(cuda, arch, scenario):
         s = r.summary()
         assert s["allocs"] == s["frees"] > 0
         assert s["completed"] + s["cancelled"] == len(trace)
+
+
+def _snapshot_words(eng):
+    """Every snapshot leaf of ``eng`` as host words (bf16 as int16)."""
+    from repro_torch.ckpt import checkpoint as CK
+    return {k: CK.to_host(v)[0]
+            for k, v in CK.flatten(eng._snapshot_tree()).items()}
+
+
+def _same_words(a, b):
+    wa, wb = _snapshot_words(a), _snapshot_words(b)
+    assert wa.keys() == wb.keys()
+    for k in wa:
+        np.testing.assert_array_equal(wa[k], wb[k], err_msg=k)
+
+
+@pytest.mark.parametrize("S", (1, 4))
+@pytest.mark.parametrize("mega", (False, True), ids=("host", "mega"))
+def test_snapshot_restore_on_the_card(cuda, tmp_path, mega, S):
+    """Snapshot mid-decode on the card, in memory and to disk; fresh
+    engines restore both in place (the arena's storage stays the
+    engine's own): every word equals the source's, and both finish with
+    an uninterrupted run's tokens, allocs == frees, every kernel of the
+    path launched after the restore."""
+    kw = dict(max_batch=4, max_seq=96, num_shards=S)
+    want = _serve(_smoke_engine(cuda, "qwen2-0.5b", mega, **kw))
+    src = _smoke_engine(cuda, "qwen2-0.5b", mega, **kw)
+    _submit(src)
+    early = []
+    for _ in range(4):
+        early += src.step()
+    snap = src.snapshot()
+    assert src.snapshot(directory=str(tmp_path)).endswith("step_00000004")
+    for source in (snap, str(tmp_path)):
+        dst = _smoke_engine(cuda, "qwen2-0.5b", mega, **kw)
+        mem = dst.alloc_state.mem
+        dst.restore(source)
+        assert dst.alloc_state.mem is mem and mem.is_cuda
+        _same_words(src, dst)
+        ops.reset_launches()
+        rest = dst.run_until_done(500)
+        torch.cuda.synchronize()
+        assert {r.uid: list(r.out_tokens) for r in early + rest} == want
+        assert dst.stats["allocs"] == dst.stats["frees"]
+        pre = "" if S == 1 else "sharded_"
+        assert all(ops.LAUNCHES[k] for k in (pre + "alloc_txn",
+                                             pre + "free_txn",
+                                             "paged_attention"))
+
+
+@pytest.mark.parametrize("mega", (False, True), ids=("host", "mega"))
+def test_snapshot_moves_between_cpu_and_card(cuda, tmp_path, mega):
+    """float32 smoke engines over the same weights: a snapshot the CPU
+    engine took restores on the card with the same words, and one the
+    card engine took (after serving on) restores on the CPU with the
+    same words, from memory and from disk."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServingEngine
+    cfg = get_arch("qwen2-0.5b").smoke()
+    m = build_model(cfg)
+    params = m.init(0, device="cpu")
+
+    def on(x, dev):
+        if isinstance(x, dict):
+            return {k: on(v, dev) for k, v in x.items()}
+        if isinstance(x, list):
+            return [on(v, dev) for v in x]
+        return x.to(dev)
+
+    def make(dev):
+        return ServingEngine(m, on(params, dev), max_batch=4, max_seq=96,
+                             kv_dtype=torch.float32,
+                             compute_dtype=torch.float32, device=dev,
+                             mega_step=mega)
+    cpu = make("cpu")
+    _submit(cpu)
+    for _ in range(3):
+        cpu.step()
+    card = make(cuda)
+    card.restore(cpu.snapshot())
+    _same_words(cpu, card)
+    for _ in range(3):
+        card.step()
+    card.snapshot(directory=str(tmp_path))
+    back = make("cpu")
+    back.restore(str(tmp_path))
+    _same_words(card, back)
+    assert [r and r.uid for r in back.slot_req] == \
+        [r and r.uid for r in card.slot_req]

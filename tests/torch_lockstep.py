@@ -1,10 +1,12 @@
 """Lockstep driving of the port's serving engine beside the JAX
-reference's, shared by the encoder-decoder and VLM tests.
+reference's, shared by the encoder-decoder, VLM and last dense
+(command-r-35b, internlm2-20b) engine tests.
 
 ``drive`` steps both engines through the reference replay harness's
 ``TraceItem`` schedule (submissions, cancels) and checks after every
 step that both hold the same KV page ids; ``check_same`` compares the
-stats both engines keep and the arena words.
+stats both engines keep and the arena words.  ``plain_matches`` and
+``abandonment_matches`` are the whole engine cases of one arch.
 """
 import numpy as np
 
@@ -102,3 +104,67 @@ def hold_all_but(je, te, pages: int):
         je.alloc_state = je.ouro.free(je.alloc_state, jo, jnp.asarray(sizes),
                                       jo >= 0)
     return release
+
+
+_MODELS = {}
+
+
+def models(arch):
+    """(reference model, its params, port model, converted params) of
+    ``arch``'s smoke config, made once per process."""
+    import jax
+    from repro.configs import get_arch as jget
+    from repro.models.model import build_model as jbuild
+    from repro_torch.configs import get_arch
+    from repro_torch.models import params as P
+    from repro_torch.models.model import build_model
+    if arch not in _MODELS:
+        cfg, tcfg = jget(arch).smoke(), get_arch(arch).smoke()
+        jm = jbuild(cfg)
+        jp = jm.init(jax.random.PRNGKey(0))
+        _MODELS[arch] = (jm, jp, build_model(tcfg), P.params_from_jax(
+            tcfg, jax.tree.map(np.asarray, jp)))
+    return _MODELS[arch]
+
+
+def engines(arch, mega, **kw):
+    """float32 engines of both packages (the reference on its jnp
+    backend) over ``models(arch)``."""
+    import jax.numpy as jnp
+    import torch
+    from repro.serve.engine import ServingEngine as JEngine
+    from repro_torch.serve.engine import ServingEngine
+    jm, jp, tm, tp = models(arch)
+    je = JEngine(jm, jp, kv_dtype=jnp.float32, compute_dtype=jnp.float32,
+                 alloc_backend="jnp", mega_step=mega, **kw)
+    te = ServingEngine(tm, tp, kv_dtype=torch.float32,
+                       compute_dtype=torch.float32, device="cpu",
+                       mega_step=mega, **kw)
+    return je, te
+
+
+def plain_matches(arch, mega):
+    """Prompts of 2-70 tokens, 8 new each, max_batch 3: the same tokens,
+    page ids every step, stats and arena words, all pages returned."""
+    je, te = engines(arch, mega, max_batch=3, max_seq=96)
+    lens = (40, 9, 70, 2)
+    (jt, _), (tt, _) = drive((je, te), plain_trace(te.cfg, lens))
+    assert tt == jt and len(tt) == len(lens)
+    check_same(je, te)
+    drained(te)
+
+
+def abandonment_matches(arch, mega):
+    """The reference replay harness's abandonment trace (seed 7):
+    cancels of waiting and active requests free every page."""
+    from repro.serve.replay import SCENARIOS, generate_trace
+    from repro_torch.configs import get_arch
+    trace = generate_trace(SCENARIOS["abandon"], seed=7,
+                           vocab_size=get_arch(arch).smoke().vocab_size,
+                           max_seq=96)
+    je, te = engines(arch, mega, max_batch=3, max_seq=128)
+    (jt, jcan), (tt, tcan) = drive((je, te), trace)
+    assert tcan == jcan and tcan, "the trace cancelled nothing"
+    assert tt == jt and tt
+    check_same(je, te)
+    drained(te)
